@@ -7,22 +7,29 @@ Phases, in order; any failure exits non-zero:
 
   1. the card (name and power limit from nvidia-smi), torch and CUDA;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (timed);
-  3. kernels: at the main path's shapes (P = 8 problems, N = 64
-     particles, K = 12 steps, bucket (56, 144)) each of the five ported
-     entry points against its plain PyTorch version on the same inputs,
-     float and quantized, τ = 0 and τ > 0: integers bit for bit, floats
-     within rtol 1e-5 / atol 1e-4; both timed with CUDA events;
+  3. kernels: at the main paths' shapes (P = 8 problems, N = 64
+     particles, K = 12 steps, bucket (56, 144)) each of the nine kernel
+     entries against its plain PyTorch version on the same inputs, float
+     and quantized, τ = 0 and τ > 0: integers bit for bit, floats within
+     rtol 1e-5 / atol 1e-4; both timed with CUDA events (the entries the
+     split epoch calls per problem are called and timed per problem);
   4. the main path: 8 scheduling requests built as the IMMSched
      scheduler builds them (zoo workloads at window_stages=8 on the Cloud
      platform with a seeded set of 96 free engines, relabelled and padded
      to one bucket), solved by ``match_batch`` (quantized, early exit),
      re-validated by ``revalidate_batch`` (Tier 0), plus one float-config
      ``IMMSchedMatcher.match``; every returned mapping must be feasible
-     and every kernel must have been launched;
-  5. path parity: the same burst at a reduced swarm through the ``cuda``
+     and every kernel of the path must have been launched;
+  5. the split (pre-fusion) epoch: ``core.split_epoch.split_epoch``
+     through the ``cuda`` suite on each problem of the burst, float and
+     quantized, plus ``masked_argmax`` through the seam on each returned
+     S*; every kernel of the path must have been launched, and the
+     results must equal the fused epoch's (``epoch_fused`` →
+     ``epoch_finish``, τ = 0) on the same inputs; both timed per problem;
+  6. path parity: the same burst at a reduced swarm through the ``cuda``
      and the ``ref`` suite on the same draws must give the same first
      epoch;
-  6. profile: device time by kernel over one more ``match_batch`` of the
+  7. profile: device time by kernel over one more ``match_batch`` of the
      burst, and the device's idle share of its wall time.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
@@ -58,7 +65,18 @@ KERNELS = {   # entry → (CUDA source, TPU kernel it replaces)
                     "src/repro/kernels/epoch_fused.py:251"),
     "epoch_finish": ("src/repro_torch/csrc/finish_fused.cu",
                      "src/repro/kernels/finish_fused.py:373"),
+    "pso_update": ("src/repro_torch/csrc/pso_update.cu",
+                   "src/repro/kernels/pso_update.py:84"),
+    "ullmann_refine_step": ("src/repro_torch/csrc/ullmann_refine.cu",
+                            "src/repro/kernels/ullmann_refine.py:61"),
+    "greedy_project": ("src/repro_torch/csrc/argmax_project.cu",
+                       "src/repro/kernels/argmax_project.py:63"),
+    "masked_argmax": ("src/repro_torch/csrc/argmax_project.cu",
+                      "src/repro/kernels/argmax_project.py:97"),
 }
+#: the kernels the split epoch phase drives (the fitness entries too)
+SPLIT_KERNELS = ("pso_update", "ullmann_refine_step", "greedy_project",
+                 "masked_argmax", "edge_fitness", "edge_fitness_quantized")
 
 
 def log(*a):
@@ -180,25 +198,133 @@ def kernel_bounds(Q, G, mask, x, outs, quantized, refine_iters=6,
         nbytes(x["S"], x["f_local"], mask, Q, G, *fin_out),
         {"int8": P * N * refine_iters * sweep_ops + proj + feas,
          "fp32": 2.0 * P * elite_k * n * m})
+    # per call of the split epoch (one problem): the mean over the burst
+    S_new, V_new = outs["pso_update"][:2]
+    b["pso_update"] = bound(
+        nbytes(x["S"], x["V"], x["S"], x["S_star"], x["S_bar"], mask,
+               x["r_all"][:, 0]) / P + nbytes(S_new, V_new),
+        {"fp32": 15.0 * N * n * m})
+    swept = outs["ullmann_refine_step"][0]
+    b["ullmann_refine_step"] = bound(2 * nbytes(swept) + nbytes(Q, G) / P,
+                                     {"int8": N * sweep_ops})
+    b["greedy_project"] = bound(
+        nbytes(x["S"], mask) / P + nbytes(outs["greedy_project"][0]),
+        {"fp32": float(N * n * n * m)})
+    b["masked_argmax"] = bound(
+        nbytes(x["S_star"], mask) / P + nbytes(*outs["masked_argmax"][:2]),
+        {"fp32": float(n * m)})
     return b
 
 
-def profile_burst(pso, Qb, Gb, Mb, cfg, out_dir):
-    """Device time by kernel over one ``match_batch`` of the burst, and
-    the device's busy share of the synchronized wall time."""
+def split_phase(pso, Qb, Gb, Mb, x, counters):
+    """The split epoch through the ``cuda`` suite on every problem of the
+    burst, float and quantized, then ``masked_argmax`` through the seam on
+    each returned S*: launches counted over exactly that run. Then each
+    result is held against the fused epoch (``epoch_fused`` →
+    ``epoch_finish``, τ = 0) on the same inputs, and both are timed per
+    problem."""
+    from repro_torch.core import split_epoch
+    from repro_torch.kernels import backend, cases, ref
+    from repro_torch.kernels.epoch_fused import epoch_fused_cuda
+    from repro_torch.kernels.finish_fused import epoch_finish_cuda
+    P = Mb.shape[0]
+    keys = ("S", "V", "S", "f_local", "S_star", "f_star", "S_bar")
+
+    def args(p):
+        return (*(x[k][p] for k in keys), Mb[p], Qb[p], Gb[p], x["r_all"][p])
+
+    def fused(sl, cfg):
+        S, S_star, f_star, f_trace, f_last = epoch_fused_cuda(
+            *(x[k][sl] for k in keys), Mb[sl], Qb[sl], Gb[sl],
+            x["r_all"][sl], omega=cfg.omega, c1=cfg.c1, c2=cfg.c2,
+            c3=cfg.c3, v_max=cfg.v_max, quantized=cfg.quantized)
+        tail = epoch_finish_cuda(
+            S, f_last, None, Mb[sl], Qb[sl], Gb[sl], gumbel_tau=0.0,
+            refine_threshold=cfg.refine_threshold,
+            refine_iters=cfg.refine_iters, elite_k=pso.elite_k_for(cfg),
+            consensus_temp=cfg.consensus_temp)
+        return (S, S_star, f_star, f_trace, f_last, *tail)
+
+    cfgs = {q: pso.PSOConfig(num_particles=N, inner_steps=K, quantized=q,
+                             backend="cuda") for q in (False, True)}
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = {}
+    for q, cfg in cfgs.items():
+        bk = backend.for_config(cfg)
+        for p in range(P):
+            out = split_epoch.split_epoch(*args(p), cfg)
+            got[q, p] = (out, bk.masked_argmax(out[1], Mb[p]))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: counters[k].count for k in SPLIT_KERNELS}
+    log(f"split epoch: {2 * P} epochs in {wall * 1e3:.1f} ms, launches "
+        f"{launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the split epoch path")
+
+    names = ("S_final", "S_star", "f_star", "f_trace", "f_last", "M_hat",
+             "feasible")
+    s_bar_err, times = 0.0, []
+    for q, cfg in cfgs.items():
+        want = fused(slice(None), cfg)
+        for p in range(P):
+            out, (val, idx) = got[q, p]
+            for k, name in enumerate(names):
+                if not torch.equal(out[k], want[k][p]):
+                    fail(f"split epoch (quantized={q}, problem {p}): "
+                         f"{name} differs from the fused epoch")
+            if not torch.equal(pso._fitness(out[0], Qb[p], Gb[p], cfg),
+                               want[4][p]):
+                fail(f"split epoch (quantized={q}, problem {p}): the "
+                     f"recomputed fitness differs from the fused f_last")
+            try:
+                s_bar_err = max(s_bar_err, cases.compare(out[7], want[7][p]))
+                cases.compare((val, idx), ref.masked_argmax(out[1], Mb[p]))
+            except AssertionError as e:
+                fail(f"split epoch (quantized={q}, problem {p}): {e}")
+            split_ms = cuda_ms(lambda: split_epoch.split_epoch(*args(p), cfg),
+                               reps=2)
+            fused_ms = cuda_ms(lambda: fused(slice(p, p + 1), cfg), reps=5)
+            times.append(dict(problem=p, quantized=q, split_ms=split_ms,
+                              fused_ms=fused_ms))
+            log(json.dumps(dict(split_vs_fused=p, quantized=q,
+                                split_ms=split_ms, fused_ms=fused_ms)))
+    log(f"split epoch == fused epoch on {P} problems, float and quantized "
+        f"(S_bar max abs err {s_bar_err:.3g}); masked_argmax == plain")
+    # the card's idle share of one split and one fused epoch (problem 0)
+    idle = {}
+    for path, fn in (("split", lambda: split_epoch.split_epoch(
+            *args(0), cfgs[True])), ("fused", lambda: fused(slice(0, 1),
+                                                            cfgs[True]))):
+        _, wall_ms, rows = profiled(fn)
+        busy = sum(r[1] for r in rows)
+        idle[path] = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                          idle_share=1.0 - busy / max(wall_ms, 1e-9),
+                          device_launches=sum(r[2] for r in rows))
+    log(f"split vs fused epoch under the profiler: {json.dumps(idle)}")
+    return dict(launches=launches, wall_s=wall, s_bar_max_abs_err=s_bar_err,
+                times=times, profile=idle)
+
+
+def profiled(fn):
+    """Run ``fn()`` once under the profiler, synchronized. Returns
+    ``(profile, wall ms, [(device event, ms, count)] by time)``: the
+    device-side events only (kernels, copies), since an aten op's device
+    time repeats that of the kernels it launched."""
     from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        pso.match_batch(Qb, Gb, Mb, cfg, generator=gen)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows = []
     for ev in prof.key_averages():
-        # device-side events only (kernels, copies): an aten op's device
-        # time repeats that of the kernels it launched
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
         dev = getattr(ev, "self_device_time_total",
@@ -206,14 +332,23 @@ def profile_burst(pso, Qb, Gb, Mb, cfg, out_dir):
         if dev > 0:
             rows.append((ev.key, dev / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
+    return prof, wall * 1e3, rows
+
+
+def profile_burst(pso, Qb, Gb, Mb, cfg, out_dir):
+    """Device time by kernel over one ``match_batch`` of the burst, and
+    the device's busy share of the synchronized wall time."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prof, wall_ms, rows = profiled(
+        lambda: pso.match_batch(Qb, Gb, Mb, cfg, generator=gen))
     busy_ms = sum(r[1] for r in rows)
     if out_dir is not None:
         (out_dir / "profile.txt").write_text(
             prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=40))
     return dict(summary=dict(
-        wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-        idle_share=1.0 - busy_ms / max(wall * 1e3, 1e-9),
+        wall_ms=wall_ms, device_busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / max(wall_ms, 1e-9),
         top=[dict(kernel=k[:60], ms=ms, calls=c) for k, ms, c in rows[:8]]))
 
 
@@ -231,9 +366,10 @@ def main():
     from repro_torch.core import pso
     from repro_torch.core.matcher import (IMMSchedMatcher,
                                           collect_batch_results)
-    from repro_torch.kernels import (_build, cases, epoch_fused,
-                                     finish_fused, prune_fixpoint,
-                                     pso_fitness)
+    from repro_torch.kernels import (_build, argmax_project, cases,
+                                     epoch_fused, finish_fused,
+                                     prune_fixpoint, pso_fitness, pso_update,
+                                     ullmann_refine)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
@@ -291,24 +427,40 @@ def main():
                            elite_k=elite_k)
     records = {}
     for name, (kern, plain, _) in timed.items():
-        ms = cuda_ms(kern, reps=10, warm=2)
-        plain_ms = cuda_ms(plain, reps=2, warm=1)
+        calls = P if name in cases.PER_PROBLEM else 1   # ms per call
+        ms = cuda_ms(kern, reps=10, warm=2) / calls
+        plain_ms = cuda_ms(plain, reps=2, warm=1) / calls
         bms, by = bounds[name]
+        # device time alone (kernels and the wrapper's copies): where it is
+        # far below ms, the host's dispatch sets the pace
+        device_ms = sum(r[1] for r in profiled(kern)[2]) / calls
         records[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             bound_by=by)
-        log(json.dumps(dict(kernel=name, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by,
-                            max_abs_err=errs[name])))
+                             bound_by=by, library_ms=None,
+                             device_ms=device_ms)
+    # one PyTorch call pair for the masked argmax: where, then argmax
+    keep = Mb != 0
+    neg = torch.full_like(x["S_star"], torch.finfo(torch.float32).min)
+    records["masked_argmax"]["library_ms"] = cuda_ms(
+        lambda: [torch.argmax(torch.where(keep[p], x["S_star"][p],
+                                          neg[p]).reshape(-1))
+                 for p in range(P)], reps=10, warm=2) / P
+    for name, rec in records.items():
+        log(json.dumps(dict(kernel=name, **rec, max_abs_err=errs[name])))
 
     # 4. the main path
-    counters = {"prune_fixpoint": [prune_fixpoint.launches],
-                "edge_fitness": [pso_fitness.launches],
-                "edge_fitness_quantized": [pso_fitness.launches_quantized],
-                "epoch_fused": [epoch_fused.launches],
-                "epoch_finish": [finish_fused.launches]}
-    for cs in counters.values():
-        for c in cs:
-            c.reset()
+    counters = {"prune_fixpoint": prune_fixpoint.launches,
+                "edge_fitness": pso_fitness.launches,
+                "edge_fitness_quantized": pso_fitness.launches_quantized,
+                "epoch_fused": epoch_fused.launches,
+                "epoch_finish": finish_fused.launches,
+                "pso_update": pso_update.launches,
+                "ullmann_refine_step": ullmann_refine.launches,
+                "greedy_project": argmax_project.launches_greedy,
+                "masked_argmax": argmax_project.launches_argmax}
+    main_kernels = ("prune_fixpoint", "edge_fitness",
+                    "edge_fitness_quantized", "epoch_fused", "epoch_finish")
+    for c in counters.values():
+        c.reset()
     cfg = pso.PSOConfig(quantized=True, early_exit=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     torch.cuda.synchronize()
@@ -359,7 +511,7 @@ def main():
     log(f"IMMSchedMatcher.match (float, unet): found={res.found} "
         f"epochs_run={res.epochs_run} prune_sweeps={res.prune_sweeps} "
         f"wall {t_single * 1e3:.1f} ms")
-    launches = {k: sum(c.count for c in cs) for k, cs in counters.items()}
+    launches = {k: counters[k].count for k in main_kernels}
     log(f"launches on the main path: {launches}")
     for k, v in launches.items():
         if v <= 0:
@@ -374,7 +526,11 @@ def main():
         single_match_s=t_single, single_found=res.found,
         launches=launches)
 
-    # 5. path parity: cuda suite against ref suite, same draws
+    # 5. the split (pre-fusion) epoch against the fused one
+    detail["split_epoch"] = split_phase(pso, Qb, Gb, Mb, x, counters)
+    split_launches = detail["split_epoch"]["launches"]
+
+    # 6. path parity: cuda suite against ref suite, same draws
     small = pso.PSOConfig(num_particles=16, epochs=1, inner_steps=4,
                           quantized=True)
     d = {"init": torch.rand((1, P, 16, n, m), device="cuda") * 0.95 + 0.05,
@@ -388,7 +544,7 @@ def main():
                                atol=1e-4)
     log("path parity: cuda suite == ref suite on the same draws")
 
-    # 6. where the burst's time goes: one match_batch under the profiler
+    # 7. where the burst's time goes: one match_batch under the profiler
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
     detail["profile"] = profile_burst(pso, Qb, Gb, Mb, cfg, out_dir)
@@ -397,11 +553,14 @@ def main():
     kern = []
     for name, (src, replaces) in KERNELS.items():
         rec = records[name]
+        detail.setdefault("device_ms", {})[name] = rec["device_ms"]
         kern.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=launches[name],
+                         replaces=replaces,
+                         launches=launches.get(name, split_launches.get(name)),
                          max_abs_err=errs[name], ms=rec["ms"],
                          plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-                         bound_by=rec["bound_by"], library_ms=None))
+                         bound_by=rec["bound_by"],
+                         library_ms=rec["library_ms"]))
     detail["kernels"] = kern
     detail["total_s"] = time.time() - t_all
     if out_dir is not None:

@@ -109,6 +109,29 @@ def _fitness(S, Q, G, cfg: PSOConfig):
     return bk.edge_fitness(S, Q, G)
 
 
+def _maybe_requantize(S, mask, cfg: PSOConfig):
+    """Straight-through uint8 re-quantization of the swarm state (the
+    accelerator keeping S resident in uint8 between steps): quantize,
+    Q1.15 row renormalisation, dequantize. ``mask`` broadcasts against
+    S (…, n, m); S passes through when ``cfg.quantized`` is off."""
+    if not cfg.quantized:
+        return S
+    bk = kernel_backend.for_config(cfg)
+    return bk.dequantize_s(bk.row_normalize_quantized(bk.quantize_s(S),
+                                                      mask))
+
+
+def ullmann_refine_candidates(S, M_proj, Q, G, mask, cfg: PSOConfig):
+    """Paper line 20 for ONE problem, batched over particles: refine the
+    candidate structure with ``cfg.refine_iters`` Ullmann sweeps, then
+    re-project (``KernelBackend.ullmann_refine_candidates``). Returns
+    ``(M_hat uint8, cand uint8)``."""
+    bk = kernel_backend.for_config(cfg)
+    return bk.ullmann_refine_candidates(
+        S, M_proj, Q, G, mask, refine_threshold=cfg.refine_threshold,
+        refine_iters=cfg.refine_iters)
+
+
 def elite_consensus(S_all, f_all, cfg: PSOConfig):
     """S̄ parts ``(weighted, weight_total, w)`` of one swarm (N, n, m)."""
     bk = kernel_backend.for_config(cfg)

@@ -133,8 +133,8 @@ __device__ inline bool ullmann_sweep(uint32_t* M, const uint32_t* Gout,
 }
 
 // Block-wide argmax of (value, index) pairs: the largest value, ties to
-// the smallest index (jnp.argmax / torch.argmax order). `scratch` holds
-// 2 * 32 words. Every thread gets the result. Contains __syncthreads().
+// the smallest index (jnp.argmax / torch.argmax order). sv and si hold 33
+// entries each. Every thread gets the result. Contains __syncthreads().
 __device__ inline void block_argmax(float v, int idx, float* sv, int* si,
                                     float* out_v, int* out_i) {
   const unsigned full = 0xffffffffu;
@@ -161,6 +161,53 @@ __device__ inline void block_argmax(float v, int idx, float* sv, int* si,
   *out_v = sv[32];
   *out_i = si[32];
   __syncthreads();
+}
+
+// All ones in the first `bits` bits of a bit row of words(bits) words.
+__device__ inline void fill_bits(uint32_t* row, int bits) {
+  for (int w = threadIdx.x; w < words(bits); w += blockDim.x)
+    row[w] = (w * 32 + 32 <= bits) ? 0xffffffffu
+                                   : ((1u << (bits - w * 32)) - 1u);
+}
+
+// ref.greedy_project of one (n, m) S: n rounds of a masked global argmax
+// over the flat index i*m + j (ties to the smallest index), each taken
+// entry knocking out its row and column. An entry is taken only if its
+// value is above finfo(float32).min. Writes asg[i] = j, or -1 for a row
+// left empty. S may live in shared or global memory; mask is bit rows
+// (n x words(m)); rows (words(n)), cols (words(m)) and red_v / red_i (33
+// each) are scratch in shared memory. Ends with __syncthreads().
+__device__ inline void greedy_assign(const float* S, const uint32_t* mask,
+                                     uint32_t* rows, uint32_t* cols,
+                                     int* asg, float* red_v, int* red_i,
+                                     int n, int m) {
+  const int W = words(m), nm = n * m;
+  fill_bits(cols, m);
+  fill_bits(rows, n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) asg[i] = -1;
+  __syncthreads();
+  for (int round = 0; round < n; ++round) {
+    float v = kNeg;
+    int vi = INT32_MAX;
+    for (int f = threadIdx.x; f < nm; f += blockDim.x) {
+      const int i = f / m, j = f - i * m;
+      if (test_bit(rows, i) && test_bit(cols, j) &&
+          test_bit(mask + i * W, j)) {
+        const float x = S[f];
+        if (x > v || vi == INT32_MAX) { v = x; vi = f; }
+      }
+    }
+    float best;
+    int bf;
+    block_argmax(v, vi, red_v, red_i, &best, &bf);
+    if (threadIdx.x == 0 && best > kNeg) {
+      const int i = bf / m, j = bf - i * m;
+      asg[i] = j;
+      rows[i >> 5] &= ~(1u << (i & 31));
+      cols[j >> 5] &= ~(1u << (j & 31));
+    }
+    __syncthreads();
+  }
 }
 
 inline cudaError_t allow_smem(const void* kernel, size_t bytes) {

@@ -99,8 +99,7 @@ __device__ void structured(const Smem& s, const uint32_t* avail, Score score,
                            int* asg, int n, int m) {
   const int W = rt::words(m), Wn = rt::words(n);
   const int j = threadIdx.x;
-  for (int w = threadIdx.x; w < W; w += blockDim.x)
-    s.cols[w] = (w * 32 + 32 <= m) ? 0xffffffffu : ((1u << (m - w * 32)) - 1u);
+  rt::fill_bits(s.cols, m);
   __syncthreads();
   for (int i = 0; i < n; ++i) {
     float v = rt::kNeg;
@@ -177,7 +176,7 @@ __global__ void finish_kernel(const float* __restrict__ S_,
                               int m, float gumbel_tau, float refine_threshold,
                               int refine_iters) {
   const int p = blockIdx.y, part = blockIdx.x;
-  const int W = rt::words(m), Wn = rt::words(n);
+  const int W = rt::words(m);
   const int nm = n * m;
   extern __shared__ float smf[];
   const Smem s = carve(smf, n, m);
@@ -202,34 +201,8 @@ __global__ void finish_kernel(const float* __restrict__ S_,
   const bool feas_a = feasible(s, s.asg_a, n, m);
 
   // 2. greedy projection M_proj: n rounds of a masked global argmax
-  for (int w = threadIdx.x; w < W; w += blockDim.x)
-    s.cols[w] = (w * 32 + 32 <= m) ? 0xffffffffu : ((1u << (m - w * 32)) - 1u);
-  for (int w = threadIdx.x; w < Wn; w += blockDim.x)
-    s.rows[w] = (w * 32 + 32 <= n) ? 0xffffffffu : ((1u << (n - w * 32)) - 1u);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s.asg_p[i] = -1;
-  __syncthreads();
-  for (int round = 0; round < n; ++round) {
-    float v = rt::kNeg;
-    int vi = INT32_MAX;
-    for (int f = threadIdx.x; f < nm; f += blockDim.x) {
-      const int i = f / m, j = f - i * m;
-      if (rt::test_bit(s.rows, i) && rt::test_bit(s.cols, j) &&
-          rt::test_bit(s.mask + i * W, j)) {
-        const float x = Ss[f];
-        if (x > v || vi == INT32_MAX) { v = x; vi = f; }
-      }
-    }
-    float best;
-    int bf;
-    rt::block_argmax(v, vi, s.red_v, s.red_i, &best, &bf);
-    if (threadIdx.x == 0 && best > rt::kNeg) {
-      const int i = bf / m, j = bf - i * m;
-      s.asg_p[i] = j;
-      s.rows[i >> 5] &= ~(1u << (i & 31));
-      s.cols[j >> 5] &= ~(1u << (j & 31));
-    }
-    __syncthreads();
-  }
+  rt::greedy_assign(Ss, s.mask, s.rows, s.cols, s.asg_p, s.red_v, s.red_i,
+                    n, m);
 
   // 3. candidate set, refine_iters Ullmann sweeps, structured re-projection
   for (int idx = threadIdx.x; idx < n * W; idx += blockDim.x) {

@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("prune_fixpoint", "pso_fitness", "epoch_fused", "finish_fused")
+SOURCES = ("prune_fixpoint", "pso_fitness", "epoch_fused", "finish_fused",
+           "pso_update", "ullmann_refine", "argmax_project")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -137,3 +138,14 @@ F_ = ctypes.c_float
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def mask_arg(x: torch.Tensor):
+    """A 0/1 operand as the kernels take it: ``(contiguous tensor, 1 if
+    int32 else 0)``; bool is read as its bytes, other dtypes become
+    uint8 ``x != 0``."""
+    if x.dtype == torch.bool:
+        x = x.view(torch.uint8)
+    elif x.dtype not in (torch.uint8, torch.int32):
+        x = (x != 0).to(torch.uint8)
+    return x.contiguous(), int(x.dtype == torch.int32)

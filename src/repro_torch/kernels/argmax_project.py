@@ -1,0 +1,67 @@
+"""Greedy argmax projection and the masked global argmax.
+
+Replaces the TPU kernels ``greedy_project_pallas`` and
+``masked_argmax_pallas`` of the JAX package (``kernels/argmax_project.py``,
+bodies ``_project_kernel`` and ``_masked_argmax_kernel``). The CUDA
+source is ``csrc/argmax_project.cu``:
+
+  * ``greedy_project``: one CTA per leading index, n dependent rounds of
+    a block-wide masked argmax (the chain the fused epoch tail runs too),
+    bound on the H100 by the latency of that chain;
+  * ``masked_argmax``: one CTA over the (n, m) entries.
+
+Both are exact: ties go to the smallest flat index i·m + j as in
+``torch.argmax``, so they equal ``ref.greedy_project`` and
+``ref.masked_argmax`` bit for bit (finite inputs).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build as kb
+
+launches_greedy = kb.LaunchCounter("greedy_project")
+launches_argmax = kb.LaunchCounter("masked_argmax")
+
+
+def greedy_project_cuda(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: ``S`` (…, n, m), ``mask`` (n, m) shared by
+    every matrix. Returns uint8 M̂ (…, n, m)."""
+    kb.require(S.is_cuda, "greedy_project_cuda needs CUDA tensors")
+    n, m = S.shape[-2:]
+    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256")
+    kb.require(mask.shape == (n, m), "mask must be (n, m)")
+    Sc = S.to(torch.float32).contiguous()
+    mk, mask_i32 = kb.mask_arg(mask)
+    out = torch.empty(S.shape, dtype=torch.uint8, device=S.device)
+    if out.numel() == 0:
+        return out
+    fn = kb.bind("argmax_project", "greedy_project",
+                 [kb.P_] * 3 + [kb.I_] * 4 + [kb.P_])
+    err = fn(kb.ptr(Sc), kb.ptr(mk), kb.ptr(out), out.numel() // (n * m), n,
+             m, mask_i32, kb.stream())
+    kb.check(err, "greedy_project")
+    launches_greedy.add()
+    return out
+
+
+def masked_argmax_cuda(X: torch.Tensor, mask: torch.Tensor):
+    """Launch the kernel: ``X`` (n, m), ``mask`` (n, m). Returns 0-dim
+    ``(value float32, flat index int32)`` on the device."""
+    kb.require(X.is_cuda, "masked_argmax_cuda needs CUDA tensors")
+    kb.require(X.dim() == 2 and mask.shape == X.shape,
+               "X and mask must be one (n, m) shape")
+    n, m = X.shape
+    kb.require(0 < n <= 256 and 0 < m <= 256,
+               f"(n, m) = {(n, m)} not in [1, 256]")
+    Xc = X.to(torch.float32).contiguous()
+    mk, mask_i32 = kb.mask_arg(mask)
+    val = torch.empty((), dtype=torch.float32, device=X.device)
+    idx = torch.empty((), dtype=torch.int32, device=X.device)
+    fn = kb.bind("argmax_project", "masked_argmax",
+                 [kb.P_] * 4 + [kb.I_] * 2 + [kb.P_])
+    err = fn(kb.ptr(Xc), kb.ptr(mk), kb.ptr(val), kb.ptr(idx), n * m,
+             mask_i32, kb.stream())
+    kb.check(err, "masked_argmax")
+    launches_argmax.add()
+    return val, idx

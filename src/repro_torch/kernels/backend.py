@@ -171,10 +171,12 @@ class KernelBackend:
 
     def ullmann_refine_candidates(self, S, M_proj, Q, G, mask, *,
                                   refine_threshold, refine_iters):
-        """Candidate refinement for ONE problem, batched over particles,
-        composed from this suite's own sweep (so on the ``cuda`` suite it
-        raises on CUDA tensors until ``ullmann_refine_step`` is ported).
-        Returns ``(M_hat uint8, cand uint8)``."""
+        """Candidate refinement of paper line 20 for ONE problem, batched
+        over particles: threshold ∪ projection candidate set,
+        ``refine_iters`` sweeps of this suite's own
+        ``ullmann_refine_step`` (the CUDA kernel on the ``cuda`` suite),
+        structured re-projection with an empty-row fallback to
+        ``M_proj``. Returns ``(M_hat uint8, cand uint8)``."""
         rowmax = S.amax(-1, keepdim=True)
         cand = ((S >= refine_threshold * rowmax) | (M_proj > 0))
         cand = (cand & (mask[None] > 0)).to(torch.uint8)
@@ -194,7 +196,8 @@ class KernelBackend:
     # -- projection / verification -----------------------------------------
 
     def greedy_project(self, S, mask):
-        """Greedy argmax projection of one relaxed (n, m) S → uint8 M̂."""
+        """Greedy argmax projection of relaxed S (…, n, m) → uint8 M̂; a
+        leading particle axis is one launch on the ``cuda`` suite."""
         return self._ops.greedy_project(S, mask)
 
     def masked_argmax(self, X, mask):

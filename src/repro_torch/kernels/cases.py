@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.argmax_project import (greedy_project_cuda,
+                                                masked_argmax_cuda)
 from repro_torch.kernels.epoch_fused import (epoch_fused_cuda,
                                              epoch_inner_reference,
                                              fitness_plain)
@@ -25,9 +27,15 @@ from repro_torch.kernels.prune_fixpoint import (prune_fixpoint_cuda,
 from repro_torch.kernels.pso_fitness import (
     edge_fitness_cuda, edge_fitness_quantized_reference,
     edge_fitness_reference)
+from repro_torch.kernels.pso_update import pso_update_cuda
+from repro_torch.kernels.ullmann_refine import ullmann_refine_step_cuda
 
 RTOL, ATOL = 1e-5, 1e-4
 HYPER = dict(omega=0.7, c1=1.4, c2=1.4, c3=0.6, v_max=0.5)
+#: Entries whose pair makes one call per problem, as the split epoch
+#: calls them; the other pairs make one call for all P problems.
+PER_PROBLEM = ("pso_update", "ullmann_refine_step", "greedy_project",
+               "masked_argmax")
 
 
 def random_problem(P: int, n: int, m: int, seed: int,
@@ -73,8 +81,10 @@ def swarm_inputs(Q, G, mask, N: int, K: int, seed: int) -> Dict:
 def kernel_pairs(Q, G, mask, x: Dict, *, quantized: bool, gumbel_tau: float,
                  elite_k: int, refine_iters: int = 6
                  ) -> Dict[str, Tuple[Callable, Callable]]:
-    """``{entry: (kernel thunk, plain thunk)}`` for the five entry points
-    the slice ports, on one set of inputs."""
+    """``{entry: (kernel thunk, plain thunk)}`` for every kernel entry,
+    on one set of inputs (P problems). The ``PER_PROBLEM`` thunks call
+    their function once per problem, on that problem's particles and
+    shared (n, m) operands, and return every problem's outputs."""
     ep = (x["S"], x["V"], x["S"], x["f_local"], x["S_star"], x["f_star"],
           x["S_bar"], mask, Q, G, x["r_all"])
     ep_kw = dict(HYPER, quantized=quantized)
@@ -83,6 +93,33 @@ def kernel_pairs(Q, G, mask, x: Dict, *, quantized: bool, gumbel_tau: float,
     fin_kw = dict(gumbel_tau=gumbel_tau, refine_threshold=0.5,
                   refine_iters=refine_iters, elite_k=elite_k,
                   consensus_temp=25.0)
+    P = mask.shape[0]
+    # the first sweep's input on the split path: threshold candidates
+    rowmax = x["S"].amax(-1, keepdim=True)
+    cand = ((x["S"] >= 0.5 * rowmax) & (mask[:, None] != 0)).to(torch.uint8)
+    per_problem = {   # entry → (call on problem p, kernel, plain version)
+        "pso_update": (lambda f, p: f(
+            x["S"][p], x["V"][p], x["S"][p], x["S_star"][p], x["S_bar"][p],
+            mask[p], x["r_all"][p, 0], **HYPER),
+            pso_update_cuda, ref.pso_update),
+        "ullmann_refine_step": (lambda f, p: f(cand[p], Q[p], G[p]),
+                                ullmann_refine_step_cuda,
+                                ref.ullmann_refine_step),
+        "greedy_project": (lambda f, p: f(x["S"][p], mask[p]),
+                           greedy_project_cuda, ref.greedy_project),
+        "masked_argmax": (lambda f, p: f(x["S_star"][p], mask[p]),
+                          masked_argmax_cuda, ref.masked_argmax),
+    }
+
+    def over_problems(call, f):
+        def run():
+            outs = []
+            for p in range(P):
+                o = call(f, p)
+                outs.extend(o if isinstance(o, tuple) else (o,))
+            return tuple(outs)
+        return run
+
     return {
         "prune_fixpoint": (lambda: prune_fixpoint_cuda(mask, Q, G),
                            lambda: prune_fixpoint_reference(mask, Q, G)),
@@ -95,6 +132,8 @@ def kernel_pairs(Q, G, mask, x: Dict, *, quantized: bool, gumbel_tau: float,
                         lambda: epoch_inner_reference(*ep, **ep_kw)),
         "epoch_finish": (lambda: epoch_finish_cuda(*fin, **fin_kw),
                          lambda: epoch_finish_reference(*fin, **fin_kw)),
+        **{name: (over_problems(call, kern), over_problems(call, plain))
+           for name, (call, kern, plain) in per_problem.items()},
     }
 
 

@@ -4,14 +4,13 @@ to the hand-written kernel.
 Port of the JAX package's ``kernels/ops.py``. The kernels take any
 ``n, m <= 256``, so the 128-row MXU padding of the TPU path is gone.
 There is no fallback: on a CUDA tensor a function launches its kernel or
-raises. The four TPU kernels that are not ported yet raise on CUDA
-tensors with the ROADMAP row that tracks them.
+raises (n or m > 256 raises).
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import ref
+from repro_torch.kernels.argmax_project import (greedy_project_cuda,
+                                                masked_argmax_cuda)
 from repro_torch.kernels.epoch_fused import (epoch_fused_cuda,
                                              epoch_inner_reference)
 from repro_torch.kernels.finish_fused import (epoch_finish_cuda,
@@ -21,21 +20,8 @@ from repro_torch.kernels.prune_fixpoint import (prune_fixpoint_cuda,
 from repro_torch.kernels.pso_fitness import (
     edge_fitness_cuda, edge_fitness_quantized_reference,
     edge_fitness_reference)
-
-#: TPU kernels without a CUDA port yet → their ROADMAP Queue 2 row.
-NOT_PORTED = {
-    "pso_update": "ROADMAP Queue 2 item 6 (pso_update_pallas)",
-    "ullmann_refine_step": "ROADMAP Queue 2 item 5 "
-                           "(ullmann_refine_step_pallas)",
-    "greedy_project": "ROADMAP Queue 2 item 7 (greedy_project_pallas)",
-    "masked_argmax": "ROADMAP Queue 2 item 8 (masked_argmax_pallas)",
-}
-
-
-def _not_ported(name: str, x: torch.Tensor) -> None:
-    if x.is_cuda:
-        raise NotImplementedError(
-            f"{name} has no CUDA kernel yet: {NOT_PORTED[name]}")
+from repro_torch.kernels.pso_update import pso_update_cuda
+from repro_torch.kernels.ullmann_refine import ullmann_refine_step_cuda
 
 
 def edge_fitness(S, Q, G):
@@ -73,21 +59,32 @@ def epoch_finish(*args, **kw):
     return epoch_finish_reference(*args, **kw)
 
 
-def pso_update(S, *args, **kw):
-    _not_ported("pso_update", S)
-    return ref.pso_update(S, *args, **kw)
+def pso_update(S, V, S_local, S_star, S_bar, mask, r, *, omega, c1, c2,
+               c3, v_max=1.0):
+    """One PSO step: S/V/S_local (…, n, m), shared S*/S̄/mask, r (…, 3)
+    → (S_new, V_new)."""
+    kw = dict(omega=omega, c1=c1, c2=c2, c3=c3, v_max=v_max)
+    if S.is_cuda:
+        return pso_update_cuda(S, V, S_local, S_star, S_bar, mask, r, **kw)
+    return ref.pso_update(S, V, S_local, S_star, S_bar, mask, r, **kw)
 
 
 def ullmann_refine_step(M, Q, G):
-    _not_ported("ullmann_refine_step", M)
+    """One Ullmann sweep of M (…, n, m) against shared Q/G."""
+    if M.is_cuda:
+        return ullmann_refine_step_cuda(M, Q, G)
     return ref.ullmann_refine_step(M, Q, G)
 
 
 def greedy_project(S, mask):
-    _not_ported("greedy_project", S)
+    """Greedy argmax projection of S (…, n, m) → uint8 M̂."""
+    if S.is_cuda:
+        return greedy_project_cuda(S, mask)
     return ref.greedy_project(S, mask)
 
 
 def masked_argmax(X, mask):
-    _not_ported("masked_argmax", X)
+    """Masked global argmax of one (n, m) X → (value, i·m + j)."""
+    if X.is_cuda:
+        return masked_argmax_cuda(X, mask)
     return ref.masked_argmax(X, mask)

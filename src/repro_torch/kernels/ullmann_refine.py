@@ -1,0 +1,43 @@
+"""One Ullmann refinement sweep, batched over candidate matrices.
+
+Replaces the TPU kernel ``ullmann_refine_step_pallas`` of the JAX package
+(``kernels/ullmann_refine.py``, body ``_refine_kernel``). The CUDA kernel
+is ``csrc/ullmann_refine.cu``: one CTA per candidate matrix, with M, Q
+and G as bit rows in shared memory, so the four 0/1 products become word
+ANDs. Its output is exact and equals ``ref.ullmann_refine_step`` bit for
+bit, in M's dtype (uint8, int32 or bool; Q and G uint8, int32 or bool).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build as kb
+
+launches = kb.LaunchCounter("ullmann_refine_step")
+
+
+def ullmann_refine_step_cuda(M: torch.Tensor, Q: torch.Tensor,
+                             G: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: ``M`` (…, n, m) non-negative candidates, ``Q``
+    (n, n) and ``G`` (m, m) shared by every matrix. Returns the swept M,
+    same shape and dtype."""
+    kb.require(M.is_cuda, "ullmann_refine_step_cuda needs CUDA tensors")
+    n, m = M.shape[-2:]
+    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256")
+    kb.require(M.dtype in (torch.uint8, torch.int32, torch.bool),
+               f"M dtype {M.dtype} not supported")
+    kb.require(Q.shape == (n, n) and G.shape == (m, m),
+               "Q/G must be (n, n) / (m, m)")
+    Mc, m_i32 = kb.mask_arg(M)
+    Qc, q_i32 = kb.mask_arg(Q)
+    Gc, g_i32 = kb.mask_arg(G)
+    out = torch.empty_like(Mc)
+    if out.numel() == 0:
+        return out.view(M.dtype)
+    fn = kb.bind("ullmann_refine", "ullmann_refine_step",
+                 [kb.P_] * 4 + [kb.I_] * 6 + [kb.P_])
+    err = fn(kb.ptr(Mc), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(out),
+             out.numel() // (n * m), n, m, m_i32, q_i32, g_i32, kb.stream())
+    kb.check(err, "ullmann_refine_step")
+    launches.add()
+    return out.view(M.dtype)

@@ -7,9 +7,16 @@ rtol 1e-5 / atol 1e-4). Skips without a card; on the card run
 import pytest
 import torch
 
-from repro_torch.kernels import _build, cases
+from repro_torch.core import pso, split_epoch
+from repro_torch.kernels import _build, cases, ref
+from repro_torch.kernels.argmax_project import (greedy_project_cuda,
+                                                masked_argmax_cuda)
+from repro_torch.kernels.epoch_fused import epoch_fused_cuda
+from repro_torch.kernels.finish_fused import epoch_finish_cuda
 from repro_torch.kernels.prune_fixpoint import (prune_fixpoint_cuda,
                                                 prune_fixpoint_reference)
+from repro_torch.kernels.pso_update import pso_update_cuda
+from repro_torch.kernels.ullmann_refine import ullmann_refine_step_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -53,3 +60,82 @@ def test_prune_kernel_mask_dtypes_on_card(device, mask_dtype, max_iters):
     got = prune_fixpoint_cuda(mask, Q, G, max_iters)
     cases.compare(got, prune_fixpoint_reference(mask, Q, G, max_iters))
     assert got[0].dtype == mask_dtype
+
+
+def _dtype_cases(device, n, m, mask_dtype, seed):
+    Q, G, mask = (t.to(device) for t in
+                  cases.random_problem(1, n, m, seed, mask_dtype))
+    x = cases.swarm_inputs(Q, G, mask, 16, 1, seed=seed)
+    return Q[0], G[0], mask[0], x
+
+
+@pytest.mark.parametrize("n,m", [(8, 16), (56, 144), (256, 256)])
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32,
+                                        torch.bool])
+def test_split_path_kernels_on_card(device, n, m, mask_dtype):
+    """pso_update, ullmann_refine_step, greedy_project and masked_argmax
+    against their plain versions for every mask dtype, up to 256 x 256
+    (where greedy_project reads S from global memory and pso_update
+    normalises in row blocks)."""
+    Q, G, mask, x = _dtype_cases(device, n, m, mask_dtype, 3)
+    S, V, r = x["S"][0], x["V"][0], x["r_all"][0, 0]
+    upd = (S, V, S, x["S_star"][0], x["S_bar"][0], mask, r)
+    cases.compare(pso_update_cuda(*upd, **cases.HYPER),
+                  ref.pso_update(*upd, **cases.HYPER))
+    cand = ((S >= 0.5 * S.amax(-1, keepdim=True)) & (mask != 0)).to(
+        mask_dtype)
+    for Qx, Gx in ((Q, G), (Q.int(), G.int()), (Q.bool(), G.int())):
+        got = ullmann_refine_step_cuda(cand, Qx, Gx)
+        assert got.dtype == mask_dtype
+        cases.compare(got, ref.ullmann_refine_step(cand, Qx, Gx))
+    cases.compare(greedy_project_cuda(S, mask), ref.greedy_project(S, mask))
+    cases.compare(masked_argmax_cuda(x["S_star"][0], mask),
+                  ref.masked_argmax(x["S_star"][0], mask))
+    empty = torch.zeros_like(mask)
+    cases.compare(masked_argmax_cuda(x["S_star"][0], empty),
+                  ref.masked_argmax(x["S_star"][0], empty))
+
+
+def test_split_path_kernels_reject_what_they_do_not_take(device):
+    """No fallback: per-problem shared operands and n, m > 256 raise."""
+    Q, G, mask = (t.to(device) for t in cases.random_problem(3, 20, 40, 6))
+    x = cases.swarm_inputs(Q, G, mask, 8, 1, seed=6)
+    with pytest.raises(ValueError):
+        greedy_project_cuda(x["S"], mask[:, None])
+    with pytest.raises(ValueError):
+        ullmann_refine_step_cuda((x["S"] > 0).to(torch.uint8), Q[:, None],
+                                 G[:, None])
+    with pytest.raises(ValueError):
+        pso_update_cuda(x["S"][0], x["V"][0], x["S"][0], x["S_star"][:1],
+                        x["S_bar"][0], mask[0], x["r_all"][0, 0],
+                        **cases.HYPER)
+    big = torch.zeros(2, 257, 8, device=device)
+    with pytest.raises(ValueError):
+        greedy_project_cuda(big, big[0] > 0)
+    with pytest.raises(ValueError):
+        masked_argmax_cuda(big[0], big[0] > 0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_split_epoch_equals_fused_epoch_on_card(device, quantized):
+    P, N, n, m, K = 2, 16, 40, 72, 3
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 8))
+    x = cases.swarm_inputs(Q, G, mask, N, K, seed=8)
+    cfg = pso.PSOConfig(num_particles=N, inner_steps=K, quantized=quantized,
+                        backend="cuda")
+    keys = ("S", "V", "S", "f_local", "S_star", "f_star", "S_bar")
+    S, star, fstar, trace, f_last = epoch_fused_cuda(
+        *(x[k] for k in keys), mask, Q, G, x["r_all"], quantized=quantized,
+        **cases.HYPER)
+    tail = epoch_finish_cuda(S, f_last, None, mask, Q, G, gumbel_tau=0.0,
+                             refine_threshold=cfg.refine_threshold,
+                             refine_iters=cfg.refine_iters,
+                             elite_k=pso.elite_k_for(cfg),
+                             consensus_temp=cfg.consensus_temp)
+    want = (S, star, fstar, trace, f_last) + tuple(tail)
+    for p in range(P):
+        got = split_epoch.split_epoch(*(x[k][p] for k in keys), mask[p],
+                                      Q[p], G[p], x["r_all"][p], cfg)
+        for k in range(7):
+            assert torch.equal(got[k], want[k][p]), k
+        cases.compare(got[7], want[7][p])

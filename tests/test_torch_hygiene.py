@@ -41,11 +41,25 @@ def test_every_module_imports_without_jax_nvcc_or_card():
 
 
 def test_no_jax_or_repro_import_in_the_port_sources():
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert (ROOT / "chip_smoke.py").exists()
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "kernel_ab.py"]
+    assert all(f.exists() for f in files)
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: {hits}"
+
+
+@pytest.mark.parametrize("script", [["chip_smoke.py"],
+                                    ["kernel_ab.py", "."]])
+def test_card_scripts_fail_without_a_card(script):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, *script], cwd=ROOT,
+                         env={"PATH": "/usr/bin:/bin",
+                              "CUDA_VISIBLE_DEVICES": ""},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
 
 
 def _tiny():
@@ -67,13 +81,17 @@ def test_matcher_defaults_to_the_card():
 
 
 def test_cpu_runs_launch_no_kernel():
-    from repro_torch.core import pso
+    from repro_torch.core import pso, split_epoch
     from repro_torch.core.matcher import IMMSchedMatcher
-    from repro_torch.kernels import (epoch_fused, finish_fused,
-                                     prune_fixpoint, pso_fitness)
+    from repro_torch.kernels import (argmax_project, backend, cases,
+                                     epoch_fused, finish_fused,
+                                     prune_fixpoint, pso_fitness, pso_update,
+                                     ullmann_refine)
     counters = [prune_fixpoint.launches, pso_fitness.launches,
                 pso_fitness.launches_quantized, epoch_fused.launches,
-                finish_fused.launches]
+                finish_fused.launches, pso_update.launches,
+                ullmann_refine.launches, argmax_project.launches_greedy,
+                argmax_project.launches_argmax]
     for c in counters:
         c.reset()
     q, g = _tiny()
@@ -83,4 +101,15 @@ def test_cpu_runs_launch_no_kernel():
         res = IMMSchedMatcher(cfg, device="cpu").match(
             q, g, generator=torch.Generator().manual_seed(0))
         assert res.epochs_run >= 1
-    assert [c.count for c in counters] == [0, 0, 0, 0, 0]
+    # the split epoch and the masked argmax through the cuda suite
+    Q, G, mask = cases.random_problem(1, 6, 10, 3)
+    x = cases.swarm_inputs(Q, G, mask, 4, 2, seed=1)
+    for quantized in (False, True):
+        cfg = pso.PSOConfig(num_particles=4, inner_steps=2,
+                            quantized=quantized, backend="cuda")
+        out = split_epoch.split_epoch(
+            x["S"][0], x["V"][0], x["S"][0], x["f_local"][0],
+            x["S_star"][0], x["f_star"][0], x["S_bar"][0], mask[0], Q[0],
+            G[0], x["r_all"][0], cfg)
+        backend.for_config(cfg).masked_argmax(out[1], mask[0])
+    assert [c.count for c in counters] == [0] * len(counters)

@@ -4,9 +4,9 @@ Every entry of ``KERNEL_NAMES`` runs through the port's ``ref`` suite and
 the JAX ``ref`` suite on the same numpy-made inputs, at the JAX backend
 sweep's shapes, for uint8 and int32 masks: integer outputs equal bit for
 bit, float outputs within rtol 1e-5 / atol 1e-4 (the contract of
-``tests/test_backend.py``). The five ported kernels are also held once
-each against the JAX Pallas kernels in interpret mode at the smallest
-shape, and the dispatch layer's CPU path is the plain version.
+``tests/test_backend.py``). Every kernel entry is also held once against
+the JAX Pallas kernel in interpret mode at the smallest shape, and the
+dispatch layer's CPU path is the plain version.
 """
 import zlib
 
@@ -19,7 +19,6 @@ import torch
 from repro.kernels import KERNEL_NAMES as JAX_KERNEL_NAMES
 from repro.kernels import get_backend as jax_backend
 from repro_torch.kernels import backend as tb
-from repro_torch.kernels import ops
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -160,7 +159,8 @@ def test_port_ref_matches_jax_ref(kernel, B, n, m, mask_dtype):
 
 PORTED = ["prune_fixpoint_batch", "edge_fitness", "edge_fitness_quantized",
           "epoch_fused", "epoch_fused_batch", "epoch_finish",
-          "epoch_finish_batch"]
+          "epoch_finish_batch", "pso_update", "ullmann_refine_step",
+          "greedy_project", "masked_argmax"]
 
 
 @pytest.mark.parametrize("kernel", PORTED)
@@ -177,11 +177,15 @@ def test_port_matches_jax_interpret_and_dispatch_is_plain_on_cpu(kernel):
 
 
 def _counters():
-    from repro_torch.kernels import (epoch_fused, finish_fused,
-                                     prune_fixpoint, pso_fitness)
+    from repro_torch.kernels import (argmax_project, epoch_fused,
+                                     finish_fused, prune_fixpoint,
+                                     pso_fitness, pso_update, ullmann_refine)
     return {c.name: c for c in (epoch_fused.launches, finish_fused.launches,
                                 prune_fixpoint.launches, pso_fitness.launches,
-                                pso_fitness.launches_quantized)}
+                                pso_fitness.launches_quantized,
+                                pso_update.launches, ullmann_refine.launches,
+                                argmax_project.launches_greedy,
+                                argmax_project.launches_argmax)}
 
 
 @pytest.mark.parametrize("max_iters", [0, 2])
@@ -195,9 +199,3 @@ def test_fixpoint_helpers_match_jax(max_iters):
     assert_parity(tref.prune_mask_fixpoint(t.mask, t.Q, t.G, max_iters),
                   jref.prune_mask_fixpoint(j.mask, j.Q, j.G, max_iters))
 
-
-def test_unported_kernels_name_their_roadmap_row():
-    assert set(ops.NOT_PORTED) == {"pso_update", "ullmann_refine_step",
-                                   "greedy_project", "masked_argmax"}
-    for row in ops.NOT_PORTED.values():
-        assert row.startswith("ROADMAP Queue 2 item")

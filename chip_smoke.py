@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero:
      particles, K = 12 steps, bucket (56, 144)) each of the nine kernel
      entries against its plain PyTorch version on the same inputs, float
      and quantized, τ = 0 and τ > 0: integers bit for bit, floats within
-     rtol 1e-5 / atol 1e-4; both timed with CUDA events (the entries the
-     split epoch calls per problem are called and timed per problem);
+     rtol 1e-5 / atol 1e-4 (``epoch_fused`` and ``masked_argmax`` bit
+     for bit); both timed with CUDA events, the kernel as the median of
+     5 runs (the entries the split epoch calls per problem are called
+     and timed per problem), quantized and, for ``epoch_fused``, float;
   4. the main path: 8 scheduling requests built as the IMMSched
      scheduler builds them (zoo workloads at window_stages=8 on the Cloud
      platform with a seeded set of 96 free engines, relabelled and padded
@@ -32,12 +34,16 @@ Phases, in order; any failure exits non-zero:
   7. profile: device time by kernel over one more ``match_batch`` of the
      burst, and the device's idle share of its wall time.
 
-The second-to-last line is the ``kernels`` JSON record, the last line
+The second-to-last line is the ``kernels`` JSON record (one row per
+kernel entry and one for ``epoch_fused``'s float branch; ``launches``
+counts device launches on the main or split path, ``launches_per_call``
+divides them by the wrapper calls that made them), the last line
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` the details (a
 JSON record and the profiler's table) are also written to DIR.
 """
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -74,6 +80,11 @@ KERNELS = {   # entry → (CUDA source, TPU kernel it replaces)
     "masked_argmax": ("src/repro_torch/csrc/argmax_project.cu",
                       "src/repro/kernels/argmax_project.py:97"),
 }
+#: the float branch of epoch_fused, timed and listed as its own row
+FLOAT_EPOCH = "epoch_fused_float"
+#: entries held bit for bit against their plain version in phase 3 (the
+#: others carry a float consensus S-bar, held within the tolerance)
+BITWISE = ("epoch_fused", "masked_argmax")
 #: the kernels the split epoch phase drives (the fitness entries too)
 SPLIT_KERNELS = ("pso_update", "ullmann_refine_step", "greedy_project",
                  "masked_argmax", "edge_fitness", "edge_fitness_quantized")
@@ -260,6 +271,7 @@ def split_phase(pso, Qb, Gb, Mb, x, counters):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {k: counters[k].count for k in SPLIT_KERNELS}
+    calls = {k: counters[k].calls for k in SPLIT_KERNELS}
     log(f"split epoch: {2 * P} epochs in {wall * 1e3:.1f} ms, launches "
         f"{launches}")
     for k, v in launches.items():
@@ -306,7 +318,8 @@ def split_phase(pso, Qb, Gb, Mb, x, counters):
                           idle_share=1.0 - busy / max(wall_ms, 1e-9),
                           device_launches=sum(r[2] for r in rows))
     log(f"split vs fused epoch under the profiler: {json.dumps(idle)}")
-    return dict(launches=launches, wall_s=wall, s_bar_max_abs_err=s_bar_err,
+    return dict(launches=launches, calls=calls, wall_s=wall,
+                s_bar_max_abs_err=s_bar_err,
                 times=times, profile=idle)
 
 
@@ -403,7 +416,7 @@ def main():
         fail(f"bucket {bucket} is not the main path's (56, 144)")
     elite_k = pso.elite_k_for(pso.PSOConfig())
     x = cases.swarm_inputs(Qb, Gb, Mb, N, K, seed=SEED)
-    errs = {k: 0.0 for k in KERNELS}
+    errs = {k: 0.0 for k in (*KERNELS, FLOAT_EPOCH)}
     timed = {}
     for quantized, tau in ((True, 0.0), (False, 0.0), (True, 0.3),
                            (False, 0.3)):
@@ -413,37 +426,61 @@ def main():
             got = kern()
             torch.cuda.synchronize()
             want = plain()
+            key = (FLOAT_EPOCH if name == "epoch_fused" and not quantized
+                   else name)
             try:
-                errs[name] = max(errs[name], cases.compare(got, want))
+                errs[key] = max(errs[key], cases.compare(got, want))
             except AssertionError as e:
                 fail(f"{name} (quantized={quantized}, tau={tau}) "
                      f"disagrees with its plain version: {e}")
+            if name in BITWISE and not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"{name} (quantized={quantized}, tau={tau}) is not "
+                     f"bit for bit its plain version")
             log(f"  {name} quantized={quantized} tau={tau}: agrees "
-                f"(max abs err {errs[name]:.3g})")
-            if quantized and tau == 0.0:     # the main path's mode
-                timed[name] = (kern, plain, got)
+                f"(max abs err {errs[key]:.3g})")
+            if tau == 0.0 and (quantized or key == FLOAT_EPOCH):
+                timed[key] = (kern, plain, got)   # the main path's modes
     outs = {k: v[2] for k, v in timed.items()}
     bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
                            elite_k=elite_k)
+    bounds[FLOAT_EPOCH] = kernel_bounds(
+        Qb, Gb, Mb, x, {**outs, "epoch_fused": outs[FLOAT_EPOCH]},
+        quantized=False, elite_k=elite_k)["epoch_fused"]
+    # one PyTorch call pair for the masked argmax: where, then argmax
+    keep = Mb != 0
+    neg = torch.full_like(x["S_star"], torch.finfo(torch.float32).min)
+
+    def library_argmax():
+        return [torch.argmax(torch.where(keep[p], x["S_star"][p],
+                                         neg[p]).reshape(-1))
+                for p in range(P)]
+    library = {"masked_argmax": library_argmax}
     records = {}
     for name, (kern, plain, _) in timed.items():
         calls = P if name in cases.PER_PROBLEM else 1   # ms per call
-        ms = cuda_ms(kern, reps=10, warm=2) / calls
+        # the median of 5 runs of 10 calls; a library call pair is timed
+        # in turns with the kernel, so that both see the same host
+        runs = {}
+        for _ in range(5):
+            for key, fn in (("ms", kern), ("library_ms", library.get(name))):
+                if fn is not None:
+                    runs.setdefault(key, []).append(
+                        cuda_ms(fn, reps=10, warm=2) / calls)
+        ms = statistics.median(runs["ms"])
         plain_ms = cuda_ms(plain, reps=2, warm=1) / calls
         bms, by = bounds[name]
         # device time alone (kernels and the wrapper's copies): where it is
         # far below ms, the host's dispatch sets the pace
         device_ms = sum(r[1] for r in profiled(kern)[2]) / calls
-        records[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             bound_by=by, library_ms=None,
-                             device_ms=device_ms)
-    # one PyTorch call pair for the masked argmax: where, then argmax
-    keep = Mb != 0
-    neg = torch.full_like(x["S_star"], torch.finfo(torch.float32).min)
-    records["masked_argmax"]["library_ms"] = cuda_ms(
-        lambda: [torch.argmax(torch.where(keep[p], x["S_star"][p],
-                                          neg[p]).reshape(-1))
-                 for p in range(P)], reps=10, warm=2) / P
+        records[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=(statistics.median(runs["library_ms"])
+                        if name in library else None),
+            device_ms=device_ms)
+        if name in library:
+            records[name]["library_device_ms"] = sum(
+                r[1] for r in profiled(library[name])[2]) / calls
     for name, rec in records.items():
         log(json.dumps(dict(kernel=name, **rec, max_abs_err=errs[name])))
 
@@ -499,6 +536,7 @@ def main():
         f"{t_reval * 1e3:.1f} ms")
     fcfg = pso.PSOConfig()
     unet = reqs[WORKLOADS.index("unet")]
+    before_float = (epoch_fused.launches.count, epoch_fused.launches.calls)
     torch.cuda.synchronize()
     t0 = time.time()
     res = IMMSchedMatcher(fcfg).match(
@@ -512,7 +550,14 @@ def main():
         f"epochs_run={res.epochs_run} prune_sweeps={res.prune_sweeps} "
         f"wall {t_single * 1e3:.1f} ms")
     launches = {k: counters[k].count for k in main_kernels}
-    log(f"launches on the main path: {launches}")
+    main_calls = {k: counters[k].calls for k in main_kernels}
+    # the float match's epochs are the float branch's row
+    launches[FLOAT_EPOCH] = launches["epoch_fused"] - before_float[0]
+    main_calls[FLOAT_EPOCH] = main_calls["epoch_fused"] - before_float[1]
+    launches["epoch_fused"] = before_float[0]
+    main_calls["epoch_fused"] = before_float[1]
+    log(f"launches on the main path: {launches} in wrapper calls "
+        f"{main_calls}")
     for k, v in launches.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -524,7 +569,7 @@ def main():
         host_syncs=outs["host_syncs"], match_batch_s=t_match,
         revalidate_s=t_reval, reval_hits=int(ok.sum()),
         single_match_s=t_single, single_found=res.found,
-        launches=launches)
+        launches=launches, calls=main_calls)
 
     # 5. the split (pre-fusion) epoch against the fused one
     detail["split_epoch"] = split_phase(pso, Qb, Gb, Mb, x, counters)
@@ -551,12 +596,18 @@ def main():
     log(f"profile: {json.dumps(detail['profile']['summary'])}")
 
     kern = []
-    for name, (src, replaces) in KERNELS.items():
+    split_calls = detail["split_epoch"]["calls"]
+    rows = [(k, *v) for k, v in KERNELS.items()]
+    rows.insert(4, (FLOAT_EPOCH, *KERNELS["epoch_fused"]))
+    for name, src, replaces in rows:
         rec = records[name]
         detail.setdefault("device_ms", {})[name] = rec["device_ms"]
+        n_launch = launches.get(name, split_launches.get(name))
+        n_calls = main_calls.get(name, split_calls.get(name))
         kern.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces,
-                         launches=launches.get(name, split_launches.get(name)),
+                         replaces=replaces, launches=n_launch,
+                         launches_per_call=(n_launch / n_calls
+                                            if n_calls else None),
                          max_abs_err=errs[name], ms=rec["ms"],
                          plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                          bound_by=rec["bound_by"],

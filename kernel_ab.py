@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
-"""This checkout's CUDA kernels against another checkout's, in one process.
+"""This checkout's CUDA kernels against another checkout's on one card.
 
     python3 kernel_ab.py BASE_DIR [--rounds 4] [--reps 10]
 
 BASE_DIR is another checkout of the repo, for example a parent commit
 unpacked with ``git archive``. For every kernel entry of
 ``chip_smoke.KERNELS`` whose CUDA source both checkouts have, the script
-builds both libraries with the same flags and
+builds both libraries with the same flags, compares their SASS function
+by function (``cuobjdump -sass``), and runs the entry on chip_smoke's
+phase-3 inputs (the burst of 8 problems, N = 64, K = 12, bucket
+(56, 144), quantized, τ = 0; ``epoch_fused`` float too):
 
-  * compares their SASS, function by function (``cuobjdump -sass``);
-  * runs the entry through this checkout's wrapper on chip_smoke's
-    phase-3 inputs (the burst of 8 problems, N = 64, K = 12, bucket
-    (56, 144), quantized, τ = 0) with each library in turn, and checks
-    that both give the same bits;
-  * times it with CUDA events, base, change, change, base in each round,
-    so that both see the same card, inputs and allocator state.
+  * the kernel alone, where the source's C entry points are the same in
+    both checkouts: in this process, through this checkout's wrapper
+    with each library in turn; same bits, then CUDA-event times base,
+    change, change, base in each round, so that both see the same card,
+    inputs and allocator state (``"per_side": false``);
+  * wrapper and kernel together, where the C entry points differ or the
+    Python between caller and kernel does (the entry's wrapper module
+    ``kernels/<source>.py`` or ``kernels/_build.py``): through each
+    checkout's own wrapper, one subprocess per side that imports that
+    side's ``repro_torch`` and builds that side's kernels, in the order
+    base, change, change, base, each timing ``--rounds`` runs of
+    ``--reps`` calls on the same saved inputs; each side's outputs are
+    saved and compared (``"per_side": true``).
 
-It prints the card's name and power limit, then one JSON line per entry
-(ms per call of each library in each round, their medians and the
-change's ratio to the base). It exits non-zero without a card.
+An entry whose C entry points are the same but whose Python differs gets
+both lines. The script prints the card's name and power limit, then one
+JSON line per entry and mode (ms per call of each side, their medians
+and the change's ratio to the base). It exits non-zero without a card.
 """
 import argparse
 import ctypes
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import torch
@@ -60,15 +72,114 @@ def sass(tool: Path, lib: Path):
     return {parts[i]: parts[i + 1].strip() for i in range(1, len(parts), 2)}
 
 
+def c_entries(src: Path):
+    """The ``extern "C"`` declarations of a CUDA source, whitespace
+    normalised."""
+    return {" ".join(d.split())
+            for d in re.findall(r'extern "C"[^{;]*\)', src.read_text())}
+
+
+def wrapper_differs(base: Path, stem: str) -> bool:
+    """Whether the Python between a caller and the kernels of ``stem``
+    (its wrapper module, the build and binding module) differs between
+    the checkouts."""
+    rel = Path("src") / "repro_torch" / "kernels"
+    for f in (f"{stem}.py", "_build.py"):
+        a, b = base / rel / f, ROOT / rel / f
+        if not a.exists() or a.read_bytes() != b.read_bytes():
+            return True
+    return False
+
+
+def modes(name):
+    """(quantized) modes an entry is timed in."""
+    return (True, False) if name == "epoch_fused" else (True,)
+
+
+def worker(side: Path, inputs: Path, names, out: Path, rounds, reps):
+    """One side's run in its own process: that side's ``repro_torch``,
+    its kernels built from its sources, the saved inputs."""
+    sys.path.insert(0, str(side / "src"))
+    from chip_smoke import cuda_ms
+    from repro_torch.kernels import _build as kb, cases
+    kb.build_all()
+    d = torch.load(inputs, map_location="cuda")
+    res, bits = {}, {}
+    for name in names:
+        for q in modes(name):
+            pairs = cases.kernel_pairs(d["Q"], d["G"], d["M"], d["x"],
+                                       quantized=q, gumbel_tau=0.0,
+                                       elite_k=d["elite_k"])
+            kern = pairs[name][0]
+            calls = d["M"].shape[0] if name in cases.PER_PROBLEM else 1
+            got = kern()
+            got = got if isinstance(got, tuple) else (got,)
+            # own storage each: torch.save refuses two dtypes viewing one
+            bits[f"{name}/q={q}"] = tuple(
+                t.clone() if isinstance(t, torch.Tensor) else t for t in got)
+            res[f"{name}/q={q}"] = [cuda_ms(kern, reps) / calls
+                                    for _ in range(rounds)]
+    torch.save(bits, str(out) + ".bits")
+    out.write_text(json.dumps(res))
+
+
+def per_side(base: Path, names, inputs: Path, args, identical, sources):
+    """Time ``names`` through each checkout's own wrapper (see the module
+    docstring) and print one JSON line per entry and mode."""
+    ms = {}
+    bits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for slot, (side, root) in enumerate((("base", base),
+                                             ("change", ROOT),
+                                             ("change", ROOT),
+                                             ("base", base))):
+            out = Path(tmp) / f"{slot}.json"
+            subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--worker",
+                 str(root), "--inputs", str(inputs), "--names",
+                 ",".join(names), "--out", str(out), "--rounds",
+                 str(args.rounds), "--reps", str(args.reps)],
+                check=True, env={**os.environ, "PYTHONPATH": ""})
+            for key, v in json.loads(out.read_text()).items():
+                ms.setdefault(key, {"base": [], "change": []})[side] += v
+            got = torch.load(str(out) + ".bits", map_location="cpu")
+            for key, v in got.items():
+                bits.setdefault(key, {}).setdefault(side, []).append(v)
+    for key, sides in ms.items():
+        runs = bits[key]["base"] + bits[key]["change"]
+        same = all(len(r) == len(runs[0]) and all(
+            torch.equal(a, b) for a, b in zip(r, runs[0])
+            if isinstance(a, torch.Tensor)) for r in runs)
+        name = key.split("/")[0]
+        med = {k: statistics.median(v) for k, v in sides.items()}
+        print(json.dumps(dict(
+            kernel=name, quantized=key.endswith("True"), per_side=True,
+            source=sources[name], same_bits=same,
+            sass_identical=identical[Path(sources[name]).stem],
+            base_ms=sides["base"], change_ms=sides["change"],
+            base_median_ms=med["base"], change_median_ms=med["change"],
+            ratio=med["change"] / med["base"])), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("base", type=Path, help="the other checkout")
+    ap.add_argument("base", type=Path, nargs="?", help="the other checkout")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--names", help=argparse.SUPPRESS)
+    ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
+    if args.worker is not None:
+        worker(args.worker.resolve(), args.inputs, args.names.split(","),
+               args.out, args.rounds, args.reps)
+        return 0
+    if args.base is None:
+        ap.error("BASE_DIR is required")
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -78,6 +189,9 @@ def main():
     base = args.base.resolve()
     stems = sorted({Path(src).stem for src, _ in cs.KERNELS.values()
                     if (base / src).exists()})
+    changed = {n for n in stems
+               if c_entries(base / "src" / "repro_torch" / "csrc" / f"{n}.cu")
+               != c_entries(kb.CSRC / f"{n}.cu")}
     kb.build_all()
     change = {n: kb._build_dir() / f"lib{n}.so" for n in stems}
     base_paths = base_libraries(kb, base, stems)
@@ -94,11 +208,23 @@ def main():
 
     _, _, _, Qb, Gb, Mb = cs.build_requests()
     x = cases.swarm_inputs(Qb, Gb, Mb, cs.N, cs.K, seed=cs.SEED)
+    elite_k = pso.elite_k_for(pso.PSOConfig())
     pairs = cases.kernel_pairs(Qb, Gb, Mb, x, quantized=True, gumbel_tau=0.0,
-                               elite_k=pso.elite_k_for(pso.PSOConfig()))
+                               elite_k=elite_k)
+    sided = [name for name, (src, _) in cs.KERNELS.items()
+             if Path(src).stem in stems and (Path(src).stem in changed or
+                                             wrapper_differs(base,
+                                                             Path(src).stem))]
+    if sided:
+        with tempfile.TemporaryDirectory() as tmp:
+            inputs = Path(tmp) / "inputs.pt"
+            torch.save(dict(Q=Qb, G=Gb, M=Mb, x=x, elite_k=elite_k),
+                       str(inputs))
+            per_side(base, sided, inputs, args, identical,
+                     {k: src for k, (src, _) in cs.KERNELS.items()})
     for name, (src, _) in cs.KERNELS.items():
         stem = Path(src).stem
-        if stem not in stems:
+        if stem not in stems or stem in changed:
             continue
         kern = pairs[name][0]
         calls = Mb.shape[0] if name in cases.PER_PROBLEM else 1
@@ -118,7 +244,7 @@ def main():
         kb._libs[stem] = libs["change"][stem]
         med = {k: statistics.median(v) for k, v in ms.items()}
         print(json.dumps(dict(
-            kernel=name, source=src, same_bits=same,
+            kernel=name, per_side=False, source=src, same_bits=same,
             sass_identical=identical[stem], base_ms=ms["base"],
             change_ms=ms["change"], base_median_ms=med["base"],
             change_median_ms=med["change"],

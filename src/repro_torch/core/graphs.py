@@ -231,7 +231,12 @@ def topological_relabel(g: Graph):
 
 
 def as_device_graphs(query: Graph, target: Graph, device="cuda"):
-    """uint8 tensors (Q, G, Mask) on ``device``, ready for the matcher."""
+    """uint8 tensors (Q, G, Mask) on ``device``, ready for the matcher.
+    Raises unless both adjacencies are 0/1: the kernels read Q and G as
+    bits."""
+    for name, g in (("query", query), ("target", target)):
+        if not ((g.adj == 0) | (g.adj == 1)).all():
+            raise ValueError(f"{name} adjacency must be 0/1")
     mask = compatibility_mask(query, target)
     return tuple(torch.as_tensor(np.ascontiguousarray(a, dtype=np.uint8),
                                  device=device)

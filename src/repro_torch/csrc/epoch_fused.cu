@@ -8,21 +8,35 @@
 //
 // Bound on the H100: the global best S* couples every particle of a
 // problem at every step, so step k+1 cannot start before step k has
-// finished on all N particles. The Pallas layout kept all N particles in
-// VMEM; here one particle's S, V and S_local at 56x144 f32 already take
-// 97 KB, and a grid of P*N particle CTAs cannot all be resident, so a
-// software barrier across CTAs could deadlock. Design (b): per inner step
-// one launch of a (N, P) grid, one CTA per particle, then one launch of a
-// tiny (P,) grid that selects each problem's global best. The kernel
-// boundary is the barrier; particle state stays in device memory (L2
-// holds the ~50 MB of a burst). One C call issues all 2K launches on the
-// caller's stream. Each step is bound by the fp32 (or int32) fitness on
-// CUDA cores, with the row-sum chains as the latency floor.
+// finished on all N particles, and a grid of P*N particle CTAs cannot all
+// be resident for a barrier across them. So each inner step is one launch
+// of a (N, P) grid, one CTA per particle, and the kernel boundary is the
+// barrier. The last CTA of a problem to finish (an atomic ticket) selects
+// the problem's global best. Particle state stays in device memory (L2
+// holds much of a burst's ~50 MB); a step moves S, V and S_local (~83 MB
+// for the main path's burst), ~25 us at the card's memory rate.
+//
+// Design, against what a per-phase timing of the earlier one-launch-pair
+// design showed (PERF.md):
+//  * per-problem operands (G's column bits, the mask's bits and row counts,
+//    Q's bits) are built once per call by prologue_kernel into device
+//    scratch; a step CTA copies its problem's few KB with 16-byte loads;
+//  * the quantized tile is bytes, S G is 16-bit words (<= 255 m) and
+//    S G S^T runs on __dp2a over a 4 x 4 block of (i, u) pairs per thread:
+//    ~51 KB of shared memory at (56, 144), 4 CTAs an SM, one wave;
+//  * the float S G S^T is register-blocked 4 x 4 with 16-byte shared
+//    loads, every sum still over j ascending; the squared residuals wait in
+//    registers and then reuse S G's space: ~73 KB, 3 CTAs an SM;
+//  * S G walks each column's bits once for 8 rows;
+//  * the velocity pass uses 16-byte global loads where m % 4 == 0.
+// Where the tiles do not fit in shared memory (n, m up to 256) they live in
+// a slice of the scratch per CTA (the GLOBAL instantiation).
 //
 // Numerics: -fmad=false and the plain version's order of operations
-// (left-to-right sums, IEEE division, rintf for round-half-even) make the
-// kernel agree with kernels/epoch_fused.py's plain version bit for bit.
-#include "fitness.cuh"
+// (left-to-right float sums, IEEE division, rintf for round-half-even,
+// exact integer sums) make the kernel agree with kernels/epoch_fused.py's
+// plain version bit for bit.
+#include "common.cuh"
 
 namespace {
 
@@ -30,191 +44,665 @@ struct Hyper {
   float omega, c1, c2, c3, v_max;
 };
 
-__global__ void step_kernel(float* __restrict__ S, float* __restrict__ V,
-                            float* __restrict__ Sl, float* __restrict__ fl,
-                            float* __restrict__ fcur,
-                            const float* __restrict__ Sstar,
-                            const float* __restrict__ Sbar,
-                            const uint8_t* __restrict__ mask,
-                            const uint8_t* __restrict__ Q,
-                            const uint8_t* __restrict__ G,
-                            const float* __restrict__ r_all, int N, int n,
-                            int m, int K, int k, Hyper h, int quantized) {
-  const int p = blockIdx.y, part = blockIdx.x;
-  const int W = rt::words(m), nm = n * m;
-  const int ld = rt::odd_stride(m), ldn = rt::odd_stride(n);
-  extern __shared__ long long sm64[];
-  long long* part_sums = sm64;                                   // 32
-  uint32_t* Gin = reinterpret_cast<uint32_t*>(sm64 + 32);        // m * W
-  float* St = reinterpret_cast<float*>(Gin + m * W);             // n * ld
-  int* Sq = reinterpret_cast<int*>(St);                          // aliases St
-  float* SG = St + n * ld;                                       // n * ld
-  float* R2 = SG + n * ld;                                       // n * ldn
-  float* rowf = R2 + n * ldn;                                    // n
-  int* rowi = reinterpret_cast<int*>(rowf + n);                  // n
-  float* mrows = reinterpret_cast<float*>(rowi + n);             // n
-  float* bcast = mrows + n;                                      // 1
-  uint8_t* mk = reinterpret_cast<uint8_t*>(bcast + 1);           // n * m
-  uint8_t* q = mk + nm;                                          // n * n
+constexpr int kThreads = 256;
+constexpr size_t kSmemMax = 232448;   // 227 KB a block on the H100
 
-  const size_t pb = (size_t)p * nm;
-  const size_t base = ((size_t)p * N + part) * nm;
-  rt::pack_cols(G + (size_t)p * m * m, m, Gin);
-  for (int idx = threadIdx.x; idx < nm; idx += blockDim.x)
-    mk[idx] = mask[pb + idx] != 0;
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x)
-    q[idx] = Q[(size_t)p * n * n + idx];
-  __syncthreads();
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+__host__ __device__ inline int round_up(int x, int a) {
+  return (x + a - 1) / a * a;
+}
+// A row stride of `a`-element chunks, an odd number of them: 16-byte
+// (8-byte) loads by lanes walking consecutive rows then hit distinct banks.
+__host__ __device__ inline int odd_chunks(int cols, int a) {
+  const int x = round_up(cols, a);
+  return (x / a) % 2 ? x : x + a;
+}
+
+// Byte offsets of the parts of one problem's record (prologue_kernel) and
+// of one CTA's shared and tile memory.
+struct Layout {
+  int W, Wn, n4, ldf, ldh, ldb, ldn;
+  int gbits, mbits, mrows, qbits, rec;    // record: G cols, mask, counts, Q
+  int parts, rowf, rowi, rowr, misc, lut, small;   // shared, after the record
+  int sq, st, sg, r2, tiles;              // tiles (shared or scratch)
+  bool r2_alias;
+};
+
+__host__ __device__ inline Layout layout(int n, int m, bool quant) {
+  Layout L;
+  L.W = rt::words(m);
+  L.Wn = rt::words(n);
+  L.n4 = round_up(n, 4);
+  L.ldf = odd_chunks(m, 4);     // floats
+  L.ldh = odd_chunks(m, 8);     // 16-bit words
+  L.ldb = odd_chunks(m, 8);     // bytes
+  L.ldn = rt::odd_stride(n);    // floats
+  L.gbits = 0;
+  L.mbits = align16(L.gbits + 4 * m * L.W);
+  L.mrows = align16(L.mbits + 4 * n * L.W);
+  L.qbits = align16(L.mrows + 4 * n);
+  L.rec = align16(L.qbits + 4 * n * L.Wn);
+  L.parts = L.rec;
+  L.rowf = L.parts + 8 * 32;
+  L.rowi = L.rowf + 4 * L.n4;
+  L.rowr = L.rowi + 4 * L.n4;
+  L.misc = L.rowr + 4 * L.n4;
+  L.lut = L.misc + 16;
+  L.small = L.lut + (quant ? 4 * 256 : 0);
+  const int B = (n + 3) / 4;
+  L.r2_alias = B * B <= kThreads;
+  const int r2_bytes = 4 * n * L.ldn;
+  if (quant) {
+    L.sq = 0;
+    L.st = align16(n * L.ldb);
+    L.sg = L.st;                          // S G (16-bit) reuses S's tile
+    L.r2 = L.st;                          // unused
+    const int t = 4 * n * L.ldf > 2 * n * L.ldh ? 4 * n * L.ldf
+                                                : 2 * n * L.ldh;
+    L.tiles = align16(L.st + t);
+  } else {
+    L.sq = 0;                             // unused
+    L.st = 0;
+    L.sg = align16(4 * n * L.ldf);
+    const int sg_bytes = L.r2_alias && r2_bytes > 4 * n * L.ldf
+                             ? r2_bytes : 4 * n * L.ldf;
+    L.r2 = L.r2_alias ? L.sg : align16(L.sg + sg_bytes);
+    L.tiles = align16(L.r2_alias ? L.sg + sg_bytes : L.r2 + r2_bytes);
+  }
+  return L;
+}
+
+bool tiles_in_smem(const Layout& L) {
+  return (size_t)L.small + L.tiles <= kSmemMax;
+}
+
+// One problem's operands, once per call: G's column bits, the mask's row
+// bits and row counts, Q's row bits; and the problem's ticket set to 0.
+__global__ void prologue_kernel(const uint8_t* __restrict__ mask,
+                                const uint8_t* __restrict__ Q,
+                                const uint8_t* __restrict__ G,
+                                uint8_t* __restrict__ rec,
+                                int* __restrict__ tickets, int n, int m) {
+  const int p = blockIdx.x;
+  const Layout L = layout(n, m, false);
+  uint8_t* r = rec + (size_t)p * L.rec;
+  const uint8_t* mk = mask + (size_t)p * n * m;
+  rt::pack_cols(G + (size_t)p * m * m, m,
+                reinterpret_cast<uint32_t*>(r + L.gbits));
+  rt::pack_rows(mk, n, m, reinterpret_cast<uint32_t*>(r + L.mbits));
+  rt::pack_rows(Q + (size_t)p * n * n, n, n,
+                reinterpret_cast<uint32_t*>(r + L.qbits));
+  float* mrows = reinterpret_cast<float*>(r + L.mrows);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     int c = 0;
-    for (int j = 0; j < m; ++j) c += mk[i * m + j];
+    for (int j = 0; j < m; ++j) c += mk[i * m + j] != 0;
     mrows[i] = (float)c;
   }
+  if (threadIdx.x == 0) tickets[p] = 0;
+}
 
-  // velocity, clip, position, mask (ref.pso_update, same op order)
-  const float* r = r_all + (((size_t)p * K + k) * N + part) * 3;
-  const float a1 = h.c1 * r[0], a2 = h.c2 * r[1], a3 = h.c3 * r[2];
-  for (int idx = threadIdx.x; idx < nm; idx += blockDim.x) {
-    const int i = idx / m, j = idx - i * m;
-    const float s = S[base + idx];
-    float v = h.omega * V[base + idx];
-    v = v + a1 * (Sl[base + idx] - s);
-    v = v + a2 * (Sstar[pb + idx] - s);
-    v = v + a3 * (Sbar[pb + idx] - s);
-    v = fminf(fmaxf(v, -h.v_max), h.v_max);
-    V[base + idx] = v;
-    St[i * ld + j] = fmaxf(s + v, 0.0f) * (float)mk[idx];
+// ref.pso_update's velocity and position of one entry, same op order.
+__device__ __forceinline__ float velocity(const Hyper& h, float a1, float a2,
+                                          float a3, float s, float v0,
+                                          float sl, float ss, float sb) {
+  float v = h.omega * v0;
+  v = v + a1 * (sl - s);
+  v = v + a2 * (ss - s);
+  v = v + a3 * (sb - s);
+  return fminf(fmaxf(v, -h.v_max), h.v_max);
+}
+
+__device__ __forceinline__ uint32_t quantize(float s) {   // ref.quantize_s
+  return (uint32_t)fminf(fmaxf(rintf(s * 255.0f), 0.0f), 255.0f);
+}
+
+// ref.pso_update's row normalisation of one entry: true division by the
+// row sum, or the row's uniform share of its candidates for an empty row.
+__device__ __forceinline__ float normalized(float x, float rs, bool keep,
+                                            float mrow) {
+  return rs > 1e-9f ? x / fmaxf(rs, 1e-9f)
+                    : (float)keep / fmaxf(mrow, 1.0f);
+}
+
+// ref.row_normalize_quantized of one byte q, given its row's byte sum and
+// that sum's Q1.15 reciprocal (mrow: the row's candidate count).
+__device__ __forceinline__ uint32_t requantize(uint32_t q, bool keep, int row,
+                                               int recip, int mrow) {
+  if (!keep) return 0;
+  if (row > 0) {
+    const int prod = (int)q * recip * 255;
+    return min(max((prod + (1 << 14)) >> 15, 0), 255);
+  }
+  return min(max(255 / max(mrow, 1), 1), 255);
+}
+
+__device__ __forceinline__ void keep_better(float& v, int& vi, float ov,
+                                            int oi) {
+  if (ov > v || (ov == v && oi < vi)) { v = ov; vi = oi; }
+}
+
+// One inner step of one particle (blockIdx.x) of one problem (blockIdx.y);
+// the problem's last CTA also selects its global best.
+template <bool QUANT, bool SMEM>
+__global__ void __launch_bounds__(kThreads, QUANT ? 4 : 3)
+step_kernel(float* __restrict__ S, float* __restrict__ V,
+            float* __restrict__ Sl, float* __restrict__ fl,
+            float* __restrict__ fcur, float* __restrict__ Sstar,
+            float* __restrict__ fstar, float* __restrict__ trace,
+            const float* __restrict__ Sbar, const uint8_t* __restrict__ rec,
+            int* __restrict__ tickets, uint8_t* __restrict__ gtiles,
+            const float* __restrict__ r_all, int N, int n, int m, int K,
+            int k, Hyper h) {
+  const int p = blockIdx.y, part = blockIdx.x, tid = threadIdx.x;
+  const int nt = blockDim.x, nm = n * m;
+  const Layout L = layout(n, m, QUANT);
+  const int W = L.W, ldf = L.ldf, ldh = L.ldh, ldb = L.ldb;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* tiles = SMEM ? smem + L.small
+                        : gtiles + ((size_t)p * N + part) * L.tiles;
+  const uint32_t* Gin = reinterpret_cast<const uint32_t*>(smem + L.gbits);
+  const uint32_t* mbits = reinterpret_cast<const uint32_t*>(smem + L.mbits);
+  const float* mrows = reinterpret_cast<const float*>(smem + L.mrows);
+  const uint32_t* qbits = reinterpret_cast<const uint32_t*>(smem + L.qbits);
+  long long* part_sums = reinterpret_cast<long long*>(smem + L.parts);
+  float* rowf = reinterpret_cast<float*>(smem + L.rowf);
+  int* rowi = reinterpret_cast<int*>(smem + L.rowi);
+  int* rowr = reinterpret_cast<int*>(smem + L.rowr);
+  int* misc = reinterpret_cast<int*>(smem + L.misc);
+  float* lut = reinterpret_cast<float*>(smem + L.lut);
+  uint8_t* Sq = tiles + L.sq;
+  float* St = reinterpret_cast<float*>(tiles + L.st);
+  // this particle's f_local, read before thread 0 can rewrite it
+  const size_t pi = (size_t)p * N + part;
+  const float f_old = fl[pi];
+
+  // the problem's record, then the zero columns past m that the 16-byte
+  // (8-byte) product loops read
+  {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(rec + (size_t)p * L.rec);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int w = tid; w < L.rec / 16; w += nt) dst[w] = src[w];
+  }
+  if (QUANT) {
+    for (int t = tid; t < 256; t += nt) lut[t] = (float)t / 255.0f;
+    const int pad = round_up(m, 8) - m;
+    for (int idx = tid; idx < n * pad; idx += nt)
+      Sq[idx / pad * ldb + m + idx % pad] = 0;
+  } else {
+    const int pad = round_up(m, 4) - m;
+    for (int idx = tid; idx < n * pad; idx += nt)
+      St[idx / pad * ldf + m + idx % pad] = 0.0f;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+
+  // velocity, clip, position, mask (ref.pso_update, same op order)
+  const size_t pb = (size_t)p * nm;
+  const size_t base = ((size_t)p * N + part) * nm;
+  const float* r = r_all + (((size_t)p * K + k) * N + part) * 3;
+  const float a1 = h.c1 * r[0], a2 = h.c2 * r[1], a3 = h.c3 * r[2];
+  // 16-byte groups of four entries of a row where m % 4 == 0
+  const bool vec = (m & 3) == 0;
+  const int gpr = m >> 2;
+  if (vec) {
+    for (int g = tid; g < nm >> 2; g += nt) {
+      const int i = g / gpr, j = (g - i * gpr) << 2;
+      const float4 s = reinterpret_cast<const float4*>(S + base)[g];
+      const float4 v = reinterpret_cast<const float4*>(V + base)[g];
+      const float4 sl = reinterpret_cast<const float4*>(Sl + base)[g];
+      const float4 ss = reinterpret_cast<const float4*>(Sstar + pb)[g];
+      const float4 sb = reinterpret_cast<const float4*>(Sbar + pb)[g];
+      const uint32_t mb = mbits[i * W + (j >> 5)] >> (j & 31);
+      float4 vn, st;
+      vn.x = velocity(h, a1, a2, a3, s.x, v.x, sl.x, ss.x, sb.x);
+      vn.y = velocity(h, a1, a2, a3, s.y, v.y, sl.y, ss.y, sb.y);
+      vn.z = velocity(h, a1, a2, a3, s.z, v.z, sl.z, ss.z, sb.z);
+      vn.w = velocity(h, a1, a2, a3, s.w, v.w, sl.w, ss.w, sb.w);
+      st.x = fmaxf(s.x + vn.x, 0.0f) * (float)(mb & 1u);
+      st.y = fmaxf(s.y + vn.y, 0.0f) * (float)((mb >> 1) & 1u);
+      st.z = fmaxf(s.z + vn.z, 0.0f) * (float)((mb >> 2) & 1u);
+      st.w = fmaxf(s.w + vn.w, 0.0f) * (float)((mb >> 3) & 1u);
+      reinterpret_cast<float4*>(V + base)[g] = vn;
+      *reinterpret_cast<float4*>(St + i * ldf + j) = st;
+    }
+  } else {
+    for (int idx = tid; idx < nm; idx += nt) {
+      const int i = idx / m, j = idx - i * m;
+      const float s = S[base + idx];
+      const float v = velocity(h, a1, a2, a3, s, V[base + idx],
+                               Sl[base + idx], Sstar[pb + idx],
+                               Sbar[pb + idx]);
+      V[base + idx] = v;
+      St[i * ldf + j] =
+          fmaxf(s + v, 0.0f) * (float)rt::test_bit(mbits + i * W, j);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += nt) {
+    const float* row = St + i * ldf;
     float acc = 0.0f;
-    for (int j = 0; j < m; ++j) acc = acc + St[i * ld + j];
+    int j = 0;
+    for (; j + 4 <= m; j += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(row + j);
+      acc = acc + x.x;
+      acc = acc + x.y;
+      acc = acc + x.z;
+      acc = acc + x.w;
+    }
+    for (; j < m; ++j) acc = acc + row[j];
     rowf[i] = acc;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nm; idx += blockDim.x) {
-    const int i = idx / m, j = idx - i * m;
-    const float rs = rowf[i];
-    const float uni = (float)mk[idx] / fmaxf(mrows[i], 1.0f);
-    const float s = rs > 1e-9f ? St[i * ld + j] / fmaxf(rs, 1e-9f) : uni;
-    if (quantized)   // quantize_s, in place
-      Sq[i * ld + j] = (int)fminf(fmaxf(rintf(s * 255.0f), 0.0f), 255.0f);
-    else
-      St[i * ld + j] = s;
-  }
-  __syncthreads();
-  if (quantized) {
-    // straight-through requantize: Q1.15 reciprocal renormalisation,
-    // dequantize, then the fitness's own quantize_s
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      int c = 0;
-      for (int j = 0; j < m; ++j) c += Sq[i * ld + j];
-      rowi[i] = c;
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < nm; idx += blockDim.x) {
-      const int i = idx / m, j = idx - i * m;
-      const int row = rowi[i];
-      int sq;
-      if (row > 0) {
-        const int recip = (int)rintf(32768.0f / (float)max(row, 1));
-        const int prod = Sq[i * ld + j] * recip * 255;
-        sq = mk[idx] ? min(max((prod + (1 << 14)) >> 15, 0), 255) : 0;
+  // normalise (uniform fallback for an empty row); the float path writes S
+  if (vec) {
+    for (int g = tid; g < nm >> 2; g += nt) {
+      const int i = g / gpr, j = (g - i * gpr) << 2;
+      const float rs = rowf[i], mr = mrows[i];
+      const float4 x = *reinterpret_cast<const float4*>(St + i * ldf + j);
+      const uint32_t mb = mbits[i * W + (j >> 5)] >> (j & 31);
+      float4 s;
+      s.x = normalized(x.x, rs, mb & 1u, mr);
+      s.y = normalized(x.y, rs, mb & 2u, mr);
+      s.z = normalized(x.z, rs, mb & 4u, mr);
+      s.w = normalized(x.w, rs, mb & 8u, mr);
+      if (QUANT) {
+        *reinterpret_cast<uint32_t*>(Sq + i * ldb + j) =
+            quantize(s.x) | quantize(s.y) << 8 | quantize(s.z) << 16 |
+            quantize(s.w) << 24;
       } else {
-        const int mr = (int)mrows[i];
-        sq = mk[idx] ? min(max(255 / max(mr, 1), 1), 255) : 0;
+        *reinterpret_cast<float4*>(St + i * ldf + j) = s;
+        reinterpret_cast<float4*>(S + base)[g] = s;
       }
-      const float s = (float)sq / 255.0f;
-      S[base + idx] = s;
-      Sq[i * ld + j] = (int)fminf(fmaxf(rintf(s * 255.0f), 0.0f), 255.0f);
     }
   } else {
-    for (int idx = threadIdx.x; idx < nm; idx += blockDim.x)
-      S[base + idx] = St[idx / m * ld + idx % m];
+    for (int idx = tid; idx < nm; idx += nt) {
+      const int i = idx / m, j = idx - i * m;
+      const float s = normalized(St[i * ldf + j], rowf[i],
+                                 rt::test_bit(mbits + i * W, j), mrows[i]);
+      if (QUANT) {
+        Sq[i * ldb + j] = (uint8_t)quantize(s);
+      } else {
+        St[i * ldf + j] = s;
+        S[base + idx] = s;
+      }
+    }
+  }
+  __syncthreads();
+  if (QUANT) {
+    // straight-through requantize: Q1.15 reciprocal renormalisation,
+    // dequantize (lut[t] = t / 255) and the fitness's quantize_s, which
+    // gives the same byte back
+    for (int i = tid; i < n; i += nt) {
+      const uint32_t* row = reinterpret_cast<const uint32_t*>(Sq + i * ldb);
+      unsigned c = 0;
+      for (int w = 0; w < round_up(m, 8) / 4; ++w)
+        c = __dp4a(row[w], 0x01010101u, c);
+      rowi[i] = (int)c;
+      rowr[i] = (int)rintf(32768.0f / (float)max((int)c, 1));
+    }
+    __syncthreads();
+    if (vec) {
+      for (int g = tid; g < nm >> 2; g += nt) {
+        const int i = g / gpr, j = (g - i * gpr) << 2;
+        const int row = rowi[i], recip = rowr[i], mr = (int)mrows[i];
+        uint32_t* sq = reinterpret_cast<uint32_t*>(Sq + i * ldb + j);
+        const uint32_t w = *sq;
+        const uint32_t mb = mbits[i * W + (j >> 5)] >> (j & 31);
+        const uint32_t q0 = requantize(w & 0xffu, mb & 1u, row, recip, mr),
+                       q1 = requantize((w >> 8) & 0xffu, mb & 2u, row, recip,
+                                       mr),
+                       q2 = requantize((w >> 16) & 0xffu, mb & 4u, row, recip,
+                                       mr),
+                       q3 = requantize(w >> 24, mb & 8u, row, recip, mr);
+        *sq = q0 | q1 << 8 | q2 << 16 | q3 << 24;
+        reinterpret_cast<float4*>(S + base)[g] =
+            make_float4(lut[q0], lut[q1], lut[q2], lut[q3]);
+      }
+    } else {
+      for (int idx = tid; idx < nm; idx += nt) {
+        const int i = idx / m, j = idx - i * m;
+        const uint32_t q =
+            requantize(Sq[i * ldb + j], rt::test_bit(mbits + i * W, j),
+                       rowi[i], rowr[i], (int)mrows[i]);
+        Sq[i * ldb + j] = (uint8_t)q;
+        S[base + idx] = lut[q];
+      }
+    }
+    __syncthreads();
+  }
+
+  // fitness, S G: each thread walks one column's bits (k ascending) for 8
+  // rows; columns past m are written as zeros
+  constexpr int R = 8;
+  {
+    const int cols = QUANT ? round_up(m, 8) : round_up(m, 4);
+    const int chunks = (n + R - 1) / R;
+    uint16_t* SGh = reinterpret_cast<uint16_t*>(tiles + L.sg);
+    float* SGf = reinterpret_cast<float*>(tiles + L.sg);
+    for (int it = tid; it < cols * chunks; it += nt) {
+      const int c = it / cols, j = it - c * cols, i0 = c * R;
+      float accf[R];
+      int acci[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) { accf[r] = 0.0f; acci[r] = 0; }
+      if (j < m) {
+        for (int w = 0; w < W; ++w) {
+          uint32_t bits = Gin[j * W + w];
+          while (bits) {
+            const int kk = w * 32 + __ffs(bits) - 1;
+            bits &= bits - 1;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              if (i0 + r < n) {
+                if (QUANT)
+                  acci[r] += Sq[(i0 + r) * ldb + kk];
+                else
+                  accf[r] = accf[r] + St[(i0 + r) * ldf + kk];
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (i0 + r < n) {
+          if (QUANT)
+            SGh[(i0 + r) * ldh + j] = (uint16_t)acci[r];
+          else
+            SGf[(i0 + r) * ldf + j] = accf[r];
+        }
+      }
+    }
   }
   __syncthreads();
 
-  const float f =
-      quantized
-          ? rt::fitness_u8(Sq, reinterpret_cast<int*>(SG), part_sums, bcast,
-                           Gin, q, n, m, ld, 255) / 4228250625.0f
-          : rt::fitness_f32(St, SG, R2, rowf, bcast, Gin, q, n, m, ld, ldn);
-  // local best (only this CTA touches its particle's S_local and f_local)
-  const size_t pi = (size_t)p * N + part;
-  if (f > fl[pi])
-    for (int idx = threadIdx.x; idx < nm; idx += blockDim.x)
-      Sl[base + idx] = S[base + idx];
+  // fitness, S G S^T and the residual: thread (bi, bu) owns rows
+  // i = bi + B a and u = bu + B b, a, b < 4
+  const int B = (n + 3) / 4;
+  if (QUANT) {
+    const uint16_t* SGh = reinterpret_cast<const uint16_t*>(tiles + L.sg);
+    long long local = 0;
+    for (int it = tid; it < B * B; it += nt) {
+      const int bi = it / B, bu = it - bi * B;
+      int ir[4], ur[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        ir[a] = min(bi + B * a, n - 1);
+        ur[a] = min(bu + B * a, n - 1);
+      }
+      unsigned acc[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = 0u;
+      for (int j = 0; j < m; j += 8) {
+        uint2 sv[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          sv[b] = *reinterpret_cast<const uint2*>(Sq + ur[b] * ldb + j);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const uint4 g =
+              *reinterpret_cast<const uint4*>(SGh + ir[a] * ldh + j);
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            acc[a][b] = __dp2a_lo(g.x, sv[b].x, acc[a][b]);
+            acc[a][b] = __dp2a_hi(g.y, sv[b].x, acc[a][b]);
+            acc[a][b] = __dp2a_lo(g.z, sv[b].y, acc[a][b]);
+            acc[a][b] = __dp2a_hi(g.w, sv[b].y, acc[a][b]);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int i = bi + B * a, u = bu + B * b;
+          if (i < n && u < n) {
+            const long long q =
+                rt::test_bit(qbits + i * L.Wn, u) ? 65025LL : 0LL;
+            const long long res = q - (long long)acc[a][b];
+            local += res * res;
+          }
+        }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      local += __shfl_down_sync(0xffffffffu, local, off);
+    if ((tid & 31) == 0) part_sums[tid >> 5] = local;
+    __syncthreads();
+    if (tid == 0) {
+      long long tot = 0;
+      for (int w = 0; w < (nt + 31) >> 5; ++w) tot += part_sums[w];
+      reinterpret_cast<float*>(misc)[0] =
+          -__ll2float_rn(tot) / 4228250625.0f;
+    }
+  } else {
+    const float* SGf = reinterpret_cast<const float*>(tiles + L.sg);
+    float* R2 = reinterpret_cast<float*>(tiles + L.r2);
+    float r2[4][4];
+    for (int it = tid; it < B * B; it += nt) {
+      const int bi = it / B, bu = it - bi * B;
+      int ir[4], ur[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        ir[a] = min(bi + B * a, n - 1);
+        ur[a] = min(bu + B * a, n - 1);
+      }
+      float acc[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+      for (int j = 0; j < m; j += 4) {
+        float4 sv[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          sv[b] = *reinterpret_cast<const float4*>(St + ur[b] * ldf + j);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float4 g =
+              *reinterpret_cast<const float4*>(SGf + ir[a] * ldf + j);
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            acc[a][b] = acc[a][b] + g.x * sv[b].x;
+            acc[a][b] = acc[a][b] + g.y * sv[b].y;
+            acc[a][b] = acc[a][b] + g.z * sv[b].z;
+            acc[a][b] = acc[a][b] + g.w * sv[b].w;
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int i = bi + B * a, u = bu + B * b;
+          const float q = (i < n && u < n &&
+                           rt::test_bit(qbits + i * L.Wn, u)) ? 1.0f : 0.0f;
+          const float res = q - acc[a][b];
+          r2[a][b] = res * res;
+          if (!L.r2_alias && i < n && u < n) R2[i * L.ldn + u] = r2[a][b];
+        }
+    }
+    if (L.r2_alias) {      // at most one block a thread: S G is read, reuse it
+      __syncthreads();
+      if (tid < B * B) {
+        const int bi = tid / B, bu = tid - bi * B;
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int i = bi + B * a, u = bu + B * b;
+            if (i < n && u < n) R2[i * L.ldn + u] = r2[a][b];
+          }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < n; i += nt) {
+      float acc = 0.0f;
+      for (int u = 0; u < n; ++u) acc = acc + R2[i * L.ldn + u];
+      rowf[i] = acc;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float tot = 0.0f;
+      for (int i = 0; i < n; ++i) tot = tot + rowf[i];
+      reinterpret_cast<float*>(misc)[0] = -tot;
+    }
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    fl[pi] = fmaxf(f, fl[pi]);
+  const float f = reinterpret_cast<const float*>(misc)[0];
+
+  // local best (only this CTA touches its particle's S_local and f_local)
+  if (f > f_old) {
+    if (vec) {
+      for (int g = tid; g < nm >> 2; g += nt) {
+        const int i = g / gpr, j = (g - i * gpr) << 2;
+        float4 v;
+        if (QUANT) {
+          const uint32_t w =
+              *reinterpret_cast<const uint32_t*>(Sq + i * ldb + j);
+          v = make_float4(lut[w & 0xffu], lut[(w >> 8) & 0xffu],
+                          lut[(w >> 16) & 0xffu], lut[w >> 24]);
+        } else {
+          v = *reinterpret_cast<const float4*>(St + i * ldf + j);
+        }
+        reinterpret_cast<float4*>(Sl + base)[g] = v;
+      }
+    } else {
+      for (int idx = tid; idx < nm; idx += nt) {
+        const int i = idx / m, j = idx - i * m;
+        Sl[base + idx] = QUANT ? lut[Sq[i * ldb + j]] : St[i * ldf + j];
+      }
+    }
+  }
+  if (tid == 0) {
+    fl[pi] = fmaxf(f, f_old);
     fcur[pi] = f;
   }
-}
+  // the ticket: every write of this CTA is visible before it is taken
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) misc[1] = atomicAdd(tickets + p, 1) == N - 1;
+  __syncthreads();
+  if (!misc[1]) return;
 
-// Global best of each problem: the first argmax of the local bests.
-__global__ void select_kernel(const float* __restrict__ Sl,
-                              const float* __restrict__ fl,
-                              float* __restrict__ Sstar,
-                              float* __restrict__ fstar,
-                              float* __restrict__ trace, int N, int nm,
-                              int K, int k) {
-  const int p = blockIdx.x;
-  __shared__ int best;
-  if (threadIdx.x == 0) {
-    const float* f = fl + (size_t)p * N;
-    int b = 0;
-    for (int i = 1; i < N; ++i)
-      if (f[i] > f[b]) b = i;
-    const bool better = f[b] > fstar[p];
-    if (better) fstar[p] = f[b];
-    trace[(size_t)p * K + k] = fstar[p];
-    best = better ? b : -1;
+  // the problem's last CTA: global best = the first argmax of the local
+  // bests (read past L1, which may hold other CTAs' stale lines)
+  __threadfence();
+  if (tid < 32) {
+    float v = __int_as_float(0xff800000);   // -inf
+    int b = INT32_MAX;
+    for (int i = tid; i < N; i += 32) {
+      const float x = __ldcg(fl + (size_t)p * N + i);
+      if (x > v || b == INT32_MAX) { v = x; b = i; }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      keep_better(v, b, __shfl_down_sync(0xffffffffu, v, off),
+                  __shfl_down_sync(0xffffffffu, b, off));
+    if (tid == 0) {
+      const float fs = __ldcg(fstar + p);
+      const bool better = v > fs;
+      const float nf = better ? v : fs;
+      fstar[p] = nf;
+      trace[(size_t)p * K + k] = nf;
+      misc[2] = better ? b : -1;
+      tickets[p] = 0;
+    }
   }
   __syncthreads();
+  const int best = misc[2];
   if (best >= 0) {
     const float* src = Sl + ((size_t)p * N + best) * nm;
-    for (int idx = threadIdx.x; idx < nm; idx += blockDim.x)
-      Sstar[(size_t)p * nm + idx] = src[idx];
+    if (vec) {
+      for (int g = tid; g < nm >> 2; g += nt)
+        reinterpret_cast<float4*>(Sstar + pb)[g] =
+            __ldcg(reinterpret_cast<const float4*>(src) + g);
+    } else {
+      for (int idx = tid; idx < nm; idx += nt)
+        Sstar[pb + idx] = __ldcg(src + idx);
+    }
   }
 }
 
-size_t smem_bytes(int n, int m) {
-  const int W = rt::words(m), ld = rt::odd_stride(m);
-  return sizeof(long long) * 32 +
-         sizeof(uint32_t) * ((size_t)m * W + 2 * (size_t)n * ld +
-                             (size_t)n * rt::odd_stride(n) + 3 * n + 1) +
-         (size_t)n * m + (size_t)n * n;
-}
-
-}  // namespace
-
-// All K steps of one epoch: 2K launches on `stream`. S, V, Sl, fl, fcur,
-// Sstar, fstar hold the initial state and are updated in place.
-extern "C" int epoch_fused(void* S, void* V, void* Sl, void* fl, void* fcur,
-                           void* Sstar, void* fstar, const void* Sbar,
-                           const void* mask, const void* Q, const void* G,
-                           const void* r_all, void* trace, int P, int N,
-                           int n, int m, int K, float omega, float c1,
-                           float c2, float c3, float v_max, int quantized,
-                           void* stream) {
-  const size_t smem = smem_bytes(n, m);
-  cudaError_t err = rt::allow_smem((const void*)step_kernel, smem);
+template <bool QUANT, bool SMEM>
+int launch_steps(size_t smem, float* S, float* V, float* Sl,
+                 float* fl, float* fcur, float* Sstar, float* fstar,
+                 float* trace, const float* Sbar, const uint8_t* rec,
+                 int* tickets, uint8_t* gtiles, const float* r_all, int P,
+                 int N, int n, int m, int K, const Hyper& h,
+                 cudaStream_t st) {
+  cudaError_t err =
+      rt::allow_smem((const void*)step_kernel<QUANT, SMEM>, smem);
   if (err != cudaSuccess) return (int)err;
-  const Hyper h{omega, c1, c2, c3, v_max};
-  const cudaStream_t st = (cudaStream_t)stream;
   for (int k = 0; k < K; ++k) {
-    step_kernel<<<dim3(N, P), 256, smem, st>>>(
-        (float*)S, (float*)V, (float*)Sl, (float*)fl, (float*)fcur,
-        (const float*)Sstar, (const float*)Sbar, (const uint8_t*)mask,
-        (const uint8_t*)Q, (const uint8_t*)G, (const float*)r_all, N, n, m,
-        K, k, h, quantized);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    select_kernel<<<P, 256, 0, st>>>((const float*)Sl, (const float*)fl,
-                                     (float*)Sstar, (float*)fstar,
-                                     (float*)trace, N, n * m, K, k);
+    step_kernel<QUANT, SMEM><<<dim3(N, P), kThreads, smem, st>>>(
+        S, V, Sl, fl, fcur, Sstar, fstar, trace, Sbar, rec, tickets, gtiles,
+        r_all, N, n, m, K, k, h);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// Scratch of one call, in bytes: the records, then the tickets, then
+// (when the tiles do not fit in shared memory) one tile slice per CTA.
+struct Scratch {
+  size_t rec, tickets, total;
+};
+
+Scratch scratch_parts(int P, int N, int n, int m, bool quant) {
+  const Layout L = layout(n, m, quant);
+  Scratch s;
+  s.rec = (size_t)P * L.rec;
+  s.tickets = (size_t)align16(4 * P);
+  s.total = s.rec + s.tickets +
+            (tiles_in_smem(L) ? 0 : (size_t)P * N * L.tiles);
+  return s;
+}
+
+}  // namespace
+
+// Bytes of device scratch that epoch_fused needs for these shapes.
+extern "C" long long epoch_fused_scratch_bytes(int P, int N, int n, int m,
+                                               int quantized) {
+  return (long long)scratch_parts(P, N, n, m, quantized != 0).total;
+}
+
+// All K steps of one epoch: one prologue launch and K step launches on
+// `stream` (none when K = 0). S, V, Sl, fl, fcur, Sstar, fstar hold the
+// initial state and are updated in place; mask, Q, G are uint8 0/1;
+// scratch holds epoch_fused_scratch_bytes bytes.
+extern "C" int epoch_fused(void* S, void* V, void* Sl, void* fl, void* fcur,
+                           void* Sstar, void* fstar, const void* Sbar,
+                           const void* mask, const void* Q, const void* G,
+                           const void* r_all, void* trace, void* scratch,
+                           int P, int N, int n, int m, int K, float omega,
+                           float c1, float c2, float c3, float v_max,
+                           int quantized, void* stream) {
+  if (K <= 0) return (int)cudaSuccess;
+  const bool quant = quantized != 0;
+  const Layout L = layout(n, m, quant);
+  const Scratch sc = scratch_parts(P, N, n, m, quant);
+  uint8_t* rec = (uint8_t*)scratch;
+  int* tickets = (int*)(rec + sc.rec);
+  uint8_t* gtiles = rec + sc.rec + sc.tickets;
+  const cudaStream_t st = (cudaStream_t)stream;
+  prologue_kernel<<<P, kThreads, 0, st>>>(
+      (const uint8_t*)mask, (const uint8_t*)Q, (const uint8_t*)G, rec,
+      tickets, n, m);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Hyper h{omega, c1, c2, c3, v_max};
+  const bool in_smem = tiles_in_smem(L);
+  const size_t smem = (size_t)L.small + (in_smem ? L.tiles : 0);
+#define EPOCH_STEPS(QB, SB)                                                  \
+  launch_steps<QB, SB>(smem, (float*)S, (float*)V, (float*)Sl,            \
+                       (float*)fl, (float*)fcur, (float*)Sstar,              \
+                       (float*)fstar, (float*)trace, (const float*)Sbar,     \
+                       rec, tickets, gtiles, (const float*)r_all, P, N, n,   \
+                       m, K, h, st)
+  if (quant)
+    return in_smem ? EPOCH_STEPS(true, true) : EPOCH_STEPS(true, false);
+  return in_smem ? EPOCH_STEPS(false, true) : EPOCH_STEPS(false, false);
+#undef EPOCH_STEPS
 }

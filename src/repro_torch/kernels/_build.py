@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -30,20 +30,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+#: ``{(library object, entry name): bound entry}``. Keyed on the loaded
+#: library and not on its stem, so that swapping ``_libs[stem]`` for
+#: another build (``kernel_ab.py``) binds against the library swapped in.
+_bound: Dict[Tuple[object, str], ctypes._CFuncPtr] = {}
 
 
 class LaunchCounter:
-    """Number of kernel launches a wrapper has made (and nothing else)."""
+    """Number of kernel launches a wrapper has made (and nothing else),
+    and the number of wrapper calls that made them."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.calls = 0
 
     def add(self, k: int = 1) -> None:
-        self.count += k
+        if k:
+            self.count += k
+            self.calls += 1
 
     def reset(self) -> None:
         self.count = 0
+        self.calls = 0
 
 
 def _nvcc() -> str:
@@ -107,12 +116,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
-    """C entry ``fn`` of library ``name`` with its argument types set;
-    every entry returns the ``cudaError_t`` of its launch."""
-    f = getattr(library(name), fn)
-    f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+def bind(name: str, fn: str, argtypes,
+         restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """C entry ``fn`` of library ``name`` with its argument types set,
+    looked up once per loaded library; a launching entry returns the
+    ``cudaError_t`` of its launches."""
+    lib = library(name)
+    f = _bound.get((lib, fn))
+    if f is None:
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = restype
+        _bound[lib, fn] = f
     return f
 
 
@@ -123,7 +138,9 @@ def check(err: int, what: str) -> None:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The raw handle of the current device's current CUDA stream, read
+    without making a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -45,23 +45,30 @@ def greedy_project_cuda(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+_ARGMAX_ARGS = [kb.P_] * 4 + [kb.I_] * 2 + [kb.P_]
+
+
 def masked_argmax_cuda(X: torch.Tensor, mask: torch.Tensor):
     """Launch the kernel: ``X`` (n, m), ``mask`` (n, m). Returns 0-dim
-    ``(value float32, flat index int32)`` on the device."""
-    kb.require(X.is_cuda, "masked_argmax_cuda needs CUDA tensors")
+    ``(value float32, flat index int32)`` on the device, views of one
+    two-word buffer. X is copied only when it is not contiguous
+    float32; the mask goes through ``kb.mask_arg``."""
+    kb.require(X.is_cuda and mask.is_cuda,
+               "masked_argmax_cuda needs CUDA tensors")
     kb.require(X.dim() == 2 and mask.shape == X.shape,
                "X and mask must be one (n, m) shape")
     n, m = X.shape
     kb.require(0 < n <= 256 and 0 < m <= 256,
                f"(n, m) = {(n, m)} not in [1, 256]")
-    Xc = X.to(torch.float32).contiguous()
-    mk, mask_i32 = kb.mask_arg(mask)
-    val = torch.empty((), dtype=torch.float32, device=X.device)
-    idx = torch.empty((), dtype=torch.int32, device=X.device)
-    fn = kb.bind("argmax_project", "masked_argmax",
-                 [kb.P_] * 4 + [kb.I_] * 2 + [kb.P_])
-    err = fn(kb.ptr(Xc), kb.ptr(mk), kb.ptr(val), kb.ptr(idx), n * m,
-             mask_i32, kb.stream())
+    if X.dtype != torch.float32 or not X.is_contiguous():
+        X = X.to(torch.float32).contiguous()
+    mask, mask_i32 = kb.mask_arg(mask)
+    out = torch.empty(2, dtype=torch.int32, device=X.device)
+    o = out.data_ptr()
+    err = kb.bind("argmax_project", "masked_argmax", _ARGMAX_ARGS)(
+        X.data_ptr(), mask.data_ptr(), o, o + 4, n * m, mask_i32,
+        kb.stream())
     kb.check(err, "masked_argmax")
     launches_argmax.add()
-    return val, idx
+    val, idx = out.unbind()
+    return val.view(torch.float32), idx

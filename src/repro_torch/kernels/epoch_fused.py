@@ -4,12 +4,17 @@ Replaces the TPU kernel ``epoch_fused_pallas`` of the JAX package
 (``kernels/epoch_fused.py``, body ``_epoch_kernel``). The CUDA kernel is
 ``csrc/epoch_fused.cu``: the global best S* couples every particle at
 every step and a grid of P·N particle CTAs cannot all be resident for a
-barrier across them, so each inner step is one launch of a (N, P) grid
-(one CTA per particle) followed by one launch of a (P,) grid that picks
-each problem's global best: 2K launches an epoch, all counted. Compiled with ``-fmad=false`` and written in the plain version's order
-of operations, it matches ``epoch_inner_reference`` bit for bit.
+barrier across them, so one prologue launch builds each problem's
+operands in device scratch and each inner step is one launch of a (N, P)
+grid (one CTA per particle) whose last CTA per problem picks that
+problem's global best: K + 1 launches an epoch (none when K = 0), all
+counted. Compiled with ``-fmad=false`` and written in the plain version's
+order of operations, it matches ``epoch_inner_reference`` bit for bit.
+Q and G are 0/1 adjacency matrices, as everywhere in the matcher.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -82,8 +87,8 @@ def epoch_fused_cuda(S, V, S_local, f_local, S_star, f_star, S_bar, mask,
                      Q, G, r_all, *, omega, c1, c2, c3, v_max,
                      quantized=False):
     """Launch the kernels (same arguments and results as
-    ``epoch_inner_reference``): per inner step one (N, P) step launch and
-    one (P,) best-selection launch, 2K launches counted."""
+    ``epoch_inner_reference``): one prologue launch and one (N, P) step
+    launch per inner step, K + 1 launches counted (0 when K = 0)."""
     P, N, n, m = S.shape
     K = r_all.shape[1]
     kb.require(S.is_cuda, "epoch_fused_cuda needs CUDA tensors")
@@ -98,17 +103,23 @@ def epoch_fused_cuda(S, V, S_local, f_local, S_star, f_star, S_bar, mask,
     star_w = S_star.to(torch.float32, copy=True).contiguous()
     fstar_w = f_star.to(torch.float32, copy=True).reshape(P).contiguous()
     S_bar = S_bar.to(torch.float32).contiguous()
+    if S_bar.data_ptr() % 16:        # the kernel reads it in 16-byte loads
+        S_bar = S_bar.clone()
     mk = (mask != 0).to(torch.uint8).contiguous()
     Qc = Q.to(torch.uint8).contiguous()
     Gc = G.to(torch.uint8).contiguous()
     r = r_all.to(torch.float32).contiguous()
     trace = torch.empty(P, K, dtype=torch.float32, device=S.device)
+    q = int(bool(quantized))
+    nbytes = kb.bind("epoch_fused", "epoch_fused_scratch_bytes", [kb.I_] * 5,
+                     ctypes.c_longlong)(P, N, n, m, q)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
     fn = kb.bind("epoch_fused", "epoch_fused",
-                 [kb.P_] * 13 + [kb.I_] * 5 + [kb.F_] * 5 + [kb.I_, kb.P_])
+                 [kb.P_] * 14 + [kb.I_] * 5 + [kb.F_] * 5 + [kb.I_, kb.P_])
     err = fn(*[kb.ptr(t) for t in (S_w, V_w, Sl_w, fl_w, f_last, star_w,
-                                   fstar_w, S_bar, mk, Qc, Gc, r, trace)],
-             P, N, n, m, K, omega, c1, c2, c3, v_max, int(bool(quantized)),
-             kb.stream())
+                                   fstar_w, S_bar, mk, Qc, Gc, r, trace,
+                                   scratch)],
+             P, N, n, m, K, omega, c1, c2, c3, v_max, q, kb.stream())
     kb.check(err, "epoch_fused")
-    launches.add(2 * K)
+    launches.add(K + 1 if K > 0 else 0)
     return S_w, star_w, fstar_w, trace, f_last

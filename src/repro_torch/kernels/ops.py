@@ -4,7 +4,10 @@ to the hand-written kernel.
 Port of the JAX package's ``kernels/ops.py``. The kernels take any
 ``n, m <= 256``, so the 128-row MXU padding of the TPU path is gone.
 There is no fallback: on a CUDA tensor a function launches its kernel or
-raises (n or m > 256 raises).
+raises (n or m > 256 raises). Q and G are 0/1 adjacency matrices, as
+``core.graphs.as_device_graphs`` checks: several kernels (the fused
+epoch among them) read them as bits, so on other values a kernel need
+not agree with its plain version.
 """
 from __future__ import annotations
 

@@ -23,6 +23,9 @@ pytestmark = pytest.mark.cuda
 # (P, N, n, m, K): the JAX backend sweep's shapes and the main path's
 SHAPES = [(1, 8, 8, 16, 3), (2, 16, 40, 72, 3), (8, 64, 56, 144, 12)]
 MODES = [(False, 0.0), (True, 0.0), (False, 0.3), (True, 0.3)]
+# n and m off every multiple of 4 and 8 (the kernels' scalar tails and
+# padded rows), in shared memory and past it
+ODD_SHAPES = [(2, 16, 13, 37, 3), (2, 16, 10, 70, 3), (1, 16, 203, 233, 2)]
 
 
 @pytest.fixture(scope="module")
@@ -139,3 +142,95 @@ def test_split_epoch_equals_fused_epoch_on_card(device, quantized):
         for k in range(7):
             assert torch.equal(got[k], want[k][p]), k
         cases.compare(got[7], want[7][p])
+
+
+def _epoch_args(x, mask, Q, G):
+    keys = ("S", "V", "S", "f_local", "S_star", "f_star", "S_bar")
+    return (*(x[k] for k in keys), mask, Q, G, x["r_all"])
+
+
+def _assert_epoch_bitwise(args, quantized):
+    from repro_torch.kernels import epoch_fused
+    from repro_torch.kernels.epoch_fused import epoch_inner_reference
+    K = args[-1].shape[1]
+    epoch_fused.launches.reset()
+    got = epoch_fused_cuda(*args, quantized=quantized, **cases.HYPER)
+    torch.cuda.synchronize()
+    assert epoch_fused.launches.count == (K + 1 if K else 0)
+    want = epoch_inner_reference(*args, quantized=quantized, **cases.HYPER)
+    names = ("S_final", "S_star", "f_star", "f_trace", "f_last")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("shape",
+                         SHAPES + [(1, 64, 256, 256, 2)] + ODD_SHAPES)
+def test_epoch_fused_bitwise_on_card(device, shape, quantized):
+    """Every output of epoch_fused equals the plain version bit for bit,
+    up to 256 x 256 (where the tiles live in device scratch), and at n, m
+    that are no multiple of 4."""
+    P, N, n, m, K = shape
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 11))
+    x = cases.swarm_inputs(Q, G, mask, N, K, seed=12)
+    _assert_epoch_bitwise(_epoch_args(x, mask, Q, G), quantized)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("K", [0, 1])
+def test_epoch_fused_short_epochs_on_card(device, K, quantized):
+    Q, G, mask = (t.to(device) for t in cases.random_problem(2, 40, 72, 13))
+    x = cases.swarm_inputs(Q, G, mask, 16, K, seed=13)
+    _assert_epoch_bitwise(_epoch_args(x, mask, Q, G), quantized)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_epoch_fused_empty_mask_row_on_card(device, quantized):
+    """A mask row with no candidate takes the uniform fallback (and the
+    quantized one its integer fallback)."""
+    Q, G, mask = (t.to(device) for t in cases.random_problem(2, 40, 72, 14))
+    x = cases.swarm_inputs(Q, G, mask, 16, 3, seed=14)
+    mask = mask.clone()
+    mask[:, 5] = 0
+    _assert_epoch_bitwise(_epoch_args(x, mask, Q, G), quantized)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_epoch_fused_selection_ties_on_card(device, quantized):
+    """Equal local bests across particles: the first index wins the
+    global best, as in argmax."""
+    Q, G, mask = (t.to(device) for t in cases.random_problem(2, 40, 72, 15))
+    x = cases.swarm_inputs(Q, G, mask, 16, 2, seed=15)
+    x["f_local"] = torch.zeros_like(x["f_local"])     # above any fitness
+    args = _epoch_args(x, mask, Q, G)
+    _assert_epoch_bitwise(args, quantized)
+    _, star, _, _, _ = epoch_fused_cuda(*args, quantized=quantized,
+                                        **cases.HYPER)
+    assert torch.equal(star, x["S"][:, 0])
+
+
+def _assert_argmax_bitwise(X, mask):
+    got = masked_argmax_cuda(X, mask)
+    want = ref.masked_argmax(X, mask)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), (g, w)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (56, 144), (256, 256)])
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32,
+                                        torch.bool])
+def test_masked_argmax_bitwise_on_card(device, n, m, mask_dtype):
+    """Aligned and unaligned X (16-byte loads and the scalar scan), an
+    all-masked input, and exact ties (the first index wins)."""
+    g = torch.Generator().manual_seed(n * 1000 + m)
+    X = torch.randn(n, m, generator=g).to(device)
+    mask = (torch.rand(n, m, generator=g) < 0.7).to(device).to(mask_dtype)
+    _assert_argmax_bitwise(X, mask)
+    buf = torch.randn(n * m + 3, generator=g).to(device)
+    _assert_argmax_bitwise(buf[1:1 + n * m].view(n, m), mask)   # unaligned
+    _assert_argmax_bitwise(X, torch.zeros_like(mask))
+    ties = torch.randint(0, 3, (n, m), generator=g).float().to(device)
+    _assert_argmax_bitwise(ties, mask)
+    _assert_argmax_bitwise(ties, torch.ones_like(mask))

@@ -76,6 +76,20 @@ def test_problem_plumbing_is_byte_identical(name, window):
     _same(mask.numpy(), jmask)
 
 
+@pytest.mark.parametrize("which", ["query", "target"])
+def test_device_graphs_take_only_01_adjacency(which):
+    """The kernels read Q and G as bits, so an adjacency entry other than
+    0/1 is refused where the graphs become tensors."""
+    rng = np.random.default_rng(3)
+    q = tgraphs.random_dag(rng, 6, 0.4)
+    g = tgraphs.embed_query_in_target(rng, q, 12)
+    bad = q if which == "query" else g
+    i, j = np.argwhere(bad.adj == 1)[0]
+    bad.adj[i, j] = 2
+    with pytest.raises(ValueError, match=which):
+        tgraphs.as_device_graphs(q, g, device="cpu")
+
+
 @pytest.mark.parametrize("seed,n,m", [(0, 6, 12), (1, 8, 16), (2, 10, 24)])
 def test_planted_fixture_contains_its_query(seed, n, m):
     rng = np.random.default_rng(seed)

@@ -113,3 +113,47 @@ def test_cpu_runs_launch_no_kernel():
             G[0], x["r_all"][0], cfg)
         backend.for_config(cfg).masked_argmax(out[1], mask[0])
     assert [c.count for c in counters] == [0] * len(counters)
+
+
+class _StubEntry:
+    """Stands in for a ``ctypes`` C function: takes argtypes/restype."""
+
+    def __init__(self, lib, name):
+        self.lib, self.name = lib, name
+        self.argtypes = self.restype = None
+
+
+class _StubLibrary:
+    """Stands in for a loaded ``ctypes.CDLL``: one entry object per name,
+    and a count of the lookups."""
+
+    def __init__(self):
+        self.lookups = 0
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        self.lookups += 1
+        entry = _StubEntry(self, name)
+        object.__setattr__(self, name, entry)
+        return entry
+
+
+def test_bindings_follow_a_swapped_library(monkeypatch):
+    """``bind`` looks an entry up once per loaded library, and a library
+    swapped into ``_libs`` (as kernel_ab.py does) is the one bound."""
+    from repro_torch.kernels import _build as kb
+    a, b = _StubLibrary(), _StubLibrary()
+    types = [kb.P_, kb.I_]
+    monkeypatch.setitem(kb._libs, "argmax_project", a)
+    fa = kb.bind("argmax_project", "masked_argmax", types)
+    assert fa.lib is a and fa.argtypes == types
+    assert kb.bind("argmax_project", "masked_argmax", types) is fa
+    assert a.lookups == 1
+    monkeypatch.setitem(kb._libs, "argmax_project", b)
+    fb = kb.bind("argmax_project", "masked_argmax", types)
+    assert fb.lib is b and fb is not fa and fb.argtypes == types
+    monkeypatch.setitem(kb._libs, "argmax_project", a)
+    assert kb.bind("argmax_project", "masked_argmax", types) is fa
+    assert (a.lookups, b.lookups) == (1, 1)
+    assert kb.bind("argmax_project", "greedy_project", types).lib is a

@@ -11,10 +11,11 @@ Phases, in order; any failure exits non-zero:
      particles, K = 12 steps, bucket (56, 144)) each of the nine kernel
      entries against its plain PyTorch version on the same inputs, float
      and quantized, τ = 0 and τ > 0: integers bit for bit, floats within
-     rtol 1e-5 / atol 1e-4 (``epoch_fused`` and ``masked_argmax`` bit
-     for bit); both timed with CUDA events, the kernel as the median of
-     5 runs (the entries the split epoch calls per problem are called
-     and timed per problem), quantized and, for ``epoch_fused``, float;
+     rtol 1e-5 / atol 1e-4 (``epoch_fused``, ``masked_argmax`` and
+     ``edge_fitness_quantized`` bit for bit); both timed with CUDA
+     events, the kernel as the median of 5 runs (the entries the split
+     epoch calls per problem are called and timed per problem),
+     quantized and, for ``epoch_fused``, float;
   4. the main path: 8 scheduling requests built as the IMMSched
      scheduler builds them (zoo workloads at window_stages=8 on the Cloud
      platform with a seeded set of 96 free engines, relabelled and padded
@@ -65,7 +66,7 @@ KERNELS = {   # entry → (CUDA source, TPU kernel it replaces)
                        "src/repro/kernels/prune_fixpoint.py:102"),
     "edge_fitness": ("src/repro_torch/csrc/pso_fitness.cu",
                      "src/repro/kernels/pso_fitness.py:111"),
-    "edge_fitness_quantized": ("src/repro_torch/csrc/pso_fitness.cu",
+    "edge_fitness_quantized": ("src/repro_torch/csrc/fitness_quantized.cu",
                                "src/repro/kernels/pso_fitness.py:132"),
     "epoch_fused": ("src/repro_torch/csrc/epoch_fused.cu",
                     "src/repro/kernels/epoch_fused.py:251"),
@@ -83,8 +84,9 @@ KERNELS = {   # entry → (CUDA source, TPU kernel it replaces)
 #: the float branch of epoch_fused, timed and listed as its own row
 FLOAT_EPOCH = "epoch_fused_float"
 #: entries held bit for bit against their plain version in phase 3 (the
-#: others carry a float consensus S-bar, held within the tolerance)
-BITWISE = ("epoch_fused", "masked_argmax")
+#: others' integer outputs are equal too; their float outputs are held
+#: within the tolerance)
+BITWISE = ("epoch_fused", "masked_argmax", "edge_fitness_quantized")
 #: the kernels the split epoch phase drives (the fitness entries too)
 SPLIT_KERNELS = ("pso_update", "ullmann_refine_step", "greedy_project",
                  "masked_argmax", "edge_fitness", "edge_fitness_quantized")
@@ -106,6 +108,11 @@ def card_line():
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _outs(x):
+    """A kernel's outputs as a tuple (one tensor or several)."""
+    return x if isinstance(x, tuple) else (x,)
 
 
 def cuda_ms(fn, reps, warm=1):
@@ -434,7 +441,8 @@ def main():
                 fail(f"{name} (quantized={quantized}, tau={tau}) "
                      f"disagrees with its plain version: {e}")
             if name in BITWISE and not all(
-                    torch.equal(g, w) for g, w in zip(got, want)):
+                    torch.equal(g, w)
+                    for g, w in zip(_outs(got), _outs(want))):
                 fail(f"{name} (quantized={quantized}, tau={tau}) is not "
                      f"bit for bit its plain version")
             log(f"  {name} quantized={quantized} tau={tau}: agrees "

@@ -7,9 +7,10 @@ BASE_DIR is another checkout of the repo, for example a parent commit
 unpacked with ``git archive``. For every kernel entry of
 ``chip_smoke.KERNELS`` whose CUDA source both checkouts have, the script
 builds both libraries with the same flags, compares their SASS function
-by function (``cuobjdump -sass``), and runs the entry on chip_smoke's
-phase-3 inputs (the burst of 8 problems, N = 64, K = 12, bucket
-(56, 144), quantized, τ = 0; ``epoch_fused`` float too):
+by function (``cuobjdump -sass``; blanks and branch label numbers
+normalised), and runs the entry on chip_smoke's phase-3 inputs (the
+burst of 8 problems, N = 64, K = 12, bucket (56, 144), quantized, τ = 0;
+``epoch_fused`` float too):
 
   * the kernel alone, where the source's C entry points are the same in
     both checkouts: in this process, through this checkout's wrapper
@@ -23,10 +24,13 @@ phase-3 inputs (the burst of 8 problems, N = 64, K = 12, bucket
     side's ``repro_torch`` and builds that side's kernels, in the order
     base, change, change, base, each timing ``--rounds`` runs of
     ``--reps`` calls on the same saved inputs; each side's outputs are
-    saved and compared (``"per_side": true``).
+    saved and compared (``"per_side": true``). ``edge_fitness_quantized``
+    is also timed at the Tier-0 check's shape (``"case"``).
 
 An entry whose C entry points are the same but whose Python differs gets
-both lines. The script prints the card's name and power limit, then one
+both lines. An entry whose source is new in this checkout is timed
+through each checkout's own wrapper, with ``"sass_identical": null``.
+The script prints the card's name and power limit, then one
 JSON line per entry and mode (ms per call of each side, their medians
 and the change's ratio to the base). It exits non-zero without a card.
 """
@@ -44,6 +48,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+#: the extra case of edge_fitness_quantized: the Tier-0 check's call
+TIER0 = "Tier 0: N = 1, the 0/255 tile of each problem's projection"
 
 
 def base_libraries(kb, base: Path, names):
@@ -69,7 +75,21 @@ def sass(tool: Path, lib: Path):
     # an anonymous namespace's mangled name carries a hash of its file
     text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", text)
     parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
-    return {parts[i]: parts[i + 1].strip() for i in range(1, len(parts), 2)}
+    return {parts[i]: local_text(parts[i + 1])
+            for i in range(1, len(parts), 2)}
+
+
+def local_text(body: str) -> str:
+    """A function's SASS as it compares between builds: runs of blanks as
+    one (cuobjdump pads the columns to the widest line of the file) and
+    the branch labels (``.L_x_<k>``, numbered across the file) numbered
+    from 0 in the order they appear, so that a function compares equal
+    when only the functions around it changed."""
+    names = {}
+    body = re.sub(r"[ \t]+", " ", body.strip())
+    return re.sub(r"\.L_x_\d+",
+                  lambda mt: names.setdefault(mt.group(0),
+                                              f".L_x_{len(names)}"), body)
 
 
 def c_entries(src: Path):
@@ -119,6 +139,13 @@ def worker(side: Path, inputs: Path, names, out: Path, rounds, reps):
                 t.clone() if isinstance(t, torch.Tensor) else t for t in got)
             res[f"{name}/q={q}"] = [cuda_ms(kern, reps) / calls
                                     for _ in range(rounds)]
+        if name == "edge_fitness_quantized":     # and its Tier-0 call
+            from repro_torch.kernels.pso_fitness import edge_fitness_cuda
+            kern = lambda: edge_fitness_cuda(d["tier0"], d["Q"], d["G"],
+                                             quantized=True)
+            bits[f"{name}/tier0"] = (kern().clone(),)
+            res[f"{name}/tier0"] = [cuda_ms(kern, reps)
+                                    for _ in range(rounds)]
     torch.save(bits, str(out) + ".bits")
     out.write_text(json.dumps(res))
 
@@ -150,12 +177,13 @@ def per_side(base: Path, names, inputs: Path, args, identical, sources):
         same = all(len(r) == len(runs[0]) and all(
             torch.equal(a, b) for a, b in zip(r, runs[0])
             if isinstance(a, torch.Tensor)) for r in runs)
-        name = key.split("/")[0]
+        name, mode = key.split("/")
         med = {k: statistics.median(v) for k, v in sides.items()}
         print(json.dumps(dict(
-            kernel=name, quantized=key.endswith("True"), per_side=True,
+            kernel=name, quantized=mode != "q=False", per_side=True,
+            case=TIER0 if mode == "tier0" else "phase 3",
             source=sources[name], same_bits=same,
-            sass_identical=identical[Path(sources[name]).stem],
+            sass_identical=identical.get(Path(sources[name]).stem),
             base_ms=sides["base"], change_ms=sides["change"],
             base_median_ms=med["base"], change_median_ms=med["change"],
             ratio=med["change"] / med["base"])), flush=True)
@@ -184,7 +212,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from repro_torch.core import pso
-    from repro_torch.kernels import _build as kb, cases
+    from repro_torch.kernels import _build as kb, cases, ref
 
     base = args.base.resolve()
     stems = sorted({Path(src).stem for src, _ in cs.KERNELS.values()
@@ -211,15 +239,21 @@ def main():
     elite_k = pso.elite_k_for(pso.PSOConfig())
     pairs = cases.kernel_pairs(Qb, Gb, Mb, x, quantized=True, gumbel_tau=0.0,
                                elite_k=elite_k)
+    # a source new in this checkout (a body moved to a file of its own) is
+    # timed per side, without a SASS comparison
     sided = [name for name, (src, _) in cs.KERNELS.items()
-             if Path(src).stem in stems and (Path(src).stem in changed or
-                                             wrapper_differs(base,
-                                                             Path(src).stem))]
+             if Path(src).stem not in stems or Path(src).stem in changed
+             or wrapper_differs(base, Path(src).stem)]
     if sided:
         with tempfile.TemporaryDirectory() as tmp:
             inputs = Path(tmp) / "inputs.pt"
-            torch.save(dict(Q=Qb, G=Gb, M=Mb, x=x, elite_k=elite_k),
-                       str(inputs))
+            # the Tier-0 check's fitness input (core/pso.py,
+            # revalidate_carry): the structured projection of S* as a
+            # 0/255 tile
+            tier0 = ref.quantize_s(ref.structured_project(
+                x["S_star"], Qb, Gb, Mb).float()[:, None])
+            torch.save(dict(Q=Qb, G=Gb, M=Mb, x=x, elite_k=elite_k,
+                            tier0=tier0), str(inputs))
             per_side(base, sided, inputs, args, identical,
                      {k: src for k, (src, _) in cs.KERNELS.items()})
     for name, (src, _) in cs.KERNELS.items():

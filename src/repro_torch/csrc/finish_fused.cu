@@ -5,260 +5,232 @@
 // finish_fused.py, bodies _finish_kernel, _batched_structured,
 // _batched_greedy, _batched_sweep and _batched_feasible).
 //
-// Bound on the H100: latency. The two structured projections and the
-// greedy projection are n sequential rounds each of a masked argmax over
-// one row (or over the whole matrix), with block barriers in between; the
-// bytes (one 32 KB S tile per particle) and the operations are small.
-// Design: launch 1 runs one CTA per (problem, particle), with S in shared
-// memory as f32 and every 0/1 matrix (mask, candidate set, Q, G) as bit
-// rows, the assignments as one column index per row. A round is one pass
-// of the columns over the threads plus one block argmax (ties to the
-// lowest index, the jnp.argmax order). Launch 2 runs one small CTA per
-// problem for the elite consensus S_bar: elite_k unrolled argmax rounds
-// (ties to the lower index, as top_k), a softmax and the weighted sum.
-// Integer outputs (M_hat, feasible) are exact; S_bar is float32 with
-// another summation order than the plain version's einsum.
+// Bound on the H100: latency. Each particle runs three chains of n
+// dependent rounds (the structured projection M_a, the greedy projection
+// and the structured re-projection M_b), each round a masked argmax whose
+// winner decides the next round's candidates. The bytes (one 32 KB S tile
+// per particle) and the operations are small; what counts is the length of
+// a round and how many rounds wait on each other. The design, set by
+// per-phase timings on the card (PERF.md):
+//  * launch 1 packs each problem's operands once into device scratch, in
+//    three CTAs a problem; more CTAs compute slices of the elite consensus
+//    S_bar (the top-k by ranks, then a softmax and the weighted sum);
+//  * launch 2, one CTA per (problem, particle), copies its problem's record
+//    with 16-byte loads. Every projection chain runs inside one warp,
+//    lane l owning the columns l + 32 k: a round's argmax is two warp
+//    reductions (ties to the lower index, the jnp.argmax order) and a
+//    __syncwarp, with no block barrier;
+//  * the 0/1 matrices the chains and sweeps read are lane-transposed: byte
+//    X[r * 32 + l] holds in bit k the entry (r, l + 32 k). A lane's
+//    candidates in row i are one byte, avail_i & free & AND over the
+//    predecessors u of Gout[asg[u]] (kept per placed row), so a round
+//    loads one byte per predecessor and a lane's state is a few scalars
+//    (per-lane arrays carried across rounds were put in local memory);
+//  * the forward check keeps each column's count of free out-neighbours in
+//    shared memory and lowers the counts of a taken column's in-neighbours;
+//  * M_a (warp 0) and the greedy projection (warp 1) run at once, so the
+//    critical path is 2n rounds, not 3n;
+//  * the greedy projection caches each free row's best free masked column
+//    (value, index; ties to the lower column); a round takes the best row
+//    (ties to the lower row: the lowest flat index, as before) and rescans
+//    only the rows whose cached column was just taken; it stops at the
+//    first round that takes nothing, as every later round would;
+//  * the row maximum of the candidate threshold is taken once per row, in
+//    the same pass that seeds the greedy cache;
+//  * an Ullmann sweep builds the supports of the rows whose candidates
+//    changed as unions of G's transposed rows over those candidates, a
+//    warp a row with every lane taking its own candidates, and the sweeps
+//    stop once one changes nothing;
+//  * S lives in shared memory (~52 KB a CTA at (56, 144): 4 CTAs an SM,
+//    so the 512 particles of the main path's burst are one wave); where it
+//    does not fit (n, m up to 256) the chains read it from device memory.
+// Integer outputs (M_hat, feasible) equal the plain version's bit for bit;
+// S_bar is float32 with another summation order than its einsum.
 #include "common.cuh"
 
 namespace {
 
-struct Smem {
-  float* S;          // n * m
-  uint32_t* mask;    // n * W
-  uint32_t* cand;    // n * W
-  uint32_t* Gout;    // m * W
-  uint32_t* Gin;     // m * W
-  uint32_t* Qrow;    // n * Wn
-  uint32_t* Qcol;    // n * Wn
-  uint32_t* SO;      // n * W
-  uint32_t* SI;      // n * W
-  uint32_t* cols;    // W      free target columns
-  uint32_t* rows;    // Wn     free query rows (greedy)
-  int* asg_a;        // n
-  int* asg_p;        // n
-  int* asg_b;        // n
-  int* colcnt;       // m
-  float* red_v;      // 64
-  int* red_i;        // 64
-  int* flag;         // 4
+constexpr int kThreads = 256;
+constexpr int kMaxW = rt::kMaxDim / 32;    // words of a bit row, at most 8
+constexpr size_t kSmemMax = 232448;        // 227 KB a block on the H100
+constexpr int kSliceEntries = 512;         // S_bar entries a consensus CTA
+constexpr int kPackCtas = 3;   // launch 1's CTAs a problem for its record
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+// Byte offsets of one problem's record (written by launch 1) and of one
+// particle CTA's shared memory, which starts with a copy of the record.
+// goutT, ginT and maskT are lane-transposed (bit k of byte r * 32 + l is
+// entry (r, l + 32 k) of G, of G's transpose and of the mask); qrow and
+// qcol are Q's and Q^T's bit rows, qsucc each row's successor count and
+// fo0 each column's out-degree.
+struct Layout {
+  int Wn;
+  int goutT, ginT, maskT, qrow, qcol, qsucc, fo0, rec;   // record
+  int soT, siT, dirty, img, asg_a, asg_p, asg_b, thr, gv, gj, fo, used, flag,
+      s;
 };
 
-__device__ Smem carve(void* base, int n, int m) {
-  const int W = rt::words(m), Wn = rt::words(n);
-  Smem s;
-  s.S = static_cast<float*>(base);
-  s.mask = reinterpret_cast<uint32_t*>(s.S + n * m);
-  s.cand = s.mask + n * W;
-  s.Gout = s.cand + n * W;
-  s.Gin = s.Gout + m * W;
-  s.Qrow = s.Gin + m * W;
-  s.Qcol = s.Qrow + n * Wn;
-  s.SO = s.Qcol + n * Wn;
-  s.SI = s.SO + n * W;
-  s.cols = s.SI + n * W;
-  s.rows = s.cols + W;
-  s.asg_a = reinterpret_cast<int*>(s.rows + Wn);
-  s.asg_p = s.asg_a + n;
-  s.asg_b = s.asg_p + n;
-  s.colcnt = s.asg_b + n;
-  s.red_v = reinterpret_cast<float*>(s.colcnt + m);
-  s.red_i = reinterpret_cast<int*>(s.red_v + 64);
-  s.flag = s.red_i + 64;
-  return s;
+__host__ __device__ inline Layout layout(int n, int m) {
+  Layout L;
+  L.Wn = rt::words(n);
+  L.goutT = 0;
+  L.ginT = align16(L.goutT + 32 * m);
+  L.maskT = align16(L.ginT + 32 * m);
+  L.qrow = align16(L.maskT + 32 * n);
+  L.qcol = align16(L.qrow + 4 * n * L.Wn);
+  L.qsucc = align16(L.qcol + 4 * n * L.Wn);
+  L.fo0 = align16(L.qsucc + 4 * n);
+  L.rec = align16(L.fo0 + 4 * m);
+  L.soT = L.rec;
+  L.siT = align16(L.soT + 32 * n);
+  L.dirty = align16(L.siT + 32 * n);    // two flags a row
+  L.img = align16(L.dirty + 2 * n);
+  L.asg_a = align16(L.img + 32 * n);
+  L.asg_p = align16(L.asg_a + 4 * n);
+  L.asg_b = align16(L.asg_p + 4 * n);
+  L.thr = align16(L.asg_b + 4 * n);
+  L.gv = align16(L.thr + 4 * n);
+  L.gj = align16(L.gv + 4 * n);
+  L.fo = align16(L.gj + 4 * n);
+  L.used = align16(L.fo + 4 * m);
+  L.flag = align16(L.used + 4 * kMaxW);
+  L.s = align16(L.flag + 4);
+  return L;
 }
 
-size_t smem_bytes(int n, int m) {
-  const int W = rt::words(m), Wn = rt::words(n);
-  return 4 * ((size_t)n * m + 5 * (size_t)n * W + 2 * (size_t)m * W +
-              2 * (size_t)n * Wn + W + Wn + 3 * n + m + 64 + 64 + 4);
+bool s_in_smem(int n, int m) {
+  return (size_t)layout(n, m).s + 4 * (size_t)n * m <= kSmemMax;
 }
 
-// Scores of the structured projection: S itself, or the Gumbel-perturbed
-// log S of the tau > 0 path (ref: log(clip(S, 1e-9)) + tau * gum).
-struct PlainScore {
-  const float* S;
-  int m;
-  __device__ float operator()(int i, int j) const { return S[i * m + j]; }
-};
+// Argmax over the warp of (value, index) pairs, ties to the lower index;
+// every lane gets the result. Two warp reductions: the largest value as an
+// order-preserving unsigned key (-0.0 counted as +0.0, since the two
+// compare equal), then the smallest index among the lanes that hold it.
+// Values are never NaN here.
+__device__ __forceinline__ void warp_argmax(float& v, int& vi) {
+  uint32_t key = __float_as_uint(v + 0.0f);
+  key = (key & 0x80000000u) ? ~key : key | 0x80000000u;
+  const uint32_t best = __reduce_max_sync(0xffffffffu, key);
+  vi = (int)__reduce_min_sync(0xffffffffu,
+                              key == best ? (uint32_t)vi : 0xffffffffu);
+  v = __uint_as_float((best & 0x80000000u) ? best & 0x7fffffffu : ~best);
+}
 
-struct GumbelScore {
-  const float* S;
-  const float* gum;
-  float tau;
-  int m;
-  __device__ float operator()(int i, int j) const {
-    return logf(fmaxf(S[i * m + j], 1e-9f)) + tau * gum[i * m + j];
+// Copy `bytes` bytes with 16-byte loads where both ends allow it.
+__device__ inline void copy_bytes(uint8_t* dst, const uint8_t* src,
+                                  int bytes) {
+  if (((uintptr_t)src & 15) == 0 && (bytes & 15) == 0) {
+    for (int w = threadIdx.x; w < bytes / 16; w += blockDim.x)
+      reinterpret_cast<uint4*>(dst)[w] =
+          reinterpret_cast<const uint4*>(src)[w];
+  } else {
+    for (int b = threadIdx.x; b < bytes; b += blockDim.x) dst[b] = src[b];
   }
-};
+}
 
-// ref.structured_project for one particle. `avail` rows are the initial
-// candidates; scores come from score(i, j). Writes asg[i] (-1: none).
-// Requires blockDim.x >= m (one thread per target column).
-template <typename Score>
-__device__ void structured(const Smem& s, const uint32_t* avail, Score score,
-                           int* asg, int n, int m) {
-  const int W = rt::words(m), Wn = rt::words(n);
-  const int j = threadIdx.x;
-  rt::fill_bits(s.cols, m);
-  __syncthreads();
-  for (int i = 0; i < n; ++i) {
-    float v = rt::kNeg;
-    int idx = j < m ? j : INT32_MAX;
-    if (j < m && rt::test_bit(avail + i * W, j) && rt::test_bit(s.cols, j)) {
-      // every predecessor placed, and adjacent to j
-      bool ok = true;
-      for (int wu = 0; wu < Wn && ok; ++wu) {
-        uint32_t preds = s.Qcol[i * Wn + wu];
-        while (preds) {
-          const int u = wu * 32 + __ffs(preds) - 1;
-          preds &= preds - 1;
-          const int a = asg[u];
-          if (a < 0 || !rt::test_bit(s.Gout + a * W, j)) { ok = false; break; }
-        }
-      }
-      if (ok) {
-        // forward checking: free out-neighbours of j cover i's successors
-        int free_out = 0;
-        for (int w = 0; w < W; ++w) free_out += __popc(s.Gout[j * W + w] & s.cols[w]);
-        ok = free_out >= rt::popcount_row(s.Qrow + i * Wn, Wn);
-      }
-      if (ok) v = score(i, j);
+// Lane-transposed rows of a row-major (rows, cols) byte matrix x in shared
+// memory: bit k of out[r * 32 + l] is x[r, l + 32 k] != 0.
+__device__ inline void pack_rows_t(const uint8_t* x, int rows, int cols,
+                                   uint8_t* out) {
+  for (int idx = threadIdx.x; idx < rows * 32; idx += blockDim.x) {
+    const int r = idx >> 5, l = idx & 31;
+    uint32_t byte = 0;
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) {
+      const int c = l + 32 * k;
+      if (c < cols && x[r * cols + c] != 0) byte |= 1u << k;
     }
-    float best;
-    int bj;
-    rt::block_argmax(v, idx, s.red_v, s.red_i, &best, &bj);
-    if (threadIdx.x == 0) {
-      const bool took = best > rt::kNeg;
-      asg[i] = took ? bj : -1;
-      if (took) s.cols[bj >> 5] &= ~(1u << (bj & 31));
-    }
-    __syncthreads();
+    out[idx] = (uint8_t)byte;
   }
 }
 
-// ref.is_feasible for a one-entry-per-row assignment (-1: empty row).
-__device__ bool feasible(const Smem& s, const int* asg, int n, int m) {
-  const int W = rt::words(m), Wn = rt::words(n);
-  for (int j = threadIdx.x; j < m; j += blockDim.x) s.colcnt[j] = 0;
-  if (threadIdx.x == 0) s.flag[0] = 1;
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int a = asg[i];
-    if (a < 0) { s.flag[0] = 0; continue; }
-    if (atomicAdd(&s.colcnt[a], 1) > 0) s.flag[0] = 0;
-  }
-  __syncthreads();
-  const bool rows_cols_ok = s.flag[0] != 0;
-  __syncthreads();
-  bool ok = true;
-  if (rows_cols_ok) {
-    for (int i = threadIdx.x; i < n && ok; i += blockDim.x) {
-      for (int wu = 0; wu < Wn && ok; ++wu) {
-        uint32_t succ = s.Qrow[i * Wn + wu];
-        while (succ) {
-          const int u = wu * 32 + __ffs(succ) - 1;
-          succ &= succ - 1;
-          if (!rt::test_bit(s.Gout + asg[i] * W, asg[u])) { ok = false; break; }
-        }
-      }
+// Lane-transposed columns of a square byte matrix x in shared memory: bit k
+// of out[c * 32 + l] is x[l + 32 k, c] != 0 (neighbouring threads read
+// neighbouring columns).
+__device__ inline void pack_cols_t(const uint8_t* x, int dim, uint8_t* out) {
+  for (int idx = threadIdx.x; idx < dim * 32; idx += blockDim.x) {
+    const int l = idx / dim, c = idx - l * dim;
+    uint32_t byte = 0;
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) {
+      const int r = l + 32 * k;
+      if (r < dim && x[r * dim + c] != 0) byte |= 1u << k;
     }
+    out[c * 32 + l] = (uint8_t)byte;
   }
-  return __syncthreads_and(ok) && rows_cols_ok;
 }
 
-__global__ void finish_kernel(const float* __restrict__ S_,
-                              const float* __restrict__ gum,
-                              const uint8_t* __restrict__ mask,
-                              const uint8_t* __restrict__ Q,
-                              const uint8_t* __restrict__ G,
-                              uint8_t* __restrict__ M_hat,
-                              uint8_t* __restrict__ feas_out, int N, int n,
-                              int m, float gumbel_tau, float refine_threshold,
-                              int refine_iters) {
-  const int p = blockIdx.y, part = blockIdx.x;
-  const int W = rt::words(m);
+// Launch 1. blockIdx.x < kPackCtas: a part of the problem's record, from
+// its bytes staged in shared memory (0: G's transposed rows and each
+// column's out-degree; 1: G's transposed columns; 2: Q's bit rows and
+// columns, the successor counts and the mask's transposed rows).
+// blockIdx.x >= kPackCtas: slice blockIdx.x - kPackCtas of the problem's
+// elite consensus (top elite_k of f_final, ties to the lower index as
+// top_k, each particle's place found by counting the ones ahead of it;
+// then a softmax and the weighted sum of those S).
+__global__ void __launch_bounds__(kThreads)
+prep_kernel(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ Q,
+            const uint8_t* __restrict__ G, uint8_t* __restrict__ rec,
+            const float* __restrict__ S, const float* __restrict__ f_final,
+            float* __restrict__ S_bar, int N, int n, int m, int elite_k,
+            float temp) {
+  const int p = blockIdx.y, tid = threadIdx.x;
+  extern __shared__ __align__(16) uint8_t sm[];
   const int nm = n * m;
-  extern __shared__ float smf[];
-  const Smem s = carve(smf, n, m);
-  const size_t base = ((size_t)p * N + part) * nm;
-  for (int idx = threadIdx.x; idx < nm; idx += blockDim.x)
-    s.S[idx] = S_[base + idx];
-  rt::pack_rows(mask + (size_t)p * nm, n, m, s.mask);
-  rt::pack_rows(G + (size_t)p * m * m, m, m, s.Gout);
-  rt::pack_cols(G + (size_t)p * m * m, m, s.Gin);
-  rt::pack_rows(Q + (size_t)p * n * n, n, n, s.Qrow);
-  rt::pack_cols(Q + (size_t)p * n * n, n, s.Qcol);
-  __syncthreads();
-
-  // 1. (Gumbel-perturbed) structured projection M_a
-  const float* g = gum == nullptr ? nullptr : gum + base;
-  const float tau = gumbel_tau;
-  const float* Ss = s.S;
-  if (tau > 0.0f)
-    structured(s, s.mask, GumbelScore{Ss, g, tau, m}, s.asg_a, n, m);
-  else
-    structured(s, s.mask, PlainScore{Ss, m}, s.asg_a, n, m);
-  const bool feas_a = feasible(s, s.asg_a, n, m);
-
-  // 2. greedy projection M_proj: n rounds of a masked global argmax
-  rt::greedy_assign(Ss, s.mask, s.rows, s.cols, s.asg_p, s.red_v, s.red_i,
-                    n, m);
-
-  // 3. candidate set, refine_iters Ullmann sweeps, structured re-projection
-  for (int idx = threadIdx.x; idx < n * W; idx += blockDim.x) {
-    const int i = idx / W, w = idx - i * W;
-    float rowmax = Ss[i * m];
-    for (int j = 1; j < m; ++j) rowmax = fmaxf(rowmax, Ss[i * m + j]);
-    const float thr = refine_threshold * rowmax;
-    uint32_t word = 0;
-    for (int b = 0; b < 32; ++b) {
-      const int j = w * 32 + b;
-      if (j >= m) break;
-      if (Ss[i * m + j] >= thr || s.asg_p[i] == j) word |= 1u << b;
+  if (blockIdx.x < kPackCtas) {
+    const Layout L = layout(n, m);
+    uint8_t* r = rec + (size_t)p * L.rec;
+    if (blockIdx.x < 2) {
+      copy_bytes(sm, G + (size_t)p * m * m, m * m);
+      __syncthreads();
+      if (blockIdx.x == 1) {
+        pack_cols_t(sm, m, r + L.ginT);
+        return;
+      }
+      pack_rows_t(sm, m, m, r + L.goutT);
+      __syncthreads();
+      const uint32_t* rows = reinterpret_cast<const uint32_t*>(r + L.goutT);
+      int* fo0 = reinterpret_cast<int*>(r + L.fo0);
+      for (int j = tid; j < m; j += blockDim.x)
+        fo0[j] = rt::popcount_row(rows + j * 8, 8);
+      return;
     }
-    s.cand[idx] = word & s.mask[idx];
+    uint8_t* q = sm;
+    uint8_t* mk = q + align16(n * n);
+    copy_bytes(q, Q + (size_t)p * n * n, n * n);
+    copy_bytes(mk, mask + (size_t)p * nm, nm);
+    __syncthreads();
+    uint32_t* qrow = reinterpret_cast<uint32_t*>(r + L.qrow);
+    rt::pack_rows(q, n, n, qrow);
+    rt::pack_cols(q, n, reinterpret_cast<uint32_t*>(r + L.qcol));
+    pack_rows_t(mk, n, m, r + L.maskT);
+    __syncthreads();
+    int* qsucc = reinterpret_cast<int*>(r + L.qsucc);
+    for (int i = tid; i < n; i += blockDim.x)
+      qsucc[i] = rt::popcount_row(qrow + i * L.Wn, L.Wn);
+    return;
   }
-  __syncthreads();
-  for (int it = 0; it < refine_iters; ++it)
-    rt::ullmann_sweep(s.cand, s.Gout, s.Gin, s.Qrow, s.Qcol, s.SO, s.SI, n, m);
-  structured(s, s.cand, PlainScore{Ss, m}, s.asg_b, n, m);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    if (rt::popcount_row(s.cand + i * W, W) == 0) s.asg_b[i] = s.asg_p[i];
-  __syncthreads();
-  const bool feas_b = feasible(s, s.asg_b, n, m);
-
-  // 4. merge
-  const int* asg = feas_a ? s.asg_a : s.asg_b;
-  uint8_t* out = M_hat + base;
-  for (int idx = threadIdx.x; idx < nm; idx += blockDim.x) {
-    const int i = idx / m;
-    out[idx] = asg[i] == idx - i * m ? 1 : 0;
-  }
-  if (threadIdx.x == 0) feas_out[(size_t)p * N + part] = feas_a || feas_b;
-}
-
-// Elite consensus: one CTA per problem.
-__global__ void consensus_kernel(const float* __restrict__ S,
-                                 const float* __restrict__ f_final,
-                                 float* __restrict__ S_bar, int N, int nm,
-                                 int elite_k, float temp) {
-  const int p = blockIdx.x;
-  extern __shared__ float cs[];
-  float* fw = cs;                  // N
-  float* w = fw + N;               // elite_k
+  float* fw = reinterpret_cast<float*>(sm);     // N
+  float* w = fw + N;                            // elite_k
   int* top = reinterpret_cast<int*>(w + elite_k);   // elite_k
-  for (int i = threadIdx.x; i < N; i += blockDim.x)
+  for (int i = tid; i < N; i += blockDim.x)
     fw[i] = f_final[(size_t)p * N + i];
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < elite_k; ++k) {
-      int b = 0;
-      for (int i = 1; i < N; ++i)
-        if (fw[i] > fw[b]) b = i;
-      top[k] = b;
-      w[k] = fw[b];
-      fw[b] = rt::kNeg;
+  // particle i's place in the descending order, ties to the lower index
+  // (the order of elite_k argmax rounds, as top_k)
+  for (int i = tid; i < N; i += blockDim.x) {
+    const float fi = fw[i];
+    int rank = 0;
+    for (int j = 0; j < N; ++j)
+      rank += fw[j] > fi || (fw[j] == fi && j < i);
+    if (rank < elite_k) {
+      top[rank] = i;
+      w[rank] = fi;
     }
+  }
+  __syncthreads();
+  if (tid == 0) {
     const float f0 = w[0];
     float mx = rt::kNeg;
     for (int k = 0; k < elite_k; ++k) {
@@ -273,7 +245,9 @@ __global__ void consensus_kernel(const float* __restrict__ S,
     for (int k = 0; k < elite_k; ++k) w[k] = w[k] / tot;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nm; idx += blockDim.x) {
+  const int lo = (blockIdx.x - kPackCtas) * kSliceEntries;
+  const int hi = min(nm, lo + kSliceEntries);
+  for (int idx = lo + tid; idx < hi; idx += blockDim.x) {
     float acc = 0.0f;
     for (int k = 0; k < elite_k; ++k)
       acc = acc + w[k] * S[((size_t)p * N + top[k]) * nm + idx];
@@ -281,30 +255,467 @@ __global__ void consensus_kernel(const float* __restrict__ S,
   }
 }
 
+// Operands of one particle CTA, all in shared memory but S where it does
+// not fit.
+struct Ctx {
+  const uint8_t *goutT, *ginT;
+  const uint32_t *qrow, *qcol;
+  const int *qsucc, *fo0;
+  const float* S;      // the particle's S tile, row stride m
+  int n, m, W, Wn;
+};
+
+// The free columns of lane l at the start of a chain: bit k for l + 32 k.
+__device__ __forceinline__ uint32_t all_cols(int m) {
+  const int lane = threadIdx.x & 31;
+  uint32_t cols = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxW; ++k)
+    if (lane + 32 * k < m) cols |= 1u << k;
+  return cols;
+}
+
+// ref.structured_project of one particle, run by one warp: rows in order,
+// each on its best free candidate adjacent to every predecessor's image
+// and with enough free out-neighbours left for its successors. availT is
+// the lane-transposed initial candidates; fo (m counts) and img (n rows
+// of 32 bytes: a placed row's image's transposed G row, zero for a row not
+// placed) are scratch; with GUMBEL the score is the perturbed log S of the
+// tau > 0 path (log(clip(S, 1e-9)) + tau * gum). Writes asg[i] (-1: none).
+template <bool GUMBEL>
+__device__ __forceinline__ void structured_warp(const Ctx& c,
+                                                const uint8_t* availT,
+                                                const float* gum, float tau,
+                                                int* fo, uint8_t* img,
+                                                int* asg) {
+  const int lane = threadIdx.x & 31, n = c.n, m = c.m;
+  uint32_t cols = all_cols(m);
+  for (int j = lane; j < m; j += 32) fo[j] = c.fo0[j];
+  for (int i = lane; i < n; i += 32) asg[i] = -1;
+  for (int w = lane; w < n * 8; w += 32)
+    reinterpret_cast<uint32_t*>(img)[w] = 0u;
+  __syncwarp();
+  for (int i = 0; i < n; ++i) {
+    uint32_t cand = availT[i * 32 + lane] & cols;
+    // every predecessor placed, and adjacent to the column
+    for (int wu = 0; wu < c.Wn; ++wu) {
+      uint32_t preds = c.qcol[i * c.Wn + wu];
+      while (preds) {
+        const int u = wu * 32 + __ffs(preds) - 1;
+        preds &= preds - 1;
+        cand &= img[u * 32 + lane];
+      }
+    }
+    const int need = c.qsucc[i];
+    float v = rt::kNeg;
+    int vi = INT32_MAX;
+    // the lane's columns, ascending; unrolled, so that their loads issue
+    // together
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) {
+      if ((cand >> k) & 1u) {
+        const int j = lane + 32 * k;
+        const int free_out = fo[j];
+        float s = c.S[i * m + j];
+        if (GUMBEL) s = logf(fmaxf(s, 1e-9f)) + tau * gum[(size_t)i * m + j];
+        if (free_out >= need && s > v) { v = s; vi = j; }
+      }
+    }
+    warp_argmax(v, vi);
+    if (v > rt::kNeg) {
+      if (lane == 0) asg[i] = vi;
+      img[i * 32 + lane] = c.goutT[vi * 32 + lane];
+      if (lane == (vi & 31)) cols &= ~(1u << (vi >> 5));
+      // vi's in-neighbours lose a free out-neighbour
+      uint32_t in = c.ginT[vi * 32 + lane];
+      while (in) {
+        fo[lane + 32 * (__ffs(in) - 1)] -= 1;
+        in &= in - 1;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// ref.greedy_project of one particle, run by one warp. gv / gj hold every
+// row's best (value, column) over its masked columns and are the cache:
+// a taken row is set to (-FLT_MAX, INT32_MAX). Writes asg[i] (-1: none).
+__device__ __forceinline__ void greedy_warp(const Ctx& c,
+                                            const uint8_t* maskT, float* gv,
+                                            int* gj, int* asg) {
+  const int lane = threadIdx.x & 31, n = c.n, m = c.m;
+  uint32_t cols = all_cols(m);
+  for (int i = lane; i < n; i += 32) asg[i] = -1;
+  __syncwarp();
+  for (int round = 0; round < n; ++round) {
+    float v = rt::kNeg;
+    int row = INT32_MAX;
+    for (int i = lane; i < n; i += 32)
+      if (gv[i] > v) { v = gv[i]; row = i; }
+    warp_argmax(v, row);
+    if (!(v > rt::kNeg)) break;      // nothing left: every later round too
+    const int col = gj[row];
+    __syncwarp();
+    if (lane == 0) {
+      asg[row] = col;
+      gv[row] = rt::kNeg;
+      gj[row] = INT32_MAX;
+    }
+    if (lane == (col & 31)) cols &= ~(1u << (col >> 5));
+    __syncwarp();
+    // rescan the rows whose cached column was just taken
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      uint32_t stale = __ballot_sync(
+          0xffffffffu, i0 + lane < n && gj[i0 + lane] == col);
+      while (stale) {
+        const int i = i0 + __ffs(stale) - 1;
+        stale &= stale - 1;
+        const uint32_t ok = maskT[i * 32 + lane] & cols;
+        float bv = rt::kNeg;
+        int bj = INT32_MAX;
+#pragma unroll
+        for (int k = 0; k < kMaxW; ++k) {
+          if ((ok >> k) & 1u) {
+            const float s = c.S[i * m + lane + 32 * k];
+            if (s > bv) { bv = s; bj = lane + 32 * k; }
+          }
+        }
+        warp_argmax(bv, bj);
+        if (lane == 0) {
+          gv[i] = bv;
+          gj[i] = bj;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// ref.is_feasible of a one-entry-per-row assignment (-1: empty row), run by
+// one warp; `used` is kMaxW words of scratch.
+__device__ __forceinline__ bool feasible_warp(const Ctx& c, const int* asg,
+                                              uint32_t* used) {
+  const int lane = threadIdx.x & 31, n = c.n;
+  for (int k = lane; k < kMaxW; k += 32) used[k] = 0u;
+  __syncwarp();
+  bool ok = true;
+  for (int i = lane; i < n; i += 32) {
+    const int a = asg[i];
+    if (a < 0) { ok = false; continue; }
+    const uint32_t bit = 1u << (a & 31);
+    if (atomicOr(&used[a >> 5], bit) & bit) ok = false;
+  }
+  if (!__all_sync(0xffffffffu, ok)) return false;
+  for (int i = lane; i < n; i += 32) {
+    const uint8_t* ga = c.goutT + asg[i] * 32;
+    for (int wu = 0; wu < c.Wn; ++wu) {
+      uint32_t succ = c.qrow[i * c.Wn + wu];
+      while (succ) {
+        const int b = asg[wu * 32 + __ffs(succ) - 1];
+        succ &= succ - 1;
+        if (!((ga[b & 31] >> (b >> 5)) & 1u)) ok = false;
+      }
+    }
+  }
+  return __all_sync(0xffffffffu, ok);
+}
+
+__device__ __forceinline__ void or4(uint4& a, const uint4& b) {
+  a.x |= b.x;
+  a.y |= b.y;
+  a.z |= b.z;
+  a.w |= b.w;
+}
+
+__device__ __forceinline__ void reduce_or4(uint4& a) {
+  a.x = __reduce_or_sync(0xffffffffu, a.x);
+  a.y = __reduce_or_sync(0xffffffffu, a.y);
+  a.z = __reduce_or_sync(0xffffffffu, a.z);
+  a.w = __reduce_or_sync(0xffffffffu, a.w);
+}
+
+// Byte `lane` of a 32-byte transposed row held as two words of 16 bytes.
+__device__ __forceinline__ uint32_t byte_of(const uint4& lo, const uint4& hi,
+                                            int lane) {
+  const int w = (lane >> 2) & 3;
+  const uint4& q = lane < 16 ? lo : hi;
+  const uint32_t word = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
+  return (word >> (8 * (lane & 3))) & 0xffu;
+}
+
+// One Ullmann sweep on the lane-transposed candidates MT, in place: with
+// the supports
+//   SO[u] = { j : M[u] & Gout[j] != 0 } = OR_{v in M[u]} Gin[v]
+//   SI[u] = { j : M[u] & Gin[j]  != 0 } = OR_{v in M[u]} Gout[v]
+// it keeps M[i] &= AND_{u : Q[i,u]} SO[u] & AND_{u : Q[u,i]} SI[u], exactly
+// rt::ullmann_sweep. A warp builds a row's supports: each lane ORs the
+// 32-byte transposed G rows of its own candidates v = lane + 32 k, then
+// the warp ORs the lanes' parts together (__reduce_or_sync) and each lane
+// keeps its byte. Only the rows whose candidates changed in the last sweep
+// (dirty[u], all of them before the first) get new supports: the others'
+// are still those of their unchanged candidates. Marks the rows that
+// change in next_dirty; returns whether any did (every thread).
+__device__ __forceinline__ bool sweep(const Ctx& c, uint8_t* MT,
+                                      uint8_t* soT, uint8_t* siT,
+                                      const uint8_t* dirty,
+                                      uint8_t* next_dirty) {
+  const int lane = threadIdx.x & 31, n = c.n;
+  for (int u = threadIdx.x >> 5; u < n; u += blockDim.x >> 5) {
+    if (!dirty[u]) continue;
+    uint32_t mine = MT[u * 32 + lane];
+    uint4 o0 = make_uint4(0, 0, 0, 0), o1 = o0, i0 = o0, i1 = o0;
+    while (mine) {
+      const int v = lane + 32 * (__ffs(mine) - 1);
+      mine &= mine - 1;
+      const uint4* gi = reinterpret_cast<const uint4*>(c.ginT + v * 32);
+      const uint4* go = reinterpret_cast<const uint4*>(c.goutT + v * 32);
+      or4(o0, gi[0]);
+      or4(o1, gi[1]);
+      or4(i0, go[0]);
+      or4(i1, go[1]);
+    }
+    reduce_or4(o0);
+    reduce_or4(o1);
+    reduce_or4(i0);
+    reduce_or4(i1);
+    soT[u * 32 + lane] = (uint8_t)byte_of(o0, o1, lane);
+    siT[u * 32 + lane] = (uint8_t)byte_of(i0, i1, lane);
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) next_dirty[i] = 0;
+  __syncthreads();
+  bool changed = false;
+  for (int idx = threadIdx.x; idx < n * 32; idx += blockDim.x) {
+    const int i = idx >> 5, l = idx & 31;
+    const uint32_t old = MT[idx];
+    uint32_t x = old;
+    for (int wu = 0; wu < c.Wn; ++wu) {
+      uint32_t out_nb = c.qrow[i * c.Wn + wu];
+      while (out_nb) {
+        const int u = wu * 32 + __ffs(out_nb) - 1;
+        out_nb &= out_nb - 1;
+        x &= soT[u * 32 + l];
+      }
+      uint32_t in_nb = c.qcol[i * c.Wn + wu];
+      while (in_nb) {
+        const int u = wu * 32 + __ffs(in_nb) - 1;
+        in_nb &= in_nb - 1;
+        x &= siT[u * 32 + l];
+      }
+    }
+    MT[idx] = (uint8_t)x;
+    if (x != old) {
+      next_dirty[i] = 1;
+      changed = true;
+    }
+  }
+  return __syncthreads_or(changed) != 0;
+}
+
+// Launch 2: one particle (blockIdx.x) of one problem (blockIdx.y).
+template <bool SMEM>
+__global__ void __launch_bounds__(kThreads, 4)
+finish_kernel(const float* __restrict__ S_, const float* __restrict__ gum,
+              const uint8_t* __restrict__ rec, uint8_t* __restrict__ M_hat,
+              uint8_t* __restrict__ feas_out, int N, int n, int m,
+              float gumbel_tau, float refine_threshold, int refine_iters) {
+  const int p = blockIdx.y, part = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nt = blockDim.x;
+  const int nwarps = nt >> 5, nm = n * m;
+  const Layout L = layout(n, m);
+  extern __shared__ __align__(16) uint8_t sm[];
+  const size_t base = ((size_t)p * N + part) * nm;
+  copy_bytes(sm, rec + (size_t)p * L.rec, L.rec);
+  float* St = reinterpret_cast<float*>(sm + L.s);
+  if (SMEM) {
+    if ((m & 3) == 0) {
+      for (int g = tid; g < nm / 4; g += nt)
+        reinterpret_cast<float4*>(St)[g] =
+            reinterpret_cast<const float4*>(S_ + base)[g];
+    } else {
+      for (int idx = tid; idx < nm; idx += nt) St[idx] = S_[base + idx];
+    }
+  }
+  __syncthreads();
+  Ctx c;
+  c.goutT = sm + L.goutT;
+  c.ginT = sm + L.ginT;
+  c.qrow = reinterpret_cast<const uint32_t*>(sm + L.qrow);
+  c.qcol = reinterpret_cast<const uint32_t*>(sm + L.qcol);
+  c.qsucc = reinterpret_cast<const int*>(sm + L.qsucc);
+  c.fo0 = reinterpret_cast<const int*>(sm + L.fo0);
+  c.S = SMEM ? St : S_ + base;
+  c.n = n;
+  c.m = m;
+  c.W = rt::words(m);
+  c.Wn = L.Wn;
+  // the mask's transposed rows; after the chains, the candidate set
+  uint8_t* maskT = sm + L.maskT;
+  uint8_t* soT = sm + L.soT;
+  uint8_t* siT = sm + L.siT;
+  uint8_t* dirty = sm + L.dirty;
+  uint8_t* img = sm + L.img;
+  int* asg_a = reinterpret_cast<int*>(sm + L.asg_a);
+  int* asg_p = reinterpret_cast<int*>(sm + L.asg_p);
+  int* asg_b = reinterpret_cast<int*>(sm + L.asg_b);
+  float* thr = reinterpret_cast<float*>(sm + L.thr);
+  float* gv = reinterpret_cast<float*>(sm + L.gv);
+  int* gj = reinterpret_cast<int*>(sm + L.gj);
+  int* fo = reinterpret_cast<int*>(sm + L.fo);
+  uint32_t* used = reinterpret_cast<uint32_t*>(sm + L.used);
+  int* take_a = reinterpret_cast<int*>(sm + L.flag);
+
+  // each row once, a warp a row: its maximum (the candidate threshold) and
+  // its best masked column (the greedy cache)
+  for (int i = warp; i < n; i += nwarps) {
+    const uint32_t mk = maskT[i * 32 + lane];
+    float mx = rt::kNeg, v = rt::kNeg;
+    int vi = INT32_MAX;
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) {
+      const int j = lane + 32 * k;
+      if (j < m) {
+        const float s = c.S[i * m + j];
+        mx = fmaxf(mx, s);
+        if (((mk >> k) & 1u) && s > v) { v = s; vi = j; }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    warp_argmax(v, vi);
+    if (lane == 0) {
+      thr[i] = refine_threshold * mx;
+      gv[i] = v;
+      gj[i] = vi;
+    }
+  }
+  __syncthreads();
+
+  // M_a (warp 0, then its feasibility) beside the greedy projection (warp 1)
+  bool feas_a = false;
+  if (warp == 0) {
+    const float* g = gum == nullptr ? nullptr : gum + base;
+    if (gumbel_tau > 0.0f)
+      structured_warp<true>(c, maskT, g, gumbel_tau, fo, img, asg_a);
+    else
+      structured_warp<false>(c, maskT, nullptr, 0.0f, fo, img, asg_a);
+    feas_a = feasible_warp(c, asg_a, used);
+  } else if (warp == 1) {
+    greedy_warp(c, maskT, gv, gj, asg_p);
+  }
+  __syncthreads();
+
+  // candidate set S >= thr * rowmax or the greedy pick, masked, a warp a
+  // row; it takes the place of the mask
+  uint8_t* candT = maskT;
+  for (int i = warp; i < n; i += nwarps) {
+    const float t = thr[i];
+    const int pick = asg_p[i];
+    uint32_t byte = 0;
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) {
+      const int j = lane + 32 * k;
+      if (j < m && (c.S[i * m + j] >= t || pick == j)) byte |= 1u << k;
+    }
+    candT[i * 32 + lane] &= (uint8_t)byte;
+  }
+  for (int i = tid; i < n; i += nt) dirty[i] = 1;
+  __syncthreads();
+  for (int it = 0; it < refine_iters; ++it) {
+    uint8_t* d = dirty + (it & 1) * n;
+    if (!sweep(c, candT, soT, siT, d, dirty + n - (it & 1) * n))
+      break;                               // a fixpoint: later sweeps too
+  }
+
+  // M_b, the fallback to M_proj on empty rows, its feasibility; the merge
+  if (warp == 0) {
+    structured_warp<false>(c, candT, nullptr, 0.0f, fo, img, asg_b);
+    for (int i = lane; i < n; i += 32) {      // a row's 32 bytes at once
+      const uint4* row = reinterpret_cast<const uint4*>(candT + i * 32);
+      const uint4 a = row[0], b = row[1];
+      if ((a.x | a.y | a.z | a.w | b.x | b.y | b.z | b.w) == 0)
+        asg_b[i] = asg_p[i];
+    }
+    __syncwarp();
+    const bool feas_b = feasible_warp(c, asg_b, used);
+    if (lane == 0) {
+      feas_out[(size_t)p * N + part] = feas_a || feas_b;
+      *take_a = feas_a;
+    }
+  }
+  __syncthreads();
+  const int* asg = *take_a ? asg_a : asg_b;
+  uint8_t* out = M_hat + base;
+  if ((nm & 3) == 0) {
+    for (int wi = tid; wi < nm / 4; wi += nt) {
+      int i = 4 * wi / m, j = 4 * wi - i * m;
+      uint32_t word = 0;
+      for (int b = 0; b < 4; ++b) {
+        word |= (uint32_t)(asg[i] == j) << (8 * b);
+        if (++j == m) { j = 0; ++i; }
+      }
+      reinterpret_cast<uint32_t*>(out)[wi] = word;
+    }
+  } else {
+    for (int idx = tid; idx < nm; idx += nt) {
+      const int i = idx / m;
+      out[idx] = asg[i] == idx - i * m ? 1 : 0;
+    }
+  }
+}
+
+size_t prep_smem(int N, int n, int m, int elite_k) {
+  const size_t g = (size_t)m * m, qm = (size_t)align16(n * n) + n * m;
+  const size_t pack = g > qm ? g : qm;
+  const size_t cons = sizeof(float) * (size_t)(N + 2 * elite_k);
+  return pack > cons ? pack : cons;
+}
+
 }  // namespace
 
+// Bytes of device scratch that epoch_finish needs for these shapes.
+extern "C" long long epoch_finish_scratch_bytes(int P, int n, int m) {
+  return (long long)P * layout(n, m).rec;
+}
+
+// The epoch tail of P problems: one launch for the records and S_bar, one
+// for the particles. S, f_final, gum (or null when gumbel_tau == 0) are
+// float32; mask, Q, G are uint8 0/1; scratch holds
+// epoch_finish_scratch_bytes bytes.
 extern "C" int epoch_finish(const void* S, const void* f_final,
                             const void* gum, const void* mask, const void* Q,
                             const void* G, void* M_hat, void* feasible_out,
-                            void* S_bar, int P, int N, int n, int m,
-                            float gumbel_tau, float refine_threshold,
+                            void* S_bar, void* scratch, int P, int N, int n,
+                            int m, float gumbel_tau, float refine_threshold,
                             int refine_iters, int elite_k,
                             float consensus_temp, void* stream) {
-  const size_t smem = smem_bytes(n, m);
-  cudaError_t err = rt::allow_smem((const void*)finish_kernel, smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t psmem = prep_smem(N, n, m, elite_k);
+  cudaError_t err = rt::allow_smem((const void*)prep_kernel, psmem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = m <= 128 ? 128 : 256;
-  dim3 grid(N, P);
-  finish_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)S, (const float*)gum, (const uint8_t*)mask,
-      (const uint8_t*)Q, (const uint8_t*)G, (uint8_t*)M_hat,
-      (uint8_t*)feasible_out, N, n, m, gumbel_tau, refine_threshold,
-      refine_iters);
+  const int slices = (n * m + kSliceEntries - 1) / kSliceEntries;
+  prep_kernel<<<dim3(kPackCtas + slices, P), kThreads, psmem, st>>>(
+      (const uint8_t*)mask, (const uint8_t*)Q, (const uint8_t*)G,
+      (uint8_t*)scratch, (const float*)S, (const float*)f_final,
+      (float*)S_bar, N, n, m, elite_k, consensus_temp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t csmem = sizeof(float) * (size_t)(N + 2 * elite_k);
-  consensus_kernel<<<P, 256, csmem, (cudaStream_t)stream>>>(
-      (const float*)S, (const float*)f_final, (float*)S_bar, N, n * m,
-      elite_k, consensus_temp);
+  const Layout L = layout(n, m);
+  const bool in_smem = s_in_smem(n, m);
+  const size_t smem = (size_t)L.s + (in_smem ? 4 * (size_t)n * m : 0);
+  const void* kern = in_smem ? (const void*)finish_kernel<true>
+                             : (const void*)finish_kernel<false>;
+  err = rt::allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+#define FINISH(SB)                                                         \
+  finish_kernel<SB><<<dim3(N, P), kThreads, smem, st>>>(                   \
+      (const float*)S, (const float*)gum, (const uint8_t*)scratch,         \
+      (uint8_t*)M_hat, (uint8_t*)feasible_out, N, n, m, gumbel_tau,        \
+      refine_threshold, refine_iters)
+  if (in_smem)
+    FINISH(true);
+  else
+    FINISH(false);
+#undef FINISH
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,264 @@
+// Edge-preserving PSO fitness  f = -||Q - S G S^T||_F^2  per particle, the
+// fixed-point body: uint8 S ~ S * scale, integer products, the squared
+// residual summed exactly; batched over problems with their own Q and G.
+//
+// Replaces the TPU kernel edge_fitness_quantized_pallas
+// (_fitness_kernel_quantized in src/repro/kernels/pso_fitness.py).
+//
+// Bound on the H100: integer operations, ~0.45 M multiply-adds per
+// particle at 56x144, and under them the latency of shared-memory loads
+// and the occupancy that hides it. The design is epoch_fused.cu's
+// quantized step, whose costs were timed phase by phase (PERF.md):
+//  * a first launch packs each problem's G columns once into device
+//    scratch; a CTA copies its problem's with 16-byte loads;
+//  * one CTA per (problem, particle) holds S as bytes and S G as 16-bit
+//    words (<= 255 m) with an odd-chunk row stride, so that 8-byte (16-
+//    byte) loads by lanes walking consecutive rows hit distinct banks;
+//  * S G walks each column's G bits once for 8 rows;
+//  * S G S^T runs on __dp2a over a 4 x 4 block of (i, u) pairs per thread,
+//    accumulated unsigned (at m = 256 a sum reaches ~4.3e9, above 2^31);
+//  * ~29 KB of shared memory at (56, 144): one wave of the main path's
+//    512 CTAs at 4 or more an SM.
+// The squared residual Q scale^2 - S G S^T is summed in 64 bits, wrapping
+// as the plain version's int64 arithmetic does (kernels/ref.py), so the
+// result is bitwise equal to it.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+__host__ __device__ inline int round_up(int x, int a) {
+  return (x + a - 1) / a * a;
+}
+// A row stride of `a`-element chunks, an odd number of them: 8-byte (16-
+// byte) loads by lanes walking consecutive rows then hit distinct banks.
+__host__ __device__ inline int odd_chunks(int cols, int a) {
+  const int x = round_up(cols, a);
+  return (x / a) % 2 ? x : x + a;
+}
+
+// Byte offsets of a quantized CTA's shared memory.
+struct QLayout {
+  int W, ldb, ldh;         // words of a bit row; S (bytes), S G (halfs)
+  int gin, parts, sq, sg, total;
+};
+
+__host__ __device__ inline QLayout qlayout(int n, int m) {
+  QLayout L;
+  L.W = rt::words(m);
+  L.ldb = odd_chunks(m, 8);
+  L.ldh = odd_chunks(m, 8);
+  L.gin = 0;
+  L.parts = align16(4 * m * L.W);
+  L.sq = L.parts + 8 * 32;
+  L.sg = align16(L.sq + n * L.ldb);
+  L.total = align16(L.sg + 2 * n * L.ldh);
+  return L;
+}
+
+// Launch 1 of the quantized body: problem blockIdx.x's G columns as bit
+// rows (row j holds the k with G[k, j] != 0), from G staged in shared
+// memory.
+__global__ void __launch_bounds__(kThreads)
+pack_gin_kernel(const uint8_t* __restrict__ G, uint32_t* __restrict__ gin,
+                int m) {
+  extern __shared__ __align__(16) uint8_t gs[];
+  const int p = blockIdx.x, mm = m * m;
+  const uint8_t* g = G + (size_t)p * mm;
+  if (((uintptr_t)g & 15) == 0 && (mm & 15) == 0) {
+    for (int w = threadIdx.x; w < mm / 16; w += blockDim.x)
+      reinterpret_cast<uint4*>(gs)[w] = reinterpret_cast<const uint4*>(g)[w];
+  } else {
+    for (int b = threadIdx.x; b < mm; b += blockDim.x) gs[b] = g[b];
+  }
+  __syncthreads();
+  // a thread a word, neighbouring threads on neighbouring columns
+  const int W = rt::words(m);
+  uint32_t* out = gin + (size_t)p * m * W;
+  for (int idx = threadIdx.x; idx < m * W; idx += blockDim.x) {
+    const int w = idx / m, col = idx - w * m;
+    uint32_t word = 0;
+#pragma unroll 8
+    for (int b = 0; b < 32; ++b) {
+      const int r = w * 32 + b;
+      if (r < m && gs[r * m + col] != 0) word |= 1u << b;
+    }
+    out[col * W + w] = word;
+  }
+}
+
+// Launch 2 of the quantized body: one particle (blockIdx.x) of one problem
+// (blockIdx.y).
+__global__ void __launch_bounds__(kThreads, 4)
+fitness_u8_kernel(const uint8_t* __restrict__ S,
+                  const uint32_t* __restrict__ gin_all,
+                  const uint8_t* __restrict__ Q, float* __restrict__ out,
+                  int N, int n, int m, int scale) {
+  const int p = blockIdx.y, part = blockIdx.x, tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const QLayout L = qlayout(n, m);
+  const int W = L.W, ldb = L.ldb, ldh = L.ldh;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* Gin = reinterpret_cast<uint32_t*>(smem + L.gin);
+  long long* part_sums = reinterpret_cast<long long*>(smem + L.parts);
+  uint8_t* Sq = smem + L.sq;
+  uint16_t* SGh = reinterpret_cast<uint16_t*>(smem + L.sg);
+
+  // the problem's G columns, then the particle's bytes and zero columns up
+  // to a multiple of 8 (the dot products read them)
+  {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(gin_all + (size_t)p * m * W);
+    const int words = m * W;
+    if ((words & 3) == 0) {
+      for (int w = tid; w < words / 4; w += nt)
+        reinterpret_cast<uint4*>(Gin)[w] = src[w];
+    } else {
+      const uint32_t* s32 = gin_all + (size_t)p * m * W;
+      for (int w = tid; w < words; w += nt) Gin[w] = s32[w];
+    }
+  }
+  const size_t base = ((size_t)p * N + part) * n * m;
+  if ((m & 15) == 0 && ((uintptr_t)(S + base) & 15) == 0) {
+    const int cpr = m >> 4;                   // 16-byte chunks a row
+    for (int g = tid; g < n * cpr; g += nt) {
+      const int i = g / cpr, c = g - i * cpr;
+      const uint4 v = reinterpret_cast<const uint4*>(S + base + i * m)[c];
+      uint2* dst = reinterpret_cast<uint2*>(Sq + i * ldb + 16 * c);
+      dst[0] = make_uint2(v.x, v.y);
+      dst[1] = make_uint2(v.z, v.w);
+    }
+  } else {
+    for (int idx = tid; idx < n * m; idx += nt) {
+      const int i = idx / m;
+      Sq[i * ldb + idx - i * m] = S[base + idx];
+    }
+  }
+  const int pad = round_up(m, 8) - m;
+  for (int idx = tid; idx < n * pad; idx += nt)
+    Sq[idx / pad * ldb + m + idx % pad] = 0;
+  __syncthreads();
+
+  // S G: each thread walks one column's bits (k ascending) for 8 rows;
+  // columns past m are written as zeros
+  constexpr int R = 8;
+  {
+    const int cols = round_up(m, 8);
+    const int chunks = (n + R - 1) / R;
+    for (int it = tid; it < cols * chunks; it += nt) {
+      const int c = it / cols, j = it - c * cols, i0 = c * R;
+      int acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0;
+      if (j < m) {
+        for (int w = 0; w < W; ++w) {
+          uint32_t bits = Gin[j * W + w];
+          while (bits) {
+            const int kk = w * 32 + __ffs(bits) - 1;
+            bits &= bits - 1;
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              if (i0 + r < n) acc[r] += Sq[(i0 + r) * ldb + kk];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (i0 + r < n) SGh[(i0 + r) * ldh + j] = (uint16_t)acc[r];
+    }
+  }
+  __syncthreads();
+
+  // S G S^T and the residual: thread (bi, bu) owns rows i = bi + B a and
+  // u = bu + B b, a, b < 4; the squares wrap modulo 2^64 like the plain
+  // version's int64 arithmetic
+  const int B = (n + 3) / 4;
+  const uint8_t* q = Q + (size_t)p * n * n;
+  const long long s2 = (long long)scale * scale;
+  unsigned long long local = 0;
+  for (int it = tid; it < B * B; it += nt) {
+    const int bi = it / B, bu = it - bi * B;
+    int ir[4], ur[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      ir[a] = min(bi + B * a, n - 1);
+      ur[a] = min(bu + B * a, n - 1);
+    }
+    unsigned acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0u;
+    for (int j = 0; j < m; j += 8) {
+      uint2 sv[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        sv[b] = *reinterpret_cast<const uint2*>(Sq + ur[b] * ldb + j);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const uint4 g =
+            *reinterpret_cast<const uint4*>(SGh + ir[a] * ldh + j);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          acc[a][b] = __dp2a_lo(g.x, sv[b].x, acc[a][b]);
+          acc[a][b] = __dp2a_hi(g.y, sv[b].x, acc[a][b]);
+          acc[a][b] = __dp2a_lo(g.z, sv[b].y, acc[a][b]);
+          acc[a][b] = __dp2a_hi(g.w, sv[b].y, acc[a][b]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = bi + B * a, u = bu + B * b;
+        if (i < n && u < n) {
+          const unsigned long long res =
+              (unsigned long long)((long long)q[i * n + u] * s2 -
+                                   (long long)acc[a][b]);
+          local += res * res;
+        }
+      }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    local += __shfl_down_sync(0xffffffffu, local, off);
+  if ((tid & 31) == 0) part_sums[tid >> 5] = (long long)local;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long tot = 0;
+    for (int w = 0; w < (nt + 31) >> 5; ++w)
+      tot += (unsigned long long)part_sums[w];
+    out[(size_t)p * N + part] = -__ll2float_rn((long long)tot);
+  }
+}
+
+}  // namespace
+
+// Bytes of device scratch that edge_fitness_u8 needs: G's column bits.
+extern "C" long long edge_fitness_u8_scratch_bytes(int P, int m) {
+  return 4LL * P * m * rt::words(m);
+}
+
+// The quantized body: uint8 S (P, N, n, m), Q and G uint8 (Q's values
+// count, G is read as 0/1); two launches on `stream`.
+extern "C" int edge_fitness_u8(const void* S, const void* Q, const void* G,
+                               void* out, void* scratch, int P, int N, int n,
+                               int m, int scale, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t gsmem = (size_t)align16(m * m);
+  cudaError_t err = rt::allow_smem((const void*)pack_gin_kernel, gsmem);
+  if (err != cudaSuccess) return (int)err;
+  pack_gin_kernel<<<P, kThreads, gsmem, st>>>((const uint8_t*)G,
+                                              (uint32_t*)scratch, m);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = qlayout(n, m).total;
+  err = rt::allow_smem((const void*)fitness_u8_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  fitness_u8_kernel<<<dim3(N, P), kThreads, smem, st>>>(
+      (const uint8_t*)S, (const uint32_t*)scratch, (const uint8_t*)Q,
+      (float*)out, N, n, m, scale);
+  return (int)cudaGetLastError();
+}

@@ -23,8 +23,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("prune_fixpoint", "pso_fitness", "epoch_fused", "finish_fused",
-           "pso_update", "ullmann_refine", "argmax_project")
+SOURCES = ("prune_fixpoint", "pso_fitness", "fitness_quantized",
+           "epoch_fused", "finish_fused", "pso_update", "ullmann_refine",
+           "argmax_project")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -5,13 +5,20 @@ Replaces the TPU kernel ``epoch_finish_pallas`` of the JAX package
 (``kernels/finish_fused.py``, bodies ``_finish_kernel``,
 ``_batched_structured``, ``_batched_greedy``, ``_batched_sweep`` and
 ``_batched_feasible``). The CUDA source ``csrc/finish_fused.cu`` makes
-two launches per call: one CTA per (problem, particle) for the
-projections, sweeps and feasibility, then one CTA per problem for the
-elite consensus S̄. Both count in ``launches``. The first is bound on the
-H100 by the latency of its n-round argmax chains. Integer outputs match
-the plain version bit for bit; S̄ agrees to float32 rounding.
+two launches per call, both counted in ``launches``: one packs each
+problem's operands (G, Q and the mask as bit rows) into device scratch
+that this wrapper allocates, and computes the elite consensus S̄ in
+slices; one runs a CTA per (problem, particle). On the H100 the second
+is bound by the latency of its chains of n argmax rounds, so each chain
+runs inside one warp (warp-reduction argmaxes, no block barrier), the
+structured projection and the greedy projection run at once on two
+warps, and the greedy projection keeps a per-row best column instead of
+rescanning S every round. Integer outputs match the plain version bit
+for bit; S̄ agrees to float32 rounding.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -106,6 +113,8 @@ def epoch_finish_cuda(S, f_final, gum, mask, Q, G, *, gumbel_tau: float,
     kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256")
     kb.require(1 <= elite_k <= N, f"elite_k {elite_k} not in [1, {N}]")
     Sc = S.to(torch.float32).contiguous()
+    if Sc.data_ptr() % 16:          # the kernel reads it in 16-byte loads
+        Sc = Sc.clone()
     fc = f_final.to(torch.float32).contiguous()
     use_gum = gumbel_tau > 0
     if use_gum:
@@ -118,12 +127,15 @@ def epoch_finish_cuda(S, f_final, gum, mask, Q, G, *, gumbel_tau: float,
     M_hat = torch.empty(P, N, n, m, dtype=torch.uint8, device=S.device)
     feas = torch.empty(P, N, dtype=torch.bool, device=S.device)
     S_bar = torch.empty(P, n, m, dtype=torch.float32, device=S.device)
+    nbytes = kb.bind("finish_fused", "epoch_finish_scratch_bytes",
+                     [kb.I_] * 3, ctypes.c_longlong)(P, n, m)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
     fn = kb.bind("finish_fused", "epoch_finish",
-                 [kb.P_] * 9 + [kb.I_] * 4 + [kb.F_, kb.F_, kb.I_, kb.I_,
-                                              kb.F_, kb.P_])
+                 [kb.P_] * 10 + [kb.I_] * 4 + [kb.F_, kb.F_, kb.I_, kb.I_,
+                                               kb.F_, kb.P_])
     err = fn(kb.ptr(Sc), kb.ptr(fc), kb.ptr(gc) if use_gum else None,
              kb.ptr(mk), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(M_hat), kb.ptr(feas),
-             kb.ptr(S_bar), P, N, n, m, float(gumbel_tau),
+             kb.ptr(S_bar), kb.ptr(scratch), P, N, n, m, float(gumbel_tau),
              float(refine_threshold), int(refine_iters), int(elite_k),
              float(consensus_temp), kb.stream())
     kb.check(err, "epoch_finish")

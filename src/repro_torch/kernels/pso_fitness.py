@@ -3,13 +3,18 @@ over problems with their own Q and G.
 
 Replaces the TPU kernels ``edge_fitness_pallas`` and
 ``edge_fitness_quantized_pallas`` of the JAX package
-(``kernels/pso_fitness.py``). The CUDA kernel is ``csrc/pso_fitness.cu``,
-one template for both bodies: one CTA per (problem, particle), bound on
-the H100 by its fp32 (or int32) operations on CUDA cores. The float body
-sums in the plain version's order and the quantized body sums exactly in
-int64, so both match the plain versions bit for bit.
+(``kernels/pso_fitness.py``). The CUDA kernels are
+``csrc/pso_fitness.cu`` (float) and ``csrc/fitness_quantized.cu``, one
+CTA per (problem, particle), bound on the H100 by their operations on
+CUDA cores. The float body (one launch) sums in the plain version's
+order; the quantized body (two launches: G's columns packed once per
+problem, then the particles, S as bytes and S G Sᵀ on integer dot
+products) sums exactly in 64 bits. Both match the plain versions bit for
+bit.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -48,15 +53,21 @@ def edge_fitness_cuda(S: torch.Tensor, Q: torch.Tensor, G: torch.Tensor,
     Gc = G.to(torch.uint8).contiguous()
     out = torch.empty(P, N, dtype=torch.float32, device=S.device)
     if quantized:
-        fn = kb.bind("pso_fitness", "edge_fitness_u8",
-                     [kb.P_] * 4 + [kb.I_] * 5 + [kb.P_])
-        err = fn(kb.ptr(S), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(out), P, N, n, m,
-                 int(scale), kb.stream())
+        nbytes = kb.bind("fitness_quantized", "edge_fitness_u8_scratch_bytes",
+                         [kb.I_] * 2, ctypes.c_longlong)(P, m)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
+        fn = kb.bind("fitness_quantized", "edge_fitness_u8",
+                     [kb.P_] * 5 + [kb.I_] * 5 + [kb.P_])
+        err = fn(kb.ptr(S), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(out),
+                 kb.ptr(scratch), P, N, n, m, int(scale), kb.stream())
     else:
         fn = kb.bind("pso_fitness", "edge_fitness_f32",
                      [kb.P_] * 4 + [kb.I_] * 4 + [kb.P_])
         err = fn(kb.ptr(S), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(out), P, N, n, m,
                  kb.stream())
     kb.check(err, "edge_fitness")
-    (launches_quantized if quantized else launches).add()
+    if quantized:
+        launches_quantized.add(2)
+    else:
+        launches.add()
     return out

@@ -234,3 +234,125 @@ def test_masked_argmax_bitwise_on_card(device, n, m, mask_dtype):
     ties = torch.randint(0, 3, (n, m), generator=g).float().to(device)
     _assert_argmax_bitwise(ties, mask)
     _assert_argmax_bitwise(ties, torch.ones_like(mask))
+
+
+def _finish_case(device, P, N, n, m, seed, tie_values=None):
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, seed))
+    x = cases.swarm_inputs(Q, G, mask, N, 1, seed=seed)
+    S = x["S"]
+    if tie_values is not None:      # many exact ties: values from a set
+        g = torch.Generator().manual_seed(seed)
+        pick = torch.randint(0, len(tie_values), S.shape, generator=g)
+        S = torch.tensor(tie_values)[pick].to(device) * (mask[:, None] != 0)
+    return S, x["f_local"], x["gum"], mask, Q, G
+
+
+def _assert_finish_bitwise(S, f, gum, mask, Q, G, *, tau, refine_iters=6,
+                           elite_k=None):
+    """M_hat and feasible bit for bit, S_bar within the tolerance, and two
+    launches a call."""
+    from repro_torch.kernels import finish_fused
+    from repro_torch.kernels.finish_fused import epoch_finish_reference
+    N = S.shape[1]
+    kw = dict(gumbel_tau=tau, refine_threshold=0.5,
+              refine_iters=refine_iters,
+              elite_k=max(1, N // 4) if elite_k is None else elite_k,
+              consensus_temp=25.0)
+    finish_fused.launches.reset()
+    got = epoch_finish_cuda(S, f, gum if tau > 0 else None, mask, Q, G, **kw)
+    torch.cuda.synchronize()
+    assert finish_fused.launches.count == 2
+    want = epoch_finish_reference(S, f, gum if tau > 0 else None, mask, Q,
+                                  G, **kw)
+    for name, g, w in zip(("M_hat", "feasible"), got[:2], want[:2]):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+    cases.compare(got[2], want[2])
+
+
+@pytest.mark.parametrize("tau", [0.0, 0.3])
+@pytest.mark.parametrize("shape", SHAPES + ODD_SHAPES)
+def test_epoch_finish_bitwise_on_card(device, shape, tau):
+    """At the sweep's and the main path's shapes, and at n, m off every
+    multiple of 8, up to (203, 233) where S is read from device memory."""
+    P, N, n, m, _ = shape
+    _assert_finish_bitwise(*_finish_case(device, P, N, n, m, 21), tau=tau)
+
+
+@pytest.mark.parametrize("tau", [0.0, 0.3])
+def test_epoch_finish_ties_and_empty_rows_on_card(device, tau):
+    """S from a set of 4 values (every argmax meets exact ties, which go
+    to the lower index) with an all-zero mask row."""
+    S, f, gum, mask, Q, G = _finish_case(device, 2, 16, 40, 72, 22,
+                                         tie_values=[0.1, 0.2, 0.3, 0.4])
+    mask = mask.clone()
+    mask[:, 7] = 0
+    S = S * (mask[:, None] != 0)
+    _assert_finish_bitwise(S, f, gum, mask, Q, G, tau=tau)
+
+
+def test_epoch_finish_greedy_rescans_on_card(device):
+    """Every row ranks the columns alike, so each greedy round takes the
+    cached column of every row left and all of them are rescanned."""
+    P, N, n, m = 2, 8, 24, 40
+    _, f, gum, mask, Q, G = _finish_case(device, P, N, n, m, 23)
+    i = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    j = torch.arange(m, device=device, dtype=torch.float32)[None]
+    S = ((m - j) + i / (4 * n)).expand(P, N, n, m).contiguous()
+    ones = torch.ones_like(mask)
+    _assert_finish_bitwise(S, f, gum, ones, Q, G, tau=0.0)
+    _assert_finish_bitwise(S, f, gum, mask, Q, G, tau=0.0)
+
+
+@pytest.mark.parametrize("refine_iters", [0, 1])
+def test_epoch_finish_short_refinement_on_card(device, refine_iters):
+    _assert_finish_bitwise(*_finish_case(device, 2, 16, 40, 72, 24), tau=0.0,
+                           refine_iters=refine_iters)
+
+
+@pytest.mark.parametrize("elite_k", [1, 16])
+def test_epoch_finish_elite_sizes_on_card(device, elite_k):
+    """elite_k = 1 and elite_k = N (every particle in the consensus)."""
+    _assert_finish_bitwise(*_finish_case(device, 2, 16, 40, 72, 25), tau=0.0,
+                           elite_k=elite_k)
+
+
+def _assert_fitness_u8_bitwise(S_q, Q, G):
+    from repro_torch.kernels import pso_fitness
+    from repro_torch.kernels.pso_fitness import (
+        edge_fitness_cuda, edge_fitness_quantized_reference)
+    pso_fitness.launches_quantized.reset()
+    got = edge_fitness_cuda(S_q, Q, G, quantized=True)
+    torch.cuda.synchronize()
+    assert pso_fitness.launches_quantized.count == 2
+    want = edge_fitness_quantized_reference(S_q, Q, G)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("shape", SHAPES + ODD_SHAPES)
+def test_edge_fitness_quantized_bitwise_on_card(device, shape):
+    P, N, n, m, _ = shape
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 31))
+    x = cases.swarm_inputs(Q, G, mask, N, 1, seed=31)
+    _assert_fitness_u8_bitwise(x["S_q"], Q, G)
+
+
+def test_edge_fitness_quantized_projection_tile_on_card(device):
+    """The Tier-0 call: N = 1 on the 0/255 tile of a projection."""
+    Q, G, mask = (t.to(device) for t in cases.random_problem(8, 56, 144, 32))
+    x = cases.swarm_inputs(Q, G, mask, 1, 1, seed=32)
+    M = ref.greedy_project(x["S"][:, 0], mask)
+    _assert_fitness_u8_bitwise(ref.quantize_s(M.float()[:, None]), Q, G)
+
+
+def test_edge_fitness_quantized_largest_sums_on_card(device):
+    """m = 256, an all-255 tile and a dense G: S G S^T reaches its largest
+    value (~4.3e9, past 2^31) and the squared residuals wrap in 64 bits as
+    the plain version's int64 arithmetic does."""
+    P, N, n, m = 1, 2, 16, 256
+    Q, _, _ = (t.to(device) for t in cases.random_problem(P, n, m, 33))
+    G = torch.ones(P, m, m, dtype=torch.uint8, device=device)
+    S_q = torch.full((P, N, n, m), 255, dtype=torch.uint8, device=device)
+    _assert_fitness_u8_bitwise(S_q, Q, G)
+    _assert_fitness_u8_bitwise(S_q[:, :, :3].contiguous(), Q[:, :3, :3], G)

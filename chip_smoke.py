@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero:
      entries against its plain PyTorch version on the same inputs, float
      and quantized, τ = 0 and τ > 0: integers bit for bit, floats within
      rtol 1e-5 / atol 1e-4 (``epoch_fused``, ``masked_argmax`` and
-     ``edge_fitness_quantized`` bit for bit); both timed with CUDA
+     both ``edge_fitness`` bodies bit for bit; the float body also once at
+     (P, N, n, m) = (1, 64, 203, 233), where its tiles pass a block's
+     shared memory and live in device scratch); both timed with CUDA
      events, the kernel as the median of 5 runs (the entries the split
      epoch calls per problem are called and timed per problem),
      quantized and, for ``epoch_fused``, float;
@@ -86,7 +88,11 @@ FLOAT_EPOCH = "epoch_fused_float"
 #: entries held bit for bit against their plain version in phase 3 (the
 #: others' integer outputs are equal too; their float outputs are held
 #: within the tolerance)
-BITWISE = ("epoch_fused", "masked_argmax", "edge_fitness_quantized")
+BITWISE = ("epoch_fused", "masked_argmax", "edge_fitness",
+           "edge_fitness_quantized")
+#: (P, N, n, m) of phase 3's extra float fitness call: tiles past a
+#: block's shared memory
+FITNESS_LARGE = (1, 64, 203, 233)
 #: the kernels the split epoch phase drives (the fitness entries too)
 SPLIT_KERNELS = ("pso_update", "ullmann_refine_step", "greedy_project",
                  "masked_argmax", "edge_fitness", "edge_fitness_quantized")
@@ -449,6 +455,18 @@ def main():
                 f"(max abs err {errs[key]:.3g})")
             if tau == 0.0 and (quantized or key == FLOAT_EPOCH):
                 timed[key] = (kern, plain, got)   # the main path's modes
+    # the float fitness where its tiles live in device scratch
+    lP, lN, ln, lm = FITNESS_LARGE
+    lQ, lG, lmask = (t.cuda() for t in cases.random_problem(lP, ln, lm,
+                                                             SEED))
+    lS = cases.swarm_inputs(lQ, lG, lmask, lN, 1, seed=SEED)["S"]
+    got = pso_fitness.edge_fitness_cuda(lS, lQ, lG)
+    torch.cuda.synchronize()
+    if not torch.equal(got, pso_fitness.edge_fitness_reference(lS, lQ, lG)):
+        fail(f"edge_fitness at {FITNESS_LARGE} is not bit for bit its "
+             f"plain version")
+    log(f"  edge_fitness at {FITNESS_LARGE} (tiles in device scratch): "
+        f"bit for bit")
     outs = {k: v[2] for k, v in timed.items()}
     bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
                            elite_k=elite_k)

@@ -24,8 +24,11 @@ burst of 8 problems, N = 64, K = 12, bucket (56, 144), quantized, τ = 0;
     side's ``repro_torch`` and builds that side's kernels, in the order
     base, change, change, base, each timing ``--rounds`` runs of
     ``--reps`` calls on the same saved inputs; each side's outputs are
-    saved and compared (``"per_side": true``). ``edge_fitness_quantized``
-    is also timed at the Tier-0 check's shape (``"case"``).
+    saved and compared (``"per_side": true``). Both fitness bodies are
+    also timed at the Tier-0 check's shape, and ``prune_fixpoint`` on one
+    problem as a single ``match`` calls it (``"case"``); each side also
+    runs chip_smoke's float ``match`` of unet and reports the device time
+    of one profiled call (``"kernel": "IMMSchedMatcher.match"``).
 
 An entry whose C entry points are the same but whose Python differs gets
 both lines. An entry whose source is new in this checkout is timed
@@ -48,8 +51,16 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-#: the extra case of edge_fitness_quantized: the Tier-0 check's call
-TIER0 = "Tier 0: N = 1, the 0/255 tile of each problem's projection"
+#: the extra cases of the per-side runs: the Tier-0 check's fitness
+#: calls, and the pre-prune of a single-problem ``match``
+CASES = {"tier0": "Tier 0: N = 1, the 0/255 tile of each problem's "
+                  "projection (0/1 for the float body)",
+         "p1": "P = 1: problem 1 (unet) of the burst, as a single match "
+               "prunes it",
+         "float_unet": "device ms of one profiled IMMSchedMatcher.match of "
+                       "unet with the default (float) PSOConfig"}
+#: the per-side key of that match: the path through both redesigned entries
+MATCH_KEY = "IMMSchedMatcher.match/float_unet"
 
 
 def base_libraries(kb, base: Path, names):
@@ -116,6 +127,46 @@ def modes(name):
     return (True, False) if name == "epoch_fused" else (True,)
 
 
+def extra_cases(name, d):
+    """``{case: thunk}`` of an entry's calls beside phase 3 (``CASES``),
+    through the wrapper of the side that runs them."""
+    from repro_torch.kernels.prune_fixpoint import prune_fixpoint_cuda
+    from repro_torch.kernels.pso_fitness import edge_fitness_cuda
+    Q, G, M = d["Q"], d["G"], d["M"]
+    if name == "edge_fitness_quantized":
+        return {"tier0": lambda: edge_fitness_cuda(d["tier0"], Q, G,
+                                                   quantized=True)}
+    if name == "edge_fitness":
+        tile = (d["tier0"] != 0).float()
+        return {"tier0": lambda: edge_fitness_cuda(tile, Q, G)}
+    if name == "prune_fixpoint":
+        one = [t[1:2].contiguous() for t in (M, Q, G)]
+        return {"p1": lambda: prune_fixpoint_cuda(*one)}
+    return {}
+
+
+def float_match(rounds):
+    """chip_smoke's float ``match`` of unet through this side's package:
+    its outcome (mapping, found, epochs_run, prune_sweeps) and the device
+    time of ``rounds`` profiled calls."""
+    import chip_smoke as cs
+    from repro_torch.core import pso
+    from repro_torch.core.matcher import IMMSchedMatcher
+    reqs, tgt = cs.build_requests()[:2]
+    unet = reqs[cs.WORKLOADS.index("unet")]
+
+    def match():
+        return IMMSchedMatcher(pso.PSOConfig()).match(
+            unet["q"], tgt,
+            generator=torch.Generator(device="cuda").manual_seed(cs.SEED))
+    r = match()
+    mapping = torch.as_tensor(r.mapping if r.found else [])
+    outcome = torch.tensor([r.found, r.epochs_run, r.prune_sweeps])
+    return ((mapping, outcome),
+            [sum(row[1] for row in cs.profiled(match)[2])
+             for _ in range(rounds)])
+
+
 def worker(side: Path, inputs: Path, names, out: Path, rounds, reps):
     """One side's run in its own process: that side's ``repro_torch``,
     its kernels built from its sources, the saved inputs."""
@@ -139,13 +190,13 @@ def worker(side: Path, inputs: Path, names, out: Path, rounds, reps):
                 t.clone() if isinstance(t, torch.Tensor) else t for t in got)
             res[f"{name}/q={q}"] = [cuda_ms(kern, reps) / calls
                                     for _ in range(rounds)]
-        if name == "edge_fitness_quantized":     # and its Tier-0 call
-            from repro_torch.kernels.pso_fitness import edge_fitness_cuda
-            kern = lambda: edge_fitness_cuda(d["tier0"], d["Q"], d["G"],
-                                             quantized=True)
-            bits[f"{name}/tier0"] = (kern().clone(),)
-            res[f"{name}/tier0"] = [cuda_ms(kern, reps)
-                                    for _ in range(rounds)]
+        for case, kern in extra_cases(name, d).items():
+            got = kern()
+            got = got if isinstance(got, tuple) else (got,)
+            bits[f"{name}/{case}"] = tuple(t.clone() for t in got)
+            res[f"{name}/{case}"] = [cuda_ms(kern, reps)
+                                     for _ in range(rounds)]
+    bits[MATCH_KEY], res[MATCH_KEY] = float_match(rounds)
     torch.save(bits, str(out) + ".bits")
     out.write_text(json.dumps(res))
 
@@ -180,10 +231,12 @@ def per_side(base: Path, names, inputs: Path, args, identical, sources):
         name, mode = key.split("/")
         med = {k: statistics.median(v) for k, v in sides.items()}
         print(json.dumps(dict(
-            kernel=name, quantized=mode != "q=False", per_side=True,
-            case=TIER0 if mode == "tier0" else "phase 3",
-            source=sources[name], same_bits=same,
-            sass_identical=identical.get(Path(sources[name]).stem),
+            kernel=name, per_side=True,
+            quantized=mode == "q=True" if name == "epoch_fused" else None,
+            case=CASES.get(mode, "phase 3"),
+            source=sources.get(name), same_bits=same,
+            sass_identical=(identical.get(Path(sources[name]).stem)
+                            if name in sources else None),
             base_ms=sides["base"], change_ms=sides["change"],
             base_median_ms=med["base"], change_median_ms=med["change"],
             ratio=med["change"] / med["base"])), flush=True)

@@ -18,6 +18,7 @@
 namespace rt {
 
 constexpr int kMaxDim = 256;          // n, m <= kMaxDim (8 words a row)
+constexpr int kLaneBits = kMaxDim / 32;   // a lane's bits of a transposed row
 constexpr float kNeg = -FLT_MAX;      // finfo(float32).min, the sentinel
 
 __host__ __device__ inline int words(int cols) { return (cols + 31) >> 5; }
@@ -26,6 +27,18 @@ __host__ __device__ inline int words(int cols) { return (cols + 31) >> 5; }
 // walking consecutive rows at one column hit 32 different banks (a stride
 // of 144 words would put them on 2 banks, a 16-way conflict).
 __host__ __device__ inline int odd_stride(int cols) { return cols | 1; }
+
+// Layout arithmetic of the kernels' shared-memory and scratch offsets.
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+__host__ __device__ inline int round_up(int x, int a) {
+  return (x + a - 1) / a * a;
+}
+// A row stride of `a`-element chunks, an odd number of them: 16-byte
+// (8-byte) loads by lanes walking consecutive rows then hit distinct banks.
+__host__ __device__ inline int odd_chunks(int cols, int a) {
+  const int x = round_up(cols, a);
+  return (x / a) % 2 ? x : x + a;
+}
 
 // Pack rows x[r, c] != 0 of a row-major (rows, cols) byte matrix into bit
 // rows (rows * words(cols) words), one word per thread iteration.
@@ -208,6 +221,77 @@ __device__ inline void greedy_assign(const float* S, const uint32_t* mask,
     }
     __syncthreads();
   }
+}
+
+// Copy `bytes` bytes with 16-byte loads where both ends allow it.
+__device__ inline void copy_bytes(uint8_t* dst, const uint8_t* src,
+                                  int bytes) {
+  if (((uintptr_t)src & 15) == 0 && (bytes & 15) == 0) {
+    for (int w = threadIdx.x; w < bytes / 16; w += blockDim.x)
+      reinterpret_cast<uint4*>(dst)[w] =
+          reinterpret_cast<const uint4*>(src)[w];
+  } else {
+    for (int b = threadIdx.x; b < bytes; b += blockDim.x) dst[b] = src[b];
+  }
+}
+
+// Lane-transposed 0/1 matrices: byte X[r * 32 + l] holds in bit k the entry
+// (r, l + 32 k), so that lane l of a warp owns the columns l + 32 k of a row
+// (kLaneBits bits). A row is 32 bytes, two 16-byte words.
+
+// Lane-transposed rows of a row-major (rows, cols) byte matrix x in shared
+// memory: bit k of out[r * 32 + l] is x[r, l + 32 k] != 0.
+__device__ inline void pack_rows_t(const uint8_t* x, int rows, int cols,
+                                   uint8_t* out) {
+  for (int idx = threadIdx.x; idx < rows * 32; idx += blockDim.x) {
+    const int r = idx >> 5, l = idx & 31;
+    uint32_t byte = 0;
+#pragma unroll
+    for (int k = 0; k < kLaneBits; ++k) {
+      const int c = l + 32 * k;
+      if (c < cols && x[r * cols + c] != 0) byte |= 1u << k;
+    }
+    out[idx] = (uint8_t)byte;
+  }
+}
+
+// Lane-transposed columns of a square byte matrix x in shared memory: bit k
+// of out[c * 32 + l] is x[l + 32 k, c] != 0 (neighbouring threads read
+// neighbouring columns).
+__device__ inline void pack_cols_t(const uint8_t* x, int dim, uint8_t* out) {
+  for (int idx = threadIdx.x; idx < dim * 32; idx += blockDim.x) {
+    const int l = idx / dim, c = idx - l * dim;
+    uint32_t byte = 0;
+#pragma unroll
+    for (int k = 0; k < kLaneBits; ++k) {
+      const int r = l + 32 * k;
+      if (r < dim && x[r * dim + c] != 0) byte |= 1u << k;
+    }
+    out[c * 32 + l] = (uint8_t)byte;
+  }
+}
+
+__device__ __forceinline__ void or4(uint4& a, const uint4& b) {
+  a.x |= b.x;
+  a.y |= b.y;
+  a.z |= b.z;
+  a.w |= b.w;
+}
+
+__device__ __forceinline__ void reduce_or4(uint4& a) {
+  a.x = __reduce_or_sync(0xffffffffu, a.x);
+  a.y = __reduce_or_sync(0xffffffffu, a.y);
+  a.z = __reduce_or_sync(0xffffffffu, a.z);
+  a.w = __reduce_or_sync(0xffffffffu, a.w);
+}
+
+// Byte `lane` of a 32-byte transposed row held as two words of 16 bytes.
+__device__ __forceinline__ uint32_t byte_of(const uint4& lo, const uint4& hi,
+                                            int lane) {
+  const int w = (lane >> 2) & 3;
+  const uint4& q = lane < 16 ? lo : hi;
+  const uint32_t word = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
+  return (word >> (8 * (lane & 3))) & 0xffu;
 }
 
 inline cudaError_t allow_smem(const void* kernel, size_t bytes) {

@@ -47,16 +47,9 @@ struct Hyper {
 constexpr int kThreads = 256;
 constexpr size_t kSmemMax = 232448;   // 227 KB a block on the H100
 
-__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
-__host__ __device__ inline int round_up(int x, int a) {
-  return (x + a - 1) / a * a;
-}
-// A row stride of `a`-element chunks, an odd number of them: 16-byte
-// (8-byte) loads by lanes walking consecutive rows then hit distinct banks.
-__host__ __device__ inline int odd_chunks(int cols, int a) {
-  const int x = round_up(cols, a);
-  return (x / a) % 2 ? x : x + a;
-}
+using rt::align16;
+using rt::odd_chunks;
+using rt::round_up;
 
 // Byte offsets of the parts of one problem's record (prologue_kernel) and
 // of one CTA's shared and tile memory.

@@ -56,7 +56,7 @@ constexpr size_t kSmemMax = 232448;        // 227 KB a block on the H100
 constexpr int kSliceEntries = 512;         // S_bar entries a consensus CTA
 constexpr int kPackCtas = 3;   // launch 1's CTAs a problem for its record
 
-__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+using rt::align16;
 
 // Byte offsets of one problem's record (written by launch 1) and of one
 // particle CTA's shared memory, which starts with a copy of the record.
@@ -117,50 +117,6 @@ __device__ __forceinline__ void warp_argmax(float& v, int& vi) {
   v = __uint_as_float((best & 0x80000000u) ? best & 0x7fffffffu : ~best);
 }
 
-// Copy `bytes` bytes with 16-byte loads where both ends allow it.
-__device__ inline void copy_bytes(uint8_t* dst, const uint8_t* src,
-                                  int bytes) {
-  if (((uintptr_t)src & 15) == 0 && (bytes & 15) == 0) {
-    for (int w = threadIdx.x; w < bytes / 16; w += blockDim.x)
-      reinterpret_cast<uint4*>(dst)[w] =
-          reinterpret_cast<const uint4*>(src)[w];
-  } else {
-    for (int b = threadIdx.x; b < bytes; b += blockDim.x) dst[b] = src[b];
-  }
-}
-
-// Lane-transposed rows of a row-major (rows, cols) byte matrix x in shared
-// memory: bit k of out[r * 32 + l] is x[r, l + 32 k] != 0.
-__device__ inline void pack_rows_t(const uint8_t* x, int rows, int cols,
-                                   uint8_t* out) {
-  for (int idx = threadIdx.x; idx < rows * 32; idx += blockDim.x) {
-    const int r = idx >> 5, l = idx & 31;
-    uint32_t byte = 0;
-#pragma unroll
-    for (int k = 0; k < kMaxW; ++k) {
-      const int c = l + 32 * k;
-      if (c < cols && x[r * cols + c] != 0) byte |= 1u << k;
-    }
-    out[idx] = (uint8_t)byte;
-  }
-}
-
-// Lane-transposed columns of a square byte matrix x in shared memory: bit k
-// of out[c * 32 + l] is x[l + 32 k, c] != 0 (neighbouring threads read
-// neighbouring columns).
-__device__ inline void pack_cols_t(const uint8_t* x, int dim, uint8_t* out) {
-  for (int idx = threadIdx.x; idx < dim * 32; idx += blockDim.x) {
-    const int l = idx / dim, c = idx - l * dim;
-    uint32_t byte = 0;
-#pragma unroll
-    for (int k = 0; k < kMaxW; ++k) {
-      const int r = l + 32 * k;
-      if (r < dim && x[r * dim + c] != 0) byte |= 1u << k;
-    }
-    out[c * 32 + l] = (uint8_t)byte;
-  }
-}
-
 // Launch 1. blockIdx.x < kPackCtas: a part of the problem's record, from
 // its bytes staged in shared memory (0: G's transposed rows and each
 // column's out-degree; 1: G's transposed columns; 2: Q's bit rows and
@@ -182,13 +138,13 @@ prep_kernel(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ Q,
     const Layout L = layout(n, m);
     uint8_t* r = rec + (size_t)p * L.rec;
     if (blockIdx.x < 2) {
-      copy_bytes(sm, G + (size_t)p * m * m, m * m);
+      rt::copy_bytes(sm, G + (size_t)p * m * m, m * m);
       __syncthreads();
       if (blockIdx.x == 1) {
-        pack_cols_t(sm, m, r + L.ginT);
+        rt::pack_cols_t(sm, m, r + L.ginT);
         return;
       }
-      pack_rows_t(sm, m, m, r + L.goutT);
+      rt::pack_rows_t(sm, m, m, r + L.goutT);
       __syncthreads();
       const uint32_t* rows = reinterpret_cast<const uint32_t*>(r + L.goutT);
       int* fo0 = reinterpret_cast<int*>(r + L.fo0);
@@ -198,13 +154,13 @@ prep_kernel(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ Q,
     }
     uint8_t* q = sm;
     uint8_t* mk = q + align16(n * n);
-    copy_bytes(q, Q + (size_t)p * n * n, n * n);
-    copy_bytes(mk, mask + (size_t)p * nm, nm);
+    rt::copy_bytes(q, Q + (size_t)p * n * n, n * n);
+    rt::copy_bytes(mk, mask + (size_t)p * nm, nm);
     __syncthreads();
     uint32_t* qrow = reinterpret_cast<uint32_t*>(r + L.qrow);
     rt::pack_rows(q, n, n, qrow);
     rt::pack_cols(q, n, reinterpret_cast<uint32_t*>(r + L.qcol));
-    pack_rows_t(mk, n, m, r + L.maskT);
+    rt::pack_rows_t(mk, n, m, r + L.maskT);
     __syncthreads();
     int* qsucc = reinterpret_cast<int*>(r + L.qsucc);
     for (int i = tid; i < n; i += blockDim.x)
@@ -420,29 +376,6 @@ __device__ __forceinline__ bool feasible_warp(const Ctx& c, const int* asg,
   return __all_sync(0xffffffffu, ok);
 }
 
-__device__ __forceinline__ void or4(uint4& a, const uint4& b) {
-  a.x |= b.x;
-  a.y |= b.y;
-  a.z |= b.z;
-  a.w |= b.w;
-}
-
-__device__ __forceinline__ void reduce_or4(uint4& a) {
-  a.x = __reduce_or_sync(0xffffffffu, a.x);
-  a.y = __reduce_or_sync(0xffffffffu, a.y);
-  a.z = __reduce_or_sync(0xffffffffu, a.z);
-  a.w = __reduce_or_sync(0xffffffffu, a.w);
-}
-
-// Byte `lane` of a 32-byte transposed row held as two words of 16 bytes.
-__device__ __forceinline__ uint32_t byte_of(const uint4& lo, const uint4& hi,
-                                            int lane) {
-  const int w = (lane >> 2) & 3;
-  const uint4& q = lane < 16 ? lo : hi;
-  const uint32_t word = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
-  return (word >> (8 * (lane & 3))) & 0xffu;
-}
-
 // One Ullmann sweep on the lane-transposed candidates MT, in place: with
 // the supports
 //   SO[u] = { j : M[u] & Gout[j] != 0 } = OR_{v in M[u]} Gin[v]
@@ -469,17 +402,17 @@ __device__ __forceinline__ bool sweep(const Ctx& c, uint8_t* MT,
       mine &= mine - 1;
       const uint4* gi = reinterpret_cast<const uint4*>(c.ginT + v * 32);
       const uint4* go = reinterpret_cast<const uint4*>(c.goutT + v * 32);
-      or4(o0, gi[0]);
-      or4(o1, gi[1]);
-      or4(i0, go[0]);
-      or4(i1, go[1]);
+      rt::or4(o0, gi[0]);
+      rt::or4(o1, gi[1]);
+      rt::or4(i0, go[0]);
+      rt::or4(i1, go[1]);
     }
-    reduce_or4(o0);
-    reduce_or4(o1);
-    reduce_or4(i0);
-    reduce_or4(i1);
-    soT[u * 32 + lane] = (uint8_t)byte_of(o0, o1, lane);
-    siT[u * 32 + lane] = (uint8_t)byte_of(i0, i1, lane);
+    rt::reduce_or4(o0);
+    rt::reduce_or4(o1);
+    rt::reduce_or4(i0);
+    rt::reduce_or4(i1);
+    soT[u * 32 + lane] = (uint8_t)rt::byte_of(o0, o1, lane);
+    siT[u * 32 + lane] = (uint8_t)rt::byte_of(i0, i1, lane);
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x) next_dirty[i] = 0;
   __syncthreads();
@@ -524,7 +457,7 @@ finish_kernel(const float* __restrict__ S_, const float* __restrict__ gum,
   const Layout L = layout(n, m);
   extern __shared__ __align__(16) uint8_t sm[];
   const size_t base = ((size_t)p * N + part) * nm;
-  copy_bytes(sm, rec + (size_t)p * L.rec, L.rec);
+  rt::copy_bytes(sm, rec + (size_t)p * L.rec, L.rec);
   float* St = reinterpret_cast<float*>(sm + L.s);
   if (SMEM) {
     if ((m & 3) == 0) {

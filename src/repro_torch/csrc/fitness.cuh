@@ -1,64 +1,56 @@
-// Block-wide float edge-preserving fitness of one particle, the body of
-// pso_fitness.cu's float kernel.
+// The first launch of both fitness bodies (pso_fitness.cu, float, and
+// fitness_quantized.cu): each problem's G columns packed once into device
+// scratch as bit rows, which every particle CTA then copies with 16-byte
+// loads.
 //
-// The tile S (n x m, row stride ld) is in shared memory. G enters as bit
-// columns Gin (row j holds the k with G[k, j] = 1): on an engine mesh G has
-// degree <= 4, so S G walks the set bits (__ffs) instead of multiplying by
-// zeros. Skipping a +0.0 term leaves a float sum unchanged, so every sum
-// below equals the dense left-to-right sum of the plain version
-// (kernels/ref.py): SG[i, j] over k ascending, SGS[i, u] over j ascending,
-// the squared residual over u within a row, then over rows.
+// On an engine mesh G has degree <= 4, so the particle CTAs walk a
+// column's set bits (__ffs) for S G instead of multiplying by zeros.
 #pragma once
 
 #include "common.cuh"
 
-namespace rt {
+namespace {
 
-// -||Q - S G S^T||^2 in float32; the result reaches every thread.
-__device__ inline float fitness_f32(const float* S, float* SG, float* R2,
-                                    float* rows, float* bcast,
-                                    const uint32_t* Gin, const uint8_t* q,
-                                    int n, int m, int ld, int ldn) {
-  const int W = words(m);
-  for (int idx = threadIdx.x; idx < n * m; idx += blockDim.x) {
-    const int i = idx / m, j = idx - i * m;
-    float acc = 0.0f;
-    for (int w = 0; w < W; ++w) {
-      uint32_t bits = Gin[j * W + w];
-      while (bits) {
-        const int k = w * 32 + __ffs(bits) - 1;
-        bits &= bits - 1;
-        acc = acc + S[i * ld + k];
-      }
+// Problem blockIdx.x's G columns as bit rows (row j holds the k with
+// G[k, j] != 0), from G staged in shared memory (m * m bytes, 16-byte
+// aligned and rounded up to 16).
+__global__ void __launch_bounds__(256)
+pack_gin_kernel(const uint8_t* __restrict__ G, uint32_t* __restrict__ gin,
+                int m) {
+  extern __shared__ __align__(16) uint8_t gs[];
+  const int p = blockIdx.x, mm = m * m;
+  const uint8_t* g = G + (size_t)p * mm;
+  if (((uintptr_t)g & 15) == 0 && (mm & 15) == 0) {
+    for (int w = threadIdx.x; w < mm / 16; w += blockDim.x)
+      reinterpret_cast<uint4*>(gs)[w] = reinterpret_cast<const uint4*>(g)[w];
+  } else {
+    for (int b = threadIdx.x; b < mm; b += blockDim.x) gs[b] = g[b];
+  }
+  __syncthreads();
+  // a thread a word, neighbouring threads on neighbouring columns
+  const int W = rt::words(m);
+  uint32_t* out = gin + (size_t)p * m * W;
+  for (int idx = threadIdx.x; idx < m * W; idx += blockDim.x) {
+    const int w = idx / m, col = idx - w * m;
+    uint32_t word = 0;
+#pragma unroll 8
+    for (int b = 0; b < 32; ++b) {
+      const int r = w * 32 + b;
+      if (r < m && gs[r * m + col] != 0) word |= 1u << b;
     }
-    SG[i * ld + j] = acc;
+    out[col * W + w] = word;
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n, u = idx - i * n;
-    const float* sg = SG + i * ld;
-    const float* su = S + u * ld;
-    float acc = 0.0f;
-    for (int j = 0; j < m; ++j) acc = acc + sg[j] * su[j];
-    const float r = (float)q[idx] - acc;
-    R2[i * ldn + u] = r * r;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float acc = 0.0f;
-    for (int u = 0; u < n; ++u) acc = acc + R2[i * ldn + u];
-    rows[i] = acc;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float tot = 0.0f;
-    for (int i = 0; i < n; ++i) tot = tot + rows[i];
-    *bcast = -tot;
-  }
-  __syncthreads();
-  const float f = *bcast;
-  __syncthreads();
-  return f;
 }
 
-}  // namespace rt
+// Launches pack_gin_kernel for P problems on `st`: scratch receives
+// P * m * words(m) words.
+inline cudaError_t pack_gin(const uint8_t* G, uint32_t* scratch, int P,
+                            int m, cudaStream_t st) {
+  const size_t gsmem = (size_t)rt::align16(m * m);
+  cudaError_t err = rt::allow_smem((const void*)pack_gin_kernel, gsmem);
+  if (err != cudaSuccess) return err;
+  pack_gin_kernel<<<P, 256, gsmem, st>>>(G, scratch, m);
+  return cudaGetLastError();
+}
+
+}  // namespace

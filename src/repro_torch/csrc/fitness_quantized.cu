@@ -10,7 +10,7 @@
 // and the occupancy that hides it. The design is epoch_fused.cu's
 // quantized step, whose costs were timed phase by phase (PERF.md):
 //  * a first launch packs each problem's G columns once into device
-//    scratch; a CTA copies its problem's with 16-byte loads;
+//    scratch (fitness.cuh); a CTA copies its problem's with 16-byte loads;
 //  * one CTA per (problem, particle) holds S as bytes and S G as 16-bit
 //    words (<= 255 m) with an odd-chunk row stride, so that 8-byte (16-
 //    byte) loads by lanes walking consecutive rows hit distinct banks;
@@ -22,22 +22,15 @@
 // The squared residual Q scale^2 - S G S^T is summed in 64 bits, wrapping
 // as the plain version's int64 arithmetic does (kernels/ref.py), so the
 // result is bitwise equal to it.
-#include "common.cuh"
+#include "fitness.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
-__host__ __device__ inline int round_up(int x, int a) {
-  return (x + a - 1) / a * a;
-}
-// A row stride of `a`-element chunks, an odd number of them: 8-byte (16-
-// byte) loads by lanes walking consecutive rows then hit distinct banks.
-__host__ __device__ inline int odd_chunks(int cols, int a) {
-  const int x = round_up(cols, a);
-  return (x / a) % 2 ? x : x + a;
-}
+using rt::align16;
+using rt::odd_chunks;
+using rt::round_up;
 
 // Byte offsets of a quantized CTA's shared memory.
 struct QLayout {
@@ -56,37 +49,6 @@ __host__ __device__ inline QLayout qlayout(int n, int m) {
   L.sg = align16(L.sq + n * L.ldb);
   L.total = align16(L.sg + 2 * n * L.ldh);
   return L;
-}
-
-// Launch 1 of the quantized body: problem blockIdx.x's G columns as bit
-// rows (row j holds the k with G[k, j] != 0), from G staged in shared
-// memory.
-__global__ void __launch_bounds__(kThreads)
-pack_gin_kernel(const uint8_t* __restrict__ G, uint32_t* __restrict__ gin,
-                int m) {
-  extern __shared__ __align__(16) uint8_t gs[];
-  const int p = blockIdx.x, mm = m * m;
-  const uint8_t* g = G + (size_t)p * mm;
-  if (((uintptr_t)g & 15) == 0 && (mm & 15) == 0) {
-    for (int w = threadIdx.x; w < mm / 16; w += blockDim.x)
-      reinterpret_cast<uint4*>(gs)[w] = reinterpret_cast<const uint4*>(g)[w];
-  } else {
-    for (int b = threadIdx.x; b < mm; b += blockDim.x) gs[b] = g[b];
-  }
-  __syncthreads();
-  // a thread a word, neighbouring threads on neighbouring columns
-  const int W = rt::words(m);
-  uint32_t* out = gin + (size_t)p * m * W;
-  for (int idx = threadIdx.x; idx < m * W; idx += blockDim.x) {
-    const int w = idx / m, col = idx - w * m;
-    uint32_t word = 0;
-#pragma unroll 8
-    for (int b = 0; b < 32; ++b) {
-      const int r = w * 32 + b;
-      if (r < m && gs[r * m + col] != 0) word |= 1u << b;
-    }
-    out[col * W + w] = word;
-  }
 }
 
 // Launch 2 of the quantized body: one particle (blockIdx.x) of one problem
@@ -247,12 +209,7 @@ extern "C" int edge_fitness_u8(const void* S, const void* Q, const void* G,
                                void* out, void* scratch, int P, int N, int n,
                                int m, int scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t gsmem = (size_t)align16(m * m);
-  cudaError_t err = rt::allow_smem((const void*)pack_gin_kernel, gsmem);
-  if (err != cudaSuccess) return (int)err;
-  pack_gin_kernel<<<P, kThreads, gsmem, st>>>((const uint8_t*)G,
-                                              (uint32_t*)scratch, m);
-  err = cudaGetLastError();
+  cudaError_t err = pack_gin((const uint8_t*)G, (uint32_t*)scratch, P, m, st);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = qlayout(n, m).total;
   err = rt::allow_smem((const void*)fitness_u8_kernel, smem);

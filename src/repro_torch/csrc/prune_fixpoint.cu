@@ -2,97 +2,252 @@
 //
 // Replaces the TPU kernel prune_fixpoint_pallas (src/repro/kernels/
 // prune_fixpoint.py, bodies _prune_kernel and _fused_step). One iteration
-// is an Ullmann sweep followed by singleton-row injectivity elimination;
-// the loop runs while anything changes and the sweep budget holds, and
-// reports the sweeps run.
+// is a Jacobi Ullmann sweep (every support from the mask as it stood at
+// the start of the sweep) followed by singleton-row injectivity
+// elimination on the swept mask; the loop runs while anything changes and
+// the sweep budget holds, and reports the sweeps run, the last one (which
+// changes nothing) included.
 //
-// Bound on the H100: neither bytes (a 56x144 mask is 8 KB) nor operations
-// (a sweep is ~40 k word ops); it is latency, a chain of dependent sweeps
-// with block barriers in between. Design: one CTA per problem, everything
-// in shared memory as bit rows (common.cuh), so a sweep is a few word ANDs
-// per thread, and the convergence flag comes from __syncthreads_or. All
-// of it is exact, so outputs are bitwise those of the integer form.
+// Bound on the H100: neither bytes (a 56x144 mask is 8 KB) nor operations.
+// It is latency: a chain of up to `bound` dependent sweeps, each two
+// barrier-separated passes, one CTA per problem. A per-phase timing of the
+// earlier design (PERF.md) found 82% of a 6-sweep CTA in the support pass
+// (each (row, word) item testing 32 columns in both directions against
+// every word of the row) and 9% in packing operands from device memory a
+// byte at a time. The design:
+//  * G and Q are staged in shared memory with 16-byte loads and packed from
+//    there; G lane-transposed (common.cuh: lane l of a warp owns the
+//    columns l + 32 k of a row, one byte), Q as bit rows and columns;
+//  * a warp owns the rows i = warp + nwarps r (up to 32 warps, 1024
+//    threads, at most 8 rows a warp) and alone reads and writes their
+//    candidates, lane-transposed in shared memory, and their flags (which
+//    changed, which are singletons, which have a predecessor or successor
+//    in Q), bit r of a register;
+//  * supports are unions of G's transposed rows over a row's candidates,
+//      SO[u] = OR_{v in M[u]} Gin[v],  SI[u] = OR_{v in M[u]} Gout[v],
+//    each lane ORing its own candidates' 32-byte rows and the warp ORing
+//    the lanes' parts; SO[u] only where u has a predecessor and SI[u] only
+//    where it has a successor (no other row reads them); only rows whose
+//    candidates changed in the last iteration (in the sweep or in the
+//    elimination) are rebuilt, since an unchanged row has the supports of
+//    the same candidates;
+//  * pass 2 of an iteration sweeps the warp's rows against the supports,
+//    counts each row's candidates with a warp reduction and lets a
+//    singleton row claim its column (a shared OR); pass 1 of the next
+//    iteration removes the claimed columns from every other row before it
+//    rebuilds supports, and its barrier also carries the convergence flag
+//    (__syncthreads_or). The claims alternate between two buffers;
+//  * the pruned mask is written row by row, coalesced.
+// Everything is exact, so the outputs are bitwise those of the integer
+// form (kernels/ref.py).
 #include "common.cuh"
 
 namespace {
 
-template <typename MT>
-__global__ void prune_kernel(const MT* __restrict__ mask,
-                             const uint8_t* __restrict__ Q,
-                             const uint8_t* __restrict__ G,
-                             MT* __restrict__ out, int* __restrict__ sweeps,
-                             int n, int m, int bound) {
-  const int p = blockIdx.x;
-  const int W = rt::words(m), Wn = rt::words(n);
-  extern __shared__ uint32_t sm[];
-  uint32_t* M = sm;                   // n * W
-  uint32_t* Gout = M + n * W;         // m * W   bits v: G[j, v]
-  uint32_t* Gin = Gout + m * W;       // m * W   bits v: G[v, j]
-  uint32_t* Qrow = Gin + m * W;       // n * Wn  bits u: Q[i, u]
-  uint32_t* Qcol = Qrow + n * Wn;     // n * Wn  bits u: Q[u, i]
-  uint32_t* SO = Qcol + n * Wn;       // n * W
-  uint32_t* SI = SO + n * W;          // n * W
-  uint32_t* claimed = SI + n * W;     // W
-  uint32_t* single = claimed + W;     // n   (row is a singleton)
+// Byte offsets of a CTA's shared memory.
+struct Layout {
+  int Wn, goutT, ginT, mt, qrow, qcol, soT, siT, claim, gs, qs, total;
+};
 
-  const MT* mk = mask + (size_t)p * n * m;
-  const uint8_t* q = Q + (size_t)p * n * n;
-  const uint8_t* g = G + (size_t)p * m * m;
-  rt::pack_rows(mk, n, m, M);
-  rt::pack_rows(g, m, m, Gout);
-  rt::pack_cols(g, m, Gin);
-  rt::pack_rows(q, n, n, Qrow);
-  rt::pack_cols(q, n, Qcol);
-  __syncthreads();
+using rt::align16;
 
-  int it = 0;
-  bool changed;
-  do {
-    bool mine = rt::ullmann_sweep(M, Gout, Gin, Qrow, Qcol, SO, SI, n, m);
-    // injectivity: a singleton row claims its column from every other row
-    for (int w = threadIdx.x; w < W; w += blockDim.x) claimed[w] = 0;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      single[i] = rt::popcount_row(M + i * W, W) == 1;
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n * W; idx += blockDim.x) {
-      const int i = idx / W;
-      if (single[i] && M[idx]) atomicOr(&claimed[idx - i * W], M[idx]);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n * W; idx += blockDim.x) {
-      const int i = idx / W;
-      if (!single[i]) {
-        const uint32_t x = M[idx] & ~claimed[idx - i * W];
-        mine |= (x != M[idx]);
-        M[idx] = x;
-      }
-    }
-    changed = __syncthreads_or(mine);
-    ++it;
-  } while (changed && it < bound);
-
-  MT* o = out + (size_t)p * n * m;
-  for (int idx = threadIdx.x; idx < n * m; idx += blockDim.x) {
-    const int i = idx / m, j = idx - i * m;
-    o[idx] = rt::test_bit(M + i * W, j) ? MT(1) : MT(0);
-  }
-  if (threadIdx.x == 0) sweeps[p] = it;
+__host__ __device__ inline Layout layout(int n, int m) {
+  Layout L;
+  L.Wn = rt::words(n);
+  L.goutT = 0;                               // 32 m: G's rows
+  L.ginT = align16(L.goutT + 32 * m);        // 32 m: G's columns
+  L.mt = align16(L.ginT + 32 * m);           // 32 n: the mask
+  L.qrow = align16(L.mt + 32 * n);           // n Wn words: Q's rows
+  L.qcol = align16(L.qrow + 4 * n * L.Wn);   // n Wn words: Q's columns
+  L.soT = align16(L.qcol + 4 * n * L.Wn);    // 32 n: supports, out
+  L.siT = align16(L.soT + 32 * n);           // 32 n: supports, in
+  L.claim = align16(L.siT + 32 * n);         // 2 x 32 words
+  L.gs = L.claim + 4 * 64;                   // m m bytes: G staged
+  L.qs = align16(L.gs + m * m);              // n n bytes: Q staged
+  L.total = align16(L.qs + n * n);
+  return L;
 }
 
-size_t smem_bytes(int n, int m) {
-  const int W = rt::words(m), Wn = rt::words(n);
-  return sizeof(uint32_t) *
-         (size_t)(4 * n * W + 2 * m * W + 2 * n * Wn + W + n);
+int warps_for(int n) { return n < 32 ? n : 32; }
+
+// The supports of row i (candidates `cand`, lane l's byte) into soT, if
+// a row reads them (`out`: i has a predecessor in Q), and into siT (`in`:
+// i has a successor); the whole warp calls it.
+__device__ __forceinline__ void supports(uint32_t cand, int i, int lane,
+                                         bool out, bool in,
+                                         const uint8_t* goutT,
+                                         const uint8_t* ginT, uint8_t* soT,
+                                         uint8_t* siT) {
+  uint4 o0 = make_uint4(0, 0, 0, 0), o1 = o0, i0 = o0, i1 = o0;
+  while (cand) {
+    const int v = lane + 32 * (__ffs(cand) - 1);
+    cand &= cand - 1;
+    if (out) {
+      const uint4* gi = reinterpret_cast<const uint4*>(ginT + v * 32);
+      rt::or4(o0, gi[0]);
+      rt::or4(o1, gi[1]);
+    }
+    if (in) {
+      const uint4* go = reinterpret_cast<const uint4*>(goutT + v * 32);
+      rt::or4(i0, go[0]);
+      rt::or4(i1, go[1]);
+    }
+  }
+  if (out) {
+    rt::reduce_or4(o0);
+    rt::reduce_or4(o1);
+    soT[i * 32 + lane] = (uint8_t)rt::byte_of(o0, o1, lane);
+  }
+  if (in) {
+    rt::reduce_or4(i0);
+    rt::reduce_or4(i1);
+    siT[i * 32 + lane] = (uint8_t)rt::byte_of(i0, i1, lane);
+  }
+}
+
+template <typename MT>
+__global__ void __launch_bounds__(1024)
+prune_kernel(const MT* __restrict__ mask, const uint8_t* __restrict__ Q,
+             const uint8_t* __restrict__ G, MT* __restrict__ out,
+             int* __restrict__ sweeps, int n, int m, int bound) {
+  const int p = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const Layout L = layout(n, m);
+  const int Wn = L.Wn;
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint8_t* goutT = sm + L.goutT;
+  uint8_t* ginT = sm + L.ginT;
+  uint8_t* MT_ = sm + L.mt;
+  uint32_t* qrow = reinterpret_cast<uint32_t*>(sm + L.qrow);
+  uint32_t* qcol = reinterpret_cast<uint32_t*>(sm + L.qcol);
+  uint8_t* soT = sm + L.soT;
+  uint8_t* siT = sm + L.siT;
+  uint32_t* claim = reinterpret_cast<uint32_t*>(sm + L.claim);
+
+  rt::copy_bytes(sm + L.gs, G + (size_t)p * m * m, m * m);
+  rt::copy_bytes(sm + L.qs, Q + (size_t)p * n * n, n * n);
+  for (int t = tid; t < 64; t += blockDim.x) claim[t] = 0;
+  // the warp's rows of the mask, lane-transposed (for one k the warp reads
+  // 32 consecutive entries)
+  const MT* mk = mask + (size_t)p * n * m;
+  for (int i = warp; i < n; i += nwarps) {
+    uint32_t byte = 0;
+#pragma unroll
+    for (int k = 0; k < rt::kLaneBits; ++k) {
+      const int c = lane + 32 * k;
+      if (c < m && mk[(size_t)i * m + c] != 0) byte |= 1u << k;
+    }
+    MT_[i * 32 + lane] = (uint8_t)byte;
+  }
+  __syncthreads();
+  rt::pack_rows_t(sm + L.gs, m, m, goutT);
+  rt::pack_cols_t(sm + L.gs, m, ginT);
+  // Q's bit rows and columns: a warp a word, a ballot a word
+  const uint8_t* qs = sm + L.qs;
+  for (int t = warp; t < n * Wn; t += nwarps) {
+    const int i = t / Wn, u = 32 * (t - i * Wn) + lane;
+    const uint32_t row = __ballot_sync(0xffffffffu, u < n && qs[i * n + u]);
+    const uint32_t col = __ballot_sync(0xffffffffu, u < n && qs[u * n + i]);
+    if (lane == 0) {
+      qrow[t] = row;
+      qcol[t] = col;
+    }
+  }
+  __syncthreads();
+  // bit r of has_pred / has_succ: the warp's row r has a predecessor (its
+  // SO is read) / a successor (its SI is read)
+  uint32_t has_pred = 0, has_succ = 0;
+  for (int r = 0, i = warp; i < n; ++r, i += nwarps) {
+    uint32_t pred = 0, succ = 0;
+    for (int wu = 0; wu < Wn; ++wu) {
+      pred |= qcol[i * Wn + wu];
+      succ |= qrow[i * Wn + wu];
+    }
+    has_pred |= (uint32_t)(pred != 0) << r;
+    has_succ |= (uint32_t)(succ != 0) << r;
+    supports(MT_[i * 32 + lane], i, lane, pred != 0, succ != 0, goutT, ginT,
+             soT, siT);
+  }
+  __syncthreads();
+
+  uint32_t single = 0;     // bit r: the warp's row r is a singleton
+  int it = 0;
+  for (;;) {
+    // pass 2: the sweep of the warp's rows, their counts and the claims
+    uint32_t* claimed = claim + 32 * (it & 1);
+    uint32_t changed = 0;  // bit r: the warp's row r changed
+    for (int r = 0, i = warp; i < n; ++r, i += nwarps) {
+      const uint32_t x = MT_[i * 32 + lane];
+      uint32_t y = x;
+      for (int wu = 0; wu < Wn; ++wu) {
+        uint32_t out_nb = qrow[i * Wn + wu];
+        while (out_nb) {
+          const int u = wu * 32 + __ffs(out_nb) - 1;
+          out_nb &= out_nb - 1;
+          y &= soT[u * 32 + lane];
+        }
+        uint32_t in_nb = qcol[i * Wn + wu];
+        while (in_nb) {
+          const int u = wu * 32 + __ffs(in_nb) - 1;
+          in_nb &= in_nb - 1;
+          y &= siT[u * 32 + lane];
+        }
+      }
+      if (__any_sync(0xffffffffu, y != x)) {
+        changed |= 1u << r;
+        MT_[i * 32 + lane] = (uint8_t)y;
+      }
+      if (__reduce_add_sync(0xffffffffu, __popc(y)) == 1) {
+        single |= 1u << r;
+        if (y) atomicOr(&claimed[lane], y);
+      } else {
+        single &= ~(1u << r);
+      }
+    }
+    __syncthreads();
+    ++it;
+    // pass 1: the claimed columns leave every row that is no singleton,
+    // then the supports of the rows that changed
+    const uint32_t gone = claimed[lane];
+    if (tid < 32) claim[32 * (it & 1) + tid] = 0;
+    for (int r = 0, i = warp; i < n; ++r, i += nwarps) {
+      if ((single >> r) & 1u) continue;
+      const uint32_t x = MT_[i * 32 + lane], y = x & ~gone;
+      if (__any_sync(0xffffffffu, y != x)) {
+        changed |= 1u << r;
+        MT_[i * 32 + lane] = (uint8_t)y;
+      }
+    }
+    if (it >= bound) break;
+    for (int r = 0, i = warp; i < n; ++r, i += nwarps) {
+      if ((changed >> r) & 1u)
+        supports(MT_[i * 32 + lane], i, lane, (has_pred >> r) & 1u,
+                 (has_succ >> r) & 1u, goutT, ginT, soT, siT);
+    }
+    if (!__syncthreads_or(changed != 0)) break;
+  }
+
+  // the pruned mask (each warp wrote only its own rows)
+  MT* o = out + (size_t)p * n * m;
+  for (int i = warp; i < n; i += nwarps) {
+    const uint32_t x = MT_[i * 32 + lane];
+#pragma unroll
+    for (int k = 0; k < rt::kLaneBits; ++k) {
+      const int c = lane + 32 * k;
+      if (c < m) o[(size_t)i * m + c] = MT((x >> k) & 1u);
+    }
+  }
+  if (tid == 0) sweeps[p] = it;
 }
 
 template <typename MT>
 int launch(const void* mask, const void* Q, const void* G, void* out,
            void* sweeps, int P, int n, int m, int max_iters, void* stream) {
   const int bound = max_iters > 0 ? max_iters : n * m + 1;
-  const size_t smem = smem_bytes(n, m);
+  const size_t smem = layout(n, m).total;
   cudaError_t err = rt::allow_smem((const void*)prune_kernel<MT>, smem);
   if (err != cudaSuccess) return (int)err;
-  prune_kernel<MT><<<P, 256, smem, (cudaStream_t)stream>>>(
+  prune_kernel<MT><<<P, 32 * warps_for(n), smem, (cudaStream_t)stream>>>(
       (const MT*)mask, (const uint8_t*)Q, (const uint8_t*)G, (MT*)out,
       (int*)sweeps, n, m, bound);
   return (int)cudaGetLastError();

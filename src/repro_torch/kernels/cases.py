@@ -56,6 +56,23 @@ def random_problem(P: int, n: int, m: int, seed: int,
             torch.from_numpy(mask).to(mask_dtype))
 
 
+def chain_problem(P: int, n: int, m: int, seed: int,
+                  mask_dtype=torch.uint8):
+    """P problems whose pre-prune takes ~n sweeps: Q a path of n nodes, G
+    a path of m, so that each sweep peels one more column off each end of
+    a shrinking set of rows. Problem 0 starts from an all-ones mask, the
+    others from a seeded mask of density 0.95."""
+    rng = np.random.default_rng(seed)
+    Q = np.zeros((P, n, n), dtype=np.uint8)
+    G = np.zeros((P, m, m), dtype=np.uint8)
+    Q[:, np.arange(n - 1), np.arange(1, n)] = 1
+    G[:, np.arange(m - 1), np.arange(1, m)] = 1
+    mask = np.ones((P, n, m), dtype=bool)
+    mask[1:] = rng.random((P - 1, n, m)) < 0.95
+    return (torch.from_numpy(Q), torch.from_numpy(G),
+            torch.from_numpy(mask).to(mask_dtype))
+
+
 def swarm_inputs(Q, G, mask, N: int, K: int, seed: int) -> Dict:
     """Particle state for the fitness, epoch and tail kernels on the
     problems ``(Q, G, mask)``: masked row-stochastic S, small velocities,

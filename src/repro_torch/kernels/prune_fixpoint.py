@@ -3,10 +3,13 @@
 Replaces the TPU kernel ``prune_fixpoint_pallas`` of the JAX package
 (``kernels/prune_fixpoint.py``, bodies ``_prune_kernel`` and
 ``_fused_step``). The CUDA kernel is ``csrc/prune_fixpoint.cu``: one CTA
-per problem with the mask, Q and G as bit rows in shared memory. On the
-H100 it is bound by the latency of its chain of dependent sweeps, not by
-bytes or operations; its outputs are exact, so they match the plain
-version bit for bit. Mask entries are taken as 0/1 (nonzero = 1).
+per problem, a warp per mask row (up to 32 warps), the candidates in
+registers and G's rows and columns in shared memory; supports are
+rebuilt only for rows that changed. On the H100 it is bound by the
+latency of its chain of dependent sweeps, two barrier-separated passes
+each, not by bytes or operations; its outputs are exact, so they match
+the plain version bit for bit. Mask entries are taken as 0/1 (nonzero =
+1).
 """
 from __future__ import annotations
 

@@ -4,13 +4,14 @@ over problems with their own Q and G.
 Replaces the TPU kernels ``edge_fitness_pallas`` and
 ``edge_fitness_quantized_pallas`` of the JAX package
 (``kernels/pso_fitness.py``). The CUDA kernels are
-``csrc/pso_fitness.cu`` (float) and ``csrc/fitness_quantized.cu``, one
-CTA per (problem, particle), bound on the H100 by their operations on
-CUDA cores. The float body (one launch) sums in the plain version's
-order; the quantized body (two launches: G's columns packed once per
-problem, then the particles, S as bytes and S G Sᵀ on integer dot
-products) sums exactly in 64 bits. Both match the plain versions bit for
-bit.
+``csrc/pso_fitness.cu`` (float) and ``csrc/fitness_quantized.cu``, bound
+on the H100 by their operations on CUDA cores. Each body is two
+launches: G's columns packed once per problem (``csrc/fitness.cuh``),
+then one CTA per (problem, particle). The float body sums in the plain
+version's order, its tiles in shared memory or, past a block's limit
+(chosen by the shape), in device scratch; the quantized body holds S as
+bytes and runs S G Sᵀ on integer dot products, summing exactly in 64
+bits. Both match the plain versions bit for bit.
 """
 from __future__ import annotations
 
@@ -61,13 +62,15 @@ def edge_fitness_cuda(S: torch.Tensor, Q: torch.Tensor, G: torch.Tensor,
         err = fn(kb.ptr(S), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(out),
                  kb.ptr(scratch), P, N, n, m, int(scale), kb.stream())
     else:
+        # G's column bits, and the tiles where they pass a block's shared
+        # memory: the C side sizes both from the shape
+        nbytes = kb.bind("pso_fitness", "edge_fitness_f32_scratch_bytes",
+                         [kb.I_] * 4, ctypes.c_longlong)(P, N, n, m)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
         fn = kb.bind("pso_fitness", "edge_fitness_f32",
-                     [kb.P_] * 4 + [kb.I_] * 4 + [kb.P_])
-        err = fn(kb.ptr(S), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(out), P, N, n, m,
-                 kb.stream())
+                     [kb.P_] * 5 + [kb.I_] * 4 + [kb.P_])
+        err = fn(kb.ptr(S), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(out),
+                 kb.ptr(scratch), P, N, n, m, kb.stream())
     kb.check(err, "edge_fitness")
-    if quantized:
-        launches_quantized.add(2)
-    else:
-        launches.add()
+    (launches_quantized if quantized else launches).add(2)
     return out

@@ -55,14 +55,46 @@ def test_kernels_match_plain_on_card(device, shape, quantized, tau):
             raise AssertionError(f"{name}: {e}") from e
 
 
-@pytest.mark.parametrize("max_iters", [0, 1])
-@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32])
-def test_prune_kernel_mask_dtypes_on_card(device, mask_dtype, max_iters):
-    Q, G, mask = (t.to(device) for t in
-                  cases.random_problem(3, 40, 72, 5, mask_dtype))
+def _assert_prune_bitwise(mask, Q, G, max_iters):
+    from repro_torch.kernels import prune_fixpoint
+    prune_fixpoint.launches.reset()
     got = prune_fixpoint_cuda(mask, Q, G, max_iters)
-    cases.compare(got, prune_fixpoint_reference(mask, Q, G, max_iters))
-    assert got[0].dtype == mask_dtype
+    torch.cuda.synchronize()
+    assert prune_fixpoint.launches.count == 1
+    want = prune_fixpoint_reference(mask, Q, G, max_iters)
+    for name, g, w in zip(("mask", "sweeps"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 2])
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("shape", [(3, 1, 40, 72, 1)] + ODD_SHAPES + [
+    (1, 1, 256, 256, 1), (1, 1, 56, 144, 1)])
+def test_prune_kernel_mask_dtypes_on_card(device, shape, mask_dtype,
+                                          max_iters):
+    """Masks and sweeps bit for bit, for both mask dtypes, at n, m off
+    every multiple of 8, up to 256 x 256 (8 rows a warp), and for a single
+    problem (P = 1)."""
+    P, _, n, m, _ = shape
+    Q, G, mask = (t.to(device) for t in
+                  cases.random_problem(P, n, m, 5, mask_dtype))
+    _assert_prune_bitwise(mask, Q, G, max_iters)
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("n,m", [(13, 37), (40, 72), (203, 233)])
+def test_prune_fixpoint_long_chain_on_card(device, n, m, mask_dtype):
+    """A path-shaped Q on a path-shaped G: n sweeps from the all-ones
+    mask, each changing a shrinking set of rows, so that only some rows'
+    supports are rebuilt in each iteration; and the same budget cut
+    short."""
+    Q, G, mask = (t.to(device) for t in
+                  cases.chain_problem(3, n, m, 42, mask_dtype))
+    for max_iters in (0, n // 2):
+        _assert_prune_bitwise(mask, Q, G, max_iters)
+    _, sweeps = prune_fixpoint_cuda(mask, Q, G)
+    assert int(sweeps[0]) == n
 
 
 def _dtype_cases(device, n, m, mask_dtype, seed):
@@ -356,3 +388,35 @@ def test_edge_fitness_quantized_largest_sums_on_card(device):
     S_q = torch.full((P, N, n, m), 255, dtype=torch.uint8, device=device)
     _assert_fitness_u8_bitwise(S_q, Q, G)
     _assert_fitness_u8_bitwise(S_q[:, :, :3].contiguous(), Q[:, :3, :3], G)
+
+
+def _assert_fitness_f32_bitwise(S, Q, G):
+    from repro_torch.kernels import pso_fitness
+    from repro_torch.kernels.pso_fitness import (edge_fitness_cuda,
+                                                 edge_fitness_reference)
+    pso_fitness.launches.reset()
+    got = edge_fitness_cuda(S, Q, G)
+    torch.cuda.synchronize()
+    assert pso_fitness.launches.count == 2
+    want = edge_fitness_reference(S, Q, G)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("shape", SHAPES + ODD_SHAPES + [(1, 64, 256, 256, 2)])
+def test_edge_fitness_float_bitwise_on_card(device, shape):
+    """Every n, m <= 256 the port accepts: the tiles in shared memory at
+    the main path's shapes and in device scratch past the limit of a
+    block, at (203, 233) and (256, 256)."""
+    P, N, n, m, _ = shape
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 34))
+    x = cases.swarm_inputs(Q, G, mask, N, 1, seed=34)
+    _assert_fitness_f32_bitwise(x["S"], Q, G)
+
+
+def test_edge_fitness_float_projection_tile_on_card(device):
+    """The float Tier-0 call: N = 1 on the 0/1 tile of a projection."""
+    Q, G, mask = (t.to(device) for t in cases.random_problem(8, 56, 144, 35))
+    x = cases.swarm_inputs(Q, G, mask, 1, 1, seed=35)
+    M = ref.greedy_project(x["S"][:, 0], mask)
+    _assert_fitness_f32_bitwise(M.float()[:, None], Q, G)

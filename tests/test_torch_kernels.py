@@ -199,3 +199,53 @@ def test_fixpoint_helpers_match_jax(max_iters):
     assert_parity(tref.prune_mask_fixpoint(t.mask, t.Q, t.G, max_iters),
                   jref.prune_mask_fixpoint(j.mask, j.Q, j.G, max_iters))
 
+
+
+def _jax_prune(mask, Q, G, max_iters=0):
+    """The JAX ``ref`` pre-prune, one problem at a time."""
+    from repro.kernels import ref as jref
+    outs = [jref.prune_fixpoint_count(jnp.asarray(mk.numpy()),
+                                      jnp.asarray(q.numpy()),
+                                      jnp.asarray(g.numpy()), max_iters)
+            for mk, q, g in zip(mask, Q, G)]
+    return (np.stack([np.asarray(o[0]) for o in outs]),
+            np.stack([np.asarray(o[1]) for o in outs]))
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("case", ["random_203x233", "chain_13x37",
+                                  "chain_40x72"])
+def test_port_prune_matches_jax_ref_large_and_long(case, mask_dtype):
+    """The port's plain pre-prune (masks and sweeps) against the JAX
+    ``ref`` one where the card's kernel keeps 7 rows a warp (203 x 233) and
+    on path-shaped problems whose fixpoint takes ~n sweeps."""
+    from repro_torch.kernels import cases
+    from repro_torch.kernels import ref as tref
+    kind, shape = case.split("_")
+    n, m = map(int, shape.split("x"))
+    make = cases.random_problem if kind == "random" else cases.chain_problem
+    Q, G, mask = make(1 if kind == "random" else 3, n, m, 43, mask_dtype)
+    got = tref.prune_fixpoint_count(mask, Q, G)
+    assert_parity(got, _jax_prune(mask, Q, G))
+    if kind == "chain":        # n sweeps from the all-ones mask
+        assert int(got[1][0]) == n
+
+
+@pytest.mark.parametrize("case", ["random_203x233", "chain_40x72"])
+def test_port_edge_fitness_matches_jax_ref_large(case):
+    """The port's plain float fitness against the JAX ``ref`` one at
+    (P, N, n, m) = (1, 2, 203, 233), where the card's kernel keeps its
+    tiles in device scratch, and on the long-chain problem."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.pso_fitness import edge_fitness_reference
+    kind, shape = case.split("_")
+    n, m = map(int, shape.split("x"))
+    make = cases.random_problem if kind == "random" else cases.chain_problem
+    Q, G, mask = make(1, n, m, 44)
+    S = cases.swarm_inputs(Q, G, mask, 2, 1, seed=44)["S"]
+    got = edge_fitness_reference(S, Q, G)
+    want = jax.vmap(jref.edge_fitness, in_axes=(0, None, None))(
+        jnp.asarray(S[0].numpy()), jnp.asarray(Q[0].numpy()),
+        jnp.asarray(G[0].numpy()))
+    assert_parity(got[0], want)

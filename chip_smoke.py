@@ -25,6 +25,15 @@ Phases, in order; any failure exits non-zero:
      re-validated by ``revalidate_batch`` (Tier 0), plus one float-config
      ``IMMSchedMatcher.match``; every returned mapping must be feasible
      and every kernel of the path must have been launched;
+  4b. the matcher service (``core.service.MatcherService``, quantized,
+     early exit) on the same 8 requests, bucketed by the service itself:
+     a cold drain, a warm drain, an all-warm drain (every request at
+     Tier 0, exactly one host sync) and a drift drain on a target with 4
+     free engines swapped (Tier 1), then a float-config service match of
+     unet, cold and warm; every served mapping must be feasible and each
+     of the five main-path kernels must have been launched through the
+     service. Measurement only: the warm and the all-warm drain under
+     the profiler and the Tier-0 host phases per bucket;
   5. the split (pre-fusion) epoch: ``core.split_epoch.split_epoch``
      through the ``cuda`` suite on each problem of the burst, float and
      quantized, plus ``masked_argmax`` through the seam on each returned
@@ -40,11 +49,13 @@ Phases, in order; any failure exits non-zero:
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
 counts device launches on the main or split path, ``launches_per_call``
-divides them by the wrapper calls that made them), the last line
+divides them by the wrapper calls that made them, ``service_launches``
+counts the launches of phase 4b), the last line
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` the details (a
 JSON record and the profiler's table) are also written to DIR.
 """
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -93,6 +104,9 @@ BITWISE = ("epoch_fused", "masked_argmax", "edge_fitness",
 #: (P, N, n, m) of phase 3's extra float fitness call: tiles past a
 #: block's shared memory
 FITNESS_LARGE = (1, 64, 203, 233)
+#: the kernels of the main path, in phase 4 and through the service
+MAIN_KERNELS = ("prune_fixpoint", "edge_fitness", "edge_fitness_quantized",
+                "epoch_fused", "epoch_finish")
 #: the kernels the split epoch phase drives (the fitness entries too)
 SPLIT_KERNELS = ("pso_update", "ullmann_refine_step", "greedy_project",
                  "masked_argmax", "edge_fitness", "edge_fitness_quantized")
@@ -139,14 +153,21 @@ def cuda_ms(fn, reps, warm=1):
 # requests, as IMMSchedScheduler._real_match_batch builds them
 # ---------------------------------------------------------------------------
 
-def build_requests():
-    from repro_torch.accel import platform, target_graph
-    from repro_torch.core import graphs, preemptible_dag as pdag
-    from repro_torch.workloads import zoo
+def free_engines():
+    """The Cloud platform and its seeded set of ``N_FREE`` free engines."""
+    from repro_torch.accel import platform
     plat = platform.CLOUD
     free = np.zeros(plat.engines, dtype=bool)
     free[np.random.default_rng(FREE_SEED).choice(plat.engines, N_FREE,
                                                  replace=False)] = True
+    return plat, free
+
+
+def build_requests():
+    from repro_torch.accel import target_graph
+    from repro_torch.core import graphs, preemptible_dag as pdag
+    from repro_torch.workloads import zoo
+    plat, free = free_engines()
     tgt = target_graph.free_engine_graph(plat, free)
     cap = plat.engine_tile_capacity_macs()
     reqs = []
@@ -336,6 +357,191 @@ def split_phase(pso, Qb, Gb, Mb, x, counters):
                 times=times, profile=idle)
 
 
+def _tier_delta(stats, before):
+    """Per-tier launches, checked, hits and wall ms since ``before``."""
+    out = {}
+    for name in ("tier0", "tier1", "tier2"):
+        t, b = getattr(stats, name), getattr(before, name)
+        out[name] = dict(launches=t.launches - b.launches,
+                         checked=t.checked - b.checked, hits=t.hits - b.hits,
+                         wall_ms=(t.wall_s - b.wall_s) * 1e3)
+    return out
+
+
+def tier0_phases(pso, svc, reqs, picks, tgt, sig):
+    """Step 0 of the Tier-0 hand kernel (measurement only): the host
+    phases of ``revalidate_batch`` on the service's own warm inputs, per
+    bucket, each timed with ``time.perf_counter`` between two
+    synchronizes. The phases' outputs are held against one
+    ``revalidate_batch`` call on the same inputs."""
+    from repro_torch.kernels import backend
+    cfg = svc.cfg
+    bk = backend.for_config(cfg)
+    groups = {}
+    for i in picks:
+        req = svc._prepare(reqs[i]["q"], tgt, SEED + i, (reqs[i]["name"], sig))
+        groups.setdefault(req.bucket, []).append(req)
+    rows = []
+    for bucket, rq in sorted(groups.items()):
+        Qb, Gb, Mb = svc._upload_problems(rq)
+        handles = [svc._carries._exact[svc._warm_key(r)] for r in rq]
+        carry0 = svc._stack_carries(handles)
+        ms = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        mask, _ = timed("prune", lambda: bk.prune_fixpoint_batch(
+            Mb, Qb, Gb, cfg.prune_iters))
+        S_rb, f0, _ = timed("rebase_carry",
+                            lambda: pso.rebase_carry(carry0, mask))
+        M_c = timed("structured_project", lambda: bk.structured_project(
+            S_rb, Qb, Gb, mask).to(torch.uint8))
+        f_c = timed("fitness", lambda: pso._fitness(
+            M_c.float()[:, None], Qb, Gb, cfg)[:, 0])
+        feas = timed("is_feasible", lambda: bk.is_feasible(M_c, Qb, Gb))
+        want = timed("revalidate_batch", lambda: pso.revalidate_batch(
+            Qb, Gb, Mb, cfg, carry0))
+        ok = feas & (f0 > float("-inf")) & (f0 >= cfg.early_exit_fitness)
+        if not (torch.equal(M_c, want["mapping"]) and torch.equal(
+                ok, want["ok"]) and torch.equal(f_c, want["fitness"])):
+            fail(f"Tier-0 phases at {bucket} differ from revalidate_batch")
+        rows.append(dict(bucket=list(bucket), problems=len(rq), **ms))
+        log(json.dumps(dict(tier0_phases_ms=rows[-1])))
+    return rows
+
+
+def service_phase(pso, reqs, counters, out_dir):
+    """The matcher service at the burst's full width: the 8 requests
+    submitted as the scheduler names them, bucketed by the service
+    itself. Drains, in order: cold (Tier 2), warm, all-warm (the requests
+    the warm drain served at Tier 0: every one must be served at Tier 0
+    again for exactly one host sync), and a drift drain on a target with
+    4 free engines swapped (Tier 1); then a float-config match of unet,
+    cold and warm. Every served mapping is checked on the host against
+    the unpadded query and target, and each of the five main-path kernels
+    must have been launched through the service. Then, measurement only:
+    the warm and the all-warm drain under the profiler and the Tier-0
+    host phases."""
+    from repro_torch.accel import target_graph
+    from repro_torch.core.service import MatcherService
+    plat, free = free_engines()
+    tgt = target_graph.free_engine_graph(plat, free)
+    sig = target_graph.free_engine_signature(free)
+    drift = free.copy()
+    rng = np.random.default_rng(FREE_SEED + 1)
+    drift[rng.choice(np.where(free)[0], 4, replace=False)] = False
+    drift[rng.choice(np.where(~free)[0], 4, replace=False)] = True
+    tgt_drift = target_graph.free_engine_graph(plat, drift)
+    sig_drift = target_graph.free_engine_signature(drift)
+    cfg = pso.PSOConfig(quantized=True, early_exit=True)
+    svc = MatcherService(cfg, device="cuda")
+    drains = {}
+
+    def drain(label, picks, target, tsig):
+        before = copy.deepcopy(svc.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in picks:
+            svc.submit(reqs[i]["q"], target, key=SEED + i,
+                       workload_key=(reqs[i]["name"], tsig))
+        res = svc.drain()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        for i, r in zip(picks, res):
+            if r.found and not feasible_np(r.mapping, reqs[i]["q"].adj,
+                                           target.adj):
+                fail(f"service drain {label}: {reqs[i]['name']}'s mapping "
+                     f"is infeasible")
+        line = dict(drain=label, wall_ms=wall,
+                    tiers=_tier_delta(svc.stats, before),
+                    host_syncs=svc.stats.host_syncs - before.host_syncs,
+                    found=sum(r.found for r in res), requests=len(res),
+                    served=[[reqs[i]["name"], r.tier, r.found, r.epochs_run]
+                            for i, r in zip(picks, res)],
+                    buckets=sorted({tuple(r.bucket) for r in res}))
+        log(json.dumps(line))
+        drains[label] = line
+        return res
+
+    for c in counters.values():
+        c.reset()
+    everyone = list(range(len(reqs)))
+    drain("cold", everyone, tgt, sig)
+    warm = drain("warm", everyone, tgt, sig)
+    picks = [i for i, r in zip(everyone, warm) if r.tier == 0 and r.found]
+    if not picks:
+        fail("the warm drain served no request at Tier 0")
+    res = drain("all_warm", picks, tgt, sig)
+    if not all(r.tier == 0 and r.found for r in res):
+        fail("the all-warm drain served a request off Tier 0")
+    if drains["all_warm"]["host_syncs"] != 1:
+        fail(f"the all-warm drain made {drains['all_warm']['host_syncs']} "
+             f"host syncs, not 1")
+    drain("drift", everyone, tgt_drift, sig_drift)
+    # the float config (the service's default): unet, cold then warm
+    fsvc = MatcherService(device="cuda")
+    unet = WORKLOADS.index("unet")
+    before_float = (counters["epoch_fused"].count,
+                    counters["epoch_fused"].calls)
+    for label in ("float_cold", "float_warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fsvc.match(reqs[unet]["q"], tgt, key=SEED + unet,
+                       workload_key=("unet", sig))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if r.found and not feasible_np(r.mapping, reqs[unet]["q"].adj,
+                                       tgt.adj):
+            fail(f"service {label}: infeasible mapping")
+        drains[label] = dict(drain=label, wall_ms=wall, tier=r.tier,
+                             found=r.found, epochs_run=r.epochs_run,
+                             host_syncs=r.host_syncs, bucket=list(r.bucket))
+        log(json.dumps(drains[label]))
+    launches = {k: counters[k].count for k in MAIN_KERNELS}
+    launches[FLOAT_EPOCH] = launches["epoch_fused"] - before_float[0]
+    launches["epoch_fused"] = before_float[0]
+    log(f"launches through the service: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched through the service")
+
+    # step 0 of the Tier-0 hand kernel, measurement only: a warm drain of
+    # the 8 (Tier 0 in every bucket, then Tier 2 for the misses) and the
+    # all-warm drain under the profiler, then the Tier-0 host phases on
+    # the warm drain's inputs, bucket by bucket
+    def warm_drain(picked):
+        for i in picked:
+            svc.submit(reqs[i]["q"], tgt, key=SEED + i,
+                       workload_key=(reqs[i]["name"], sig))
+        return svc.drain()
+    profiles = {}
+    for label, picked in (("warm", everyone), ("all_warm", picks)):
+        prof, wall_ms, rows = profiled(lambda: warm_drain(picked))
+        busy = sum(r[1] for r in rows)
+        profiles[label] = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                               idle_share=1.0 - busy / max(wall_ms, 1e-9),
+                               device_launches=sum(r[2] for r in rows),
+                               top=[dict(kernel=k[:60], ms=ms, calls=c)
+                                    for k, ms, c in rows[:6]])
+        log(f"service {label} drain under the profiler: "
+            f"{json.dumps(profiles[label])}")
+        if out_dir is not None:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            (out_dir / f"profile_service_{label}.txt").write_text(
+                prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=30))
+    phases = tier0_phases(pso, svc, reqs, everyone, tgt, sig)
+    return dict(drains=drains, launches=launches,
+                stats=svc.stats_dict(), profiles=profiles,
+                tier0_phases=phases)
+
+
 def profiled(fn):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
@@ -364,9 +570,9 @@ def profiled(fn):
 def profile_burst(pso, Qb, Gb, Mb, cfg, out_dir):
     """Device time by kernel over one ``match_batch`` of the burst, and
     the device's busy share of the synchronized wall time."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    seeds = [SEED + 100 + b for b in range(Mb.shape[0])]
     prof, wall_ms, rows = profiled(
-        lambda: pso.match_batch(Qb, Gb, Mb, cfg, generator=gen))
+        lambda: pso.match_batch(Qb, Gb, Mb, cfg, streams=seeds))
     busy_ms = sum(r[1] for r in rows)
     if out_dir is not None:
         (out_dir / "profile.txt").write_text(
@@ -520,15 +726,14 @@ def main():
                 "ullmann_refine_step": ullmann_refine.launches,
                 "greedy_project": argmax_project.launches_greedy,
                 "masked_argmax": argmax_project.launches_argmax}
-    main_kernels = ("prune_fixpoint", "edge_fitness",
-                    "edge_fitness_quantized", "epoch_fused", "epoch_finish")
+    main_kernels = MAIN_KERNELS
     for c in counters.values():
         c.reset()
     cfg = pso.PSOConfig(quantized=True, early_exit=True)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     torch.cuda.synchronize()
     t0 = time.time()
-    outs = pso.match_batch(Qb, Gb, Mb, cfg, generator=gen)
+    outs = pso.match_batch(Qb, Gb, Mb, cfg,
+                           streams=[SEED + b for b in range(P)])
     torch.cuda.synchronize()
     t_match = time.time() - t0
     results = collect_batch_results(
@@ -565,9 +770,7 @@ def main():
     before_float = (epoch_fused.launches.count, epoch_fused.launches.calls)
     torch.cuda.synchronize()
     t0 = time.time()
-    res = IMMSchedMatcher(fcfg).match(
-        unet["q"], tgt, generator=torch.Generator(
-            device="cuda").manual_seed(SEED))
+    res = IMMSchedMatcher(fcfg).match(unet["q"], tgt, stream=SEED)
     torch.cuda.synchronize()
     t_single = time.time() - t0
     if res.found and not feasible_np(res.mapping, unet["q"].adj, tgt.adj):
@@ -596,6 +799,10 @@ def main():
         revalidate_s=t_reval, reval_hits=int(ok.sum()),
         single_match_s=t_single, single_found=res.found,
         launches=launches, calls=main_calls)
+
+    # 4b. the matcher service: its drains at the burst's full width
+    detail["service"] = service_phase(pso, reqs, counters, out_dir)
+    service_launches = detail["service"]["launches"]
 
     # 5. the split (pre-fusion) epoch against the fused one
     detail["split_epoch"] = split_phase(pso, Qb, Gb, Mb, x, counters)
@@ -632,6 +839,7 @@ def main():
         n_calls = main_calls.get(name, split_calls.get(name))
         kern.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=n_launch,
+                         service_launches=service_launches.get(name),
                          launches_per_call=(n_launch / n_calls
                                             if n_calls else None),
                          max_abs_err=errs[name], ms=rec["ms"],

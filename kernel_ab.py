@@ -39,6 +39,7 @@ and the change's ratio to the base). It exits non-zero without a card.
 """
 import argparse
 import ctypes
+import inspect
 import json
 import os
 import re
@@ -155,10 +156,14 @@ def float_match(rounds):
     reqs, tgt = cs.build_requests()[:2]
     unet = reqs[cs.WORKLOADS.index("unet")]
 
+    # a side from before per-problem draw streams takes a generator; at
+    # P = 1 it draws what the stream of the same seed draws
+    kw = ({"stream": cs.SEED} if "stream" in inspect.signature(
+        IMMSchedMatcher.match).parameters else {"generator": torch.Generator(
+            device="cuda").manual_seed(cs.SEED)})
+
     def match():
-        return IMMSchedMatcher(pso.PSOConfig()).match(
-            unet["q"], tgt,
-            generator=torch.Generator(device="cuda").manual_seed(cs.SEED))
+        return IMMSchedMatcher(pso.PSOConfig()).match(unet["q"], tgt, **kw)
     r = match()
     mapping = torch.as_tensor(r.mapping if r.found else [])
     outcome = torch.tensor([r.found, r.epochs_run, r.prune_sweeps])

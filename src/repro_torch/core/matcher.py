@@ -123,15 +123,16 @@ class IMMSchedMatcher:
         self.device = torch.device(device)
 
     def match(self, query: Graph, target: Graph,
-              generator: Optional[torch.Generator] = None, carry0=None,
+              stream: Optional[pso.Stream] = None, carry0=None,
               draws=None) -> MatchResult:
         """Relabel ``query`` topologically, run ``pso.match`` on this
-        matcher's device and collect the result in the caller's order."""
+        matcher's device with draw ``stream`` (seed 0 if None) and
+        collect the result in the caller's order."""
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("IMMSchedMatcher: no CUDA device; pass "
                                "device='cpu' to run on the CPU")
         query, order = topological_relabel(query)
         Q, G, mask = as_device_graphs(query, target, device=self.device)
-        outs = pso.match(Q, G, mask, self.cfg, carry0, generator=generator,
+        outs = pso.match(Q, G, mask, self.cfg, carry0, stream=stream,
                          draws=draws)
         return collect_result(outs, order=order)

@@ -22,12 +22,16 @@ fetch per epoch (counted in ``host_syncs``).
 Random numbers. ``jax.random`` cannot be reproduced with torch, so the
 draws are inputs: ``draws`` holds, per epoch, the ``init_particles``
 uniforms on [0.05, 1), the step uniforms ``r_all`` and (τ > 0) the
-Gumbel field; without ``draws`` they come from a ``torch.Generator``.
+Gumbel field. Without ``draws`` every problem has a draw stream of its
+own (a seed, a ``torch.Generator`` or a callable, see ``Stream``), as
+the JAX package gives each problem of a batch its own PRNG key: problem
+b's epoch-t draws depend only on its stream and t, never on its batch
+mates, its position or the batch's padding.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -220,21 +224,26 @@ def carry_from_numpy(carry, device="cuda"):
                                  device=device) for x in carry)
 
 
-def rebase_carry(carry, mask: torch.Tensor):
+def rebase_carry(carry, mask: torch.Tensor, *, in_place: bool = False):
     """Project a stored carry onto a (possibly different) mask: S* and S̄
     masked and row-renormalized (vanished rows fall back to uniform);
-    f* passes through. Batched over leading dims."""
+    f* passes through. Batched over leading dims. ``in_place`` writes
+    the float32 S* and S̄ over themselves (a launch that owns its freshly
+    gathered carry), with the same bits."""
     S_star, f_star, S_bar = carry
     maskf = mask.float()
     uniform = maskf / maskf.sum(-1, keepdim=True).clamp(min=1.0)
 
-    def onto(S):
-        S = S.float() * maskf
+    def onto(S, own):
+        own = own and S.dtype == torch.float32
+        S = S.mul_(maskf) if own else S.float() * maskf
         row = ref.seq_sum(S, -1)[..., None]
         return torch.where(row > ref.EPS, S / row.clamp(min=ref.EPS),
-                           uniform)
+                           uniform, out=S if own else None)
 
-    return onto(S_star), f_star, onto(S_bar)
+    shared = S_bar.data_ptr() == S_star.data_ptr()   # the cold prior's
+    return (onto(S_star, in_place), f_star,
+            onto(S_bar, in_place and not shared))
 
 
 def carry_fast_path(carry0, Q, G, mask, cfg: PSOConfig):
@@ -249,12 +258,14 @@ def carry_fast_path(carry0, Q, G, mask, cfg: PSOConfig):
     return M_c, ok
 
 
-def revalidate_carry(carry0, Q, G, mask, cfg: PSOConfig):
+def revalidate_carry(carry0, Q, G, mask, cfg: PSOConfig, *,
+                     donate: bool = False):
     """Tier-0/1 decision over P problems: rebase + ONE structured
-    projection + its fitness (one fitness launch). Returns
+    projection + its fitness (one fitness launch). ``donate`` lets the
+    rebase overwrite ``carry0``'s S* and S̄. Returns
     ``dict(mapping, ok, ok_rebase, fitness, S_star, S_bar)``."""
     bk = kernel_backend.for_config(cfg)
-    S_rb, f_star0, S_bar_rb = rebase_carry(carry0, mask)
+    S_rb, f_star0, S_bar_rb = rebase_carry(carry0, mask, in_place=donate)
     M_c = bk.structured_project(S_rb, Q, G, mask).to(torch.uint8)
     f_c = _fitness(M_c.float()[:, None], Q, G, cfg)[:, 0]
     ok = (bk.is_feasible(M_c, Q, G) & (f_star0 > _NEG_INF)
@@ -264,10 +275,12 @@ def revalidate_carry(carry0, Q, G, mask, cfg: PSOConfig):
                 S_star=S_rb, S_bar=S_bar_rb)
 
 
-def revalidate_batch(Qb, Gb, maskb, cfg: PSOConfig, carry0):
+def revalidate_batch(Qb, Gb, maskb, cfg: PSOConfig, carry0, *,
+                     donate: bool = False):
     """Tier-0 entry point: pre-prune (one launch), then re-validate P
     stored carries. Returns the ``revalidate_carry`` dict plus
-    ``prune_sweeps`` (P,) and ``f_carry`` (P,), the carried f*."""
+    ``prune_sweeps`` (P,) and ``f_carry`` (P,), the carried f*.
+    ``donate``: see ``revalidate_carry``."""
     P = maskb.shape[0]
     bk = kernel_backend.for_config(cfg)
     if cfg.prune_mask:
@@ -275,9 +288,10 @@ def revalidate_batch(Qb, Gb, maskb, cfg: PSOConfig, carry0):
                                                       cfg.prune_iters)
     else:
         prune_sweeps = torch.zeros(P, dtype=torch.int32, device=maskb.device)
-    outs = revalidate_carry(carry0, Qb, Gb, maskb, cfg)
+    f_carry = carry0[1].float()
+    outs = revalidate_carry(carry0, Qb, Gb, maskb, cfg, donate=donate)
     outs["prune_sweeps"] = prune_sweeps
-    outs["f_carry"] = carry0[1].float()
+    outs["f_carry"] = f_carry
     return outs
 
 
@@ -361,37 +375,84 @@ def scan_epochs(run_one: Callable, carry0, n, m, cfg: PSOConfig,
             n_run[0], syncs)
 
 
-def _epoch_draws(draws, generator, t, P, N, n, m, cfg, device):
-    """The random inputs of epoch t for P problems."""
+#: One problem's draw stream: an int seed, a ``torch.Generator`` on the
+#: problems' device, or a callable ``t -> dict(init (N, n, m), steps
+#: (K, N, 3)[, gumbel (N, n, m)])`` of that problem's epoch-t draws (how
+#: tests hand in the JAX package's draws, key by key).
+Stream = Union[int, torch.Generator, Callable[[int], Dict]]
+
+
+def _draw_fns(streams: Optional[Sequence[Stream]], P, N, n, m,
+              cfg: PSOConfig, device):
+    """Per problem, a function t -> its epoch-t draws. A seed becomes a
+    fresh generator, so equal seeds give equal streams; a generator is
+    drawn from in epoch order (a problem that early exits inside a batch
+    still draws its later epochs, so its state after the call depends on
+    the epochs the batch ran). ``None`` is seed 0 for every problem."""
+    if streams is None:
+        streams = [0] * P
+    if len(streams) != P:
+        raise ValueError(f"{len(streams)} draw streams for {P} problems")
+    K = cfg.inner_steps
+
+    def from_generator(g):
+        def draw(t):
+            u = torch.rand((N, n, m), generator=g, device=device)
+            out = dict(init=u * 0.95 + 0.05,
+                       steps=torch.rand((K, N, 3), generator=g,
+                                        device=device),
+                       gumbel=None)
+            if cfg.gumbel_tau > 0:
+                e = torch.empty((N, n, m), device=device).exponential_(
+                    generator=g)
+                out["gumbel"] = -torch.log(e)
+            return out
+        return draw
+
+    fns = []
+    for s in streams:
+        if callable(s):
+            fns.append(s)
+        elif isinstance(s, torch.Generator):
+            fns.append(from_generator(s))
+        else:
+            fns.append(from_generator(
+                torch.Generator(device=device).manual_seed(int(s))))
+    return fns
+
+
+def _epoch_draws(draws, draw_fns, t, cfg, device):
+    """The random inputs of epoch t for P problems: slices of ``draws``,
+    or each problem's own stream stacked on the problem axis."""
+    tau = cfg.gumbel_tau > 0
     if draws is not None:
         gum = draws.get("gumbel")
         return dict(
             init=draws["init"][t].to(device),
             steps=draws["steps"][t].to(device),
-            gumbel=(gum[t].to(device) if gum is not None
-                    and cfg.gumbel_tau > 0 else None))
-    K = cfg.inner_steps
-    u = torch.rand((P, N, n, m), generator=generator, device=device)
-    out = dict(init=u * 0.95 + 0.05,
-               steps=torch.rand((P, K, N, 3), generator=generator,
-                                device=device),
-               gumbel=None)
-    if cfg.gumbel_tau > 0:
-        e = torch.empty((P, N, n, m), device=device).exponential_(
-            generator=generator)
-        out["gumbel"] = -torch.log(e)
-    return out
+            gumbel=(gum[t].to(device) if gum is not None and tau
+                    else None))
+    per = [f(t) for f in draw_fns]
+
+    def stack(name):
+        return torch.stack([torch.as_tensor(d[name], device=device)
+                            for d in per])
+
+    return dict(init=stack("init"), steps=stack("steps"),
+                gumbel=stack("gumbel") if tau else None)
 
 
 def match_batch(Qb, Gb, maskb, cfg: PSOConfig, carry0=None, *,
-                generator: Optional[torch.Generator] = None,
+                streams: Optional[Sequence[Stream]] = None,
                 draws: Optional[Dict] = None):
     """Batched Algorithm 1: P problems in one pass.
 
     ``Qb`` (P, n, n), ``Gb`` (P, m, m), ``maskb`` (P, n, m) on one device;
     ``carry0`` optionally warm-starts each problem (stacked (S*, f*, S̄)).
     ``draws``: dict(init (T, P, N, n, m), steps (T, P, K, N, 3)[, gumbel
-    (T, P, N, n, m)]), else drawn from ``generator`` (seed 0 if None).
+    (T, P, N, n, m)]); else ``streams``, one ``Stream`` per problem (seed
+    0 for each if None), so that problem b's slice of the output is what
+    ``match`` returns for it alone with ``stream=streams[b]``.
 
     Returns mappings (T, P, N, n, m), feasible/fitness (T, P, N),
     f_star_trace (T, P, K), S_star/S_bar (P, n, m), f_star (P,),
@@ -403,8 +464,8 @@ def match_batch(Qb, Gb, maskb, cfg: PSOConfig, carry0=None, *,
     dev = maskb.device
     if carry0 is None:
         carry0 = default_carry_batch(maskb)
-    if draws is None and generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    draw_fns = (None if draws is not None else
+                _draw_fns(streams, P, cfg.num_particles, n, m, cfg, dev))
     bk = kernel_backend.for_config(cfg)
     if cfg.prune_mask:
         maskb, prune_sweeps = bk.prune_fixpoint_batch(maskb, Qb, Gb,
@@ -419,8 +480,7 @@ def match_batch(Qb, Gb, maskb, cfg: PSOConfig, carry0=None, *,
         carry_ok = torch.zeros(P, dtype=torch.bool, device=dev)
 
     def run_one(carry, t):
-        d = _epoch_draws(draws, generator, t, P, cfg.num_particles, n, m,
-                         cfg, dev)
+        d = _epoch_draws(draws, draw_fns, t, cfg, dev)
         carry, outs = run_epoch_batch(carry, d, Qb, Gb, maskb, cfg)
         del outs["S_final"]
         return carry, outs
@@ -439,16 +499,17 @@ PER_EPOCH = ("mappings", "feasible", "fitness", "f_star_trace")
 
 
 def match(Q, G, mask, cfg: PSOConfig, carry0=None, *,
-          generator: Optional[torch.Generator] = None,
-          draws: Optional[Dict] = None):
-    """Single-problem Algorithm 1 (``match_batch`` at P = 1). ``draws``
-    hold (T, N, n, m), (T, K, N, 3)[, (T, N, n, m)]. Returns the
-    ``match_batch`` dict without the problem axis."""
+          stream: Optional[Stream] = None, draws: Optional[Dict] = None):
+    """Single-problem Algorithm 1 (``match_batch`` at P = 1) with one draw
+    ``stream`` (seed 0 if None). ``draws`` hold (T, N, n, m), (T, K, N,
+    3)[, (T, N, n, m)]. Returns the ``match_batch`` dict without the
+    problem axis."""
     d1 = None if draws is None else {
         k: (None if v is None else v[:, None]) for k, v in draws.items()}
     outs = match_batch(Q[None], G[None], mask[None], cfg,
                        None if carry0 is None else _batch1(carry0),
-                       generator=generator, draws=d1)
+                       streams=None if stream is None else [stream],
+                       draws=d1)
     return {k: (v if k == "host_syncs" else
                 v[:, 0] if k in PER_EPOCH else v[0])
             for k, v in outs.items()}

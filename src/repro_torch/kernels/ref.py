@@ -58,8 +58,9 @@ def fdiv(x: torch.Tensor, c: float) -> torch.Tensor:
     PyTorch's CUDA ``tensor / python_scalar`` multiplies by the
     reciprocal (one more rounding) and ``scalar / tensor`` is
     ``reciprocal(tensor) * scalar``; a 0-dim tensor on the same device
-    keeps the true division the kernels and JAX use."""
-    return x / torch.tensor(c, dtype=torch.float32, device=x.device)
+    keeps the true division the kernels and JAX use. It is filled on
+    the device, so a CUDA ``x`` costs no host-to-device copy."""
+    return x / torch.full((), c, dtype=torch.float32, device=x.device)
 
 
 def _graph(Q: torch.Tensor, S: torch.Tensor) -> torch.Tensor:

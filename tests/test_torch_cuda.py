@@ -420,3 +420,70 @@ def test_edge_fitness_float_projection_tile_on_card(device):
     x = cases.swarm_inputs(Q, G, mask, 1, 1, seed=35)
     M = ref.greedy_project(x["S"][:, 0], mask)
     _assert_fitness_f32_bitwise(M.float()[:, None], Q, G)
+
+
+# -- the matcher service on the card ----------------------------------------
+
+def _service_specs():
+    """Planted problems in two shape buckets, (8, 16) and (8, 32)."""
+    import numpy as np
+    from repro_torch.core import graphs
+    out = []
+    for n, m in ((6, 12), (5, 24)):
+        for s in range(6):
+            rng = np.random.default_rng(s)
+            q = graphs.random_dag(rng, n, 0.35)
+            out.append(((n, m, s), q, graphs.embed_query_in_target(rng, q, m)))
+    return out
+
+
+def _drain(svc, specs):
+    for (n, m, s), q, g in specs:
+        svc.submit(q, g, key=s, workload_key=(f"w{n}x{m}", s))
+    return svc.drain()
+
+
+def test_service_all_warm_drain_makes_one_sync_on_card(device):
+    """An all-warm two-bucket drain under
+    ``torch.cuda.set_sync_debug_mode("error")``: any blocking transfer
+    but ``_sync_fetch``'s one wait raises, and the census counts one."""
+    from repro_torch.core.service import MatcherService
+    cfg = pso.PSOConfig(num_particles=24, epochs=3, inner_steps=8,
+                        quantized=True)
+    svc = MatcherService(cfg, device="cuda")
+    specs = _service_specs()
+    _drain(svc, specs)
+    warm = _drain(svc, specs)
+    served = [sp for sp, r in zip(specs, warm) if r.tier == 0 and r.found]
+    assert {sp[0][:2] for sp in served} == {(6, 12), (5, 24)}
+    served = served[:3] + served[-2:]           # new batch classes and rows
+    syncs0 = svc.stats.host_syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        results = _drain(svc, served)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert svc.stats.host_syncs - syncs0 == 1
+    assert all(r.tier == 0 and r.found for r in results)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_service_cuda_suite_matches_ref_suite_on_card(device, quantized):
+    """The same drains (cold, warm, then one more) through a ``cuda``-suite
+    and a ``ref``-suite service on the card, same seeds: the same tiers,
+    found and epochs_run, and the mappings bit for bit."""
+    from repro_torch.core.service import MatcherService
+    cfg = pso.PSOConfig(num_particles=24, epochs=3, inner_steps=8,
+                        quantized=quantized)
+    svcs = [MatcherService(cfg.replace(backend=b), device="cuda")
+            for b in ("cuda", "ref")]
+    specs = _service_specs()
+    for _round in range(2):
+        got, want = (_drain(s, specs) for s in svcs)
+        for a, b in zip(got, want):
+            assert (a.tier, a.found, a.epochs_run) == \
+                (b.tier, b.found, b.epochs_run)
+            assert (a.mapping is None) == (b.mapping is None)
+            if a.mapping is not None:
+                assert (a.mapping == b.mapping).all()

@@ -80,6 +80,17 @@ def test_matcher_defaults_to_the_card():
         IMMSchedMatcher(cfg).match(q, g)
 
 
+def test_service_defaults_to_the_card():
+    from repro_torch.core import pso
+    from repro_torch.core.service import MatcherService
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    q, g = _tiny()
+    cfg = pso.PSOConfig(num_particles=4, epochs=1, inner_steps=2)
+    with pytest.raises(RuntimeError):
+        MatcherService(cfg).match(q, g)
+
+
 def test_cpu_runs_launch_no_kernel():
     from repro_torch.core import pso, split_epoch
     from repro_torch.core.matcher import IMMSchedMatcher
@@ -99,7 +110,7 @@ def test_cpu_runs_launch_no_kernel():
         cfg = pso.PSOConfig(num_particles=8, epochs=2, inner_steps=3,
                             quantized=quantized, early_exit=True)
         res = IMMSchedMatcher(cfg, device="cpu").match(
-            q, g, generator=torch.Generator().manual_seed(0))
+            q, g, stream=0)
         assert res.epochs_run >= 1
     # the split epoch and the masked argmax through the cuda suite
     Q, G, mask = cases.random_problem(1, 6, 10, 3)

@@ -279,3 +279,75 @@ def test_unet_window_on_cloud_full_size_and_revalidate_from_jax_carry():
     _close(tr["fitness"], jr["fitness"])
     if bool(tr["ok"][0]):
         _check_found(tr["mapping"][0].numpy(), Qp, Gp)
+
+
+def _same_problem_outs(a, b):
+    """Every leaf of two single-problem ``match`` outputs bit for bit."""
+    assert set(a) == set(b)
+    for k in a:
+        if k == "host_syncs":
+            continue
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("cfg_kw", CFGS + [dict(
+    num_particles=12, epochs=2, inner_steps=3, quantized=True,
+    gumbel_tau=0.3)])
+def test_match_batch_draws_each_problem_from_its_own_stream(cfg_kw):
+    """``match_batch`` of [a, b] with seeds [s_a, s_b]: problem b gives
+    the bits ``match(b)`` gives alone with s_b (its epochs, early exit
+    and carry included), and swapping the order changes nothing."""
+    problems = [_planted(s, n, m) for s, n, m in ((0, 6, 12), (2, 10, 24))]
+    Qb, Gb, Mb = (_t(x) for x in _padded_batch(problems))
+    cfg = tpso.PSOConfig(backend="ref", **cfg_kw)
+    seeds = [11, 12]
+    ab = tpso.match_batch(Qb, Gb, Mb, cfg, streams=seeds)
+    ba = tpso.match_batch(Qb.flip(0), Gb.flip(0), Mb.flip(0), cfg,
+                          streams=seeds[::-1])
+
+    def pick(outs, b):
+        return {k: (v if k == "host_syncs" else
+                    v[:, b] if k in tpso.PER_EPOCH else v[b])
+                for k, v in outs.items()}
+
+    for b in range(2):
+        alone = tpso.match(Qb[b], Gb[b], Mb[b], cfg, stream=seeds[b])
+        _same_problem_outs(pick(ab, b), alone)
+        _same_problem_outs(pick(ba, 1 - b), alone)
+    # a generator stream draws what its seed draws
+    gens = [torch.Generator().manual_seed(s) for s in seeds]
+    _same_problem_outs(pick(tpso.match_batch(Qb, Gb, Mb, cfg, streams=gens),
+                            0), pick(ab, 0))
+
+
+def test_callable_streams_of_the_jax_draws_match_jax_per_problem():
+    """``batch_draws`` still gives JAX's draws problem by problem: handed
+    in as one callable stream per problem, in either order, they give
+    the outputs of ``draws=`` and of the JAX package's ``match_batch``."""
+    problems = [_planted(s, n, m) for s, n, m in
+                ((0, 6, 12), (1, 8, 16), (3, 8, 16))]
+    Qb, Gb, Mb = _padded_batch(problems)
+    kw = dict(num_particles=16, epochs=3, inner_steps=4, early_exit=True,
+              backend="ref")
+    jcfg, tcfg = jpso.PSOConfig(**kw), tpso.PSOConfig(**kw)
+    keys = jax.random.split(jax.random.PRNGKey(4), len(problems))
+    d = batch_draws(keys, jcfg, *Mb.shape[1:])
+    jo = jpso.match_batch(keys, jnp.asarray(Qb), jnp.asarray(Gb),
+                          jnp.asarray(Mb), jcfg)
+    by_draws = tpso.match_batch(_t(Qb), _t(Gb), _t(Mb), tcfg, draws=d)
+
+    def stream(b):
+        return lambda t: {k: v[t, b] for k, v in d.items()}
+
+    order = [2, 0, 1]
+    by_streams = tpso.match_batch(_t(Qb[order]), _t(Gb[order]),
+                                  _t(Mb[order]), tcfg,
+                                  streams=[stream(b) for b in order])
+    for k in ("epochs_run", "prune_sweeps", "feasible", "mappings",
+              "f_star", "S_star"):
+        got = by_streams[k]
+        want = by_draws[k][:, order] if k in tpso.PER_EPOCH \
+            else by_draws[k][order]
+        assert torch.equal(got, want), k
+    for k in ("epochs_run", "feasible"):
+        _close(by_draws[k], jo[k])

@@ -34,6 +34,21 @@ Phases, in order; any failure exits non-zero:
      of the five main-path kernels must have been launched through the
      service. Measurement only: the warm and the all-warm drain under
      the profiler and the Tier-0 host phases per bucket;
+  4c. the scheduler: the port's ``Simulator`` with ``IMMSchedScheduler`` in
+     real mode (``validate=True``) on the Cloud platform at the burst's
+     swarm width, over a compound-Poisson stream of bursts of 8
+     (efficientnet, nasnet, pnasnet, about 70% urgent); each urgent
+     arrival event is one drain of the service. Fails if the run is
+     truncated or unfinished, if an invariant or the tier accounting
+     fails, if a found mapping is infeasible, or if a quantized main-path
+     kernel was not launched by the phase. The same simulation through
+     the ``ref`` suite on the card must give the same ``SimResult`` (wall
+     clocks and the suite's name aside) and every drain the same tiers,
+     found, epochs and mappings. Prints one JSON line (tiers, drains,
+     host syncs, matches, wall times, and the simulator's own scheduling
+     times, which are cost-model seconds). Then the same scenario through
+     all six schedulers in analytic mode (no launch): ``speedup_table``
+     and ``energy_efficiency``;
   5. the split (pre-fusion) epoch: ``core.split_epoch.split_epoch``
      through the ``cuda`` suite on each problem of the burst, float and
      quantized, plus ``masked_argmax`` through the seam on each returned
@@ -50,12 +65,15 @@ The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
 counts device launches on the main or split path, ``launches_per_call``
 divides them by the wrapper calls that made them, ``service_launches``
-counts the launches of phase 4b), the last line
-``{"ok": true, "device": {...}}``. With ``--out DIR`` the details (a
-JSON record and the profiler's table) are also written to DIR.
+counts the launches of phase 4b, ``sched_launches`` those of phase 4c;
+the float branch's launches are counted by its wrapper on their own and
+left out of the ``epoch_fused`` row),
+the last line ``{"ok": true, "device": {...}}``. With ``--out DIR`` the
+details (a JSON record and the profiler's table) are also written to DIR.
 """
 import argparse
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -110,6 +128,16 @@ MAIN_KERNELS = ("prune_fixpoint", "edge_fitness", "edge_fitness_quantized",
 #: the kernels the split epoch phase drives (the fitness entries too)
 SPLIT_KERNELS = ("pso_update", "ullmann_refine_step", "greedy_project",
                  "masked_argmax", "edge_fitness", "edge_fitness_quantized")
+#: phase 4c: the scheduler's real-mode simulation on the Cloud platform,
+#: at the burst's swarm width; the quantized main-path kernels it must
+#: launch (the scheduler's service is quantized, so no float fitness)
+SCHED_SCENARIO = dict(complexity="middle", rate_hz=30, horizon=0.4,
+                      burst_size=8, burst_frac=0.8, urgent_frac=0.7, seed=5)
+SCHED_SWARM = dict(num_particles=N, epochs=4, inner_steps=K)
+SCHED_WINDOW = 8
+SCHED_KERNELS = ("prune_fixpoint", "edge_fitness_quantized", "epoch_fused",
+                 "epoch_finish")
+SCHEDULERS = ("immsched", "isosched", "prema", "planaria", "moca", "cdmsa")
 
 
 def log(*a):
@@ -128,6 +156,14 @@ def card_line():
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def split_float(counts):
+    """Per-kernel counts with ``epoch_fused``'s split in two rows: the
+    float branch's (counted on its own by the wrapper) and the rest."""
+    counts = dict(counts)
+    counts["epoch_fused"] -= counts[FLOAT_EPOCH]
+    return counts
 
 
 def _outs(x):
@@ -487,8 +523,6 @@ def service_phase(pso, reqs, counters, out_dir):
     # the float config (the service's default): unet, cold then warm
     fsvc = MatcherService(device="cuda")
     unet = WORKLOADS.index("unet")
-    before_float = (counters["epoch_fused"].count,
-                    counters["epoch_fused"].calls)
     for label in ("float_cold", "float_warm"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -503,9 +537,8 @@ def service_phase(pso, reqs, counters, out_dir):
                              found=r.found, epochs_run=r.epochs_run,
                              host_syncs=r.host_syncs, bucket=list(r.bucket))
         log(json.dumps(drains[label]))
-    launches = {k: counters[k].count for k in MAIN_KERNELS}
-    launches[FLOAT_EPOCH] = launches["epoch_fused"] - before_float[0]
-    launches["epoch_fused"] = before_float[0]
+    launches = split_float({k: counters[k].count
+                            for k in (*MAIN_KERNELS, FLOAT_EPOCH)})
     log(f"launches through the service: {launches}")
     for k, v in launches.items():
         if v <= 0:
@@ -540,6 +573,176 @@ def service_phase(pso, reqs, counters, out_dir):
     return dict(drains=drains, launches=launches,
                 stats=svc.stats_dict(), profiles=profiles,
                 tier0_phases=phases)
+
+
+def sched_phase(pso, counters):
+    """Phase 4c, the scheduler: the port's ``Simulator`` with the port's
+    ``IMMSchedScheduler`` in real mode on the Cloud platform (window 8,
+    N = 64, T = 4, K = 12; the scheduler makes the swarm quantized and
+    the service adds early exit) over a compound-Poisson burst stream of
+    efficientnet, nasnet and pnasnet, about 70% urgent. Every urgent
+    arrival event is one ``MatcherService.match_many`` drain, which a
+    wrapper (here, not in the package) times and checks: every mapping
+    the service returns as found must be feasible. Fails if the run is
+    truncated or leaves a task unfinished, if the simulator's invariants
+    fail (``validate=True``: ``check_invariants`` holds among them that
+    the tier decisions sum to the matcher decisions), or if a quantized
+    main-path kernel was not launched by the phase. Then the same
+    simulation through the ``ref`` suite on the card: the same
+    ``SimResult`` (wall clocks and the suite's name aside), and in every
+    drain the same tiers, found, epochs and mappings. Then the ``cuda``
+    run once more under the profiler, for the card's idle share (the
+    profiler's own host cost would inflate the timed run's wall). Then
+    the same scenario through all six schedulers in analytic mode, which
+    must launch nothing."""
+    from repro_torch.accel import platform
+    from repro_torch.core.service import MatcherService
+    from repro_torch.sched import SimConfig, Simulator, get_scheduler
+    from repro_torch.sched import metrics
+    from repro_torch.sched.tasks import make_burst_scenario
+    kw = dict(SCHED_SCENARIO)
+    sc = make_burst_scenario(kw.pop("complexity"), **kw)
+    runs = []        # per simulation, one record per drain
+    orig = MatcherService.match_many
+
+    def match_many(self, problems, **kwargs):
+        syncs = self.stats.host_syncs
+        t0 = time.perf_counter()
+        res = orig(self, problems, **kwargs)
+        wall = time.perf_counter() - t0
+        found = 0
+        for (q, g), r in zip(problems, res):
+            if r.found:
+                found += 1
+                if not feasible_np(r.mapping, q.adj, g.adj):
+                    fail(f"scheduler: the service returned an infeasible "
+                         f"mapping (n={q.n}, m={g.n})")
+        runs[-1].append(dict(sent=len(problems), found=found,
+                             wall_ms=wall * 1e3,
+                             tiers=[r.tier for r in res],
+                             buckets=sorted({tuple(r.bucket) for r in res}),
+                             host_syncs=self.stats.host_syncs - syncs,
+                             results=res))
+        return res
+
+    def sim_cfg(mode, backend="cuda"):
+        return SimConfig(platform=platform.CLOUD, matcher_mode=mode,
+                         pso_cfg=pso.PSOConfig(**SCHED_SWARM,
+                                               backend=backend),
+                         window_stages=SCHED_WINDOW, validate=True)
+
+    def simulate(backend="cuda"):
+        runs.append([])
+        MatcherService.match_many = match_many
+        try:
+            return Simulator(sim_cfg("real", backend),
+                             get_scheduler("immsched")).run(sc)
+        except AssertionError as e:  # check_invariants under validate=True
+            fail(f"scheduler ({backend} suite): simulator invariants "
+                 f"failed: {e}")
+        finally:
+            MatcherService.match_many = orig
+
+    def comparable(r):
+        d = dataclasses.asdict(r)
+        d["matcher_stats"] = {k: v for k, v in d["matcher_stats"].items()
+                              if not k.endswith("wall_s")
+                              and k not in ("fe_wait_s", "epoch_backend")}
+        return d
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = split_float({k: c.count for k, c in counters.items()})
+    drains = runs[0]
+    ms = res.matcher_stats
+    if res.truncated or res.finished != res.total:
+        fail(f"scheduler: truncated={res.truncated}, finished "
+             f"{res.finished} of {res.total}")
+    for k in SCHED_KERNELS:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the scheduler phase")
+    # the same simulation through the plain versions on the card
+    t0 = time.perf_counter()
+    ref_res = simulate("ref")
+    ref_wall = time.perf_counter() - t0
+    if comparable(res) != comparable(ref_res):
+        got, want = comparable(res), comparable(ref_res)
+        diff = sorted(k for k in got if got[k] != want[k])
+        diff += sorted(k for k in got["matcher_stats"]
+                       if got["matcher_stats"][k]
+                       != want["matcher_stats"].get(k))
+        fail(f"scheduler: the cuda suite's SimResult differs from the ref "
+             f"suite's in {diff}")
+    if [d["sent"] for d in drains] != [d["sent"] for d in runs[1]]:
+        fail("scheduler: the cuda and ref suites drained different bursts")
+    for i, (dc, dr) in enumerate(zip(drains, runs[1])):
+        for a, b in zip(dc["results"], dr["results"]):
+            if ((a.tier, a.found, a.epochs_run)
+                    != (b.tier, b.found, b.epochs_run)
+                    or (a.mapping is None) != (b.mapping is None)
+                    or (a.mapping is not None
+                        and not (a.mapping == b.mapping).all())):
+                fail(f"scheduler: drain {i} differs between the cuda and "
+                     f"the ref suite")
+    log(f"scheduler: cuda suite == ref suite over {len(drains)} drains "
+        f"(ref run {ref_wall * 1e3:.1f} ms)")
+    for run in runs:
+        for d in run:
+            del d["results"]
+    tiers = {f"tier{i}": ms[f"sched_tier{i}_decisions"] for i in range(3)}
+    walls = sorted(d["wall_ms"] for d in drains)
+    line = dict(
+        sched=sc.name, tasks=res.total, urgent_tasks=res.urgent_total,
+        urgent_met=res.urgent_met, finished=res.finished,
+        deadline_met=res.deadline_met, events=res.events,
+        predicted_tier_decisions=tiers,
+        service_tiers={f"tier{i}": {k: ms[f"tier{i}_{k}"] for k in
+                                    ("launches", "checked", "hits")}
+                       for i in range(3)},
+        sim_lookups=ms["sim_lookups"],
+        sim_neighbor_hits=ms["sim_neighbor_hits"],
+        drains=ms["drains"], host_syncs=ms["host_syncs"],
+        host_syncs_per_drain=ms["host_syncs_per_drain"],
+        real_matches_sent=sum(d["sent"] for d in drains),
+        real_matches_found=sum(d["found"] for d in drains),
+        run_wall_ms=wall * 1e3, match_many_wall_ms=sum(walls),
+        match_many_ms_min_median_max=([walls[0], statistics.median(walls),
+                                       walls[-1]] if walls else None),
+        cost_model_s=dict(avg_sched_time=res.avg_sched_time,
+                          **{k: v for k, v in res.percentiles.items()
+                             if k.startswith("sched_")}),
+        ref_run_wall_ms=ref_wall * 1e3,
+        launches={k: launches[k] for k in (*MAIN_KERNELS, FLOAT_EPOCH)},
+        per_drain=drains)
+    # measurement only: the same run once more under the profiler, for the
+    # card's idle share of a simulation
+    _, prof_wall, rows = profiled(simulate)
+    busy = sum(r[1] for r in rows)
+    line["profile"] = dict(wall_ms=prof_wall, device_busy_ms=busy,
+                           idle_share=1.0 - busy / max(prof_wall, 1e-9),
+                           device_launches=sum(r[2] for r in rows),
+                           top=[dict(kernel=k[:60], ms=ms, calls=c)
+                                for k, ms, c in rows[:6]])
+    log(json.dumps(line))
+    # the same scenario, analytic, through every scheduler (host only)
+    for c in counters.values():
+        c.reset()
+    results = {name: Simulator(sim_cfg("analytic"),
+                               get_scheduler(name)).run(sc)
+               for name in SCHEDULERS}
+    if any(c.count for c in counters.values()):
+        fail("an analytic simulation launched a kernel")
+    analytic = dict(speedup_table=metrics.speedup_table(results),
+                    energy_efficiency=metrics.energy_efficiency(results),
+                    urgent_met={k: [r.urgent_met, r.urgent_total]
+                                for k, r in results.items()})
+    log(json.dumps(dict(sched_analytic=sc.name, **analytic)))
+    return dict(real=line, analytic=analytic, launches=launches)
 
 
 def profiled(fn):
@@ -721,12 +924,12 @@ def main():
                 "edge_fitness": pso_fitness.launches,
                 "edge_fitness_quantized": pso_fitness.launches_quantized,
                 "epoch_fused": epoch_fused.launches,
+                FLOAT_EPOCH: epoch_fused.launches_float,
                 "epoch_finish": finish_fused.launches,
                 "pso_update": pso_update.launches,
                 "ullmann_refine_step": ullmann_refine.launches,
                 "greedy_project": argmax_project.launches_greedy,
                 "masked_argmax": argmax_project.launches_argmax}
-    main_kernels = MAIN_KERNELS
     for c in counters.values():
         c.reset()
     cfg = pso.PSOConfig(quantized=True, early_exit=True)
@@ -767,7 +970,6 @@ def main():
         f"{t_reval * 1e3:.1f} ms")
     fcfg = pso.PSOConfig()
     unet = reqs[WORKLOADS.index("unet")]
-    before_float = (epoch_fused.launches.count, epoch_fused.launches.calls)
     torch.cuda.synchronize()
     t0 = time.time()
     res = IMMSchedMatcher(fcfg).match(unet["q"], tgt, stream=SEED)
@@ -778,13 +980,10 @@ def main():
     log(f"IMMSchedMatcher.match (float, unet): found={res.found} "
         f"epochs_run={res.epochs_run} prune_sweeps={res.prune_sweeps} "
         f"wall {t_single * 1e3:.1f} ms")
-    launches = {k: counters[k].count for k in main_kernels}
-    main_calls = {k: counters[k].calls for k in main_kernels}
-    # the float match's epochs are the float branch's row
-    launches[FLOAT_EPOCH] = launches["epoch_fused"] - before_float[0]
-    main_calls[FLOAT_EPOCH] = main_calls["epoch_fused"] - before_float[1]
-    launches["epoch_fused"] = before_float[0]
-    main_calls["epoch_fused"] = before_float[1]
+    launches = split_float({k: counters[k].count
+                            for k in (*MAIN_KERNELS, FLOAT_EPOCH)})
+    main_calls = split_float({k: counters[k].calls
+                              for k in (*MAIN_KERNELS, FLOAT_EPOCH)})
     log(f"launches on the main path: {launches} in wrapper calls "
         f"{main_calls}")
     for k, v in launches.items():
@@ -803,6 +1002,10 @@ def main():
     # 4b. the matcher service: its drains at the burst's full width
     detail["service"] = service_phase(pso, reqs, counters, out_dir)
     service_launches = detail["service"]["launches"]
+
+    # 4c. the scheduler: a real-mode simulation through the service
+    detail["sched"] = sched_phase(pso, counters)
+    sched_launches = detail["sched"]["launches"]
 
     # 5. the split (pre-fusion) epoch against the fused one
     detail["split_epoch"] = split_phase(pso, Qb, Gb, Mb, x, counters)
@@ -840,6 +1043,7 @@ def main():
         kern.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=n_launch,
                          service_launches=service_launches.get(name),
+                         sched_launches=sched_launches.get(name),
                          launches_per_call=(n_launch / n_calls
                                             if n_calls else None),
                          max_abs_err=errs[name], ms=rec["ms"],

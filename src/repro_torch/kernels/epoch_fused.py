@@ -22,6 +22,8 @@ from repro_torch.kernels import _build as kb
 from repro_torch.kernels import ref
 
 launches = kb.LaunchCounter("epoch_fused")
+#: the float branch's share of ``launches``, counted at the same launch
+launches_float = kb.LaunchCounter("epoch_fused_float")
 
 _Q4 = float(255.0 ** 4)
 
@@ -88,7 +90,8 @@ def epoch_fused_cuda(S, V, S_local, f_local, S_star, f_star, S_bar, mask,
                      quantized=False):
     """Launch the kernels (same arguments and results as
     ``epoch_inner_reference``): one prologue launch and one (N, P) step
-    launch per inner step, K + 1 launches counted (0 when K = 0)."""
+    launch per inner step, K + 1 launches counted (0 when K = 0), in
+    ``launches_float`` too when the call is the float branch."""
     P, N, n, m = S.shape
     K = r_all.shape[1]
     kb.require(S.is_cuda, "epoch_fused_cuda needs CUDA tensors")
@@ -122,4 +125,6 @@ def epoch_fused_cuda(S, V, S_local, f_local, S_star, f_star, S_bar, mask,
              P, N, n, m, K, omega, c1, c2, c3, v_max, q, kb.stream())
     kb.check(err, "epoch_fused")
     launches.add(K + 1 if K > 0 else 0)
+    if not q:
+        launches_float.add(K + 1 if K > 0 else 0)
     return S_w, star_w, fstar_w, trace, f_last

@@ -186,9 +186,12 @@ def _assert_epoch_bitwise(args, quantized):
     from repro_torch.kernels.epoch_fused import epoch_inner_reference
     K = args[-1].shape[1]
     epoch_fused.launches.reset()
+    epoch_fused.launches_float.reset()
     got = epoch_fused_cuda(*args, quantized=quantized, **cases.HYPER)
     torch.cuda.synchronize()
     assert epoch_fused.launches.count == (K + 1 if K else 0)
+    assert epoch_fused.launches_float.count == (
+        0 if quantized else epoch_fused.launches.count)
     want = epoch_inner_reference(*args, quantized=quantized, **cases.HYPER)
     names = ("S_final", "S_star", "f_star", "f_trace", "f_last")
     for name, g, w in zip(names, got, want):
@@ -487,3 +490,53 @@ def test_service_cuda_suite_matches_ref_suite_on_card(device, quantized):
             assert (a.mapping is None) == (b.mapping is None)
             if a.mapping is not None:
                 assert (a.mapping == b.mapping).all()
+
+
+# -- the scheduler on the card ------------------------------------------------
+
+def test_real_mode_simulation_cuda_suite_matches_ref_suite_on_card(
+        device, monkeypatch):
+    """The reference tests' urgent burst (EDGE, window_stages=2) through
+    the simulator in real mode, with IMMSched's service on the card: the
+    ``cuda`` suite gives the ``ref`` suite's ``SimResult`` (wall clocks
+    and the suite's name aside) and the same mappings, bit for bit."""
+    import dataclasses
+    from repro_torch.accel.platform import EDGE
+    from repro_torch.core.service import MatcherService
+    from repro_torch.sched import SimConfig, Simulator, get_scheduler
+    from repro_torch.sched.tasks import make_burst_scenario
+    served = []
+    orig = MatcherService.match_many
+
+    def match_many(self, problems, **kw):
+        res = orig(self, problems, **kw)
+        served[-1].extend(res)
+        return res
+    monkeypatch.setattr(MatcherService, "match_many", match_many)
+
+    def run(backend):
+        served.append([])
+        cfg = SimConfig(platform=EDGE, matcher_mode="real", window_stages=2,
+                        pso_cfg=pso.PSOConfig(num_particles=32, epochs=2,
+                                              inner_steps=6, backend=backend),
+                        device="cuda", validate=True)
+        r = Simulator(cfg, get_scheduler("immsched")).run(make_burst_scenario(
+            "simple", rate_hz=30, horizon=0.25, burst_size=3,
+            burst_frac=0.8, urgent_frac=0.7, seed=5))
+        d = dataclasses.asdict(r)
+        d["matcher_stats"] = {k: v for k, v in d["matcher_stats"].items()
+                              if not k.endswith("wall_s")
+                              and k not in ("fe_wait_s", "epoch_backend")}
+        return d
+
+    got, want = run("cuda"), run("ref")
+    assert got["finished"] == got["total"] > 0
+    assert got["matcher_stats"]["tier2_launches"] > 0
+    assert got == want
+    assert len(served[0]) == len(served[1]) > 0
+    for a, b in zip(*served):
+        assert (a.tier, a.found, a.epochs_run) == \
+            (b.tier, b.found, b.epochs_run)
+        assert (a.mapping is None) == (b.mapping is None)
+        if a.mapping is not None:
+            assert (a.mapping == b.mapping).all()

@@ -91,6 +91,26 @@ def test_service_defaults_to_the_card():
         MatcherService(cfg).match(q, g)
 
 
+def test_simulator_and_scheduler_default_to_the_card():
+    """A simulation with IMMSched builds its matcher service on
+    ``SimConfig.device``, the card by default, in analytic mode too."""
+    from repro_torch.accel.platform import EDGE
+    from repro_torch.sched import IMMSchedScheduler, SimConfig, Simulator
+    from repro_torch.sched.tasks import fixed_scenario
+    from repro_torch.workloads.zoo import workload_complexity_class
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    sc = fixed_scenario(workload_complexity_class("simple")[:2])
+    for mode in ("analytic", "real"):
+        cfg = SimConfig(platform=EDGE, matcher_mode=mode)
+        assert cfg.device == "cuda"
+        with pytest.raises(RuntimeError):
+            Simulator(cfg, IMMSchedScheduler()).run(sc)
+    r = Simulator(SimConfig(platform=EDGE, device="cpu"),
+                  IMMSchedScheduler()).run(sc)
+    assert r.finished == r.total == 2
+
+
 def test_cpu_runs_launch_no_kernel():
     from repro_torch.core import pso, split_epoch
     from repro_torch.core.matcher import IMMSchedMatcher
@@ -100,8 +120,9 @@ def test_cpu_runs_launch_no_kernel():
                                      ullmann_refine)
     counters = [prune_fixpoint.launches, pso_fitness.launches,
                 pso_fitness.launches_quantized, epoch_fused.launches,
-                finish_fused.launches, pso_update.launches,
-                ullmann_refine.launches, argmax_project.launches_greedy,
+                epoch_fused.launches_float, finish_fused.launches,
+                pso_update.launches, ullmann_refine.launches,
+                argmax_project.launches_greedy,
                 argmax_project.launches_argmax]
     for c in counters:
         c.reset()
@@ -123,6 +144,18 @@ def test_cpu_runs_launch_no_kernel():
             x["S_star"][0], x["f_star"][0], x["S_bar"][0], mask[0], Q[0],
             G[0], x["r_all"][0], cfg)
         backend.for_config(cfg).masked_argmax(out[1], mask[0])
+    # a real-mode simulation: IMMSched's decisions through the service
+    from repro_torch.accel.platform import EDGE
+    from repro_torch.sched import SimConfig, Simulator, get_scheduler
+    from repro_torch.sched.tasks import fixed_scenario
+    from repro_torch.workloads.zoo import get_workload
+    sim_cfg = SimConfig(platform=EDGE, matcher_mode="real", window_stages=2,
+                        pso_cfg=pso.PSOConfig(num_particles=8, epochs=1,
+                                              inner_steps=2),
+                        device="cpu")
+    r = Simulator(sim_cfg, get_scheduler("immsched")).run(fixed_scenario(
+        [get_workload("resnet50"), get_workload("mobilenetv2")]))
+    assert r.matcher_stats["calls"] >= 1
     assert [c.count for c in counters] == [0] * len(counters)
 
 

@@ -180,7 +180,9 @@ def _counters():
     from repro_torch.kernels import (argmax_project, epoch_fused,
                                      finish_fused, prune_fixpoint,
                                      pso_fitness, pso_update, ullmann_refine)
-    return {c.name: c for c in (epoch_fused.launches, finish_fused.launches,
+    return {c.name: c for c in (epoch_fused.launches,
+                                epoch_fused.launches_float,
+                                finish_fused.launches,
                                 prune_fixpoint.launches, pso_fitness.launches,
                                 pso_fitness.launches_quantized,
                                 pso_update.launches, ullmann_refine.launches,

@@ -351,3 +351,62 @@ def test_callable_streams_of_the_jax_draws_match_jax_per_problem():
         assert torch.equal(got, want), k
     for k in ("epochs_run", "feasible"):
         _close(by_draws[k], jo[k])
+
+
+#: the scheduler's 8-request burst (``chip_smoke.py``'s main path)
+BURST = ("pnasnet", "unet", "nasnet", "resnet50", "mobilenetv2",
+         "efficientnet", "deepseek-7b", "qwen-7b")
+
+
+def _burst_problems():
+    """The burst as ``IMMSchedScheduler._real_match_batch`` builds it:
+    zoo workloads at window_stages=8 on the Cloud platform with a seeded
+    set of 96 free engines, relabelled and padded to one bucket."""
+    plat = tplat.CLOUD
+    free = np.zeros(plat.engines, dtype=bool)
+    free[np.random.default_rng(0).choice(plat.engines, 96,
+                                         replace=False)] = True
+    g = ttg.free_engine_graph(plat, free)
+    qs = []
+    for i, name in enumerate(BURST):
+        pd = tpd.build_preemptible_dag([(i, tzoo.get_workload(name), 0)],
+                                       plat.engine_tile_capacity_macs(),
+                                       window_stages=8)
+        qs.append(tgraphs.topological_relabel(pd.graph)[0])
+    n_pad = max(tpd.shape_bucket(q.n, g.n)[0] for q in qs)
+    m_pad = -(-(g.n + n_pad - min(q.n for q in qs)) // 16) * 16
+    padded = [tpd.pad_problem(q.adj, g.adj, tgraphs.compatibility_mask(q, g),
+                              n_pad, m_pad) for q in qs]
+    return tuple(np.stack(x) for x in zip(*padded))
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(quantized=True),
+                                    dict(quantized=False)])
+def test_burst_outcomes_match_jax_full_size(cfg_kw):
+    """The 8-request burst at full width (bucket (56, 144), N = 64, T = 4,
+    K = 12, early exit) from the JAX keys: the same epochs_run,
+    prune_sweeps and per-epoch feasible flags; then Tier 0 from the JAX
+    carry gives the same ok, ok_rebase and mapping. The carries
+    themselves may drift (ROADMAP Queue 3: the fitness sums' order)."""
+    Qb, Gb, Mb = _burst_problems()
+    assert Mb.shape == (8, 56, 144)
+    kw = dict(early_exit=True, backend="ref", **cfg_kw)
+    jcfg, tcfg = jpso.PSOConfig(**kw), tpso.PSOConfig(**kw)
+    keys = jax.random.split(jax.random.PRNGKey(0), len(BURST))
+    jQ, jG, jM = (jnp.asarray(x) for x in (Qb, Gb, Mb))
+    jo = jpso.match_batch(keys, jQ, jG, jM, jcfg)
+    to = tpso.match_batch(_t(Qb), _t(Gb), _t(Mb), tcfg,
+                          draws=batch_draws(keys, jcfg, *Mb.shape[1:]))
+    for k in ("epochs_run", "prune_sweeps", "feasible"):
+        _close(to[k], jo[k])
+    found = np.asarray(jo["feasible"]).any(axis=(0, 2))
+    assert 0 < int(found.sum()) < len(BURST)
+    jcarry = tuple(np.asarray(jo[k]) for k in ("S_star", "f_star", "S_bar"))
+    jr = jpso.revalidate_batch(jQ, jG, jM, jcfg,
+                               tuple(map(jnp.asarray, jcarry)))
+    tr = tpso.revalidate_batch(_t(Qb), _t(Gb), _t(Mb), tcfg,
+                               tpso.carry_from_numpy(jcarry, "cpu"))
+    for k in ("ok", "ok_rebase", "mapping"):
+        _close(tr[k], jr[k])
+    for b in np.where(tr["ok"].numpy())[0]:
+        _check_found(tr["mapping"][b].numpy(), Qb[b], Gb[b])

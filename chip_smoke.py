@@ -11,13 +11,16 @@ Phases, in order; any failure exits non-zero:
      particles, K = 12 steps, bucket (56, 144)) each of the nine kernel
      entries against its plain PyTorch version on the same inputs, float
      and quantized, τ = 0 and τ > 0: integers bit for bit, floats within
-     rtol 1e-5 / atol 1e-4 (``epoch_fused``, ``masked_argmax`` and
-     both ``edge_fitness`` bodies bit for bit; the float body also once at
-     (P, N, n, m) = (1, 64, 203, 233), where its tiles pass a block's
-     shared memory and live in device scratch); both timed with CUDA
+     rtol 1e-5 / atol 1e-4 (``epoch_fused``, ``masked_argmax``,
+     ``pso_update`` and both ``edge_fitness`` bodies bit for bit; the
+     float body also once at (P, N, n, m) = (1, 64, 203, 233), where its
+     tiles pass a block's shared memory and live in device scratch);
+     both timed with CUDA
      events, the kernel as the median of 5 runs (the entries the split
      epoch calls per problem are called and timed per problem),
-     quantized and, for ``epoch_fused``, float;
+     quantized and, for ``epoch_fused``, float, and each entry's device
+     time under the profiler; ``pso_update`` also by its wrapper's host
+     time alone;
   4. the main path: 8 scheduling requests built as the IMMSched
      scheduler builds them (zoo workloads at window_stages=8 on the Cloud
      platform with a seeded set of 96 free engines, relabelled and padded
@@ -67,7 +70,9 @@ counts device launches on the main or split path, ``launches_per_call``
 divides them by the wrapper calls that made them, ``service_launches``
 counts the launches of phase 4b, ``sched_launches`` those of phase 4c;
 the float branch's launches are counted by its wrapper on their own and
-left out of the ``epoch_fused`` row),
+left out of the ``epoch_fused`` row; ``device_ms`` is a call's device
+time, ``host_ms`` the wrapper's host time alone, ``bound_note`` what a
+bound leaves out),
 the last line ``{"ok": true, "device": {...}}``. With ``--out DIR`` the
 details (a JSON record and the profiler's table) are also written to DIR.
 """
@@ -118,7 +123,17 @@ FLOAT_EPOCH = "epoch_fused_float"
 #: others' integer outputs are equal too; their float outputs are held
 #: within the tolerance)
 BITWISE = ("epoch_fused", "masked_argmax", "edge_fitness",
-           "edge_fitness_quantized")
+           "edge_fitness_quantized", "pso_update")
+#: what a bound by bytes or operations leaves out: chains of dependent
+#: rounds, whose length sets the kernel's time
+BOUND_NOTES = {
+    "prune_fixpoint": "a chain of up to 6 dependent sweeps a problem is "
+                      "not counted",
+    "epoch_finish": "a chain of 2n argmax rounds and up to 6 sweeps a "
+                    "particle is not counted",
+    "greedy_project": "a chain of up to n dependent argmax rounds a "
+                      "particle (n = 56) is not counted",
+}
 #: (P, N, n, m) of phase 3's extra float fitness call: tiles past a
 #: block's shared memory
 FITNESS_LARGE = (1, 64, 203, 233)
@@ -295,6 +310,24 @@ def kernel_bounds(Q, G, mask, x, outs, quantized, refine_iters=6,
         nbytes(x["S_star"], mask) / P + nbytes(*outs["masked_argmax"][:2]),
         {"fp32": float(n * m)})
     return b
+
+
+def pso_update_host_ms(x, Mb):
+    """``pso_update``'s wrapper host time alone on problem 0's particles:
+    ``time.perf_counter`` over 1,000 calls with no synchronize, after
+    warm-up (the card keeps up, so the host sets the pace)."""
+    from repro_torch.kernels import cases, pso_update
+    args = (x["S"][0], x["V"][0], x["S"][0], x["S_star"][0], x["S_bar"][0],
+            Mb[0], x["r_all"][0, 0])
+    for _ in range(50):
+        pso_update.pso_update_cuda(*args, **cases.HYPER)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        pso_update.pso_update_cuda(*args, **cases.HYPER)
+    host_ms = time.perf_counter() - t0   # seconds / 1,000 calls = ms
+    torch.cuda.synchronize()
+    return host_ms
 
 
 def split_phase(pso, Qb, Gb, Mb, x, counters):
@@ -916,6 +949,7 @@ def main():
         if name in library:
             records[name]["library_device_ms"] = sum(
                 r[1] for r in profiled(library[name])[2]) / calls
+    records["pso_update"]["host_ms"] = pso_update_host_ms(x, Mb)
     for name, rec in records.items():
         log(json.dumps(dict(kernel=name, **rec, max_abs_err=errs[name])))
 
@@ -1049,7 +1083,12 @@ def main():
                          max_abs_err=errs[name], ms=rec["ms"],
                          plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                          bound_by=rec["bound_by"],
-                         library_ms=rec["library_ms"]))
+                         library_ms=rec["library_ms"],
+                         device_ms=rec["device_ms"],
+                         **({"host_ms": rec["host_ms"]} if "host_ms" in rec
+                            else {}),
+                         **({"bound_note": BOUND_NOTES[name]}
+                            if name in BOUND_NOTES else {})))
     detail["kernels"] = kern
     detail["total_s"] = time.time() - t_all
     if out_dir is not None:

@@ -35,7 +35,10 @@ both lines. An entry whose source is new in this checkout is timed
 through each checkout's own wrapper, with ``"sass_identical": null``.
 The script prints the card's name and power limit, then one
 JSON line per entry and mode (ms per call of each side, their medians
-and the change's ratio to the base). It exits non-zero without a card.
+and the change's ratio to the base; for the phase-3 calls and the cases
+timed per side also each side's device time of one call under the
+profiler, ``*_device_ms``, which a host-bound entry's CUDA-event times
+do not show). It exits non-zero without a card.
 """
 import argparse
 import ctypes
@@ -176,11 +179,11 @@ def worker(side: Path, inputs: Path, names, out: Path, rounds, reps):
     """One side's run in its own process: that side's ``repro_torch``,
     its kernels built from its sources, the saved inputs."""
     sys.path.insert(0, str(side / "src"))
-    from chip_smoke import cuda_ms
+    from chip_smoke import cuda_ms, profiled
     from repro_torch.kernels import _build as kb, cases
     kb.build_all()
     d = torch.load(inputs, map_location="cuda")
-    res, bits = {}, {}
+    res, bits, dev = {}, {}, {}
     for name in names:
         for q in modes(name):
             pairs = cases.kernel_pairs(d["Q"], d["G"], d["M"], d["x"],
@@ -195,22 +198,25 @@ def worker(side: Path, inputs: Path, names, out: Path, rounds, reps):
                 t.clone() if isinstance(t, torch.Tensor) else t for t in got)
             res[f"{name}/q={q}"] = [cuda_ms(kern, reps) / calls
                                     for _ in range(rounds)]
+            dev[f"{name}/q={q}"] = [device_ms(profiled, kern) / calls
+                                    for _ in range(rounds)]
         for case, kern in extra_cases(name, d).items():
             got = kern()
             got = got if isinstance(got, tuple) else (got,)
             bits[f"{name}/{case}"] = tuple(t.clone() for t in got)
             res[f"{name}/{case}"] = [cuda_ms(kern, reps)
                                      for _ in range(rounds)]
+            dev[f"{name}/{case}"] = [device_ms(profiled, kern)
+                                     for _ in range(rounds)]
     bits[MATCH_KEY], res[MATCH_KEY] = float_match(rounds)
     torch.save(bits, str(out) + ".bits")
-    out.write_text(json.dumps(res))
+    out.write_text(json.dumps({"ms": res, "device_ms": dev}))
 
 
 def per_side(base: Path, names, inputs: Path, args, identical, sources):
     """Time ``names`` through each checkout's own wrapper (see the module
     docstring) and print one JSON line per entry and mode."""
-    ms = {}
-    bits = {}
+    ms, dev, bits = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for slot, (side, root) in enumerate((("base", base),
                                              ("change", ROOT),
@@ -223,8 +229,11 @@ def per_side(base: Path, names, inputs: Path, args, identical, sources):
                  ",".join(names), "--out", str(out), "--rounds",
                  str(args.rounds), "--reps", str(args.reps)],
                 check=True, env={**os.environ, "PYTHONPATH": ""})
-            for key, v in json.loads(out.read_text()).items():
+            got = json.loads(out.read_text())
+            for key, v in got["ms"].items():
                 ms.setdefault(key, {"base": [], "change": []})[side] += v
+            for key, v in got["device_ms"].items():
+                dev.setdefault(key, {"base": [], "change": []})[side] += v
             got = torch.load(str(out) + ".bits", map_location="cpu")
             for key, v in got.items():
                 bits.setdefault(key, {}).setdefault(side, []).append(v)
@@ -244,7 +253,26 @@ def per_side(base: Path, names, inputs: Path, args, identical, sources):
                             if name in sources else None),
             base_ms=sides["base"], change_ms=sides["change"],
             base_median_ms=med["base"], change_median_ms=med["change"],
-            ratio=med["change"] / med["base"])), flush=True)
+            ratio=med["change"] / med["base"],
+            **device_fields(dev.get(key)))), flush=True)
+
+
+def device_ms(profiled, kern):
+    """Device time of one ``kern()`` under the profiler (kernels and
+    copies), in ms."""
+    return sum(row[1] for row in profiled(kern)[2])
+
+
+def device_fields(dev):
+    """The JSON fields of each side's device times: a host-bound entry's
+    CUDA-event times measure its host, these its kernels."""
+    if not dev:
+        return {}
+    med = {k: statistics.median(v) for k, v in dev.items()}
+    return dict(base_device_ms=dev["base"], change_device_ms=dev["change"],
+                base_device_median_ms=med["base"],
+                change_device_median_ms=med["change"],
+                device_ratio=med["change"] / med["base"])
 
 
 def main():
@@ -329,10 +357,12 @@ def main():
                    for a, b in zip(outs["base"], outs["change"])
                    if isinstance(a, torch.Tensor))
         ms = {"base": [], "change": []}
+        dev = {"base": [], "change": []}
         for _ in range(args.rounds):
             for side in ("base", "change", "change", "base"):
                 kb._libs[stem] = libs[side][stem]
                 ms[side].append(cs.cuda_ms(kern, reps=args.reps) / calls)
+                dev[side].append(device_ms(cs.profiled, kern) / calls)
         kb._libs[stem] = libs["change"][stem]
         med = {k: statistics.median(v) for k, v in ms.items()}
         print(json.dumps(dict(
@@ -340,7 +370,8 @@ def main():
             sass_identical=identical[stem], base_ms=ms["base"],
             change_ms=ms["change"], base_median_ms=med["base"],
             change_median_ms=med["change"],
-            ratio=med["change"] / med["base"])), flush=True)
+            ratio=med["change"] / med["base"], **device_fields(dev))),
+            flush=True)
     return 0
 
 

@@ -5,15 +5,21 @@
 // argmax_project.py: the comparator tree of the paper's accelerator.
 //
 // greedy_project. Bound on the H100: latency. Each of the n picks is a
-// masked argmax over all n*m entries that depends on the previous pick,
-// so a particle is a chain of n block-wide reductions; its bytes (one S
-// read, one M-hat written) and its n*n*m compares are small. Design: one
-// CTA per particle runs rt::greedy_assign (common.cuh, the same chain as
-// the fused epoch tail) over the flat index i*m + j with ties to the
-// smallest index, the mask and the free rows and columns as bit rows in
-// shared memory. S waits in shared memory when it fits (32 KB at 56x144);
-// at larger shapes (256 KB at 256x256) the picks read it from global
-// memory, where L1 and L2 hold it between rounds.
+// masked argmax over the entries left that depends on the previous pick,
+// so a particle is a chain of up to n dependent rounds; its bytes (one S
+// read, one M-hat written) and its compares are small. Design: one CTA per
+// particle. Its threads stage the mask's 0/1 bytes and S in shared memory,
+// S where it fits (32 KB at 56x144, up to 200x220; past that the chain
+// reads it from device memory, where L1 and L2 hold it), in one loop whose
+// loads are all in flight at once; then a warp a row packs the mask
+// lane-transposed (rt::pack_rows_t's layout) and seeds the row's best
+// masked column (value, then the lower column) as a cache. Warp 0 then
+// runs rt::greedy_warp, the chain of the fused epoch tail
+// (finish_fused.cu): a round is one warp argmax over the rows' cached
+// bests plus a rescan of the rows whose cached column was just taken,
+// with no block barrier, and it stops at the first round that takes
+// nothing. The other warps zero M-hat with 16-byte stores meanwhile; the
+// ones follow from the assignment.
 //
 // masked_argmax. Bound on the H100: launch latency (one CTA reads at most
 // 256 KB of X). One CTA of 1,024 threads scans the entries (masked ones
@@ -26,46 +32,74 @@
 
 namespace {
 
-// S in shared memory up to this many bytes of dynamic shared memory.
-constexpr size_t kSmemCap = 160 * 1024;
+constexpr int kGreedyThreads = 256;
+constexpr size_t kSmemMax = 232448;    // 227 KB a block on the H100
 
-size_t bits_bytes(int n, int m) {
-  const int W = rt::words(m), Wn = rt::words(n);
-  return sizeof(uint32_t) * ((size_t)n * W + W + Wn) + sizeof(int) * n +
-         (sizeof(float) + sizeof(int)) * 33;
+// Bytes of shared memory before S: maskT (32 n); gv, gj and asg (n
+// each); the mask's 0/1 bytes (n m).
+__host__ __device__ inline size_t greedy_fixed(int n, int m) {
+  return (size_t)rt::align16(32 * n) + rt::align16(12 * n) +
+         rt::align16(n * m);
 }
 
-template <typename MT>
-__global__ void greedy_kernel(const float* __restrict__ S,
-                              const MT* __restrict__ mask,
-                              uint8_t* __restrict__ out, int n, int m,
-                              int s_in_smem) {
-  const int b = blockIdx.x;
-  const int W = rt::words(m), Wn = rt::words(n);
-  const size_t nm = (size_t)n * m;
-  extern __shared__ uint32_t smu[];
-  uint32_t* mbits = smu;                                     // n * W
-  uint32_t* cols = mbits + n * W;                            // W
-  uint32_t* rows = cols + W;                                 // Wn
-  int* asg = reinterpret_cast<int*>(rows + Wn);              // n
-  float* red_v = reinterpret_cast<float*>(asg + n);          // 33
-  int* red_i = reinterpret_cast<int*>(red_v + 33);           // 33
-  float* Ss = reinterpret_cast<float*>(red_i + 33);          // n * m
-
-  const float* Sp = S + (size_t)b * nm;
-  rt::pack_rows(mask, n, m, mbits);
-  if (s_in_smem) {
-    for (int idx = threadIdx.x; idx < (int)nm; idx += blockDim.x)
-      Ss[idx] = Sp[idx];
-    Sp = Ss;
+template <typename MT, bool SMEM>
+__global__ void __launch_bounds__(kGreedyThreads)
+greedy_kernel(const float* __restrict__ S, const MT* __restrict__ mask,
+              uint8_t* __restrict__ out, int n, int m) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int nm = n * m;
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint8_t* maskT = sm;                                        // 32 n
+  float* gv = reinterpret_cast<float*>(sm + rt::align16(32 * n));   // n
+  int* gj = reinterpret_cast<int*>(gv + n);                         // n
+  int* asg = gj + n;                                                // n
+  uint8_t* mk = sm + rt::align16(32 * n) + rt::align16(12 * n);     // nm
+  float* Ss = reinterpret_cast<float*>(sm + greedy_fixed(n, m));    // nm
+  const float* Sg = S + (size_t)blockIdx.x * nm;
+#pragma unroll 4
+  for (int e = tid; e < nm; e += nt) {
+    mk[e] = mask[e] != 0;
+    if (SMEM) Ss[e] = Sg[e];
   }
   __syncthreads();
-  rt::greedy_assign(Sp, mbits, rows, cols, asg, red_v, red_i, n, m);
-  uint8_t* o = out + (size_t)b * nm;
-  for (int idx = threadIdx.x; idx < (int)nm; idx += blockDim.x) {
-    const int i = idx / m;
-    o[idx] = asg[i] == idx - i * m ? 1 : 0;
+  const float* Sp = SMEM ? Ss : Sg;
+  // a warp a row: its mask bits and its best masked column
+  for (int i = warp; i < n; i += nwarps) {
+    uint32_t byte = 0;
+    float v = rt::kNeg;
+    int vi = INT32_MAX;
+#pragma unroll
+    for (int k = 0; k < rt::kLaneBits; ++k) {
+      const int j = lane + 32 * k;
+      if (j < m && mk[i * m + j]) {
+        const float s = Sp[i * m + j];
+        byte |= 1u << k;
+        if (s > v) { v = s; vi = j; }
+      }
+    }
+    maskT[i * 32 + lane] = (uint8_t)byte;
+    rt::warp_argmax(v, vi);
+    if (lane == 0) {
+      gv[i] = v;
+      gj[i] = vi;
+    }
   }
+  __syncthreads();
+  uint8_t* o = out + (size_t)blockIdx.x * nm;
+  if (warp == 0) {
+    rt::greedy_warp(Sp, n, m, maskT, gv, gj, asg);
+  } else {                       // M-hat's zeros, beside the chain
+    if ((reinterpret_cast<uintptr_t>(o) & 15u) == 0 && (nm & 15) == 0) {
+      for (int w = tid - 32; w < nm / 16; w += nt - 32)
+        reinterpret_cast<uint4*>(o)[w] = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      for (int e = tid - 32; e < nm; e += nt - 32) o[e] = 0;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += nt)
+    if (asg[i] >= 0) o[i * m + asg[i]] = 1;
 }
 
 // The better of two (value, index) candidates: the larger value, ties to
@@ -81,19 +115,6 @@ __device__ __forceinline__ void scan_entry(float& v, int& vi, float x,
                                            bool keep, int f) {
   const float y = keep ? x : rt::kNeg;
   if (y > v || vi == INT32_MAX) { v = y; vi = f; }
-}
-
-// Bit k set iff mask entry 4g + k is non-zero, from one 4-byte (uint8)
-// or 16-byte (int32) load.
-__device__ __forceinline__ uint32_t mask_group(const uint8_t* mask, int g) {
-  const uint32_t w = reinterpret_cast<const uint32_t*>(mask)[g];
-  return ((w & 0xffu) != 0) | (((w & 0xff00u) != 0) << 1) |
-         (((w & 0xff0000u) != 0) << 2) | (((w & 0xff000000u) != 0) << 3);
-}
-__device__ __forceinline__ uint32_t mask_group(const int32_t* mask, int g) {
-  const int4 w = reinterpret_cast<const int4*>(mask)[g];
-  return (w.x != 0) | ((w.y != 0) << 1) | ((w.z != 0) << 2) |
-         ((w.w != 0) << 3);
 }
 
 // One CTA: X as float4 and the mask in groups of four where both pointers
@@ -114,7 +135,7 @@ __global__ void masked_argmax_kernel(const float* __restrict__ X,
   const int groups = aligned ? nm >> 2 : 0;
   for (int g = threadIdx.x; g < groups; g += blockDim.x) {
     const float4 x = reinterpret_cast<const float4*>(X)[g];
-    const uint32_t k = mask_group(mask, g);
+    const uint32_t k = rt::mask_group(mask, g);
     scan_entry(v, vi, x.x, k & 1u, 4 * g);
     scan_entry(v, vi, x.y, k & 2u, 4 * g + 1);
     scan_entry(v, vi, x.z, k & 4u, 4 * g + 2);
@@ -143,13 +164,22 @@ __global__ void masked_argmax_kernel(const float* __restrict__ X,
 template <typename MT>
 int launch_greedy(const void* S, const void* mask, void* out, int B, int n,
                   int m, void* stream) {
-  const size_t s_bytes = sizeof(float) * (size_t)n * m;
-  const int s_in_smem = bits_bytes(n, m) + s_bytes <= kSmemCap;
-  const size_t smem = bits_bytes(n, m) + (s_in_smem ? s_bytes : 0);
-  cudaError_t err = rt::allow_smem((const void*)greedy_kernel<MT>, smem);
+  const size_t fixed = greedy_fixed(n, m), s_bytes = sizeof(float) * n * m;
+  const bool in_smem = fixed + s_bytes <= kSmemMax;
+  const size_t smem = fixed + (in_smem ? s_bytes : 0);
+  const void* kern = in_smem ? (const void*)greedy_kernel<MT, true>
+                             : (const void*)greedy_kernel<MT, false>;
+  cudaError_t err = rt::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  greedy_kernel<MT><<<B, 256, smem, (cudaStream_t)stream>>>(
-      (const float*)S, (const MT*)mask, (uint8_t*)out, n, m, s_in_smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define GREEDY(SMEM)                                                       \
+  greedy_kernel<MT, SMEM><<<B, kGreedyThreads, smem, st>>>(                \
+      (const float*)S, (const MT*)mask, (uint8_t*)out, n, m)
+  if (in_smem)
+    GREEDY(true);
+  else
+    GREEDY(false);
+#undef GREEDY
   return (int)cudaGetLastError();
 }
 

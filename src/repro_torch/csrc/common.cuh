@@ -145,82 +145,31 @@ __device__ inline bool ullmann_sweep(uint32_t* M, const uint32_t* Gout,
   return changed;
 }
 
-// Block-wide argmax of (value, index) pairs: the largest value, ties to
-// the smallest index (jnp.argmax / torch.argmax order). sv and si hold 33
-// entries each. Every thread gets the result. Contains __syncthreads().
-__device__ inline void block_argmax(float v, int idx, float* sv, int* si,
-                                    float* out_v, int* out_i) {
-  const unsigned full = 0xffffffffu;
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(full, v, off);
-    const int oi = __shfl_down_sync(full, idx, off);
-    if (ov > v || (ov == v && oi < idx)) { v = ov; idx = oi; }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  if (lane == 0) { sv[warp] = v; si[warp] = idx; }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nwarps ? sv[lane] : kNeg;
-    idx = lane < nwarps ? si[lane] : INT32_MAX;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(full, v, off);
-      const int oi = __shfl_down_sync(full, idx, off);
-      if (ov > v || (ov == v && oi < idx)) { v = ov; idx = oi; }
-    }
-    if (lane == 0) { sv[32] = v; si[32] = idx; }
-  }
-  __syncthreads();
-  *out_v = sv[32];
-  *out_i = si[32];
-  __syncthreads();
+// Argmax over the warp of (value, index) pairs, ties to the lower index;
+// every lane gets the result. Two warp reductions: the largest value as an
+// order-preserving unsigned key (-0.0 counted as +0.0, since the two
+// compare equal), then the smallest index among the lanes that hold it.
+// Values are never NaN here.
+__device__ __forceinline__ void warp_argmax(float& v, int& vi) {
+  uint32_t key = __float_as_uint(v + 0.0f);
+  key = (key & 0x80000000u) ? ~key : key | 0x80000000u;
+  const uint32_t best = __reduce_max_sync(0xffffffffu, key);
+  vi = (int)__reduce_min_sync(0xffffffffu,
+                              key == best ? (uint32_t)vi : 0xffffffffu);
+  v = __uint_as_float((best & 0x80000000u) ? best & 0x7fffffffu : ~best);
 }
 
-// All ones in the first `bits` bits of a bit row of words(bits) words.
-__device__ inline void fill_bits(uint32_t* row, int bits) {
-  for (int w = threadIdx.x; w < words(bits); w += blockDim.x)
-    row[w] = (w * 32 + 32 <= bits) ? 0xffffffffu
-                                   : ((1u << (bits - w * 32)) - 1u);
+// Bit k set iff mask entry 4g + k is non-zero, from one 4-byte (uint8)
+// or 16-byte (int32) load.
+__device__ __forceinline__ uint32_t mask_group(const uint8_t* mask, int g) {
+  const uint32_t w = reinterpret_cast<const uint32_t*>(mask)[g];
+  return ((w & 0xffu) != 0) | (((w & 0xff00u) != 0) << 1) |
+         (((w & 0xff0000u) != 0) << 2) | (((w & 0xff000000u) != 0) << 3);
 }
-
-// ref.greedy_project of one (n, m) S: n rounds of a masked global argmax
-// over the flat index i*m + j (ties to the smallest index), each taken
-// entry knocking out its row and column. An entry is taken only if its
-// value is above finfo(float32).min. Writes asg[i] = j, or -1 for a row
-// left empty. S may live in shared or global memory; mask is bit rows
-// (n x words(m)); rows (words(n)), cols (words(m)) and red_v / red_i (33
-// each) are scratch in shared memory. Ends with __syncthreads().
-__device__ inline void greedy_assign(const float* S, const uint32_t* mask,
-                                     uint32_t* rows, uint32_t* cols,
-                                     int* asg, float* red_v, int* red_i,
-                                     int n, int m) {
-  const int W = words(m), nm = n * m;
-  fill_bits(cols, m);
-  fill_bits(rows, n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) asg[i] = -1;
-  __syncthreads();
-  for (int round = 0; round < n; ++round) {
-    float v = kNeg;
-    int vi = INT32_MAX;
-    for (int f = threadIdx.x; f < nm; f += blockDim.x) {
-      const int i = f / m, j = f - i * m;
-      if (test_bit(rows, i) && test_bit(cols, j) &&
-          test_bit(mask + i * W, j)) {
-        const float x = S[f];
-        if (x > v || vi == INT32_MAX) { v = x; vi = f; }
-      }
-    }
-    float best;
-    int bf;
-    block_argmax(v, vi, red_v, red_i, &best, &bf);
-    if (threadIdx.x == 0 && best > kNeg) {
-      const int i = bf / m, j = bf - i * m;
-      asg[i] = j;
-      rows[i >> 5] &= ~(1u << (i & 31));
-      cols[j >> 5] &= ~(1u << (j & 31));
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ uint32_t mask_group(const int32_t* mask, int g) {
+  const int4 w = reinterpret_cast<const int4*>(mask)[g];
+  return (w.x != 0) | ((w.y != 0) << 1) | ((w.z != 0) << 2) |
+         ((w.w != 0) << 3);
 }
 
 // Copy `bytes` bytes with 16-byte loads where both ends allow it.
@@ -268,6 +217,78 @@ __device__ inline void pack_cols_t(const uint8_t* x, int dim, uint8_t* out) {
       if (r < dim && x[r * dim + c] != 0) byte |= 1u << k;
     }
     out[c * 32 + l] = (uint8_t)byte;
+  }
+}
+
+// The free columns of lane l at the start of a chain: bit k for l + 32 k.
+__device__ __forceinline__ uint32_t all_cols(int m) {
+  const int lane = threadIdx.x & 31;
+  uint32_t cols = 0;
+#pragma unroll
+  for (int k = 0; k < kLaneBits; ++k)
+    if (lane + 32 * k < m) cols |= 1u << k;
+  return cols;
+}
+
+// ref.greedy_project of one (n, m) S (row stride m, in shared or device
+// memory), run by one warp: n rounds of a masked global argmax over the
+// flat index i*m + j (ties to the smallest index), each taken entry
+// knocking out its row and column; an entry is taken only if its value is
+// above finfo(float32).min. maskT is the mask's lane-transposed rows. gv /
+// gj hold every row's best (value, column) over its masked columns, ties
+// to the lower column (kNeg and INT32_MAX for a row with none), and are
+// the cache: a round takes the best row (ties to the lower row: the lowest
+// flat index), sets it to (kNeg, INT32_MAX) and rescans only the rows
+// whose cached column was just taken. It stops at the first round that
+// takes nothing, as every later round would. Writes asg[i] (-1: none).
+__device__ __forceinline__ void greedy_warp(const float* S, int n, int m,
+                                            const uint8_t* maskT, float* gv,
+                                            int* gj, int* asg) {
+  const int lane = threadIdx.x & 31;
+  uint32_t cols = all_cols(m);
+  for (int i = lane; i < n; i += 32) asg[i] = -1;
+  __syncwarp();
+  for (int round = 0; round < n; ++round) {
+    float v = kNeg;
+    int row = INT32_MAX;
+    for (int i = lane; i < n; i += 32)
+      if (gv[i] > v) { v = gv[i]; row = i; }
+    warp_argmax(v, row);
+    if (!(v > kNeg)) break;          // nothing left: every later round too
+    const int col = gj[row];
+    __syncwarp();
+    if (lane == 0) {
+      asg[row] = col;
+      gv[row] = kNeg;
+      gj[row] = INT32_MAX;
+    }
+    if (lane == (col & 31)) cols &= ~(1u << (col >> 5));
+    __syncwarp();
+    // rescan the rows whose cached column was just taken
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      uint32_t stale = __ballot_sync(
+          0xffffffffu, i0 + lane < n && gj[i0 + lane] == col);
+      while (stale) {
+        const int i = i0 + __ffs(stale) - 1;
+        stale &= stale - 1;
+        const uint32_t ok = maskT[i * 32 + lane] & cols;
+        float bv = kNeg;
+        int bj = INT32_MAX;
+#pragma unroll
+        for (int k = 0; k < kLaneBits; ++k) {
+          if ((ok >> k) & 1u) {
+            const float s = S[i * m + lane + 32 * k];
+            if (s > bv) { bv = s; bj = lane + 32 * k; }
+          }
+        }
+        warp_argmax(bv, bj);
+        if (lane == 0) {
+          gv[i] = bv;
+          gj[i] = bj;
+        }
+      }
+    }
+    __syncwarp();
   }
 }
 

@@ -57,6 +57,8 @@ constexpr int kSliceEntries = 512;         // S_bar entries a consensus CTA
 constexpr int kPackCtas = 3;   // launch 1's CTAs a problem for its record
 
 using rt::align16;
+using rt::all_cols;
+using rt::warp_argmax;
 
 // Byte offsets of one problem's record (written by launch 1) and of one
 // particle CTA's shared memory, which starts with a copy of the record.
@@ -101,20 +103,6 @@ __host__ __device__ inline Layout layout(int n, int m) {
 
 bool s_in_smem(int n, int m) {
   return (size_t)layout(n, m).s + 4 * (size_t)n * m <= kSmemMax;
-}
-
-// Argmax over the warp of (value, index) pairs, ties to the lower index;
-// every lane gets the result. Two warp reductions: the largest value as an
-// order-preserving unsigned key (-0.0 counted as +0.0, since the two
-// compare equal), then the smallest index among the lanes that hold it.
-// Values are never NaN here.
-__device__ __forceinline__ void warp_argmax(float& v, int& vi) {
-  uint32_t key = __float_as_uint(v + 0.0f);
-  key = (key & 0x80000000u) ? ~key : key | 0x80000000u;
-  const uint32_t best = __reduce_max_sync(0xffffffffu, key);
-  vi = (int)__reduce_min_sync(0xffffffffu,
-                              key == best ? (uint32_t)vi : 0xffffffffu);
-  v = __uint_as_float((best & 0x80000000u) ? best & 0x7fffffffu : ~best);
 }
 
 // Launch 1. blockIdx.x < kPackCtas: a part of the problem's record, from
@@ -221,16 +209,6 @@ struct Ctx {
   int n, m, W, Wn;
 };
 
-// The free columns of lane l at the start of a chain: bit k for l + 32 k.
-__device__ __forceinline__ uint32_t all_cols(int m) {
-  const int lane = threadIdx.x & 31;
-  uint32_t cols = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxW; ++k)
-    if (lane + 32 * k < m) cols |= 1u << k;
-  return cols;
-}
-
 // ref.structured_project of one particle, run by one warp: rows in order,
 // each on its best free candidate adjacent to every predecessor's image
 // and with enough free out-neighbours left for its successors. availT is
@@ -287,60 +265,6 @@ __device__ __forceinline__ void structured_warp(const Ctx& c,
       while (in) {
         fo[lane + 32 * (__ffs(in) - 1)] -= 1;
         in &= in - 1;
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// ref.greedy_project of one particle, run by one warp. gv / gj hold every
-// row's best (value, column) over its masked columns and are the cache:
-// a taken row is set to (-FLT_MAX, INT32_MAX). Writes asg[i] (-1: none).
-__device__ __forceinline__ void greedy_warp(const Ctx& c,
-                                            const uint8_t* maskT, float* gv,
-                                            int* gj, int* asg) {
-  const int lane = threadIdx.x & 31, n = c.n, m = c.m;
-  uint32_t cols = all_cols(m);
-  for (int i = lane; i < n; i += 32) asg[i] = -1;
-  __syncwarp();
-  for (int round = 0; round < n; ++round) {
-    float v = rt::kNeg;
-    int row = INT32_MAX;
-    for (int i = lane; i < n; i += 32)
-      if (gv[i] > v) { v = gv[i]; row = i; }
-    warp_argmax(v, row);
-    if (!(v > rt::kNeg)) break;      // nothing left: every later round too
-    const int col = gj[row];
-    __syncwarp();
-    if (lane == 0) {
-      asg[row] = col;
-      gv[row] = rt::kNeg;
-      gj[row] = INT32_MAX;
-    }
-    if (lane == (col & 31)) cols &= ~(1u << (col >> 5));
-    __syncwarp();
-    // rescan the rows whose cached column was just taken
-    for (int i0 = 0; i0 < n; i0 += 32) {
-      uint32_t stale = __ballot_sync(
-          0xffffffffu, i0 + lane < n && gj[i0 + lane] == col);
-      while (stale) {
-        const int i = i0 + __ffs(stale) - 1;
-        stale &= stale - 1;
-        const uint32_t ok = maskT[i * 32 + lane] & cols;
-        float bv = rt::kNeg;
-        int bj = INT32_MAX;
-#pragma unroll
-        for (int k = 0; k < kMaxW; ++k) {
-          if ((ok >> k) & 1u) {
-            const float s = c.S[i * m + lane + 32 * k];
-            if (s > bv) { bv = s; bj = lane + 32 * k; }
-          }
-        }
-        warp_argmax(bv, bj);
-        if (lane == 0) {
-          gv[i] = bv;
-          gj[i] = bj;
-        }
       }
     }
     __syncwarp();
@@ -534,7 +458,7 @@ finish_kernel(const float* __restrict__ S_, const float* __restrict__ gum,
       structured_warp<false>(c, maskT, nullptr, 0.0f, fo, img, asg_a);
     feas_a = feasible_warp(c, asg_a, used);
   } else if (warp == 1) {
-    greedy_warp(c, maskT, gv, gj, asg_p);
+    rt::greedy_warp(c.S, n, m, maskT, gv, gj, asg_p);
   }
   __syncthreads();
 

@@ -14,99 +14,179 @@
 // Bound on the H100: bytes. A particle reads S, V, S_local (and the shared
 // S*, S-bar, mask) once and writes S and V once, ~15 fp32 operations an
 // entry: at 56x144 that is 0.16 MB a particle against 0.12 MFLOP. Design:
-// one CTA per particle; the unnormalised row block and its 0/1 mask wait
-// in shared memory (odd row stride, so one thread per row sums without
-// bank conflicts) between the elementwise pass, the left-to-right row
-// sums and the division. Rows go in blocks of `R` rows so that any
-// n, m <= 256 fits 48 KB; at the main shapes one block holds all rows.
+// one warp per (particle, row), so that a call at (64, 56, 144) is 3,584
+// warps in one wave over the card, each with its row's loads in flight at
+// once (16-byte loads where m % 4 == 0 and every pointer is 16-byte
+// aligned, 4-byte ones otherwise; the shared S*, S-bar and mask rows stay
+// in L2 across particles). A lane keeps its entries in registers and
+// counts its mask entries as an integer (exact in any order); the warp's
+// unnormalised row waits in its own slice of shared memory while lane 0
+// sums it strictly left to right (the plain version's seq_sum order, so
+// no tree), then every lane divides its entries and stores them.
 #include "common.cuh"
 
 namespace {
+
+constexpr int kRowFloats = rt::kMaxDim;   // a warp's slice of shared memory
+// Warps (rows) a CTA. A sweep of 1, 2, 4, 8 and 16 on the H100 (PERF.md)
+// put 2 and 4 within 0.5% of each other at (64, 56, 144), all five within 7%.
+constexpr int kCtaWarps = 4;
 
 struct Hyper {
   float omega, c1, c2, c3, v_max;
 };
 
-template <typename MT>
+// One entry: the new velocity (into v_out) and the unnormalised masked
+// position, in ref.pso_update's order of operations.
+__device__ __forceinline__ float step(float s, float v0, float sl, float st,
+                                      float sb, bool keep, const Hyper& h,
+                                      float a1, float a2, float a3,
+                                      float& v_out) {
+  float v = h.omega * v0;
+  v = v + a1 * (sl - s);
+  v = v + a2 * (st - s);
+  v = v + a3 * (sb - s);
+  v = fminf(fmaxf(v, -h.v_max), h.v_max);
+  v_out = v;
+  return fmaxf(s + v, 0.0f) * (keep ? 1.0f : 0.0f);
+}
+
+// Row `row` = b * n + i of the batch, one warp. VEC: m % 4 == 0 and every
+// pointer aligned, lane l owning the 4-entry groups l and l + 32;
+// otherwise lane l owns the entries l + 32 k.
+template <typename MT, bool VEC>
 __global__ void pso_update_kernel(
     const float* __restrict__ S, const float* __restrict__ V,
     const float* __restrict__ Sl, const float* __restrict__ Sstar,
     const float* __restrict__ Sbar, const MT* __restrict__ mask,
     const float* __restrict__ r, float* __restrict__ S_out,
-    float* __restrict__ V_out, int n, int m, int R, Hyper h) {
-  const int b = blockIdx.x;
-  const size_t base = (size_t)b * n * m;
-  const int ld = rt::odd_stride(m);
-  extern __shared__ float smf[];
-  float* St = smf;                                         // R * ld
-  float* rowf = St + (size_t)R * ld;                       // R
-  float* mrows = rowf + R;                                 // R
-  uint8_t* mk = reinterpret_cast<uint8_t*>(mrows + R);     // R * m
+    float* __restrict__ V_out, int rows, int n, int m, Hyper h) {
+  extern __shared__ __align__(16) float stage[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;                  // the whole warp
+  const int b = row / n, i = row - b * n;
+  const size_t g = (size_t)row * m, s = (size_t)i * m;
+  float* x = stage + warp * kRowFloats;
   const float a1 = h.c1 * r[b * 3], a2 = h.c2 * r[b * 3 + 1],
               a3 = h.c3 * r[b * 3 + 2];
-
-  for (int r0 = 0; r0 < n; r0 += R) {
-    const int rows = min(R, n - r0);
-    const size_t off = (size_t)r0 * m;
-    for (int idx = threadIdx.x; idx < rows * m; idx += blockDim.x)
-      mk[idx] = mask[off + idx] != 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-      int c = 0;
-      for (int j = 0; j < m; ++j) c += mk[i * m + j];
-      mrows[i] = (float)c;
+  constexpr int kPer = VEC ? 8 : rt::kLaneBits;   // entries a lane holds
+  float xs[kPer];
+  uint32_t keep = 0;                        // bit e for entry e of xs
+  int cnt = 0;
+  if (VEC) {
+    const int m4 = m >> 2;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = lane + 32 * k;
+      if (q < m4) {
+        const float4 s4 = reinterpret_cast<const float4*>(S + g)[q];
+        const float4 v4 = reinterpret_cast<const float4*>(V + g)[q];
+        const float4 l4 = reinterpret_cast<const float4*>(Sl + g)[q];
+        const float4 t4 = reinterpret_cast<const float4*>(Sstar + s)[q];
+        const float4 b4 = reinterpret_cast<const float4*>(Sbar + s)[q];
+        const uint32_t mk = rt::mask_group(mask + s, q);
+        float4 vo, xo;
+        xo.x = step(s4.x, v4.x, l4.x, t4.x, b4.x, mk & 1u, h, a1, a2, a3,
+                    vo.x);
+        xo.y = step(s4.y, v4.y, l4.y, t4.y, b4.y, mk & 2u, h, a1, a2, a3,
+                    vo.y);
+        xo.z = step(s4.z, v4.z, l4.z, t4.z, b4.z, mk & 4u, h, a1, a2, a3,
+                    vo.z);
+        xo.w = step(s4.w, v4.w, l4.w, t4.w, b4.w, mk & 8u, h, a1, a2, a3,
+                    vo.w);
+        reinterpret_cast<float4*>(V_out + g)[q] = vo;
+        reinterpret_cast<float4*>(x)[q] = xo;
+        xs[4 * k] = xo.x;
+        xs[4 * k + 1] = xo.y;
+        xs[4 * k + 2] = xo.z;
+        xs[4 * k + 3] = xo.w;
+        keep |= mk << (4 * k);
+        cnt += __popc(mk);
+      }
     }
-    // velocity, clip, position, mask (ref.pso_update, same op order)
-    for (int idx = threadIdx.x; idx < rows * m; idx += blockDim.x) {
-      const int i = idx / m, j = idx - i * m;
-      const size_t g = base + off + idx;
-      const float s = S[g];
-      float v = h.omega * V[g];
-      v = v + a1 * (Sl[g] - s);
-      v = v + a2 * (Sstar[off + idx] - s);
-      v = v + a3 * (Sbar[off + idx] - s);
-      v = fminf(fmaxf(v, -h.v_max), h.v_max);
-      V_out[g] = v;
-      St[i * ld + j] = fmaxf(s + v, 0.0f) * (float)mk[idx];
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = lane + 32 * k;
+      if (j < m) {
+        const bool mk = mask[s + j] != 0;
+        float vo;
+        xs[k] = step(S[g + j], V[g + j], Sl[g + j], Sstar[s + j],
+                     Sbar[s + j], mk, h, a1, a2, a3, vo);
+        V_out[g + j] = vo;
+        x[j] = xs[k];
+        keep |= (uint32_t)mk << k;
+        cnt += mk;
+      }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-      float acc = 0.0f;
-      for (int j = 0; j < m; ++j) acc = acc + St[i * ld + j];
-      rowf[i] = acc;
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < rows * m; idx += blockDim.x) {
-      const int i = idx / m, j = idx - i * m;
-      const float rs = rowf[i];
-      const float uni = (float)mk[idx] / fmaxf(mrows[i], 1.0f);
-      S_out[base + off + idx] =
-          rs > 1e-9f ? St[i * ld + j] / fmaxf(rs, 1e-9f) : uni;
-    }
-    __syncthreads();
   }
+  cnt = __reduce_add_sync(0xffffffffu, cnt);
+  __syncwarp();
+  float rs = 0.0f;
+  if (lane == 0) {                          // strictly left to right
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (int q = 0; q < (m >> 2); ++q) {
+      const float4 t = x4[q];
+      rs = rs + t.x;
+      rs = rs + t.y;
+      rs = rs + t.z;
+      rs = rs + t.w;
+    }
+    for (int j = m & ~3; j < m; ++j) rs = rs + x[j];
+  }
+  rs = __shfl_sync(0xffffffffu, rs, 0);
+  // the row over its clamped sum, or the uniform row (mask over its
+  // clamped count): one division an entry either way
+  const bool pos = rs > 1e-9f;
+  const float den = pos ? fmaxf(rs, 1e-9f) : fmaxf((float)cnt, 1.0f);
+#define OUT(e) ((pos ? xs[e] : (float)((keep >> (e)) & 1u)) / den)
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = lane + 32 * k;
+      if (q < (m >> 2))
+        reinterpret_cast<float4*>(S_out + g)[q] =
+            make_float4(OUT(4 * k), OUT(4 * k + 1), OUT(4 * k + 2),
+                        OUT(4 * k + 3));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = lane + 32 * k;
+      if (j < m) S_out[g + j] = OUT(k);
+    }
+  }
+#undef OUT
 }
 
-// Rows a block holds in 48 KB (at least one).
-int block_rows(int n, int m) {
-  const size_t per_row =
-      sizeof(float) * ((size_t)rt::odd_stride(m) + 2) + (size_t)m;
-  const int R = (int)((48 * 1024) / per_row);
-  return R < 1 ? 1 : (R > n ? n : R);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 template <typename MT>
 int launch(const void* S, const void* V, const void* Sl, const void* Sstar,
            const void* Sbar, const void* mask, const void* r, void* S_out,
            void* V_out, int B, int n, int m, Hyper h, void* stream) {
-  const int R = block_rows(n, m);
-  const size_t smem =
-      sizeof(float) * ((size_t)R * rt::odd_stride(m) + 2 * (size_t)R) +
-      (size_t)R * m;
-  pso_update_kernel<MT><<<B, 256, smem, (cudaStream_t)stream>>>(
-      (const float*)S, (const float*)V, (const float*)Sl,
-      (const float*)Sstar, (const float*)Sbar, (const MT*)mask,
-      (const float*)r, (float*)S_out, (float*)V_out, n, m, R, h);
+  const int rows = B * n;
+  const int ctas = (rows + kCtaWarps - 1) / kCtaWarps;
+  const size_t smem = sizeof(float) * kRowFloats * kCtaWarps;
+  const bool vec =
+      (m & 3) == 0 && aligned16(S) && aligned16(V) && aligned16(Sl) &&
+      aligned16(Sstar) && aligned16(Sbar) && aligned16(S_out) &&
+      aligned16(V_out) &&
+      (reinterpret_cast<uintptr_t>(mask) & (4 * sizeof(MT) - 1)) == 0;
+#define PSO_LAUNCH(VEC)                                                    \
+  pso_update_kernel<MT, VEC><<<ctas, 32 * kCtaWarps, smem,                 \
+                               (cudaStream_t)stream>>>(                    \
+      (const float*)S, (const float*)V, (const float*)Sl,                  \
+      (const float*)Sstar, (const float*)Sbar, (const MT*)mask,            \
+      (const float*)r, (float*)S_out, (float*)V_out, rows, n, m, h)
+  if (vec)
+    PSO_LAUNCH(true);
+  else
+    PSO_LAUNCH(false);
+#undef PSO_LAUNCH
   return (int)cudaGetLastError();
 }
 

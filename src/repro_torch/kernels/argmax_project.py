@@ -5,9 +5,10 @@ Replaces the TPU kernels ``greedy_project_pallas`` and
 bodies ``_project_kernel`` and ``_masked_argmax_kernel``). The CUDA
 source is ``csrc/argmax_project.cu``:
 
-  * ``greedy_project``: one CTA per leading index, n dependent rounds of
-    a block-wide masked argmax (the chain the fused epoch tail runs too),
-    bound on the H100 by the latency of that chain;
+  * ``greedy_project``: one CTA per leading index, warp 0 running the
+    cached argmax chain of the fused epoch tail (``rt::greedy_warp``,
+    up to n dependent rounds), bound on the H100 by the latency of that
+    chain;
   * ``masked_argmax``: one CTA over the (n, m) entries.
 
 Both are exact: ties go to the smallest flat index i·m + j as in
@@ -24,22 +25,27 @@ launches_greedy = kb.LaunchCounter("greedy_project")
 launches_argmax = kb.LaunchCounter("masked_argmax")
 
 
+_GREEDY_ARGS = [kb.P_] * 3 + [kb.I_] * 4 + [kb.P_]
+
+
 def greedy_project_cuda(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: ``S`` (…, n, m), ``mask`` (n, m) shared by
-    every matrix. Returns uint8 M̂ (…, n, m)."""
+    every matrix. Returns uint8 M̂ (…, n, m). S is copied only when it is
+    not contiguous float32."""
     kb.require(S.is_cuda, "greedy_project_cuda needs CUDA tensors")
     n, m = S.shape[-2:]
-    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256")
-    kb.require(mask.shape == (n, m), "mask must be (n, m)")
-    Sc = S.to(torch.float32).contiguous()
+    if not (n <= 256 and m <= 256 and mask.shape == (n, m)):
+        raise ValueError(f"greedy_project_cuda: (n, m) = {(n, m)} must be "
+                         f"at most 256 and mask {tuple(mask.shape)} (n, m)")
+    if S.dtype is not torch.float32 or not S.is_contiguous():
+        S = S.to(torch.float32).contiguous()
     mk, mask_i32 = kb.mask_arg(mask)
     out = torch.empty(S.shape, dtype=torch.uint8, device=S.device)
     if out.numel() == 0:
         return out
-    fn = kb.bind("argmax_project", "greedy_project",
-                 [kb.P_] * 3 + [kb.I_] * 4 + [kb.P_])
-    err = fn(kb.ptr(Sc), kb.ptr(mk), kb.ptr(out), out.numel() // (n * m), n,
-             m, mask_i32, kb.stream())
+    err = kb.bind("argmax_project", "greedy_project", _GREEDY_ARGS)(
+        S.data_ptr(), mk.data_ptr(), out.data_ptr(), out.numel() // (n * m),
+        n, m, mask_i32, kb.stream())
     kb.check(err, "greedy_project")
     launches_greedy.add()
     return out

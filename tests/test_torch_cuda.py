@@ -151,6 +151,172 @@ def test_split_path_kernels_reject_what_they_do_not_take(device):
         masked_argmax_cuda(big[0], big[0] > 0)
 
 
+# -- pso_update and greedy_project bit for bit --------------------------------
+
+def _update_case(device, lead, n, m, seed, mask_dtype=torch.uint8):
+    """Particles of shape ``lead`` on one (n, m) problem: a 0.8-dense mask
+    with row 0 empty (the uniform fallback with no candidate), row 1's
+    particles pushed below zero (clamped sum 0: the uniform row) and row
+    2's at 1e-11 an entry (a positive clamped sum at or below 1e-9, at
+    m <= 100)."""
+    g = torch.Generator().manual_seed(seed)
+    S = torch.rand(*lead, n, m, generator=g)
+    V = 0.3 * torch.randn(*lead, n, m, generator=g)
+    Sl = torch.rand(*lead, n, m, generator=g)
+    star, bar = torch.rand(n, m, generator=g), torch.rand(n, m, generator=g)
+    mask = torch.rand(n, m, generator=g) < 0.8
+    r = torch.rand(*lead, 3, generator=g)
+    if n > 2:
+        mask[0] = False
+        S[..., 1, :], V[..., 1, :], Sl[..., 1, :] = 0.0, -1.0, 0.0
+        star[1], bar[1] = 0.0, 0.0
+        S[..., 2, :] = Sl[..., 2, :] = 1e-11
+        V[..., 2, :] = 0.0
+        star[2] = bar[2] = 1e-11
+    return tuple(t.to(device) for t in (S, V, Sl, star, bar,
+                                        mask.to(mask_dtype), r))
+
+
+def _assert_update_bitwise(args):
+    from repro_torch.kernels import pso_update
+    pso_update.launches.reset()
+    got = pso_update_cuda(*args, **cases.HYPER)
+    torch.cuda.synchronize()
+    assert pso_update.launches.count == 1
+    want = ref.pso_update(*args, **cases.HYPER)
+    for name, g, w in zip(("S_new", "V_new"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+
+
+@pytest.mark.parametrize("lead,n,m", [
+    ((64,), 56, 144), ((16,), 13, 57), ((16,), 13, 143), ((8,), 1, 1),
+    ((8,), 6, 1), ((8,), 1, 40), ((3, 5), 24, 40), ((3, 5), 7, 31)])
+def test_pso_update_bitwise_on_card(device, lead, n, m):
+    """S_new and V_new equal ref.pso_update bit for bit: at the main
+    path's shape, odd m (the 4-byte path), m = 1 and n = 1, two leading
+    dims, empty mask rows and rows whose clamped sum is at most 1e-9."""
+    _assert_update_bitwise(_update_case(device, lead, n, m, n * 1000 + m))
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32,
+                                        torch.bool])
+def test_pso_update_largest_and_every_mask_dtype_on_card(device,
+                                                         mask_dtype):
+    _assert_update_bitwise(_update_case(device, (16,), 256, 256, 31,
+                                        mask_dtype))
+    _assert_update_bitwise(_update_case(device, (64,), 56, 144, 32,
+                                        mask_dtype))
+
+
+def test_pso_update_misaligned_slices_on_card(device):
+    """Operands that start 4 bytes past a 16-byte boundary (storage offset
+    1) at m % 4 == 0 take the 4-byte path and give the same bits."""
+    args = _update_case(device, (8,), 56, 144, 33)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+    for k in (0, 1, 2, 3, 4, 6):
+        moved = list(args)
+        moved[k] = shifted(args[k])
+        assert moved[k].storage_offset() == 1
+        _assert_update_bitwise(tuple(moved))
+    _assert_update_bitwise(tuple(shifted(t) for t in args))
+
+
+def _assert_greedy_bitwise(S, mask):
+    from repro_torch.kernels import argmax_project
+    argmax_project.launches_greedy.reset()
+    got = greedy_project_cuda(S, mask)
+    torch.cuda.synchronize()
+    assert argmax_project.launches_greedy.count == 1
+    want = ref.greedy_project(S, mask)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def _greedy_case(device, lead, n, m, seed, values=None,
+                 mask_dtype=torch.uint8, density=0.8):
+    """S (lead, n, m) uniform, or drawn from ``values`` (exact ties), and
+    an (n, m) mask of the given density."""
+    g = torch.Generator().manual_seed(seed)
+    if values is None:
+        S = torch.rand(*lead, n, m, generator=g)
+    else:
+        pick = torch.randint(0, len(values), (*lead, n, m), generator=g)
+        S = torch.tensor(values, dtype=torch.float32)[pick]
+    mask = (torch.rand(n, m, generator=g) < density).to(mask_dtype)
+    return S.to(device), mask.to(device)
+
+
+@pytest.mark.parametrize("lead,n,m", [
+    ((64,), 56, 144), ((4,), 256, 256), ((4,), 203, 233), ((2,), 200, 220),
+    ((2,), 200, 224), ((3, 5), 24, 40), ((8,), 1, 1), ((8,), 13, 37)])
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32,
+                                        torch.bool])
+def test_greedy_project_bitwise_on_card(device, lead, n, m, mask_dtype):
+    """M-hat equals ref.greedy_project bit for bit: at the main path's
+    shape, at two leading dims and odd shapes, for every mask dtype. S is
+    in shared memory up to (200, 220), 228,800 of the block's 232,448
+    bytes, and in device memory from (200, 224), 232,800 bytes, through
+    (203, 233) and 256 x 256."""
+    _assert_greedy_bitwise(*_greedy_case(device, lead, n, m, n + m,
+                                         mask_dtype=mask_dtype))
+
+
+def test_greedy_project_rescans_and_ties_on_card(device):
+    """The tie-rich S of test_epoch_finish_greedy_rescans_on_card (every
+    row ranks the columns alike, so each round rescans every row left),
+    and S from a few values with +0.0 and -0.0 among them (exact ties, to
+    the lowest flat index)."""
+    n, m = 24, 40
+    i = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    j = torch.arange(m, device=device, dtype=torch.float32)[None]
+    S = ((m - j) + i / (4 * n)).expand(16, n, m).contiguous()
+    _, mask = _greedy_case(device, (1,), n, m, 40)
+    _assert_greedy_bitwise(S, torch.ones_like(mask))
+    _assert_greedy_bitwise(S, mask)
+    for lead, n, m in (((16,), 40, 72), ((64,), 56, 144)):
+        _assert_greedy_bitwise(*_greedy_case(
+            device, lead, n, m, 41, values=[0.0, -0.0, 0.25, 0.5]))
+        _assert_greedy_bitwise(*_greedy_case(
+            device, lead, n, m, 42, values=[-0.0, 0.0]))
+
+
+def test_greedy_project_never_takes_f32_min_or_minus_inf_on_card(device):
+    """Entries at finfo(float32).min or -inf are never taken: rows made
+    only of them stay empty, and a matrix made only of them is all
+    zeros."""
+    neg = torch.finfo(torch.float32).min
+    S, mask = _greedy_case(device, (16,), 40, 72, 43,
+                           values=[neg, float("-inf"), 0.1, 0.2])
+    S[:, 3] = neg
+    S[:, 4] = float("-inf")
+    _assert_greedy_bitwise(S, mask)
+    S, mask = _greedy_case(device, (8,), 24, 40, 44,
+                           values=[neg, float("-inf")])
+    _assert_greedy_bitwise(S, mask)
+    assert int(greedy_project_cuda(S, mask).sum()) == 0
+
+
+def test_greedy_project_more_rows_than_columns_and_empty_rows_on_card(
+        device):
+    """n > m leaves n - m rows empty; an all-zero mask row stays empty;
+    an all-zero mask gives an all-zero M-hat."""
+    S, mask = _greedy_case(device, (16,), 40, 24, 45)
+    _assert_greedy_bitwise(S, mask)
+    _assert_greedy_bitwise(S, torch.ones_like(mask))
+    S, mask = _greedy_case(device, (16,), 56, 144, 46)
+    mask = mask.clone()
+    mask[::5] = 0
+    _assert_greedy_bitwise(S, mask)
+    _assert_greedy_bitwise(S, torch.zeros_like(mask))
+    S, mask = _greedy_case(device, (8,), 30, 60, 47, density=0.05)
+    _assert_greedy_bitwise(S, mask)
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 def test_split_epoch_equals_fused_epoch_on_card(device, quantized):
     P, N, n, m, K = 2, 16, 40, 72, 3

@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero:
      epoch calls per problem are called and timed per problem),
      quantized and, for ``epoch_fused``, float, and each entry's device
      time under the profiler; ``pso_update`` also by its wrapper's host
-     time alone;
+     time alone; ``ullmann_refine_step`` also bit for bit for a uint8,
+     int32 and bool M at the main path's shape, n < 32 and (203, 233);
   4. the main path: 8 scheduling requests built as the IMMSched
      scheduler builds them (zoo workloads at window_stages=8 on the Cloud
      platform with a seeded set of 96 free engines, relabelled and padded
@@ -52,6 +53,16 @@ Phases, in order; any failure exits non-zero:
      times, which are cost-model seconds). Then the same scenario through
      all six schedulers in analytic mode (no launch): ``speedup_table``
      and ``energy_efficiency``;
+  4d. warm restarts: 4b's service snapshots its store (after one more
+     all-warm drain, the pre-restart drain), and a fresh service restores
+     it and drains the same requests: every one at Tier 0, one host sync,
+     the pre-restart mappings, feasible; ``verify_snapshot_roundtrip``
+     holds; a cold service's first drain is timed beside it. Then a
+     real-mode simulation of the simple restart scenario, cold and warm
+     (``persist_dir``): every task finished, invariants held, and the
+     warm run restores its snapshot and predictor states. One JSON line
+     (save, restore and first-drain ms; each run's post-restart drain
+     walls);
   5. the split (pre-fusion) epoch: ``core.split_epoch.split_epoch``
      through the ``cuda`` suite on each problem of the burst, float and
      quantized, plus ``masked_argmax`` through the seam on each returned
@@ -68,7 +79,8 @@ The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
 counts device launches on the main or split path, ``launches_per_call``
 divides them by the wrapper calls that made them, ``service_launches``
-counts the launches of phase 4b, ``sched_launches`` those of phase 4c;
+counts the launches of phase 4b, ``sched_launches`` those of phase 4c,
+``restart_launches`` those of phase 4d;
 the float branch's launches are counted by its wrapper on their own and
 left out of the ``epoch_fused`` row; ``device_ms`` is a call's device
 time, ``host_ms`` the wrapper's host time alone, ``bound_note`` what a
@@ -83,6 +95,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -123,7 +136,10 @@ FLOAT_EPOCH = "epoch_fused_float"
 #: others' integer outputs are equal too; their float outputs are held
 #: within the tolerance)
 BITWISE = ("epoch_fused", "masked_argmax", "edge_fitness",
-           "edge_fitness_quantized", "pso_update")
+           "edge_fitness_quantized", "pso_update", "ullmann_refine_step")
+#: (B, n, m) of phase 3's extra ullmann_refine_step calls, each M dtype:
+#: n < 32 and past a block's shared memory for an int32 M
+REFINE_EXTRA = ((5, 13, 37), (3, 203, 233))
 #: what a bound by bytes or operations leaves out: chains of dependent
 #: rounds, whose length sets the kernel's time
 BOUND_NOTES = {
@@ -485,7 +501,7 @@ def tier0_phases(pso, svc, reqs, picks, tgt, sig):
     return rows
 
 
-def service_phase(pso, reqs, counters, out_dir):
+def service_phase(pso, reqs, counters, out_dir, persist_dir):
     """The matcher service at the burst's full width: the 8 requests
     submitted as the scheduler names them, bucketed by the service
     itself. Drains, in order: cold (Tier 2), warm, all-warm (the requests
@@ -496,7 +512,8 @@ def service_phase(pso, reqs, counters, out_dir):
     the unpadded query and target, and each of the five main-path kernels
     must have been launched through the service. Then, measurement only:
     the warm and the all-warm drain under the profiler and the Tier-0
-    host phases."""
+    host phases. The service persists to ``persist_dir`` (phase 4d
+    snapshots it)."""
     from repro_torch.accel import target_graph
     from repro_torch.core.service import MatcherService
     plat, free = free_engines()
@@ -509,7 +526,7 @@ def service_phase(pso, reqs, counters, out_dir):
     tgt_drift = target_graph.free_engine_graph(plat, drift)
     sig_drift = target_graph.free_engine_signature(drift)
     cfg = pso.PSOConfig(quantized=True, early_exit=True)
-    svc = MatcherService(cfg, device="cuda")
+    svc = MatcherService(cfg, device="cuda", persist_dir=persist_dir)
     drains = {}
 
     def drain(label, picks, target, tsig):
@@ -605,7 +622,154 @@ def service_phase(pso, reqs, counters, out_dir):
     phases = tier0_phases(pso, svc, reqs, everyone, tgt, sig)
     return dict(drains=drains, launches=launches,
                 stats=svc.stats_dict(), profiles=profiles,
-                tier0_phases=phases)
+                tier0_phases=phases, service=svc, all_warm=picks)
+
+
+def restart_phase(pso, reqs, svc, picks, counters, persist_dir):
+    """Phase 4d, warm restarts. The service of phase 4b drains its
+    all-warm requests once more (the pre-restart drain) and saves a
+    snapshot to ``persist_dir``; a fresh ``MatcherService`` on the same
+    directory restores it and drains the same requests: every one must be
+    served at Tier 0, with one host sync, with the pre-restart drain's
+    mapping, feasible. ``verify_snapshot_roundtrip`` must hold. A cold
+    service's first drain of the same requests is timed beside it. Then
+    the scheduler: a real-mode simulation of the simple restart scenario
+    (the Cloud platform at phase 4c's swarm, ``validate=True``), cold and
+    then warm with a persist directory; each must finish every task and
+    keep its invariants, and the warm run must restore its snapshot
+    (``snapshot_restores`` 1) and its predictor
+    (``restart_restored_state_sigs`` > 0). Prints one JSON line with the
+    save, restore and first-drain ms and each run's post-restart drain
+    walls."""
+    from repro_torch.accel import platform, target_graph
+    from repro_torch.core.service import MatcherService
+    from repro_torch.sched import SimConfig, Simulator, get_scheduler
+    from repro_torch.sched.metrics import warm_restart_stats
+    from repro_torch.sched.tasks import make_restart_scenario
+    plat, free = free_engines()
+    tgt = target_graph.free_engine_graph(plat, free)
+    sig = target_graph.free_engine_signature(free)
+
+    def drain(service):
+        for i in picks:
+            service.submit(reqs[i]["q"], tgt, key=SEED + i,
+                           workload_key=(reqs[i]["name"], sig))
+        syncs = service.stats.host_syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = service.drain()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, \
+            service.stats.host_syncs - syncs
+
+    for c in counters.values():
+        c.reset()
+    before, _, _ = drain(svc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = svc.save_snapshot()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = MatcherService(svc.cfg, device="cuda", persist_dir=persist_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if fresh.restore_snapshot(step) is None:
+        fail("restart: the fresh service rejected the snapshot")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    after, first_ms, syncs = drain(fresh)
+    for i, a, b in zip(picks, before, after):
+        if b.tier != 0 or not b.found:
+            fail(f"restart: {reqs[i]['name']} was served at Tier {b.tier} "
+                 f"(found={b.found}) after the restore")
+        if not (a.found and (a.mapping == b.mapping).all()):
+            fail(f"restart: {reqs[i]['name']}'s mapping differs from the "
+                 f"pre-restart drain's")
+        if not feasible_np(b.mapping, reqs[i]["q"].adj, tgt.adj):
+            fail(f"restart: {reqs[i]['name']}'s mapping is infeasible")
+    if syncs != 1:
+        fail(f"restart: the restored service's first drain made {syncs} "
+             f"host syncs, not 1")
+    if not fresh.verify_snapshot_roundtrip():
+        fail("restart: verify_snapshot_roundtrip failed")
+    cold = MatcherService(svc.cfg, device="cuda", persist_dir=False)
+    cold_res, cold_ms, cold_syncs = drain(cold)
+    service = dict(
+        requests=[reqs[i]["name"] for i in picks], save_ms=save_ms,
+        restore_ms=restore_ms, restored_carries=fresh.stats.restored_carries,
+        restored_sim_entries=fresh.stats.restored_sim_entries,
+        first_drain_ms=first_ms, first_drain_host_syncs=syncs,
+        cold_first_drain_ms=cold_ms, cold_first_drain_host_syncs=cold_syncs,
+        cold_tiers=[r.tier for r in cold_res],
+        cold_found=sum(r.found for r in cold_res), roundtrip=True)
+
+    # the scheduler, cold then warm
+    sc = make_restart_scenario("simple", rate_hz=30, phase_horizon=0.2,
+                               seed=0)
+    walls = []       # this run's (service, drain wall ms), in order
+    orig = MatcherService.match_many
+
+    def match_many(self, problems, **kwargs):
+        t0 = time.perf_counter()
+        res = orig(self, problems, **kwargs)
+        walls.append((id(self), (time.perf_counter() - t0) * 1e3))
+        for (q, g), r in zip(problems, res):
+            if r.found and not feasible_np(r.mapping, q.adj, g.adj):
+                fail("restart: the scheduler's service returned an "
+                     "infeasible mapping")
+        return res
+
+    sims = {}
+    with tempfile.TemporaryDirectory() as sim_dir:
+        for label, pdir in (("cold", None), ("warm", sim_dir)):
+            walls.clear()
+            cfg = SimConfig(platform=plat, matcher_mode="real",
+                            pso_cfg=pso.PSOConfig(**SCHED_SWARM),
+                            window_stages=SCHED_WINDOW, validate=True,
+                            persist_dir=pdir)
+            MatcherService.match_many = match_many
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = Simulator(cfg, get_scheduler("immsched")).run(sc)
+                wall = (time.perf_counter() - t0) * 1e3
+            except AssertionError as e:
+                fail(f"restart ({label}): simulator invariants failed: {e}")
+            finally:
+                MatcherService.match_many = orig
+            if r.truncated or r.finished != r.total:
+                fail(f"restart ({label}): truncated={r.truncated}, "
+                     f"finished {r.finished} of {r.total}")
+            st = warm_restart_stats(r)
+            # the service a restart replaces serves the pre-restart drains
+            first = walls[0][0] if walls else None
+            sims[label] = dict(
+                tasks=r.total, finished=r.finished,
+                urgent_met=[r.urgent_met, r.urgent_total], run_wall_ms=wall,
+                restart_count=st["restart_count"],
+                snapshot_restores=st["snapshot_restores"],
+                restored_carries=st["restart_restored_carries"],
+                restored_state_sigs=st["restart_restored_state_sigs"],
+                restored_posterior_buckets=st[
+                    "restart_restored_posterior_buckets"],
+                pre_restart_drain_ms=[w for s, w in walls if s == first],
+                post_restart_drain_ms=[w for s, w in walls if s != first],
+                post_restart_tiers={
+                    f"tier{i}": r.matcher_stats[f"tier{i}_hits"]
+                    for i in range(3)})
+    warm = sims["warm"]
+    if warm["snapshot_restores"] != 1 or warm["restored_state_sigs"] <= 0:
+        fail(f"restart: the warm simulation restored "
+             f"{warm['snapshot_restores']} snapshots and "
+             f"{warm['restored_state_sigs']} predictor states")
+    launches = split_float({k: c.count for k, c in counters.items()})
+    for k in SCHED_KERNELS:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the restart phase")
+    line = dict(restart=service, sims=sims,
+                launches={k: launches[k] for k in (*MAIN_KERNELS,
+                                                   FLOAT_EPOCH)})
+    log(json.dumps(line))
+    return dict(line, launches=launches)
 
 
 def sched_phase(pso, counters):
@@ -837,7 +1001,7 @@ def main():
     from repro_torch.kernels import (_build, argmax_project, cases,
                                      epoch_fused, finish_fused,
                                      prune_fixpoint, pso_fitness, pso_update,
-                                     ullmann_refine)
+                                     ref, ullmann_refine)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
@@ -909,6 +1073,25 @@ def main():
              f"plain version")
     log(f"  edge_fitness at {FITNESS_LARGE} (tiles in device scratch): "
         f"bit for bit")
+    # ullmann_refine_step for every M dtype (entries 0..3 kept as they
+    # are), at the main path's shape and at REFINE_EXTRA
+    gen = torch.Generator().manual_seed(SEED)
+    for B, rn, rm in ((N, n, m), *REFINE_EXTRA):
+        vals = torch.randint(0, 4, (B, rn, rm), generator=gen) * (
+            torch.rand(B, rn, rm, generator=gen) < 0.6)
+        rQ = torch.triu(torch.rand(rn, rn, generator=gen) < 3.0 / rn,
+                        1).to(torch.uint8).cuda()
+        rG = torch.triu(torch.rand(rm, rm, generator=gen) < 4.0 / rm,
+                        1).to(torch.uint8).cuda()
+        for dt in (torch.uint8, torch.int32, torch.bool):
+            rM = ((vals != 0) if dt == torch.bool else vals.to(dt)).cuda()
+            got = ullmann_refine.ullmann_refine_step_cuda(rM, rQ, rG)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref.ullmann_refine_step(rM, rQ, rG)):
+                fail(f"ullmann_refine_step at {(B, rn, rm)}, M {dt}, is not "
+                     f"bit for bit its plain version")
+        log(f"  ullmann_refine_step at {(B, rn, rm)}, M uint8 / int32 / "
+            f"bool: bit for bit")
     outs = {k: v[2] for k, v in timed.items()}
     bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
                            elite_k=elite_k)
@@ -1033,13 +1216,26 @@ def main():
         single_match_s=t_single, single_found=res.found,
         launches=launches, calls=main_calls)
 
-    # 4b. the matcher service: its drains at the burst's full width
-    detail["service"] = service_phase(pso, reqs, counters, out_dir)
+    # 4b. the matcher service: its drains at the burst's full width, with
+    # a persist directory for phase 4d's snapshot
+    persist = tempfile.TemporaryDirectory()
+    detail["service"] = service_phase(pso, reqs, counters, out_dir,
+                                      persist.name)
     service_launches = detail["service"]["launches"]
+    svc = detail["service"].pop("service")
+    all_warm = detail["service"].pop("all_warm")
 
     # 4c. the scheduler: a real-mode simulation through the service
     detail["sched"] = sched_phase(pso, counters)
     sched_launches = detail["sched"]["launches"]
+
+    # 4d. warm restarts: a snapshot of 4b's service restored into a fresh
+    # one, and the scheduler's restart scenario cold and warm
+    detail["restart"] = restart_phase(pso, reqs, svc, all_warm, counters,
+                                      persist.name)
+    restart_launches = detail["restart"]["launches"]
+    del svc
+    persist.cleanup()
 
     # 5. the split (pre-fusion) epoch against the fused one
     detail["split_epoch"] = split_phase(pso, Qb, Gb, Mb, x, counters)
@@ -1078,6 +1274,7 @@ def main():
                          replaces=replaces, launches=n_launch,
                          service_launches=service_launches.get(name),
                          sched_launches=sched_launches.get(name),
+                         restart_launches=restart_launches.get(name),
                          launches_per_call=(n_launch / n_calls
                                             if n_calls else None),
                          max_abs_err=errs[name], ms=rec["ms"],

@@ -38,7 +38,9 @@ JSON line per entry and mode (ms per call of each side, their medians
 and the change's ratio to the base; for the phase-3 calls and the cases
 timed per side also each side's device time of one call under the
 profiler, ``*_device_ms``, which a host-bound entry's CUDA-event times
-do not show). It exits non-zero without a card.
+do not show). Last, it times this checkout's ``ullmann_refine_step``
+beside an empty launch of its grid and block, the floor its design can
+reach (``"case": "empty launch"``). It exits non-zero without a card.
 """
 import argparse
 import ctypes
@@ -275,6 +277,39 @@ def device_fields(dev):
                 device_ratio=med["change"] / med["base"])
 
 
+def refine_floor(cs, Qb, Gb, Mb, x, args):
+    """This checkout's ``ullmann_refine_step`` on phase 3's per-problem
+    calls (the threshold candidates of each problem's 64 particles) beside
+    an empty launch of the same grid and block, in turns; ms per call
+    (CUDA events) and device ms per call (the profiler) of each."""
+    from repro_torch.kernels import _build as kb
+    from repro_torch.kernels.ullmann_refine import ullmann_refine_step_cuda
+    P = Mb.shape[0]
+    rowmax = x["S"].amax(-1, keepdim=True)
+    cand = ((x["S"] >= 0.5 * rowmax) & (Mb[:, None] != 0)).to(torch.uint8)
+    empty = kb.bind("ullmann_refine", "ullmann_refine_empty_launch",
+                    [kb.I_, kb.P_])
+    runs = {"entry": lambda: [ullmann_refine_step_cuda(cand[p], Qb[p], Gb[p])
+                              for p in range(P)],
+            "empty": lambda: [kb.check(empty(cand.shape[1], kb.stream()),
+                                       "ullmann_refine_empty_launch")
+                              for _ in range(P)]}
+    ms = {k: [] for k in runs}
+    dev = {k: [] for k in runs}
+    for _ in range(args.rounds):
+        for k in ("entry", "empty", "empty", "entry"):
+            ms[k].append(cs.cuda_ms(runs[k], reps=args.reps) / P)
+            dev[k].append(device_ms(cs.profiled, runs[k]) / P)
+    fields = {}
+    for k in runs:
+        fields.update({f"{k}_ms": ms[k],
+                       f"{k}_median_ms": statistics.median(ms[k]),
+                       f"{k}_device_ms": dev[k],
+                       f"{k}_device_median_ms": statistics.median(dev[k])})
+    print(json.dumps(dict(kernel="ullmann_refine_step", case="empty launch",
+                          **fields)), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("base", type=Path, nargs="?", help="the other checkout")
@@ -372,6 +407,7 @@ def main():
             change_median_ms=med["change"],
             ratio=med["change"] / med["base"], **device_fields(dev))),
             flush=True)
+    refine_floor(cs, Qb, Gb, Mb, x, args)
     return 0
 
 

@@ -1,0 +1,165 @@
+"""Atomic, optionally asynchronous checkpoint store.
+
+Port of the JAX package's ``checkpoint/manager.py`` for nested dicts (and
+lists or tuples) of tensors or arrays. The layout on disk is the
+reference's, so each package reads the other's checkpoints::
+
+    <dir>/step_000000123.tmp/         # written here first
+        META.json                     # leaf paths, files, shapes, dtypes, step
+        <leaf-path>.npy               # one file per leaf
+        extras.json                   # user metadata
+    <dir>/step_000000123/             # atomic rename on commit
+
+  * **atomic commit** — a crash mid-write leaves only ``*.tmp``
+    directories, which every restore path ignores; the newest committed
+    step wins;
+  * **async** — ``save()`` copies the state to host memory, then hands
+    the file I/O to a writer thread (``wait()`` joins it);
+  * ``keep`` bounds the committed steps on disk (oldest removed first).
+
+A leaf's path is its dict keys (in sorted order, as the reference's tree
+flattening visits them) and sequence indices. The reference's
+``restore(state_like, shardings)``, which lays arrays out on a device
+mesh, has no counterpart yet: the port has no mesh.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _path_names(tree: Any, prefix: Tuple[str, ...] = ()
+                ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``[(path, leaf), ...]`` of a nested dict / list / tuple, in the
+    reference's flattening order (dict keys sorted) and with its path
+    names (``str`` of each dict key and sequence index). ``None`` is an
+    empty subtree, as in the reference."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in _path_names(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, v in enumerate(tree)
+                for leaf in _path_names(v, prefix + (str(i),))]
+    return [(prefix, tree)]
+
+
+def _leaf_file(path_names) -> str:
+    return "__".join(path_names) + ".npy"
+
+
+def _to_numpy(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class CheckpointManager:
+    """Atomic, optionally asynchronous checkpoint store rooted at
+    ``directory``: training-style state (nested dicts of tensors or
+    arrays) through ``save``, and the matcher service's warm-restart
+    snapshots (flat ``{name: array}`` dicts) through ``save`` /
+    ``restore_flat``, which needs no template since ``META.json``
+    describes a flat dict fully. ``keep`` bounds the committed steps
+    retained on disk."""
+
+    def __init__(self, directory: str, async_save: bool = True,
+                 keep: int = 3):
+        self.dir = directory
+        self.async_save = async_save
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+
+    def save(self, step: int, state: Any,
+             extras: Optional[Dict] = None) -> None:
+        """Commit ``state`` as step ``step``. Leaves are copied to host
+        memory now; file I/O runs on a writer thread when ``async_save``
+        (``wait()`` joins it). ``extras`` must be JSON-serializable."""
+        self.wait()                      # one in-flight save at a time
+        host = [(p, _to_numpy(v)) for p, v in _path_names(state)]
+        meta = {
+            "step": int(step),
+            "leaves": [{"file": _leaf_file(p), "path": list(p),
+                        "shape": list(v.shape), "dtype": str(v.dtype)}
+                       for p, v in host],
+        }
+
+        def write():
+            tmp = os.path.join(self.dir, f"step_{step:09d}.tmp")
+            final = os.path.join(self.dir, f"step_{step:09d}")
+            os.makedirs(tmp, exist_ok=True)
+            for p, v in host:
+                np.save(os.path.join(tmp, _leaf_file(p)), v)
+            with open(os.path.join(tmp, "META.json"), "w") as f:
+                json.dump(meta, f)
+            with open(os.path.join(tmp, "extras.json"), "w") as f:
+                json.dump(extras or {}, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)        # atomic commit
+            self._gc()
+
+        if self.async_save:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+        else:
+            write()
+
+    def wait(self) -> None:
+        """Join the in-flight asynchronous save, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self) -> None:
+        for s in self.all_steps()[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:09d}"),
+                          ignore_errors=True)
+
+    def all_steps(self) -> List[int]:
+        """Sorted steps of every committed checkpoint (``*.tmp`` partial
+        writes are invisible here)."""
+        out = []
+        for name in os.listdir(self.dir):
+            m = re.fullmatch(r"step_(\d+)", name)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        """Newest committed step, or None when the store is empty."""
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore_flat(self, step: Optional[int] = None):
+        """Restore a checkpoint saved from a flat ``{name: array}`` dict
+        (the newest, or ``step``). Returns ``(arrays, extras)`` with
+        ``arrays`` a ``{name: np.ndarray}`` dict, or ``(None, None)`` when
+        no committed step exists. Raises ``ValueError`` on a nested
+        checkpoint."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None, None
+        d = os.path.join(self.dir, f"step_{step:09d}")
+        with open(os.path.join(d, "META.json")) as f:
+            meta = json.load(f)
+        arrays: Dict[str, np.ndarray] = {}
+        for leaf in meta["leaves"]:
+            path = leaf["path"]
+            if len(path) != 1:
+                raise ValueError(
+                    f"restore_flat on a nested checkpoint (leaf {path})")
+            arrays[path[0]] = np.load(os.path.join(d, leaf["file"]))
+        with open(os.path.join(d, "extras.json")) as f:
+            extras = json.load(f)
+        return arrays, extras

@@ -1,7 +1,8 @@
 """Online matcher service: a tiered revalidate → rebase → swarm pipeline.
 
 Port of the JAX package's ``core/service.py`` without the mesh paths and
-without persistence (snapshots and the executable cache). ``pso.match``
+without the reference's executable cache (the port compiles nothing per
+shape; see ``core/persist.py``). ``pso.match``
 alone is a batch API: every call restarts the swarm from the cold prior
 and takes whatever (n, m) it is given. The ``MatcherService`` turns it
 into a service:
@@ -57,6 +58,15 @@ early exit also fetches one bool per epoch inside ``pso.match_batch``;
 those blocking fetches count in ``host_syncs`` too. An all-warm drain
 costs exactly one.
 
+**Warm-restart persistence.** With ``persist_dir`` (or
+``REPRO_PERSIST_DIR``), ``save_snapshot`` / ``restore_snapshot`` carry
+the :class:`CarryStore` (exact and similarity carries, in LRU order) and
+the prune-sweep calibration counters across a process restart through
+:class:`~repro_torch.checkpoint.manager.CheckpointManager` under
+``<persist_dir>/snapshots/``: one blocking transfer a save, versioned
+and guarded by ``config_digest``; restored carries go back into the
+device pool.
+
 Per-tier statistics (launches / problems checked / hits / wall time) are
 exported via ``stats`` / ``stats_dict()``.
 """
@@ -64,15 +74,17 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.accel.target_graph import signature_bits
-from repro_torch.core import pso
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core import persist, pso
 from repro_torch.core.graphs import (Graph, compatibility_mask,
                                      topological_relabel)
 from repro_torch.core.matcher import (MatchResult, collect_batch_results,
@@ -99,10 +111,11 @@ class ServiceStats:
 
     Counters cover the callable LRU, warm-start stores, per-tier pipeline
     activity, the fused pre-prune observable the scheduler calibrates
-    against, the async front end and the host-sync census. Exported flat
-    — plus derived rates — by ``MatcherService.stats_dict()``. The
-    reference's persistence counters (``aot_*``, ``snapshot_*``,
-    ``restored_*``) come with persistence."""
+    against, the async front end, the host-sync census and the
+    warm-restart persistence layer (``snapshot_*``, ``restored_*``; the
+    reference's ``aot_*`` counters stay 0, since the port has no
+    executable cache). Exported flat — plus derived rates — by
+    ``MatcherService.stats_dict()``."""
     calls: int = 0
     compile_cache_hits: int = 0      # bucket already had a callable
     compile_cache_misses: int = 0    # new (kind, bucket, class) entry
@@ -133,6 +146,20 @@ class ServiceStats:
     sim_evictions: int = 0
     jit_traces: int = 0              # first calls of LRU entries (the
                                      # reference's jit traces)
+    # -- warm-restart persistence ----------------------------------------
+    # the reference's executable-cache counters: always 0 here
+    aot_cache_hits: int = 0
+    aot_cache_misses: int = 0
+    aot_exports: int = 0
+    aot_export_failures: int = 0
+    aot_call_fallbacks: int = 0
+    # snapshots
+    snapshot_saves: int = 0
+    snapshot_restores: int = 0       # successful state restores
+    snapshot_stale_skipped: int = 0  # version/digest drift → ignored
+    snapshot_skipped_keys: int = 0   # entries with unencodable keys
+    restored_carries: int = 0        # exact carries loaded by restore
+    restored_sim_entries: int = 0    # similarity entries loaded by restore
     # -- async front end (AsyncServiceFrontEnd) ------------------------
     fe_submitted: int = 0            # requests offered to the front end
     fe_admitted: int = 0             # requests accepted into the queue
@@ -761,6 +788,11 @@ class MatcherService:
     ``donate_buffers`` lets each Tier-0/1 revalidation launch rebase its
     freshly gathered carry in place (``pso.revalidate_batch(donate=)``);
     results do not change, and the swarm launches donate nothing.
+
+    ``persist_dir`` (a path; None defers to ``REPRO_PERSIST_DIR``; False
+    forces persistence off even when that is set, the cold-restart
+    baseline) enables ``save_snapshot`` / ``restore_snapshot`` under
+    ``<persist_dir>/snapshots/``, keeping ``snapshot_keep`` snapshots.
     """
 
     def __init__(self, cfg: Optional[pso.PSOConfig] = None, *,
@@ -771,7 +803,9 @@ class MatcherService:
                  batch_classes: Sequence[int] = (1, 2, 4, 8),
                  tiered: bool = True, similarity: bool = True,
                  sim_capacity: int = 128, sim_index: bool = True,
-                 pipelined: bool = True, donate_buffers: bool = True):
+                 pipelined: bool = True, donate_buffers: bool = True,
+                 persist_dir: Union[str, bool, None] = None,
+                 snapshot_keep: int = 3):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MatcherService: no CUDA device; pass "
@@ -800,6 +834,14 @@ class MatcherService:
         self._pad_handles: Dict[Tuple[int, int], _CarryHandle] = {}
         self._compiled: "OrderedDict[Tuple, Callable]" = OrderedDict()
         self._pending: List[_PendingRequest] = []
+        if persist_dir is None:
+            persist_dir = persist.default_persist_dir()
+        self.persist_dir = persist_dir if persist_dir else None
+        self._ckpt: Optional[CheckpointManager] = None
+        if self.persist_dir:
+            self._ckpt = CheckpointManager(
+                os.path.join(self.persist_dir, "snapshots"),
+                async_save=False, keep=snapshot_keep)
 
     @property
     def warm_capacity(self) -> int:
@@ -809,6 +851,18 @@ class MatcherService:
     def clear_carries(self) -> None:
         """Drop every stored warm-start carry (exact and similarity)."""
         self._carries.clear()
+
+    @property
+    def config_digest(self) -> str:
+        """Digest guarding every snapshot of this service: the resolved
+        kernel suite, every ``PSOConfig`` field, the bucketing
+        parameters, the torch version and the device type. A snapshot
+        whose digest differs is skipped on restore."""
+        return kernel_backend.config_digest(
+            self.cfg,
+            extra=("svc-v2", torch.__version__, self.device.type,
+                   self.n_multiple, self.m_multiple, self.batch_classes,
+                   False))
 
     def import_state(self, exact_items, sim_items) -> Tuple[int, int]:
         """Load exported key/carry lists (``CarryStore.export_state``
@@ -936,6 +990,152 @@ class MatcherService:
         if self.similarity and res.found and req.engine_sig is not None:
             self._carries.put_similar(req.qdigest, req.bucket,
                                       req.engine_sig, stored)
+
+    # -- snapshots ---------------------------------------------------------
+
+    def save_snapshot(self, step: Optional[int] = None,
+                      extra: Optional[Dict] = None) -> int:
+        """Persist the service's warm state as one atomic checkpoint.
+
+        Saved: every :class:`CarryStore` entry (exact and similarity, in
+        LRU order; one ``.npy`` leaf per carry part) and the prune-sweep
+        calibration counters (``prune_problems`` / ``prune_sweeps``, which
+        the scheduler's cost model reads). The pooled carries reach the
+        host with ONE blocking transfer for the whole snapshot
+        (``persist.to_host``). Not saved: the callable LRU, transient
+        stats, pending requests. ``extra`` (JSON-serializable) rides in the
+        snapshot's metadata; the scheduler keeps its tier-predictor
+        posteriors there. Entries whose keys cannot be encoded are skipped
+        and counted (``snapshot_skipped_keys``). Returns the committed
+        step. Requires ``persist_dir``."""
+        if self._ckpt is None:
+            raise RuntimeError("save_snapshot needs persist_dir "
+                               "(or REPRO_PERSIST_DIR)")
+        exact_items, sim_items = self._carries.export_state()
+        keys: Dict[str, list] = {"exact": [], "sim": []}
+        leaves: Dict[str, object] = {}
+        for store, items in (("exact", exact_items), ("sim", sim_items)):
+            carries = []
+            for k, c in items:
+                try:
+                    keys[store].append(persist.encode_key(k))
+                except TypeError:
+                    self.stats.snapshot_skipped_keys += 1
+                    continue
+                carries.append(self._carry_tuple(c))
+            leaves.update(persist.named_leaves(store, carries))
+        arrays = persist.to_host(leaves)
+        # a flat checkpoint must hold a leaf for restore_flat to see it,
+        # even with no carries stored yet
+        arrays["snapshot.marker"] = np.zeros((), np.int8)
+        extras = {
+            "format_version": persist.SNAPSHOT_VERSION,
+            "config_digest": self.config_digest,
+            "exact_keys": keys["exact"],
+            "sim_keys": keys["sim"],
+            "calibration": {
+                "prune_problems": int(self.stats.prune_problems),
+                "prune_sweeps": int(self.stats.prune_sweeps),
+            },
+            "extra": extra or {},
+        }
+        if step is None:
+            latest = self._ckpt.latest_step()
+            step = 0 if latest is None else latest + 1
+        self._ckpt.save(step, arrays, extras=extras)
+        self._ckpt.wait()
+        self.stats.snapshot_saves += 1
+        return step
+
+    def restore_snapshot(self, step: Optional[int] = None
+                         ) -> Optional[Dict]:
+        """Load the newest (or ``step``-th) snapshot into this service.
+
+        Checked before anything is touched: the snapshot's format version
+        and ``config_digest`` must be this service's; a snapshot written
+        under another kernel suite, ``PSOConfig``, bucketing, torch
+        version or device type is counted in ``snapshot_stale_skipped``
+        and ignored. On success the carries go back into the device pool
+        on the service's own device (one row an entry, uploaded without a
+        blocking copy), the :class:`CarryStore` is rebuilt in recency
+        order (the similarity index with it), the calibration counters
+        are re-seeded, and the snapshot's ``extra`` dict is returned
+        (``{}`` when none was stored). Returns None when nothing valid
+        exists to restore. Requires ``persist_dir``."""
+        if self._ckpt is None:
+            raise RuntimeError("restore_snapshot needs persist_dir "
+                               "(or REPRO_PERSIST_DIR)")
+        try:
+            arrays, extras = self._ckpt.restore_flat(step)
+        except (OSError, ValueError, KeyError):
+            arrays, extras = None, None
+        if arrays is None:
+            return None
+        if extras.get("format_version") != persist.SNAPSHOT_VERSION or \
+                extras.get("config_digest") != self.config_digest:
+            self.stats.snapshot_stale_skipped += 1
+            return None
+        exact_keys = [persist.decode_key(k) for k in extras["exact_keys"]]
+        sim_keys = [persist.decode_key(k) for k in extras["sim_keys"]]
+        exact = persist.carries_from_leaves("exact", arrays, len(exact_keys))
+        sim = persist.carries_from_leaves("sim", arrays, len(sim_keys))
+        n_exact, n_sim = self.import_state(list(zip(exact_keys, exact)),
+                                           list(zip(sim_keys, sim)))
+        calib = extras.get("calibration", {})
+        self.stats.prune_problems += int(calib.get("prune_problems", 0))
+        self.stats.prune_sweeps += int(calib.get("prune_sweeps", 0))
+        self.stats.snapshot_restores += 1
+        self.stats.restored_carries += n_exact
+        self.stats.restored_sim_entries += n_sim
+        return extras.get("extra", {})
+
+    def verify_snapshot_roundtrip(self, step: Optional[int] = None
+                                  ) -> bool:
+        """Save a snapshot, restore it into a fresh twin service with this
+        one's configuration, and compare the warm state bit for bit: both
+        stores' keys in LRU order, every carry part (dtype, shape and
+        bytes) and the calibration counters. Raises ``AssertionError``
+        naming the first difference; returns True when the round trip is
+        exact. Requires ``persist_dir``."""
+        step = self.save_snapshot(step=step)
+        twin = MatcherService(
+            self.cfg, device=self.device,
+            cache_capacity=self.cache_capacity,
+            warm_capacity=self._carries.capacity,
+            warm_start=self.warm_start, n_multiple=self.n_multiple,
+            m_multiple=self.m_multiple, batch_classes=self.batch_classes,
+            tiered=self.tiered, similarity=self.similarity,
+            sim_capacity=self._carries.sim_capacity,
+            sim_index=self._carries.sim_index, pipelined=self.pipelined,
+            donate_buffers=self.donate_buffers,
+            persist_dir=self.persist_dir)
+        restored = twin.restore_snapshot(step=step)
+        assert restored is not None, \
+            "snapshot round trip: restore rejected its own snapshot"
+
+        def leaves(svc):
+            exact, sim = svc._carries.export_state()
+            return [(store, [k for k, _ in items],
+                     persist.to_host(persist.named_leaves(
+                         store, [svc._carry_tuple(c) for _, c in items])))
+                    for store, items in (("exact", exact), ("sim", sim))]
+
+        for (store, mk, mine), (_, tk, theirs) in zip(leaves(self),
+                                                      leaves(twin)):
+            assert mk == tk, f"snapshot round trip: {store} store keys " \
+                             f"diverged"
+            assert list(mine) == list(theirs), \
+                f"snapshot round trip: {store} carry leaves diverged"
+            for name, a in mine.items():
+                b = theirs[name]
+                assert a.dtype == b.dtype and a.shape == b.shape \
+                    and a.tobytes() == b.tobytes(), \
+                    f"snapshot round trip: {store} leaf {name} not " \
+                    f"bitwise equal"
+        assert (twin.stats.prune_problems, twin.stats.prune_sweeps) == \
+            (self.stats.prune_problems, self.stats.prune_sweeps), \
+            "snapshot round trip: calibration counters diverged"
+        return True
 
     # -- matching ----------------------------------------------------------
 
@@ -1676,8 +1876,8 @@ class MatcherService:
 
     def stats_dict(self) -> Dict[str, float]:
         """Flat ``{counter: value}`` export of :class:`ServiceStats` plus
-        derived rates and per-tier breakdowns: the reference's key set
-        without its persistence counters."""
+        derived rates and per-tier breakdowns: the reference's key set.
+        """
         s = self.stats
         out = {
             "calls": s.calls,
@@ -1712,6 +1912,17 @@ class MatcherService:
             "sim_evictions": s.sim_evictions,
             "sim_entries": self._carries.sim_entries,
             "jit_traces": s.jit_traces,
+            "aot_cache_hits": s.aot_cache_hits,
+            "aot_cache_misses": s.aot_cache_misses,
+            "aot_exports": s.aot_exports,
+            "aot_export_failures": s.aot_export_failures,
+            "aot_call_fallbacks": s.aot_call_fallbacks,
+            "snapshot_saves": s.snapshot_saves,
+            "snapshot_restores": s.snapshot_restores,
+            "snapshot_stale_skipped": s.snapshot_stale_skipped,
+            "snapshot_skipped_keys": s.snapshot_skipped_keys,
+            "restored_carries": s.restored_carries,
+            "restored_sim_entries": s.restored_sim_entries,
             "fe_submitted": s.fe_submitted,
             "fe_admitted": s.fe_admitted,
             "fe_shed": s.fe_shed,

@@ -80,69 +80,10 @@ __device__ inline bool test_bit(const uint32_t* row, int c) {
   return (row[c >> 5] >> (c & 31)) & 1u;
 }
 
-__device__ inline bool intersects(const uint32_t* a, const uint32_t* b,
-                                  int W) {
-  uint32_t acc = 0;
-  for (int w = 0; w < W; ++w) acc |= a[w] & b[w];
-  return acc != 0;
-}
-
 __device__ inline int popcount_row(const uint32_t* a, int W) {
   int c = 0;
   for (int w = 0; w < W; ++w) c += __popc(a[w]);
   return c;
-}
-
-// One Ullmann sweep on bit rows M (n x W), in place:
-//   SO[u] = { j : M[u] & Gout[j] != 0 }   (u has a candidate v with j->v)
-//   SI[u] = { j : M[u] & Gin[j]  != 0 }   (u has a candidate v with v->j)
-//   M[i] &= AND_{u : Q[i,u]} SO[u]  &  AND_{u : Q[u,i]} SI[u]
-// which keeps (i, j) iff no neighbour of i lost its support at j: exactly
-// the (viol == 0) test of the integer form. Returns (per thread) whether a
-// word it owns changed. Ends with __syncthreads().
-__device__ inline bool ullmann_sweep(uint32_t* M, const uint32_t* Gout,
-                                     const uint32_t* Gin,
-                                     const uint32_t* Qrow,
-                                     const uint32_t* Qcol, uint32_t* SO,
-                                     uint32_t* SI, int n, int m) {
-  const int W = words(m), Wn = words(n);
-  for (int idx = threadIdx.x; idx < n * W; idx += blockDim.x) {
-    const int u = idx / W, w = idx - u * W;
-    uint32_t so = 0, si = 0;
-    for (int b = 0; b < 32; ++b) {
-      const int j = w * 32 + b;
-      if (j >= m) break;
-      if (intersects(M + u * W, Gout + j * W, W)) so |= 1u << b;
-      if (intersects(M + u * W, Gin + j * W, W)) si |= 1u << b;
-    }
-    SO[idx] = so;
-    SI[idx] = si;
-  }
-  __syncthreads();
-  bool changed = false;
-  for (int idx = threadIdx.x; idx < n * W; idx += blockDim.x) {
-    const int i = idx / W, w = idx - i * W;
-    const uint32_t old = M[idx];
-    uint32_t x = old;
-    for (int wu = 0; wu < Wn; ++wu) {
-      uint32_t out_nb = Qrow[i * Wn + wu];
-      while (out_nb) {
-        const int u = wu * 32 + __ffs(out_nb) - 1;
-        out_nb &= out_nb - 1;
-        x &= SO[u * W + w];
-      }
-      uint32_t in_nb = Qcol[i * Wn + wu];
-      while (in_nb) {
-        const int u = wu * 32 + __ffs(in_nb) - 1;
-        in_nb &= in_nb - 1;
-        x &= SI[u * W + w];
-      }
-    }
-    M[idx] = x;
-    changed |= (x != old);
-  }
-  __syncthreads();
-  return changed;
 }
 
 // Argmax over the warp of (value, index) pairs, ties to the lower index;
@@ -306,13 +247,116 @@ __device__ __forceinline__ void reduce_or4(uint4& a) {
   a.w = __reduce_or_sync(0xffffffffu, a.w);
 }
 
-// Byte `lane` of a 32-byte transposed row held as two words of 16 bytes.
+// Byte `lane` of a 32-byte transposed row held as two words of 16 bytes,
+// selected by value: a select through a reference to lo or hi can put both
+// in local memory (it did in ullmann_refine.cu).
 __device__ __forceinline__ uint32_t byte_of(const uint4& lo, const uint4& hi,
                                             int lane) {
   const int w = (lane >> 2) & 3;
-  const uint4& q = lane < 16 ? lo : hi;
-  const uint32_t word = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
+  const bool h = lane >= 16;
+  const uint32_t x = h ? hi.x : lo.x, y = h ? hi.y : lo.y;
+  const uint32_t z = h ? hi.z : lo.z, v = h ? hi.w : lo.w;
+  const uint32_t word = (w & 2) ? ((w & 1) ? v : z) : ((w & 1) ? y : x);
   return (word >> (8 * (lane & 3))) & 0xffu;
+}
+
+// One Jacobi Ullmann sweep on the lane-transposed candidates MT (n rows of
+// 32 bytes), in place, run by nt threads (a whole number of warps; t is
+// this thread's index among them). With the supports
+//   SO[u] = { j : M[u] & Gout[j] != 0 } = OR_{v in M[u]} Gin[v]
+//   SI[u] = { j : M[u] & Gin[j]  != 0 } = OR_{v in M[u]} Gout[v]
+// it keeps M[i] &= AND_{u : Q[i,u]} SO[u] & AND_{u : Q[u,i]} SI[u], which
+// keeps (i, j) iff no neighbour of i lost its support at j: the
+// (viol == 0) test of the integer form. goutT / ginT are G's transposed
+// rows and columns, qrow / qcol Q's and Q^T's bit rows (Wn words). A warp
+// builds a row's supports: each lane ORs the 32-byte transposed G rows of
+// its own candidates v = lane + 32 k, then the warp ORs the lanes' parts
+// together (__reduce_or_sync) and each lane keeps its byte; every
+// support is built before any row changes.
+// With TRACK, only the rows whose candidates changed in the last sweep
+// (dirty[u], all of them before the first) get new supports, since the
+// others' are still those of their unchanged candidates; the rows that
+// change are marked in next_dirty, and the sweep returns whether any did
+// (every thread). Without, every row's supports are built, dirty and
+// next_dirty are not read, and it returns false. Ends with a barrier.
+template <bool TRACK>
+__device__ __forceinline__ bool ullmann_sweep_t(
+    const uint8_t* goutT, const uint8_t* ginT, const uint32_t* qrow,
+    const uint32_t* qcol, int n, int Wn, uint8_t* MT, uint8_t* soT,
+    uint8_t* siT, const uint8_t* dirty, uint8_t* next_dirty, int t,
+    int nt) {
+  const int lane = t & 31;
+  for (int u = t >> 5; u < n; u += nt >> 5) {
+    if (TRACK && !dirty[u]) continue;
+    uint32_t mine = MT[u * 32 + lane];
+    uint4 o0 = make_uint4(0, 0, 0, 0), o1 = o0, i0 = o0, i1 = o0;
+    while (mine) {
+      const int v = lane + 32 * (__ffs(mine) - 1);
+      mine &= mine - 1;
+      const uint4* gi = reinterpret_cast<const uint4*>(ginT + v * 32);
+      const uint4* go = reinterpret_cast<const uint4*>(goutT + v * 32);
+      or4(o0, gi[0]);
+      or4(o1, gi[1]);
+      or4(i0, go[0]);
+      or4(i1, go[1]);
+    }
+    reduce_or4(o0);
+    reduce_or4(o1);
+    reduce_or4(i0);
+    reduce_or4(i1);
+    soT[u * 32 + lane] = (uint8_t)byte_of(o0, o1, lane);
+    siT[u * 32 + lane] = (uint8_t)byte_of(i0, i1, lane);
+  }
+  if (TRACK)
+    for (int i = t; i < n; i += nt) next_dirty[i] = 0;
+  __syncthreads();
+  bool changed = false;
+  for (int idx = t; idx < n * 32; idx += nt) {
+    const int i = idx >> 5, l = idx & 31;
+    const uint32_t old = MT[idx];
+    uint32_t x = old;
+    for (int wu = 0; wu < Wn; ++wu) {
+      uint32_t out_nb = qrow[i * Wn + wu];
+      while (out_nb) {
+        const int u = wu * 32 + __ffs(out_nb) - 1;
+        out_nb &= out_nb - 1;
+        x &= soT[u * 32 + l];
+      }
+      uint32_t in_nb = qcol[i * Wn + wu];
+      while (in_nb) {
+        const int u = wu * 32 + __ffs(in_nb) - 1;
+        in_nb &= in_nb - 1;
+        x &= siT[u * 32 + l];
+      }
+    }
+    MT[idx] = (uint8_t)x;
+    if (TRACK && x != old) {
+      next_dirty[i] = 1;
+      changed = true;
+    }
+  }
+  if (!TRACK) {
+    __syncthreads();
+    return false;
+  }
+  return __syncthreads_or(changed) != 0;
+}
+
+// Q's bit rows and columns from its bytes qs (n x n, in shared memory), by
+// the whole CTA: a warp a word, a ballot a word. qrow[i * Wn + w] bit b is
+// Q[i, 32 w + b]; qcol[i * Wn + w] bit b is Q[32 w + b, i].
+__device__ inline void pack_q_bits(const uint8_t* qs, int n, uint32_t* qrow,
+                                   uint32_t* qcol) {
+  const int Wn = words(n), lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < n * Wn; t += blockDim.x >> 5) {
+    const int i = t / Wn, u = 32 * (t - i * Wn) + lane;
+    const uint32_t row = __ballot_sync(0xffffffffu, u < n && qs[i * n + u]);
+    const uint32_t col = __ballot_sync(0xffffffffu, u < n && qs[u * n + i]);
+    if (lane == 0) {
+      qrow[t] = row;
+      qcol[t] = col;
+    }
+  }
 }
 
 inline cudaError_t allow_smem(const void* kernel, size_t bytes) {

@@ -300,74 +300,6 @@ __device__ __forceinline__ bool feasible_warp(const Ctx& c, const int* asg,
   return __all_sync(0xffffffffu, ok);
 }
 
-// One Ullmann sweep on the lane-transposed candidates MT, in place: with
-// the supports
-//   SO[u] = { j : M[u] & Gout[j] != 0 } = OR_{v in M[u]} Gin[v]
-//   SI[u] = { j : M[u] & Gin[j]  != 0 } = OR_{v in M[u]} Gout[v]
-// it keeps M[i] &= AND_{u : Q[i,u]} SO[u] & AND_{u : Q[u,i]} SI[u], exactly
-// rt::ullmann_sweep. A warp builds a row's supports: each lane ORs the
-// 32-byte transposed G rows of its own candidates v = lane + 32 k, then
-// the warp ORs the lanes' parts together (__reduce_or_sync) and each lane
-// keeps its byte. Only the rows whose candidates changed in the last sweep
-// (dirty[u], all of them before the first) get new supports: the others'
-// are still those of their unchanged candidates. Marks the rows that
-// change in next_dirty; returns whether any did (every thread).
-__device__ __forceinline__ bool sweep(const Ctx& c, uint8_t* MT,
-                                      uint8_t* soT, uint8_t* siT,
-                                      const uint8_t* dirty,
-                                      uint8_t* next_dirty) {
-  const int lane = threadIdx.x & 31, n = c.n;
-  for (int u = threadIdx.x >> 5; u < n; u += blockDim.x >> 5) {
-    if (!dirty[u]) continue;
-    uint32_t mine = MT[u * 32 + lane];
-    uint4 o0 = make_uint4(0, 0, 0, 0), o1 = o0, i0 = o0, i1 = o0;
-    while (mine) {
-      const int v = lane + 32 * (__ffs(mine) - 1);
-      mine &= mine - 1;
-      const uint4* gi = reinterpret_cast<const uint4*>(c.ginT + v * 32);
-      const uint4* go = reinterpret_cast<const uint4*>(c.goutT + v * 32);
-      rt::or4(o0, gi[0]);
-      rt::or4(o1, gi[1]);
-      rt::or4(i0, go[0]);
-      rt::or4(i1, go[1]);
-    }
-    rt::reduce_or4(o0);
-    rt::reduce_or4(o1);
-    rt::reduce_or4(i0);
-    rt::reduce_or4(i1);
-    soT[u * 32 + lane] = (uint8_t)rt::byte_of(o0, o1, lane);
-    siT[u * 32 + lane] = (uint8_t)rt::byte_of(i0, i1, lane);
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) next_dirty[i] = 0;
-  __syncthreads();
-  bool changed = false;
-  for (int idx = threadIdx.x; idx < n * 32; idx += blockDim.x) {
-    const int i = idx >> 5, l = idx & 31;
-    const uint32_t old = MT[idx];
-    uint32_t x = old;
-    for (int wu = 0; wu < c.Wn; ++wu) {
-      uint32_t out_nb = c.qrow[i * c.Wn + wu];
-      while (out_nb) {
-        const int u = wu * 32 + __ffs(out_nb) - 1;
-        out_nb &= out_nb - 1;
-        x &= soT[u * 32 + l];
-      }
-      uint32_t in_nb = c.qcol[i * c.Wn + wu];
-      while (in_nb) {
-        const int u = wu * 32 + __ffs(in_nb) - 1;
-        in_nb &= in_nb - 1;
-        x &= siT[u * 32 + l];
-      }
-    }
-    MT[idx] = (uint8_t)x;
-    if (x != old) {
-      next_dirty[i] = 1;
-      changed = true;
-    }
-  }
-  return __syncthreads_or(changed) != 0;
-}
-
 // Launch 2: one particle (blockIdx.x) of one problem (blockIdx.y).
 template <bool SMEM>
 __global__ void __launch_bounds__(kThreads, 4)
@@ -480,7 +412,10 @@ finish_kernel(const float* __restrict__ S_, const float* __restrict__ gum,
   __syncthreads();
   for (int it = 0; it < refine_iters; ++it) {
     uint8_t* d = dirty + (it & 1) * n;
-    if (!sweep(c, candT, soT, siT, d, dirty + n - (it & 1) * n))
+    if (!rt::ullmann_sweep_t<true>(c.goutT, c.ginT, c.qrow, c.qcol, n, c.Wn,
+                                   candT, soT, siT, d,
+                                   dirty + n - (it & 1) * n, threadIdx.x,
+                                   blockDim.x))
       break;                               // a fixpoint: later sweeps too
   }
 

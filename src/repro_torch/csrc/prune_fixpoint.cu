@@ -142,17 +142,7 @@ prune_kernel(const MT* __restrict__ mask, const uint8_t* __restrict__ Q,
   __syncthreads();
   rt::pack_rows_t(sm + L.gs, m, m, goutT);
   rt::pack_cols_t(sm + L.gs, m, ginT);
-  // Q's bit rows and columns: a warp a word, a ballot a word
-  const uint8_t* qs = sm + L.qs;
-  for (int t = warp; t < n * Wn; t += nwarps) {
-    const int i = t / Wn, u = 32 * (t - i * Wn) + lane;
-    const uint32_t row = __ballot_sync(0xffffffffu, u < n && qs[i * n + u]);
-    const uint32_t col = __ballot_sync(0xffffffffu, u < n && qs[u * n + i]);
-    if (lane == 0) {
-      qrow[t] = row;
-      qcol[t] = col;
-    }
-  }
+  rt::pack_q_bits(sm + L.qs, n, qrow, qcol);
   __syncthreads();
   // bit r of has_pred / has_succ: the warp's row r has a predecessor (its
   // SO is read) / a successor (its SI is read)

@@ -1,71 +1,316 @@
-// One Ullmann refinement sweep for a batch of candidate matrices:
+// One Ullmann refinement sweep for a batch of candidate matrices that
+// share Q and G:
 //   M' = M * [ Q [M G^T == 0] + Q^T [M G == 0] == 0 ].
 //
 // Replaces the TPU kernel ullmann_refine_step_pallas (src/repro/kernels/
 // ullmann_refine.py, body _refine_kernel), which runs the four 0/1 products
 // on the MXU.
 //
-// Bound on the H100: at 56x144 a particle's four products are ~3.2 M 0/1
-// multiply-adds against ~16 KB of bytes, so operations would bound a dense
-// kernel. Design: one CTA per particle packs M, Q (rows and columns) and G
-// (out and in) into bit rows in shared memory (common.cuh) and runs one
-// rt::ullmann_sweep, where a support test is an AND of 32 columns at once
-// and a violation test ANDs the supports of i's neighbours. The sweep
-// computes the supports of every row before it changes any, the Jacobi
-// semantics of the TPU kernel. The output keeps M's own entries where the
-// sweep keeps the bit (entries of M are taken as non-negative, as the
-// plain version's products need), so it equals the plain version exactly
-// for any of M's dtypes.
+// Bound on the H100: neither bytes (a 56x144 uint8 matrix is 8 KB in and 8
+// KB out) nor operations once the products are bit operations. It is the
+// latency of one CTA: loading its operands, packing them, two dependent
+// passes and the write-out, each limited by the SM's shared-memory
+// throughput. The first design packed G and Q from device memory a byte at
+// a time in every CTA and ran a support pass that tested 32 columns
+// against every word of a row. This one runs a CTA of 32 warps a particle
+// (the 64 particles of a call are one wave):
+//  * G, Q and the particle's candidates are loaded at once: G and Q as
+//    bytes into shared memory, up to four 16-byte loads a thread in flight
+//    before any store; the candidates lane-transposed (common.cuh: lane l
+//    of a warp owns the columns l + 32 k of a row, one byte), two rows a
+//    warp at a time;
+//  * G is packed lane-transposed from there, four transposed bytes a
+//    thread from eight 4-byte loads where m % 4 == 0 (common.cuh's byte
+//    packs, eight loads a byte, otherwise), Q as bit rows and columns by
+//    ballots;
+//  * rt::ullmann_sweep_t, the sweep of finish_fused.cu and
+//    prune_fixpoint.cu, builds the supports as unions of G's transposed
+//    rows over a row's candidates, SO[u] = OR_{v in M[u]} Gin[v] and
+//    SI[u] = OR_{v in M[u]} Gout[v], a warp a row, so that their cost
+//    scales with the candidates and not with n m W; every support is built
+//    before any row changes (the Jacobi semantics of the TPU kernel);
+//  * the output is written 16 bytes at a time where the rows are aligned
+//    (16 uint8 or 4 int32 entries of M, masked by the row's kept bits), a
+//    warp's rows and chunks as one flat loop, so that their loads of M are
+//    in flight together; M's own entries are kept.
+// Entries of M are taken as non-negative, as
+// the plain version's products need, so the output equals the plain
+// version bit for bit for any of M's dtypes.
 #include "common.cuh"
 
 namespace {
 
-template <typename MT, typename QT, typename GT>
-__global__ void refine_kernel(const MT* __restrict__ M,
-                              const QT* __restrict__ Q,
-                              const GT* __restrict__ G, MT* __restrict__ out,
-                              int n, int m) {
-  const int b = blockIdx.x;
-  const int W = rt::words(m), Wn = rt::words(n);
-  const size_t nm = (size_t)n * m;
-  extern __shared__ uint32_t smu[];
-  uint32_t* Mb = smu;                 // n * W
-  uint32_t* Gout = Mb + n * W;        // m * W
-  uint32_t* Gin = Gout + m * W;       // m * W
-  uint32_t* Qrow = Gin + m * W;       // n * Wn
-  uint32_t* Qcol = Qrow + n * Wn;     // n * Wn
-  uint32_t* SO = Qcol + n * Wn;       // n * W
-  uint32_t* SI = SO + n * W;          // n * W
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr uint32_t kFull = 0xffffffffu;
 
-  const MT* Mp = M + (size_t)b * nm;
-  rt::pack_rows(Mp, n, m, Mb);
-  rt::pack_rows(G, m, m, Gout);
-  rt::pack_cols(G, m, Gin);
-  rt::pack_rows(Q, n, n, Qrow);
-  rt::pack_cols(Q, n, Qcol);
-  __syncthreads();
-  rt::ullmann_sweep(Mb, Gout, Gin, Qrow, Qcol, SO, SI, n, m);
-  MT* o = out + (size_t)b * nm;
-  for (int idx = threadIdx.x; idx < (int)nm; idx += blockDim.x) {
-    const int i = idx / m, j = idx - i * m;
-    o[idx] = rt::test_bit(Mb + i * W, j) ? Mp[idx] : MT(0);
+using rt::align16;
+using rt::kLaneBits;
+
+// Byte offsets of a CTA's shared memory: G's transposed rows and columns,
+// Q's bit rows and columns, the particle's candidates and its supports out
+// and in (32 bytes a row each), then the staged bytes of G and Q.
+struct Layout {
+  int Wn, goutT, ginT, qrow, qcol, cand, gs, qs, total;
+};
+
+__host__ __device__ inline Layout layout(int n, int m) {
+  Layout L;
+  L.Wn = rt::words(n);
+  L.goutT = 0;
+  L.ginT = align16(L.goutT + 32 * m);
+  L.qrow = align16(L.ginT + 32 * m);
+  L.qcol = align16(L.qrow + 4 * n * L.Wn);
+  L.cand = align16(L.qcol + 4 * n * L.Wn);
+  L.gs = align16(L.cand + 3 * 32 * n);
+  L.qs = align16(L.gs + m * m);
+  L.total = align16(L.qs + n * n);
+  return L;
+}
+
+// A 0/1 matrix to stage into shared memory at one byte an entry, 1 where
+// it is non-zero: `items` 16-byte chunks where its address and size allow
+// them (vec), else `items` single entries.
+template <typename T>
+struct Src {
+  const T* p;
+  uint8_t* dst;
+  int items;
+  bool vec;
+};
+
+template <typename T>
+__device__ __forceinline__ Src<T> source(const T* p, int count,
+                                         uint8_t* dst) {
+  constexpr int per = 16 / sizeof(T);
+  const bool vec = ((uintptr_t)p & 15) == 0 && count % per == 0;
+  return Src<T>{p, dst, vec ? count / per : count, vec};
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 load_item(const Src<T>& s, int i) {
+  if (s.vec) return reinterpret_cast<const uint4*>(s.p)[i];
+  return make_uint4((uint32_t)(s.p[i] != 0), 0u, 0u, 0u);
+}
+
+// Each byte of x as 1 where it is non-zero, else 0: bit 0 of a byte ORed
+// with its other bits (only bits 0-3 of a byte feed bit 0, and those take
+// bits 4-7 of the same byte).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  x |= x >> 4;
+  x |= x >> 2;
+  x |= x >> 1;
+  return x & 0x01010101u;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_item(const Src<T>& s, int i, uint4 v) {
+  if (!s.vec) {
+    s.dst[i] = (uint8_t)v.x;
+  } else if (sizeof(T) == 1) {
+    reinterpret_cast<uint4*>(s.dst)[i] =
+        make_uint4(nonzero_bytes(v.x), nonzero_bytes(v.y),
+                   nonzero_bytes(v.z), nonzero_bytes(v.w));
+  } else {
+    reinterpret_cast<uint32_t*>(s.dst)[i] =
+        (uint32_t)(v.x != 0) | ((uint32_t)(v.y != 0) << 8) |
+        ((uint32_t)(v.z != 0) << 16) | ((uint32_t)(v.w != 0) << 24);
   }
 }
 
-size_t smem_bytes(int n, int m) {
-  const int W = rt::words(m), Wn = rt::words(n);
-  return sizeof(uint32_t) *
-         (4 * (size_t)n * W + 2 * (size_t)m * W + 2 * (size_t)n * Wn);
+// Stage G and Q into shared memory, by the whole CTA: one index space over both, up to four loads a thread issued before
+// its stores.
+template <typename GT, typename QT>
+__device__ __forceinline__ void stage(const Src<GT>& g, const Src<QT>& q) {
+  const int total = g.items + q.items;
+  for (int base = threadIdx.x; base < total; base += 4 * blockDim.x) {
+    uint4 r[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < g.items)
+        r[u] = load_item(g, i);
+      else if (i < total)
+        r[u] = load_item(q, i - g.items);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < g.items)
+        store_item(g, i, r[u]);
+      else if (i < total)
+        store_item(q, i - g.items, r[u]);
+    }
+  }
+}
+
+// G's lane-transposed rows and columns from its staged 0/1 bytes gs (m x m):
+// bit k of goutT[r * 32 + l] is G[r, l + 32 k], of ginT[v * 32 + l]
+// G[l + 32 k, v]. With m % 4 == 0 a thread makes four bytes from eight
+// 4-byte loads: the words shifted by k and ORed put bit k of byte e in
+// byte e (the bytes are 0/1), four times fewer loads than common.cuh's
+// byte packs, which take any other m.
+__device__ __forceinline__ void pack_g_rows(const uint8_t* gs, int m,
+                                            uint8_t* goutT) {
+  if (m % 4 != 0) {
+    rt::pack_rows_t(gs, m, m, goutT);
+    return;
+  }
+  const int mw = m / 4;                     // words a row
+  // item (r, q): the bytes of lanes 4 q .. 4 q + 3 of row r
+  for (int idx = threadIdx.x; idx < m * 8; idx += blockDim.x) {
+    const int r = idx >> 3, q = idx & 7;
+    const uint32_t* row = reinterpret_cast<const uint32_t*>(gs + r * m);
+    uint32_t acc = 0;
+#pragma unroll
+    for (int k = 0; k < kLaneBits; ++k)
+      if (q + 8 * k < mw) acc |= row[q + 8 * k] << k;
+    reinterpret_cast<uint32_t*>(goutT)[idx] = acc;
+  }
+}
+
+__device__ __forceinline__ void pack_g_cols(const uint8_t* gs, int m,
+                                            uint8_t* ginT) {
+  if (m % 4 != 0) {
+    rt::pack_cols_t(gs, m, ginT);
+    return;
+  }
+  const int mw = m / 4;
+  // item (p, l): lane l's bytes of columns 4 p .. 4 p + 3; neighbouring
+  // threads take neighbouring lanes, so that the stores do not conflict
+  for (int idx = threadIdx.x; idx < mw * 32; idx += blockDim.x) {
+    const int p = idx >> 5, l = idx & 31;
+    uint32_t acc = 0;
+#pragma unroll
+    for (int k = 0; k < kLaneBits; ++k) {
+      const int r = l + 32 * k;
+      if (r < m) acc |= reinterpret_cast<const uint32_t*>(gs + r * m)[p] << k;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ginT[(4 * p + e) * 32 + l] = (uint8_t)(acc >> (8 * e));
+  }
+}
+
+// Bits k of a 4-bit group b as a byte mask: 0xff in byte k for bit k.
+__device__ __forceinline__ uint32_t byte_mask(uint32_t b) {
+  return ((b * 0x00204081u) & 0x01010101u) * 0xffu;
+}
+
+// Entries of M kept by the sweep, a 16-byte chunk at a time: 16 uint8 or 4
+// int32 entries and their bits.
+__device__ __forceinline__ uint4 keep(uint4 v, uint32_t bits, uint8_t) {
+  v.x &= byte_mask(bits & 15u);
+  v.y &= byte_mask((bits >> 4) & 15u);
+  v.z &= byte_mask((bits >> 8) & 15u);
+  v.w &= byte_mask((bits >> 12) & 15u);
+  return v;
+}
+__device__ __forceinline__ uint4 keep(uint4 v, uint32_t bits, int32_t) {
+  v.x = (bits & 1u) ? v.x : 0u;
+  v.y = (bits & 2u) ? v.y : 0u;
+  v.z = (bits & 4u) ? v.z : 0u;
+  v.w = (bits & 8u) ? v.w : 0u;
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) empty_kernel() {}
+
+template <typename MT, typename QT, typename GT>
+__global__ void __launch_bounds__(kThreads)
+refine_kernel(const MT* __restrict__ M, const QT* __restrict__ Q,
+              const GT* __restrict__ G, MT* __restrict__ out, int n, int m) {
+  const Layout L = layout(n, m);
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int lane = threadIdx.x & 31, gw = threadIdx.x >> 5;
+  const size_t nm = (size_t)n * m;
+  uint8_t* MT_ = sm + L.cand;
+  uint8_t* soT = MT_ + 32 * n;
+  uint8_t* siT = soT + 32 * n;
+  uint32_t* qrow = reinterpret_cast<uint32_t*>(sm + L.qrow);
+  uint32_t* qcol = reinterpret_cast<uint32_t*>(sm + L.qcol);
+
+  stage(source(G, m * m, sm + L.gs), source(Q, n * n, sm + L.qs));
+  // the particle's candidates, lane-transposed (for one k a warp reads 32
+  // consecutive entries), two rows at a time
+  const MT* Mp = M + blockIdx.x * nm;
+  for (int i = gw; i < n; i += 2 * kWarps) {
+    const int i2 = i + kWarps;
+    uint32_t b1 = 0, b2 = 0;
+#pragma unroll
+    for (int k = 0; k < kLaneBits; ++k) {
+      const int c = lane + 32 * k;
+      if (c < m) {
+        if (Mp[(size_t)i * m + c] != 0) b1 |= 1u << k;
+        if (i2 < n && Mp[(size_t)i2 * m + c] != 0) b2 |= 1u << k;
+      }
+    }
+    MT_[i * 32 + lane] = (uint8_t)b1;
+    if (i2 < n) MT_[i2 * 32 + lane] = (uint8_t)b2;
+  }
+  __syncthreads();
+  pack_g_rows(sm + L.gs, m, sm + L.goutT);
+  pack_g_cols(sm + L.gs, m, sm + L.ginT);
+  rt::pack_q_bits(sm + L.qs, n, qrow, qcol);
+  __syncthreads();
+  rt::ullmann_sweep_t<false>(sm + L.goutT, sm + L.ginT, qrow, qcol, n, L.Wn,
+                             MT_, soT, siT, nullptr, nullptr, threadIdx.x,
+                             kThreads);
+
+  // the output: each of the warp's rows' kept bits as 8 words (ballots,
+  // into the row's 32 bytes of soT, which the sweep no longer reads), then
+  // M's entries where a bit is kept
+  MT* o = out + blockIdx.x * nm;
+  constexpr int V = 16 / sizeof(MT);        // entries a 16-byte chunk
+  const bool vec = (m % V) == 0 && ((uintptr_t)Mp & 15) == 0 &&
+                   ((uintptr_t)o & 15) == 0;
+  if (!vec) {
+    for (int i = gw; i < n; i += kWarps) {
+      const uint32_t x = MT_[i * 32 + lane];
+#pragma unroll
+      for (int k = 0; k < kLaneBits; ++k) {
+        const int c = lane + 32 * k;
+        if (c < m)
+          o[(size_t)i * m + c] =
+              ((x >> k) & 1u) ? Mp[(size_t)i * m + c] : MT(0);
+      }
+    }
+    return;
+  }
+  uint32_t* rows = reinterpret_cast<uint32_t*>(soT);
+  for (int i = gw; i < n; i += kWarps) {
+    const uint32_t x = MT_[i * 32 + lane];
+    uint32_t mine = 0;
+#pragma unroll
+    for (int k = 0; k < kLaneBits; ++k) {
+      const uint32_t w = __ballot_sync(kFull, (x >> k) & 1u);
+      if (lane == k) mine = w;
+    }
+    if (lane < kLaneBits) rows[i * 8 + lane] = mine;
+  }
+  __syncwarp();
+  // the warp's rows and their chunks as one loop
+  const int cpr = m / V;
+  const int nrows = gw < n ? (n - gw + kWarps - 1) / kWarps : 0;
+  for (int it = lane; it < nrows * cpr; it += 32) {
+    const int ri = it / cpr, q = it - ri * cpr;
+    const int i = gw + ri * kWarps, c = q * V;
+    const uint32_t bits =
+        (rows[i * 8 + (c >> 5)] >> (c & 31)) & ((1u << V) - 1u);
+    const size_t at = (size_t)i * cpr + q;
+    reinterpret_cast<uint4*>(o)[at] =
+        keep(reinterpret_cast<const uint4*>(Mp)[at], bits, MT());
+  }
 }
 
 template <typename MT, typename QT, typename GT>
 int launch(const void* M, const void* Q, const void* G, void* out, int B,
            int n, int m, void* stream) {
-  const size_t smem = smem_bytes(n, m);
-  cudaError_t err =
+  const size_t smem = layout(n, m).total;
+  const cudaError_t err =
       rt::allow_smem((const void*)refine_kernel<MT, QT, GT>, smem);
   if (err != cudaSuccess) return (int)err;
-  refine_kernel<MT, QT, GT><<<B, 256, smem, (cudaStream_t)stream>>>(
+  refine_kernel<MT, QT, GT><<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const MT*)M, (const QT*)Q, (const GT*)G, (MT*)out, n, m);
   return (int)cudaGetLastError();
 }
@@ -77,14 +322,6 @@ int launch_g(int g_i32, const void* M, const void* Q, const void* G,
                : launch<MT, QT, uint8_t>(M, Q, G, out, B, n, m, stream);
 }
 
-template <typename MT>
-int launch_qg(int q_i32, int g_i32, const void* M, const void* Q,
-              const void* G, void* out, int B, int n, int m,
-              void* stream) {
-  return q_i32 ? launch_g<MT, int32_t>(g_i32, M, Q, G, out, B, n, m, stream)
-               : launch_g<MT, uint8_t>(g_i32, M, Q, G, out, B, n, m, stream);
-}
-
 }  // namespace
 
 // M, out: (B, n, m) uint8 (m_i32 = 0) or int32; Q (n, n) and G (m, m),
@@ -93,8 +330,20 @@ extern "C" int ullmann_refine_step(const void* M, const void* Q,
                                    const void* G, void* out, int B, int n,
                                    int m, int m_i32, int q_i32, int g_i32,
                                    void* stream) {
-  return m_i32 ? launch_qg<int32_t>(q_i32, g_i32, M, Q, G, out, B, n, m,
-                                    stream)
-               : launch_qg<uint8_t>(q_i32, g_i32, M, Q, G, out, B, n, m,
-                                    stream);
+  if (m_i32)
+    return q_i32 ? launch_g<int32_t, int32_t>(g_i32, M, Q, G, out, B, n, m,
+                                              stream)
+                 : launch_g<int32_t, uint8_t>(g_i32, M, Q, G, out, B, n, m,
+                                              stream);
+  return q_i32 ? launch_g<uint8_t, int32_t>(g_i32, M, Q, G, out, B, n, m,
+                                            stream)
+               : launch_g<uint8_t, uint8_t>(g_i32, M, Q, G, out, B, n, m,
+                                            stream);
+}
+
+// An empty kernel on the grid and block of a B-particle sweep: the floor a
+// launch of this shape cannot go below.
+extern "C" int ullmann_refine_empty_launch(int B, void* stream) {
+  empty_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

@@ -19,6 +19,8 @@ per-problem Q (P, n, n) and G (P, m, m).
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import types
 from typing import Dict, Optional, Tuple
 
@@ -253,3 +255,19 @@ def get_backend(name: Optional[str] = None, *, config=None) -> KernelBackend:
 def for_config(cfg) -> KernelBackend:
     """The backend a ``PSOConfig`` selects."""
     return get_backend(config=cfg)
+
+
+def config_digest(cfg, *, extra: Tuple = ()) -> str:
+    """Stable content digest of everything a persisted carry depends on:
+    the resolved suite name, every field of the (dataclass) config sorted
+    by name, and the caller's ``extra`` components (the service adds its
+    bucketing parameters, the torch version and its device type). A
+    16-hex-character prefix of the SHA-1, as the reference's. Snapshots
+    whose digest differs from the restoring service's are skipped."""
+    name = resolve_backend_name(config=cfg)
+    if dataclasses.is_dataclass(cfg):
+        fields = sorted(dataclasses.asdict(cfg).items())
+    else:
+        fields = repr(cfg)
+    payload = repr((name, fields, tuple(extra)))
+    return hashlib.sha1(payload.encode("utf-8")).hexdigest()[:16]

@@ -2,10 +2,12 @@
 
 Replaces the TPU kernel ``ullmann_refine_step_pallas`` of the JAX package
 (``kernels/ullmann_refine.py``, body ``_refine_kernel``). The CUDA kernel
-is ``csrc/ullmann_refine.cu``: one CTA per candidate matrix, with M, Q
-and G as bit rows in shared memory, so the four 0/1 products become word
-ANDs. Its output is exact and equals ``ref.ullmann_refine_step`` bit for
-bit, in M's dtype (uint8, int32 or bool; Q and G uint8, int32 or bool).
+is ``csrc/ullmann_refine.cu``: one CTA per candidate matrix stages G and Q
+with 16-byte loads and packs them lane-transposed in shared memory, and
+the sweep builds each row's supports as unions of G's packed rows over
+the row's candidates, so the four 0/1 products become byte ORs and ANDs.
+Its output is exact and equals ``ref.ullmann_refine_step`` bit for bit,
+in M's dtype (uint8, int32 or bool; Q and G uint8, int32 or bool).
 """
 from __future__ import annotations
 

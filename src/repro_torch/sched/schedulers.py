@@ -37,7 +37,9 @@ Paradigms:
 Port of the JAX package's ``sched/schedulers.py``: the same policies and
 cost charges in the same order (numpy and Python floats), with IMMSched's
 real-mode decisions going through the port's ``MatcherService`` on
-``SimConfig.device``. Without persistence, a restart is a cold restart.
+``SimConfig.device``. A restart is warm under ``SimConfig.persist_dir``
+(IMMSched snapshots its service and tier predictor before the kill and
+restores them after), cold otherwise.
 """
 from __future__ import annotations
 
@@ -99,7 +101,9 @@ class SchedulerBase:
         accelerator keeps running its dispatched tasks; only the
         scheduler's bookkeeping of promised engines is lost) and any
         queued host-CPU scheduling work (a fresh process has a free
-        CPU). Subclasses lose their matcher/memo state on top."""
+        CPU). Subclasses lose their matcher/memo state on top, and
+        IMMSched snapshots/restores through the persistence layer when
+        ``sim.cfg.persist_dir`` is set."""
         self._restart_count += 1
         self._pdag_cache.clear()
         self._reserved.clear()
@@ -218,8 +222,6 @@ class IMMSchedScheduler(SchedulerBase):
         # urgent interrupts); check_invariants pins the per-tier split
         # to this total
         self._matcher_decisions = 0
-        # the reference's restart counters; without persistence nothing
-        # is ever saved or restored, so they stay 0
         self._restart_stats = {"restored_carries": 0,
                                "restored_sim_entries": 0,
                                "restored_posterior_buckets": 0,
@@ -228,27 +230,86 @@ class IMMSchedScheduler(SchedulerBase):
                                "boot_restores": 0}
         self._boot_service(sim)
 
-    def _boot_service(self, sim) -> None:
-        """(Re)create the host-process matcher state, cold: the online
-        service on ``sim.cfg.device``, the tier predictor's
-        platform-state index and the calibrated Tier-1 posterior."""
+    def _boot_service(self, sim, from_restart: bool = False) -> None:
+        """(Re)create the host-process matcher state: the online service
+        on ``sim.cfg.device``, the tier predictor's platform-state index
+        and the calibrated Tier-1 posterior. With ``sim.cfg.persist_dir``
+        the newest valid snapshot (carries and predictor posteriors) is
+        restored, a warm boot; otherwise every structure starts cold
+        (``persist_dir=False`` keeps the service off
+        ``REPRO_PERSIST_DIR``). Restores count in the
+        ``restart_restored_*`` counters only when this boot follows an
+        in-run restart event; a warm boot at the start of a simulation (a
+        previous run's snapshot) counts in ``boot_restores``."""
         # online matcher service: callable cache + warm starts keyed by
         # (workload, free-engine set), early-exit epochs, tiered drain
         cfg = sim.cfg.pso_cfg.replace(quantized=self.quantized)
-        self._service = MatcherService(cfg, device=sim.cfg.device)
+        persist_dir = sim.cfg.persist_dir
+        self._service = MatcherService(cfg, device=sim.cfg.device,
+                                       persist_dir=persist_dir or False)
         # per workload: LRU of seen platform states, sig → unpacked bits
         self._state_index: Dict[str, "OrderedDict[bytes, np.ndarray]"] = {}
         # observed Tier-1 rebase outcomes per (workload, popcount band of
         # the engine signature): [successes, trials]
         self._tier1_obs: Dict[tuple, List[int]] = {}
         self._prune_stats = {"launches": 0, "wall_s": 0.0, "energy_j": 0.0}
+        if persist_dir:
+            extra = self._service.restore_snapshot()
+            if extra is not None:
+                self._restore_predictor(extra.get("predictor", {}),
+                                        count=from_restart)
+                if from_restart:
+                    self._restart_stats["restored_carries"] += \
+                        self._service.stats.restored_carries
+                    self._restart_stats["restored_sim_entries"] += \
+                        self._service.stats.restored_sim_entries
+                else:
+                    self._restart_stats["boot_restores"] += 1
 
     def on_restart(self, sim, now):
-        """Kill/restart of the scheduler process (simulator event): a
-        cold restart. Carries, the callable LRU, predictor history and
-        calibration all start over."""
+        """Kill/restart of the scheduler process (simulator event).
+
+        Warm when persistence is on: the service snapshots its carries
+        with the tier predictor's posteriors in the snapshot's ``extra``
+        dict, then every host structure is dropped (process death) and
+        ``_boot_service`` restores them from disk. Without
+        ``persist_dir`` it is a cold restart: carries, the callable LRU,
+        predictor history and calibration all start over."""
+        if sim.cfg.persist_dir and self._service is not None:
+            self._service.save_snapshot(
+                extra={"predictor": self._predictor_state()})
+            self._restart_stats["snapshots_saved"] += 1
         super().on_restart(sim, now)
-        self._boot_service(sim)
+        self._boot_service(sim, from_restart=True)
+
+    # -- predictor snapshot codecs ---------------------------------------
+
+    def _predictor_state(self) -> Dict:
+        """JSON-safe encoding of the tier predictor: the per-workload
+        platform-state LRU (signatures only; the bit vectors are derived
+        again on load) and the calibrated Tier-1 posterior counts."""
+        return {
+            "state_index": [[name, [sig.hex() for sig in sigs]]
+                            for name, sigs in self._state_index.items()],
+            "tier1_obs": [[name, band, h, t]
+                          for (name, band), (h, t)
+                          in self._tier1_obs.items()],
+        }
+
+    def _restore_predictor(self, d: Dict, count: bool = True) -> None:
+        """Inverse of ``_predictor_state`` (missing keys are tolerated, so
+        a snapshot written by a service without a scheduler restores as a
+        plain carry restore). ``count=False`` restores without touching
+        the ``restart_restored_*`` counters (warm boots)."""
+        for name, sigs in d.get("state_index", []):
+            for hex_sig in sigs:
+                self._note_state(name, bytes.fromhex(hex_sig))
+                if count:
+                    self._restart_stats["restored_state_sigs"] += 1
+        for name, band, h, t in d.get("tier1_obs", []):
+            self._tier1_obs[(name, int(band))] = [int(h), int(t)]
+            if count:
+                self._restart_stats["restored_posterior_buckets"] += 1
 
     def matcher_stats(self) -> Dict[str, float]:
         d = self._service.stats_dict() if self._service else {}

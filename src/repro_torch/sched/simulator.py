@@ -91,9 +91,10 @@ class SimConfig:
                                           inner_steps=8))
     window_stages: int = 4
     seed: int = 0
-    # Warm-restart persistence root. Only None (a scenario restart event
-    # is a COLD restart: all host state lost) until the port has
-    # persistence; any other value raises instead of restarting cold.
+    # Warm-restart persistence root for schedulers that keep host state
+    # (IMMSched's matcher service + tier predictor). None = a scenario
+    # restart event is a COLD restart (all host state lost); a directory
+    # enables snapshot-before-kill + restore-after — the warm-restart arm.
     persist_dir: Optional[str] = None
     # Event budget: a run that still has events pending when the budget
     # is exhausted stops and sets ``SimResult.truncated`` instead of
@@ -106,13 +107,6 @@ class SimConfig:
     # Device of IMMSched's matcher service: the card unless the caller
     # asks for "cpu"; without a card the service raises.
     device: str = "cuda"
-
-    def __post_init__(self):
-        if self.persist_dir is not None:
-            raise NotImplementedError(
-                "SimConfig.persist_dir: warm-restart persistence is not "
-                "ported yet (ROADMAP Queue 1 item 7); leave it None for a "
-                "cold restart")
 
 
 @dataclasses.dataclass
@@ -355,8 +349,9 @@ class Simulator:
                 now = t_next
 
             if t_res <= min(t_arr, t_done, t_act):
-                # scheduler-process kill/restart: host state dies; tasks
-                # running on the accelerator are unaffected. Restarts outrank
+                # scheduler-process kill/restart: host state dies (or is
+                # snapshot-restored under cfg.persist_dir); tasks running
+                # on the accelerator are unaffected. Restarts outrank
                 # same-instant arrivals so those arrivals hit the
                 # restarted (worst-case cold) scheduler.
                 restarts.popleft()

@@ -39,8 +39,8 @@ class Scenario:
     #: simulator delivers an ``on_restart`` to the scheduler: its host
     #: process state (compile caches, warm carries, predictor history,
     #: host-CPU queue) dies; tasks already running on the accelerator
-    #: keep their engines. The port restarts cold: it has no warm-restart
-    #: persistence yet (see ``SimConfig.persist_dir``).
+    #: keep their engines. With ``SimConfig.persist_dir`` the scheduler
+    #: snapshots its warm state before the kill and restores it after.
     restarts: List[float] = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
@@ -294,10 +294,9 @@ def make_restart_scenario(complexity: str = "simple", *,
     arrivals land before the kill) and phase 2 **replays the exact same
     workloads and burst pattern** shifted after the restart. Every
     phase-2 arrival is therefore a repeat the scheduler has already
-    solved. The port's scheduler restarts cold and pays the full
-    first-arrival path again; a warm restart, which would serve them
-    from restored carries at revalidation cost, needs the persistence
-    the port does not have yet.
+    solved. A cold restart pays the full first-arrival path again; a warm
+    restart (``SimConfig.persist_dir``) serves them from restored carries
+    at revalidation cost.
 
     Extra ``kw`` pass through to :func:`make_scenario` (both phases).
     """

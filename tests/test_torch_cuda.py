@@ -448,6 +448,76 @@ def _finish_case(device, P, N, n, m, seed, tie_values=None):
     return S, x["f_local"], x["gum"], mask, Q, G
 
 
+# -- ullmann_refine_step bit for bit -------------------------------------------
+
+def _refine_case(device, B, n, m, seed, dtype=torch.uint8, fill=None,
+                 q_edges=True):
+    """B candidate matrices of one (n, m) problem with entries 0..3 (M's
+    own values must survive), or all ``fill``; Q a random DAG (no edges
+    without ``q_edges``), G a sparse DAG of mean degree ~4."""
+    g = torch.Generator().manual_seed(seed)
+    if fill is None:
+        M = torch.randint(0, 4, (B, n, m), generator=g) * (
+            torch.rand(B, n, m, generator=g) < 0.6)
+    else:
+        M = torch.full((B, n, m), fill)
+    Q = torch.triu(torch.rand(n, n, generator=g) < min(0.3, 3.0 / n), 1)
+    G = torch.triu(torch.rand(m, m, generator=g) < min(0.4, 4.0 / m), 1)
+    if not q_edges:
+        Q = torch.zeros_like(Q)
+    M = (M != 0) if dtype == torch.bool else M.to(dtype)
+    return M.to(device), Q.to(torch.uint8).to(device), \
+        G.to(torch.uint8).to(device)
+
+
+def _assert_refine_bitwise(M, Q, G):
+    from repro_torch.kernels import ullmann_refine
+    want = ref.ullmann_refine_step(M, Q, G)
+    for Qx, Gx in ((Q, G), (Q.int(), G.int()), (Q.bool(), G.int()),
+                   (Q.int(), G)):
+        ullmann_refine.launches.reset()
+        got = ullmann_refine_step_cuda(M, Qx, Gx)
+        torch.cuda.synchronize()
+        assert ullmann_refine.launches.count == 1
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("B,n,m", [
+    (64, 56, 144), (1, 1, 1), (5, 13, 37), (7, 31, 64), (3, 203, 233),
+    (2, 256, 256), (9, 40, 72)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32, torch.bool])
+def test_ullmann_refine_bitwise_on_card(device, B, n, m, dtype):
+    """One sweep equals ref.ullmann_refine_step bit for bit for every M
+    dtype (M's entries 0..3 kept as they are), every Q / G dtype, at the
+    main path's shape, (1, 1, 1), n < 32, odd n and m (the scalar
+    write-out), (203, 233) and (256, 256)."""
+    _assert_refine_bitwise(*_refine_case(device, B, n, m, B + n + m, dtype))
+
+
+@pytest.mark.parametrize("fill,q_edges", [(0, True), (1, True), (1, False),
+                                          (None, False)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_ullmann_refine_edge_cases_on_card(device, fill, q_edges, dtype):
+    """All-zero and all-one M, and a Q with no edges (nothing changes)."""
+    for B, n, m in ((8, 56, 144), (3, 13, 37)):
+        _assert_refine_bitwise(*_refine_case(device, B, n, m, 7, dtype,
+                                             fill=fill, q_edges=q_edges))
+
+
+def test_ullmann_refine_misaligned_and_sliced_on_card(device):
+    """M starting one entry past a 16-byte boundary (the scalar
+    write-out at m % 16 == 0), and two leading dims."""
+    M, Q, G = _refine_case(device, 6, 56, 144, 41)
+    buf = torch.empty(M.numel() + 1, dtype=M.dtype, device=device)
+    buf[1:] = M.reshape(-1)
+    moved = buf[1:].view(M.shape)
+    assert moved.storage_offset() == 1
+    _assert_refine_bitwise(moved, Q, G)
+    got = ullmann_refine_step_cuda(M.view(2, 3, 56, 144), Q, G)
+    assert torch.equal(got.view(M.shape), ref.ullmann_refine_step(M, Q, G))
+
+
 def _assert_finish_bitwise(S, f, gum, mask, Q, G, *, tau, refine_iters=6,
                            elite_k=None):
     """M_hat and feasible bit for bit, S_bar within the tolerance, and two
@@ -635,6 +705,52 @@ def test_service_all_warm_drain_makes_one_sync_on_card(device):
         torch.cuda.set_sync_debug_mode(0)
     assert svc.stats.host_syncs - syncs0 == 1
     assert all(r.tier == 0 and r.found for r in results)
+
+
+def test_service_snapshot_roundtrip_on_card(device, tmp_path, monkeypatch):
+    """A warm service's snapshot: its save makes exactly one host sync
+    (one ``persist.to_host`` with the pooled carries, under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    other blocking transfer); a fresh service restores it into its pool
+    on the card, the round trip is bitwise, and the restored service
+    serves the warm requests at Tier 0 with the same mappings."""
+    from repro_torch.core import persist
+    from repro_torch.core.service import MatcherService
+    cfg = pso.PSOConfig(num_particles=24, epochs=3, inner_steps=8,
+                        quantized=True)
+    svc = MatcherService(cfg, device="cuda", persist_dir=str(tmp_path))
+    specs = _service_specs()
+    _drain(svc, specs)
+    warm = _drain(svc, specs)
+    waits = []
+    to_host = persist.to_host
+
+    def counted(leaves):
+        waits.append(sum(torch.is_tensor(x) and x.is_cuda
+                         for x in leaves.values()))
+        return to_host(leaves)
+    monkeypatch.setattr(persist, "to_host", counted)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step = svc.save_snapshot()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(waits) == 1 and waits[0] == 3 * (
+        len(svc._carries) + svc._carries.sim_entries)
+    fresh = MatcherService(cfg, device="cuda", persist_dir=str(tmp_path))
+    assert fresh.restore_snapshot(step) == {}
+    assert fresh.stats.restored_carries == len(svc._carries)
+    assert all(slab["S"].is_cuda for slab in fresh._pool._slabs.values())
+    monkeypatch.setattr(persist, "to_host", to_host)
+    assert fresh.verify_snapshot_roundtrip()
+    served = [(sp, r) for sp, r in zip(specs, warm)
+              if r.tier == 0 and r.found]
+    assert served
+    again = _drain(fresh, [sp for sp, _ in served])
+    for (_, r), a in zip(served, again):
+        assert a.tier == 0 and a.found
+        assert (a.mapping == r.mapping).all()
 
 
 @pytest.mark.parametrize("quantized", [False, True])

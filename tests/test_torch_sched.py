@@ -5,7 +5,8 @@ package's, on the CPU.
 * Analytic mode is held bit for bit: the same scenario through the same
   scheduler gives the reference's ``SimResult`` field for field, its
   ``percentiles`` and ``matcher_stats`` included (minus wall clocks and
-  the persistence counters the port does not have).
+  the persistence counters; warm restarts are held in
+  ``tests/test_torch_restart.py``).
 * The scenario builders reproduce the reference's golden SHA-256 digests
   (imported from ``tests/test_scenario_registry.py``'s ``GOLDEN``).
 * The host modules (interrupt policies, serial Ullmann, XY routes, the
@@ -321,9 +322,34 @@ def test_xy_route_equals_jax():
 # what the port refuses
 # ---------------------------------------------------------------------------
 
-def test_persistence_is_refused():
-    with pytest.raises(NotImplementedError, match="persist"):
-        tsched.SimConfig(platform=tplat.EDGE, persist_dir="/nonexistent")
-    with pytest.raises(NotImplementedError):
-        tsched.SimConfig(tplat.EDGE, "analytic", tpso.PSOConfig(), 4, 0, "")
-    assert tsched.SimConfig(platform=tplat.EDGE).persist_dir is None
+def test_persistence_is_refused(monkeypatch, tmp_path):
+    """A service without a persist dir refuses snapshots: ``save_snapshot``
+    and ``restore_snapshot`` raise, and ``persist_dir=False`` keeps
+    persistence off even under ``REPRO_PERSIST_DIR`` (warm restarts are
+    in ``tests/test_torch_restart.py``)."""
+    from repro_torch.core.service import MatcherService
+    monkeypatch.setenv("REPRO_PERSIST_DIR", str(tmp_path))
+    svc = MatcherService(tpso.PSOConfig(), device="cpu", persist_dir=False)
+    assert svc.persist_dir is None
+    with pytest.raises(RuntimeError, match="persist"):
+        svc.save_snapshot()
+    with pytest.raises(RuntimeError, match="persist"):
+        svc.restore_snapshot()
+    assert not list(tmp_path.iterdir())
+
+
+def test_default_restart_is_cold():
+    """The simulator's default has no persist dir: IMMSched's service has
+    no snapshot store, and a restart saves and restores nothing."""
+    cfg = tsched.SimConfig(platform=tplat.EDGE, device="cpu")
+    assert cfg.persist_dir is None
+    sched = tsched.get_scheduler("immsched")
+    res = tsched.Simulator(cfg, sched).run(
+        ttasks.make_restart_scenario(seed=3))
+    assert sched._service.persist_dir is None
+    stats = res.matcher_stats
+    assert stats["restart_count"] >= 1
+    assert stats["restart_snapshots_saved"] == 0
+    assert stats["restart_boot_restores"] == 0
+    assert stats["restart_restored_state_sigs"] == 0
+    assert stats["snapshot_saves"] == 0 and stats["snapshot_restores"] == 0

@@ -39,7 +39,7 @@ CFG = pso.PSOConfig(num_particles=24, epochs=3, inner_steps=8,
                     early_exit=True, backend="ref")
 # two distinct shape buckets: (8, 16) and (8, 32)
 BUCKET_ARGS = ((6, 12), (5, 24))
-#: the reference's stats_dict keys that come with persistence
+#: the reference's stats_dict keys of its persistence layer
 PERSISTENCE_KEYS = [
     "aot_cache_hits", "aot_cache_misses", "aot_exports",
     "aot_export_failures", "aot_call_fallbacks", "snapshot_saves",
@@ -131,8 +131,11 @@ def test_stats_dict_has_the_reference_keys_but_persistence():
         jpso.PSOConfig(backend="ref"), donate_buffers=False,
         persist_dir=False).stats_dict())
     assert set(PERSISTENCE_KEYS) <= want
-    assert set(svc.stats_dict()) == want - set(PERSISTENCE_KEYS)
+    # the persistence counters came with persistence: without a persist
+    # dir they are all 0, the executable cache's always
+    assert set(svc.stats_dict()) == want
     d = svc.stats_dict()
+    assert all(d[k] == 0 for k in PERSISTENCE_KEYS)
     assert d["drains"] == 1 and d["host_syncs"] >= 1
     assert d["epoch_backend"] == "ref"
 

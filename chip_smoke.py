@@ -63,6 +63,22 @@ Phases, in order; any failure exits non-zero:
      warm run restores its snapshot and predictor states. One JSON line
      (save, restore and first-drain ms; each run's post-restart drain
      walls);
+  4e. the mesh (``core/matcher.py``'s distributed paths on
+     ``torch.distributed``) at the burst's width: a world of one in this
+     process over NCCL and then over gloo on CUDA tensors (``FileStore``
+     rendezvous), each running the particle-sharded match of every burst
+     problem twice: every pass the same bits, and phase 4's found and
+     epochs_run; then ``MESH_WORLD`` ranks spawned on the one card (gloo
+     on CUDA tensors; ``--mesh-rank`` runs one): the particle-sharded
+     match of one problem (4 × N particles), the problem-axis
+     ``match_batch`` of the 8 and revalidation in both regimes bit for
+     bit phase 4's, the small-B regime, and a mesh ``MatcherService``'s
+     cold and warm drains (tier sums, feasible mappings). Fails on a
+     check, a rank's non-zero exit or timeout, ranks that disagree, or a
+     quantized main-path kernel not launched on every rank. One JSON
+     line: backends, world sizes, walls of each op (the 4-rank walls are
+     four processes time-sliced on one card, not a scale-out figure),
+     collectives and host syncs a drain, launches per rank;
   5. the split (pre-fusion) epoch: ``core.split_epoch.split_epoch``
      through the ``cuda`` suite on each problem of the burst, float and
      quantized, plus ``masked_argmax`` through the seam on each returned
@@ -80,7 +96,8 @@ kernel entry and one for ``epoch_fused``'s float branch; ``launches``
 counts device launches on the main or split path, ``launches_per_call``
 divides them by the wrapper calls that made them, ``service_launches``
 counts the launches of phase 4b, ``sched_launches`` those of phase 4c,
-``restart_launches`` those of phase 4d;
+``restart_launches`` those of phase 4d, ``mesh_launches`` those of
+phase 4e summed over its processes;
 the float branch's launches are counted by its wrapper on their own and
 left out of the ``epoch_fused`` row; ``device_ms`` is a call's device
 time, ``host_ms`` the wrapper's host time alone, ``bound_note`` what a
@@ -91,6 +108,7 @@ details (a JSON record and the profiler's table) are also written to DIR.
 import argparse
 import copy
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -169,6 +187,13 @@ SCHED_WINDOW = 8
 SCHED_KERNELS = ("prune_fixpoint", "edge_fitness_quantized", "epoch_fused",
                  "epoch_finish")
 SCHEDULERS = ("immsched", "isosched", "prema", "planaria", "moca", "cdmsa")
+#: phase 4e: ranks spawned on the one card, their limits, and the kernels
+#: the mesh path must launch on every rank (quantized: no float fitness)
+MESH_WORLD = 4
+MESH_TIMEOUT_S = 480
+MESH_GROUP_TIMEOUT_S = 120
+MESH_KERNELS = ("prune_fixpoint", "edge_fitness_quantized", "epoch_fused",
+                "epoch_finish")
 
 
 def log(*a):
@@ -772,6 +797,325 @@ def restart_phase(pso, reqs, svc, picks, counters, persist_dir):
     return dict(line, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 4e: the mesh
+# ---------------------------------------------------------------------------
+
+def kernel_counters():
+    """Every kernel wrapper's launch counter, by kernel row."""
+    from repro_torch.kernels import (argmax_project, epoch_fused,
+                                     finish_fused, prune_fixpoint,
+                                     pso_fitness, pso_update,
+                                     ullmann_refine)
+    return {"prune_fixpoint": prune_fixpoint.launches,
+            "edge_fitness": pso_fitness.launches,
+            "edge_fitness_quantized": pso_fitness.launches_quantized,
+            "epoch_fused": epoch_fused.launches,
+            FLOAT_EPOCH: epoch_fused.launches_float,
+            "epoch_finish": finish_fused.launches,
+            "pso_update": pso_update.launches,
+            "ullmann_refine_step": ullmann_refine.launches,
+            "greedy_project": argmax_project.launches_greedy,
+            "masked_argmax": argmax_project.launches_argmax}
+
+
+def _host(outs):
+    """A launch's outputs as numpy arrays (ints pass through)."""
+    return {k: (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+            for k, v in outs.items()}
+
+
+def _bitwise(got, want, keys=None):
+    """Every leaf of ``got`` (bar ``host_syncs``) equals ``want``'s."""
+    keys = [k for k in (keys or got) if k != "host_syncs"]
+    return all(np.array_equal(got[k], want[k]) for k in keys)
+
+
+def _digest(outs):
+    h = hashlib.sha1()
+    for k in sorted(outs):
+        if k != "host_syncs":
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(outs[k]).tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(rank, mesh_dir):
+    """One rank of phase 4e's ``MESH_WORLD`` ranks (gloo on CUDA
+    tensors, every rank on the one card). Runs the mesh path as one SPMD program with
+    the other ranks, then checks on the host what it returned against
+    phase 4's outputs (``phase4.npz``), and writes ``rank<r>.json``:
+    checks, digests, walls, launches and the service's drains."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import pso
+    from repro_torch.core.matcher import (build_distributed_match,
+                                          build_distributed_match_batch,
+                                          build_distributed_revalidate_batch,
+                                          collect_result, shard_streams)
+    from repro_torch.core.service import MatcherService
+    from repro_torch.launch import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_dir = Path(mesh_dir)
+    mesh_lib.init_group("gloo", init_method=f"file://{mesh_dir}/store",
+                        rank=rank, world_size=MESH_WORLD, device="cuda",
+                        timeout_s=MESH_GROUP_TIMEOUT_S)
+    mesh = mesh_lib.make_host_mesh(MESH_WORLD, 1, backend="gloo",
+                                   device="cuda")
+    reqs, tgt, bucket, Qb, Gb, Mb = build_requests()
+    P = Mb.shape[0]
+    ph4 = np.load(mesh_dir / "phase4.npz")
+    pick, pair = int(ph4["pick"]), [int(i) for i in ph4["pair"]]
+    cfg = pso.PSOConfig(quantized=True, early_exit=True)
+    counters = kernel_counters()
+    rec = dict(rank=rank, walls_ms={}, checks={}, digests={})
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec["walls_ms"][name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def mapping_ok(i, M):
+        q = reqs[i]["q"]
+        return feasible_np(M, q.adj, tgt.adj)
+
+    for c in counters.values():
+        c.reset()
+    mesh_lib.collectives.reset()
+    # a particle-sharded match of one burst problem: N particles a rank
+    fn = build_distributed_match(bucket, mesh, cfg, ("data",))
+    streams = shard_streams(SEED + pick, MESH_WORLD)
+    o = _host(timed("match", lambda: fn(streams, Qb[pick], Gb[pick],
+                                        Mb[pick])))
+    res = collect_result(o, order=reqs[pick]["order"],
+                         crop=(reqs[pick]["q"].n, tgt.n))
+    rec["digests"]["match"] = _digest(o)
+    # again, warm (the first call above pays each process's first use)
+    again = _host(timed("match_again", lambda: fn(
+        streams, Qb[pick], Gb[pick], Mb[pick])))
+    rec["checks"]["match_repeats"] = _digest(again) == _digest(o)
+    rec["checks"]["match_found_feasible"] = bool(
+        res.found and mapping_ok(pick, res.mapping))
+    rec["checks"]["match_particles"] = bool(
+        res.all_feasible.shape[0]
+        == cfg.epochs * cfg.num_particles * MESH_WORLD)
+    rec["match"] = dict(problem=reqs[pick]["name"], found=res.found,
+                        epochs_run=res.epochs_run,
+                        host_syncs=int(o["host_syncs"]))
+    # the problem-axis match_batch of the 8 requests (P / D a rank)
+    fn = build_distributed_match_batch(bucket, mesh, cfg, ("data",), P)
+    o = _host(timed("match_batch", lambda: fn(
+        [SEED + b for b in range(P)], Qb, Gb, Mb)))
+    rec["digests"]["match_batch"] = _digest(o)
+    rec["checks"]["match_batch_bitwise_phase4"] = _bitwise(
+        o, {k: ph4["mb." + k] for k in o if k != "host_syncs"})
+    # the small-B regime: two problems, each particle-sharded
+    pb = torch.tensor(pair, device="cuda")
+    fn = build_distributed_match_batch(bucket, mesh, cfg, ("data",),
+                                       len(pair))
+    o = _host(timed("match_batch_small", lambda: fn(
+        [SEED + b for b in pair], Qb[pb], Gb[pb], Mb[pb])))
+    rec["digests"]["match_batch_small"] = _digest(o)
+    small_ok = True
+    for j, b in enumerate(pair):
+        r = collect_result({k: (v if k == "host_syncs" else
+                                v[:, j] if k in pso.PER_EPOCH else v[j])
+                            for k, v in o.items()},
+                           order=reqs[b]["order"],
+                           crop=(reqs[b]["q"].n, tgt.n))
+        small_ok &= (not r.found) or mapping_ok(b, r.mapping)
+    rec["checks"]["match_batch_small_feasible"] = bool(small_ok)
+    # revalidation from phase 4's carry, in both regimes
+    carry = tuple(torch.from_numpy(ph4["mb." + k]).cuda()
+                  for k in ("S_star", "f_star", "S_bar"))
+    for B in (P, len(pair)):
+        fn = build_distributed_revalidate_batch(bucket, mesh, cfg,
+                                                ("data",), B)
+        o = _host(timed(f"revalidate_{B}", lambda: fn(
+            Qb[:B], Gb[:B], Mb[:B], tuple(c[:B] for c in carry))))
+        rec["digests"][f"revalidate_{B}"] = _digest(o)
+        rec["checks"][f"revalidate_{B}_bitwise_phase4"] = _bitwise(
+            o, {k: ph4["rv." + k][:B] for k in o})
+    # a mesh service draining the 8 requests, cold then warm
+    from repro_torch.accel import target_graph
+    _, free = free_engines()
+    sig = target_graph.free_engine_signature(free)
+    svc = MatcherService(cfg, mesh=mesh, axis_names=("data",),
+                         device="cuda", persist_dir=False)
+    rec["service"] = {}
+    for label in ("cold", "warm"):
+        before = copy.deepcopy(svc.stats)
+        coll = mesh_lib.collectives.count
+        for i in range(P):
+            svc.submit(reqs[i]["q"], tgt, key=SEED + i,
+                       workload_key=(reqs[i]["name"], sig))
+        served = timed(f"service_{label}", svc.drain)
+        tiers = _tier_delta(svc.stats, before)
+        counts = [sum(r.tier == t for r in served) for t in range(3)]
+        rec["checks"][f"service_{label}_tier_sums"] = bool(
+            counts[0] == tiers["tier0"]["hits"]
+            and counts[1] == tiers["tier1"]["hits"]
+            and counts[2] == tiers["tier2"]["checked"]
+            and sum(counts) == P)
+        rec["checks"][f"service_{label}_feasible"] = all(
+            (not r.found) or mapping_ok(i, r.mapping)
+            for i, r in enumerate(served))
+        rec["digests"][f"service_{label}"] = _digest(
+            {f"{i}": np.asarray([r.tier, r.found, r.epochs_run])
+             for i, r in enumerate(served)}
+            | {f"{i}.M": r.mapping for i, r in enumerate(served)
+               if r.found})
+        rec["service"][label] = dict(
+            tiers=tiers, served=[[r.tier, r.found, r.epochs_run]
+                                 for r in served],
+            host_syncs=svc.stats.host_syncs - before.host_syncs,
+            host_bytes=(svc.stats.host_bytes_transferred
+                        - before.host_bytes_transferred),
+            pool_puts=svc.stats_dict()["pool_puts"],
+            collectives=mesh_lib.collectives.count - coll,
+            found=sum(r.found for r in served))
+    # one carry path: the mesh service's carries live in its device pool
+    rec["checks"]["service_carries_pooled"] = \
+        svc.stats_dict()["pool_live_rows"] > 0
+    rec["launches"] = {k: c.count for k, c in counters.items()}
+    rec["collectives"] = mesh_lib.collectives.count
+    (mesh_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_phase(pso, reqs, tgt, bucket, Qb, Gb, Mb, phase4, counters):
+    """Phase 4e, the mesh, at the burst's width (bucket (56, 144), N = 64
+    a rank, T = 4, K = 12, quantized, early exit). First a world of one in
+    this process over NCCL, then over gloo on CUDA tensors (``FileStore``
+    rendezvous): the particle-sharded match of each burst problem must
+    give the same bits on both, and phase 4's outcomes (found,
+    epochs_run), every found mapping feasible. Then ``MESH_WORLD`` ranks
+    spawned on the one card (gloo on CUDA tensors), each running
+    ``mesh_rank``: the particle-sharded match of one found problem, the
+    problem-axis ``match_batch`` of the 8 (bit for bit phase 4's), the
+    small-B regime, revalidation in both regimes (bit for bit phase 4's
+    Tier 0) and a mesh service's cold and warm drain (tier sums, every
+    mapping feasible). Fails on any check, on a rank's non-zero exit or
+    timeout, if the ranks' results differ, or if a kernel of the mesh
+    path was not launched on every rank. Prints one JSON line; the D-rank
+    walls are those of four processes time-sliced on one card, not a
+    scale-out figure."""
+    import torch.distributed as dist
+    from repro_torch.core.matcher import (build_distributed_match,
+                                          collect_result)
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = pso.PSOConfig(quantized=True, early_exit=True)
+    P = Mb.shape[0]
+    line = dict(world_sizes=[1, 1, MESH_WORLD], backends={}, walls_ms={},
+                note=f"the {MESH_WORLD}-rank walls are {MESH_WORLD} "
+                     f"processes time-sliced on one card, not a scale-out "
+                     f"figure")
+    launches = {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        # a world of one, over NCCL and over gloo on CUDA tensors
+        runs = {}
+        for backend in ("nccl", "gloo"):
+            for c in counters.values():
+                c.reset()
+            mesh_lib.init_group(backend, init_method=f"file://{d}/w1{backend}",
+                                rank=0, world_size=1, device="cuda",
+                                timeout_s=MESH_GROUP_TIMEOUT_S)
+            try:
+                mesh = mesh_lib.make_host_mesh(1, 1, backend=backend,
+                                               device="cuda")
+                line["backends"][f"world1_{backend}"] = str(
+                    dist.get_backend())
+                fn = build_distributed_match(bucket, mesh, cfg, ("data",))
+                # twice: the first pass pays the group's first use
+                for label in ("first", "again"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[backend, label] = [
+                        _host(fn([SEED + b], Qb[b], Gb[b], Mb[b]))
+                        for b in range(P)]
+                    torch.cuda.synchronize()
+                    line["walls_ms"][f"world1_{backend}_match_x{P}_{label}"] \
+                        = (time.perf_counter() - t0) * 1e3
+            finally:
+                dist.destroy_process_group()
+            for k, c in counters.items():
+                if k in MESH_KERNELS and c.count <= 0:
+                    fail(f"phase 4e: kernel {k} was not launched in the "
+                         f"world of one over {backend}")
+                launches[k] += c.count
+        for b in range(P):
+            got = runs["nccl", "again"][b]
+            if not all(_bitwise(got, runs[key][b]) for key in runs):
+                fail(f"phase 4e: {reqs[b]['name']}: the world of one over "
+                     f"NCCL and over gloo (each run twice) differ")
+            r = collect_result(got, order=reqs[b]["order"],
+                               crop=(reqs[b]["q"].n, tgt.n))
+            r4 = phase4["results"][b]
+            if (r.found, r.epochs_run) != (r4.found, r4.epochs_run):
+                fail(f"phase 4e: {reqs[b]['name']}: the world of one found="
+                     f"{r.found} in {r.epochs_run} epochs, phase 4 "
+                     f"found={r4.found} in {r4.epochs_run}")
+            if r.found and not feasible_np(r.mapping, reqs[b]["q"].adj,
+                                           tgt.adj):
+                fail(f"phase 4e: {reqs[b]['name']}: infeasible mapping")
+        log(f"phase 4e: a world of one over NCCL == over gloo, bit for bit; "
+            f"phase 4's outcomes on all {P} problems")
+        # MESH_WORLD ranks on the one card
+        found = [b for b in range(P) if phase4["results"][b].found]
+        if not found:
+            fail("phase 4e: phase 4 found no mapping to shard")
+        missed = [b for b in range(P) if b not in found]
+        pick = found[0]
+        pair = [pick, missed[0] if missed else (pick + 1) % P]
+        outs, rv = _host(phase4["outs"]), _host(phase4["rv"])
+        np.savez(d / "phase4.npz", pick=pick, pair=np.array(pair),
+                 **{f"mb.{k}": v for k, v in outs.items()},
+                 **{f"rv.{k}": v for k, v in rv.items()})
+        cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 str(r), "--mesh-dir", str(d)] for r in range(MESH_WORLD)]
+        t0 = time.perf_counter()
+        try:
+            mesh_lib.run_ranks(cmds, timeout_s=MESH_TIMEOUT_S,
+                               cwd=str(ROOT))
+        except (TimeoutError, mesh_lib.RankFailed) as e:
+            fail(f"phase 4e: {e}")
+        line["walls_ms"]["world4_processes"] = (time.perf_counter()
+                                                - t0) * 1e3
+        recs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(MESH_WORLD)]
+    line["backends"]["world4"] = "cuda:gloo,cpu:gloo"
+    for r, rec in enumerate(recs):
+        bad = [k for k, v in rec["checks"].items() if not v]
+        if bad:
+            fail(f"phase 4e: rank {r} failed {bad}")
+        if rec["digests"] != recs[0]["digests"]:
+            fail(f"phase 4e: rank {r}'s results differ from rank 0's")
+        for k in MESH_KERNELS:
+            if rec["launches"][k] <= 0:
+                fail(f"phase 4e: kernel {k} was not launched on rank {r}")
+        for k in launches:
+            launches[k] += rec["launches"][k]
+    for name in recs[0]["walls_ms"]:
+        line["walls_ms"][f"world4_{name}"] = max(rec["walls_ms"][name]
+                                                for rec in recs)
+    line["checks"] = sorted(recs[0]["checks"])
+    line["match"] = recs[0]["match"]
+    line["drains"] = {label: dict(
+        d_, host_syncs_per_rank=[rec["service"][label]["host_syncs"]
+                                 for rec in recs])
+        for label, d_ in recs[0]["service"].items()}
+    line["launches_per_rank"] = [
+        {k: rec["launches"][k] for k in MESH_KERNELS} for rec in recs]
+    line["collectives_per_rank"] = [rec["collectives"] for rec in recs]
+    log(json.dumps({"mesh": line}))
+    return dict(line=line, launches=split_float(launches))
+
+
 def sched_phase(pso, counters):
     """Phase 4c, the scheduler: the port's ``Simulator`` with the port's
     ``IMMSchedScheduler`` in real mode on the Cloud platform (window 8,
@@ -990,18 +1334,22 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the detailed JSON and profile")
-    out_dir = ap.parse_args().out
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 4e's ranks
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    out_dir = args.out
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank, args.mesh_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import pso
     from repro_torch.core.matcher import (IMMSchedMatcher,
                                           collect_batch_results)
-    from repro_torch.kernels import (_build, argmax_project, cases,
-                                     epoch_fused, finish_fused,
-                                     prune_fixpoint, pso_fitness, pso_update,
-                                     ref, ullmann_refine)
+    from repro_torch.kernels import (_build, cases, pso_fitness, ref,
+                                     ullmann_refine)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
@@ -1137,16 +1485,7 @@ def main():
         log(json.dumps(dict(kernel=name, **rec, max_abs_err=errs[name])))
 
     # 4. the main path
-    counters = {"prune_fixpoint": prune_fixpoint.launches,
-                "edge_fitness": pso_fitness.launches,
-                "edge_fitness_quantized": pso_fitness.launches_quantized,
-                "epoch_fused": epoch_fused.launches,
-                FLOAT_EPOCH: epoch_fused.launches_float,
-                "epoch_finish": finish_fused.launches,
-                "pso_update": pso_update.launches,
-                "ullmann_refine_step": ullmann_refine.launches,
-                "greedy_project": argmax_project.launches_greedy,
-                "masked_argmax": argmax_project.launches_argmax}
+    counters = kernel_counters()
     for c in counters.values():
         c.reset()
     cfg = pso.PSOConfig(quantized=True, early_exit=True)
@@ -1208,6 +1547,7 @@ def main():
             fail(f"kernel {k} was not launched on the main path")
     if found == 0:
         fail("the main path found no mapping at all")
+    phase4 = dict(outs=outs, rv=rv, results=results)
     detail["main_path"] = dict(
         found=found, epochs_run=[r.epochs_run for r in results],
         prune_sweeps=[r.prune_sweeps for r in results],
@@ -1236,6 +1576,13 @@ def main():
     restart_launches = detail["restart"]["launches"]
     del svc
     persist.cleanup()
+
+    # 4e. the mesh: a world of one over NCCL and gloo in this process,
+    # then MESH_WORLD ranks on the one card
+    detail["mesh"] = mesh_phase(pso, reqs, tgt, bucket, Qb, Gb, Mb, phase4,
+                                counters)
+    mesh_launches = detail["mesh"]["launches"]
+    del phase4
 
     # 5. the split (pre-fusion) epoch against the fused one
     detail["split_epoch"] = split_phase(pso, Qb, Gb, Mb, x, counters)
@@ -1275,6 +1622,7 @@ def main():
                          service_launches=service_launches.get(name),
                          sched_launches=sched_launches.get(name),
                          restart_launches=restart_launches.get(name),
+                         mesh_launches=mesh_launches.get(name),
                          launches_per_call=(n_launch / n_calls
                                             if n_calls else None),
                          max_abs_err=errs[name], ms=rec["ms"],

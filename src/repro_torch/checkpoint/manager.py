@@ -18,9 +18,13 @@ reference's, so each package reads the other's checkpoints::
   * ``keep`` bounds the committed steps on disk (oldest removed first).
 
 A leaf's path is its dict keys (in sorted order, as the reference's tree
-flattening visits them) and sequence indices. The reference's
-``restore(state_like, shardings)``, which lays arrays out on a device
-mesh, has no counterpart yet: the port has no mesh.
+flattening visits them) and sequence indices.
+
+  * **elastic restore** — arrays are saved with their global shape;
+    ``restore(state_like, shardings=...)`` lays each out for the
+    restoring job: whole on a device, or this rank's slice of a
+    ``DeviceMesh`` (``launch/mesh.py``), whatever the number of ranks
+    that wrote it.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 
 def _path_names(tree: Any, prefix: Tuple[str, ...] = ()
@@ -50,6 +55,71 @@ def _path_names(tree: Any, prefix: Tuple[str, ...] = ()
         return [leaf for i, v in enumerate(tree)
                 for leaf in _path_names(v, prefix + (str(i),))]
     return [(prefix, tree)]
+
+
+def _is_placement(x) -> bool:
+    return isinstance(x, torch.device) or (
+        isinstance(x, tuple) and len(x) == 2
+        and isinstance(x[0], DeviceMesh))
+
+
+def _placements(tree: Any) -> List[Any]:
+    """The leaves of a ``shardings`` tree in ``_path_names`` order: a
+    ``torch.device`` or a ``(DeviceMesh, dim-spec)`` pair is a leaf."""
+    if _is_placement(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _placements(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _placements(v)]
+    return [tree]
+
+
+def _mesh_slice(arr: np.ndarray, mesh: DeviceMesh, spec) -> np.ndarray:
+    """This rank's slice of ``arr`` under a dim-spec (one entry per
+    leading dim: None, an axis name or a tuple of axis names, as a
+    ``PartitionSpec``): each sharded dim is cut into as many pieces as
+    its axes hold ranks (``np.array_split``, even when divisible, as a
+    ``NamedSharding`` cuts it) and this rank keeps the piece of its
+    coordinates, data-major."""
+    dims = tuple(mesh.mesh_dim_names)
+    for dim, axes in enumerate(tuple(spec)):
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        index, count = 0, 1
+        for a in axes:
+            size = mesh.size(dims.index(a))
+            index = index * size + mesh.get_local_rank(a)
+            count *= size
+        arr = np.array_split(arr, count, axis=dim)[index]
+    return np.require(arr, requirements="C")
+
+
+def _as_template(arr: np.ndarray, like, device=None):
+    """``arr`` in the form of the template leaf ``like``: a tensor of its
+    dtype (on ``device``, else on ``like``'s device), or an array of its
+    dtype; a tensor on ``device`` when a placement was given."""
+    if torch.is_tensor(like):
+        t = torch.from_numpy(np.require(arr, requirements="C")).to(like.dtype)
+        return t.to(like.device if device is None else device)
+    if hasattr(like, "dtype"):
+        arr = arr.astype(like.dtype)
+    if device is not None:
+        return torch.from_numpy(np.require(arr, requirements="C")).to(device)
+    return arr
+
+
+def _unflatten(tree: Any, leaves) -> Any:
+    """``tree`` with its leaves replaced, in ``_path_names`` order, by
+    the next values of the iterator ``leaves``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten(v, leaves) for v in tree)
+    return next(leaves)
 
 
 def _leaf_file(path_names) -> str:
@@ -163,3 +233,44 @@ class CheckpointManager:
         with open(os.path.join(d, "extras.json")) as f:
             extras = json.load(f)
         return arrays, extras
+
+    def restore(self, state_like: Any, step: Optional[int] = None,
+                shardings: Any = None):
+        """Restore the newest (or ``step``-th) checkpoint into the
+        structure of ``state_like``. Returns ``(state, extras)``; each
+        leaf takes its template leaf's form (a tensor of its dtype and
+        device, or an array of its dtype).
+
+        ``shardings`` (a tree matching ``state_like``) re-lays-out each
+        array for the current job, elastic across rank counts: a
+        ``torch.device`` leaf places the whole array there; a
+        ``(DeviceMesh, dim-spec)`` leaf keeps this rank's slice
+        (``_mesh_slice``) on the mesh's device type. Raises
+        ``FileNotFoundError`` when no committed step exists."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
+        d = os.path.join(self.dir, f"step_{step:09d}")
+        leaves = _path_names(state_like)
+        places = (None if shardings is None else _placements(shardings))
+        if places is not None and len(places) != len(leaves):
+            raise ValueError(f"{len(places)} shardings for {len(leaves)} "
+                             f"leaves")
+        out = []
+        for i, (p, like) in enumerate(leaves):
+            arr = np.load(os.path.join(d, _leaf_file(p)))
+            place = None if places is None else places[i]
+            device = None
+            if isinstance(place, tuple):
+                mesh, spec = place
+                arr = _mesh_slice(arr, mesh, spec)
+                device = (torch.device("cuda", torch.cuda.current_device())
+                          if mesh.device_type == "cuda" else
+                          torch.device(mesh.device_type))
+            elif place is not None:
+                device = torch.device(place)
+            out.append(_as_template(arr, like, device))
+        with open(os.path.join(d, "extras.json")) as f:
+            extras = json.load(f)
+        return _unflatten(state_like, iter(out)), extras

@@ -316,11 +316,16 @@ def epoch_found(outs, cfg: PSOConfig) -> torch.Tensor:
 
 
 def scan_epochs_batch(run_one: Callable, carry0, n, m, cfg: PSOConfig,
-                      done0: Optional[torch.Tensor] = None):
+                      done0: Optional[torch.Tensor] = None,
+                      all_found: Optional[Callable] = None):
     """Run ``run_one(carry, t) -> (carry, outs)`` for t < T over P
     problems. With ``cfg.early_exit`` a problem that found a mapping is
     frozen (its carry kept, its outputs the skip placeholders) and the
     loop stops once all are done: one bool fetch per epoch at most.
+    ``all_found`` (the distributed matcher) fuses each epoch's
+    found-predicate across the mesh before it is fetched, so every rank
+    takes the same branch: the live branch holds collectives. ``done0``
+    must likewise be the same on every rank.
     Returns ``(carry, outs stacked over T, epochs_run (P,), host_syncs)``.
     """
     P = carry0[1].shape[0]
@@ -349,7 +354,10 @@ def scan_epochs_batch(run_one: Callable, carry0, n, m, cfg: PSOConfig,
             carry2 = tuple(keep(o, c) for o, c in zip(carry, carry2))
             outs = {k: keep(skip[k], v) for k, v in outs.items()}
             n_run = n_run + (~done).int()
-            done = done | epoch_found(outs, cfg)
+            found = epoch_found(outs, cfg)
+            if all_found is not None:
+                found = all_found(found)
+            done = done | found
         per_epoch.append(outs)
         carry = carry2
     if not cfg.early_exit:
@@ -360,7 +368,8 @@ def scan_epochs_batch(run_one: Callable, carry0, n, m, cfg: PSOConfig,
 
 
 def scan_epochs(run_one: Callable, carry0, n, m, cfg: PSOConfig,
-                done0: Optional[torch.Tensor] = None):
+                done0: Optional[torch.Tensor] = None,
+                all_found: Optional[Callable] = None):
     """Single-problem ``scan_epochs_batch``: ``run_one(carry, t)`` takes
     and returns one problem's carry. Returns ``(carry, outs,
     epochs_run, host_syncs)``."""
@@ -370,7 +379,7 @@ def scan_epochs(run_one: Callable, carry0, n, m, cfg: PSOConfig,
 
     carry, outs, n_run, syncs = scan_epochs_batch(
         run_b, _batch1(carry0), n, m, cfg,
-        None if done0 is None else done0.reshape(1))
+        None if done0 is None else done0.reshape(1), all_found)
     return (_unbatch(carry), {k: v[:, 0] for k, v in outs.items()},
             n_run[0], syncs)
 

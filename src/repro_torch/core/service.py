@@ -1,8 +1,8 @@
 """Online matcher service: a tiered revalidate → rebase → swarm pipeline.
 
-Port of the JAX package's ``core/service.py`` without the mesh paths and
-without the reference's executable cache (the port compiles nothing per
-shape; see ``core/persist.py``). ``pso.match``
+Port of the JAX package's ``core/service.py`` without the reference's
+executable cache (the port compiles nothing per shape; see
+``core/persist.py``). ``pso.match``
 alone is a batch API: every call restarts the swarm from the cold prior
 and takes whatever (n, m) it is given. The ``MatcherService`` turns it
 into a service:
@@ -67,6 +67,21 @@ the prune-sweep calibration counters across a process restart through
 and guarded by ``config_digest``; restored carries go back into the
 device pool.
 
+**On a mesh.** ``MatcherService(mesh=, axis_names=)`` runs each launch
+as the distributed matcher (``core/matcher.py``): the swarm's
+``build_distributed_match`` / ``_batch`` and the sharded revalidation.
+Every rank of the mesh builds the same service and submits and drains
+the same requests in the same order; every decision a drain branches on
+comes from replicated outputs, so each rank takes the same path and
+holds the same store. A request's seed gives each shard its own stream
+(``matcher.shard_streams``). Every output of a distributed launch is a
+plain tensor on this rank's device (gathered or replicated), so a mesh
+service keeps its carries in its own ``DeviceCarryPool`` like a
+single-device one (the reference skips its pool here only because its
+outputs carry mesh shardings). One rank writes a snapshot, behind a
+barrier, that every rank restores. ``host_syncs`` counts this rank's
+own fetches.
+
 Per-tier statistics (launches / problems checked / hits / wall time) are
 exported via ``stats`` / ``stats_dict()``.
 """
@@ -87,10 +102,15 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import persist, pso
 from repro_torch.core.graphs import (Graph, compatibility_mask,
                                      topological_relabel)
-from repro_torch.core.matcher import (MatchResult, collect_batch_results,
-                                      collect_result)
+from repro_torch.core.matcher import (MatchResult,
+                                      build_distributed_match,
+                                      build_distributed_match_batch,
+                                      build_distributed_revalidate_batch,
+                                      collect_batch_results, collect_result,
+                                      shard_streams)
 from repro_torch.core.preemptible_dag import pad_problem, shape_bucket
 from repro_torch.kernels import backend as kernel_backend
+from repro_torch.launch import mesh as mesh_lib
 
 @dataclasses.dataclass
 class TierStats:
@@ -777,10 +797,12 @@ def _tree_leaves(tree):
 
 
 class MatcherService:
-    """Warm-start online wrapper around Algorithm 1, on one device.
+    """Warm-start online wrapper around Algorithm 1.
 
     ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``; without
-    a card the constructor raises (no silent CPU fallback).
+    a card the constructor raises (no silent CPU fallback). Single-device
+    by default; pass ``mesh`` + ``axis_names`` to run each launch as the
+    distributed matcher on every rank of the mesh (module docstring).
     ``tiered=False`` disables the staged pipeline and restores the uniform
     one-swarm-launch-per-batch drain; ``similarity=False`` keeps the
     pipeline but disables Tier-1 rebases; ``pipelined=False`` restores
@@ -796,6 +818,7 @@ class MatcherService:
     """
 
     def __init__(self, cfg: Optional[pso.PSOConfig] = None, *,
+                 mesh=None, axis_names: Sequence[str] = ("data",),
                  device="cuda",
                  cache_capacity: int = 16, warm_capacity: int = 256,
                  warm_start: bool = True, early_exit: bool = True,
@@ -814,6 +837,8 @@ class MatcherService:
         if early_exit and not cfg.early_exit:
             cfg = cfg.replace(early_exit=True)
         self.cfg = cfg
+        self.mesh = mesh
+        self.axis_names = tuple(axis_names)
         self.cache_capacity = max(int(cache_capacity), 1)
         self.warm_start = warm_start
         self.n_multiple = n_multiple
@@ -862,7 +887,7 @@ class MatcherService:
             self.cfg,
             extra=("svc-v2", torch.__version__, self.device.type,
                    self.n_multiple, self.m_multiple, self.batch_classes,
-                   False))
+                   self.mesh is not None))
 
     def import_state(self, exact_items, sim_items) -> Tuple[int, int]:
         """Load exported key/carry lists (``CarryStore.export_state``
@@ -919,6 +944,16 @@ class MatcherService:
         cfg = self.cfg
 
         def build():
+            if self.mesh is not None:
+                dist_fn = build_distributed_match(bucket, self.mesh, cfg,
+                                                  self.axis_names)
+                D = mesh_lib.mesh_axes(self.mesh, self.axis_names).size
+
+                def fn(Q, G, mask, carry0, stream):
+                    return dist_fn(shard_streams(stream, D), Q, G, mask,
+                                   carry0)
+                return fn
+
             def fn(Q, G, mask, carry0, stream):
                 return pso.match(Q, G, mask, cfg, carry0, stream=stream)
             return fn
@@ -931,6 +966,10 @@ class MatcherService:
         cfg = self.cfg
 
         def build():
+            if self.mesh is not None:
+                return build_distributed_match_batch(
+                    bucket, self.mesh, cfg, self.axis_names, bclass)
+
             def fn(streams, Qb, Gb, maskb, carry0):
                 return pso.match_batch(Qb, Gb, maskb, cfg, carry0,
                                        streams=streams)
@@ -945,6 +984,11 @@ class MatcherService:
         donate = self.donate_buffers
 
         def build():
+            if self.mesh is not None:
+                return build_distributed_revalidate_batch(
+                    bucket, self.mesh, cfg, self.axis_names, bclass,
+                    donate=donate)
+
             def fn(Qb, Gb, maskb, carry0):
                 return pso.revalidate_batch(Qb, Gb, maskb, cfg, carry0,
                                             donate=donate)
@@ -1007,7 +1051,10 @@ class MatcherService:
         snapshot's metadata; the scheduler keeps its tier-predictor
         posteriors there. Entries whose keys cannot be encoded are skipped
         and counted (``snapshot_skipped_keys``). Returns the committed
-        step. Requires ``persist_dir``."""
+        step. Requires ``persist_dir``. On a mesh every rank calls it:
+        each picks the step, a barrier, then the mesh's first rank writes
+        (every rank holds the same store) and a second barrier holds the
+        others until the step is committed."""
         if self._ckpt is None:
             raise RuntimeError("save_snapshot needs persist_dir "
                                "(or REPRO_PERSIST_DIR)")
@@ -1042,8 +1089,13 @@ class MatcherService:
         if step is None:
             latest = self._ckpt.latest_step()
             step = 0 if latest is None else latest + 1
-        self._ckpt.save(step, arrays, extras=extras)
-        self._ckpt.wait()
+        if self.mesh is not None:
+            mesh_lib.barrier()   # every rank has read the step: now write
+        if self.mesh is None or mesh_lib.mesh_writer(self.mesh):
+            self._ckpt.save(step, arrays, extras=extras)
+            self._ckpt.wait()
+        if self.mesh is not None:
+            mesh_lib.barrier()
         self.stats.snapshot_saves += 1
         return step
 
@@ -1099,7 +1151,8 @@ class MatcherService:
         exact. Requires ``persist_dir``."""
         step = self.save_snapshot(step=step)
         twin = MatcherService(
-            self.cfg, device=self.device,
+            self.cfg, mesh=self.mesh, axis_names=self.axis_names,
+            device=self.device,
             cache_capacity=self.cache_capacity,
             warm_capacity=self._carries.capacity,
             warm_start=self.warm_start, n_multiple=self.n_multiple,

@@ -49,14 +49,10 @@ def ullmann_refine_candidates_reference(S, M_proj, Q, G, mask, *,
     return M_hat.to(torch.uint8), cand
 
 
-def elite_consensus_reference(S_all, f_all, *, elite_k: int,
-                              consensus_temp: float):
-    """S̄: softmax-weighted average of the ``elite_k`` fittest particles.
-
-    ``S_all`` (…, N, n, m), ``f_all`` (…, N). The top-k is ``elite_k``
-    rounds of argmax with the winner masked to finfo.min, which orders
-    ties lower index first like ``jax.lax.top_k``. Returns
-    ``(weighted, weight_total, w)``."""
+def elite_top_k(f_all, elite_k: int):
+    """``(idx, f_top)`` of the ``elite_k`` largest of ``f_all`` (…, N):
+    ``elite_k`` rounds of argmax with the winner masked to finfo.min,
+    which orders ties lower index first like ``jax.lax.top_k``."""
     f_work = f_all.float().clone()
     idx, f_top = [], []
     for _ in range(elite_k):
@@ -64,8 +60,15 @@ def elite_consensus_reference(S_all, f_all, *, elite_k: int,
         idx.append(b)
         f_top.append(f_work.gather(-1, b))
         f_work = f_work.scatter(-1, b, ref.NEG)
-    idx = torch.cat(idx, -1)
-    f_top = torch.cat(f_top, -1)
+    return torch.cat(idx, -1), torch.cat(f_top, -1)
+
+
+def elite_consensus_reference(S_all, f_all, *, elite_k: int,
+                              consensus_temp: float):
+    """S̄: softmax-weighted average of the ``elite_k`` fittest particles
+    (``elite_top_k``). ``S_all`` (…, N, n, m), ``f_all`` (…, N). Returns
+    ``(weighted, weight_total, w)``."""
+    idx, f_top = elite_top_k(f_all, elite_k)
     f_norm = ref.fdiv(f_top - f_top[..., :1], consensus_temp)
     w = torch.softmax(f_norm, -1)
     gidx = idx[..., None, None].expand(*idx.shape, *S_all.shape[-2:])

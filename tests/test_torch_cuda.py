@@ -822,3 +822,94 @@ def test_real_mode_simulation_cuda_suite_matches_ref_suite_on_card(
         assert (a.mapping is None) == (b.mapping is None)
         if a.mapping is not None:
             assert (a.mapping == b.mapping).all()
+
+
+# ------------------------- the distributed matcher -------------------------
+
+MESH_SCRIPT = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.core import pso
+from repro_torch.core.matcher import (build_distributed_match,
+                                      build_distributed_match_batch)
+from repro_torch.kernels import cases
+from repro_torch.launch import mesh as mesh_lib
+
+mode, rank, world, store, out_path = sys.argv[1:6]
+rank, world = int(rank), int(world)
+torch.backends.cuda.matmul.allow_tf32 = False
+Qb, Gb, Mb = (t.cuda() for t in cases.random_problem(4, 20, 40, 3))
+cfg = pso.PSOConfig(num_particles=32, epochs=3, inner_steps=6,
+                    quantized=True, early_exit=True)
+out = {}
+if mode == "world1":
+    for backend in ("nccl", "gloo"):
+        mesh_lib.init_group(backend, init_method=f"file://{store}.{backend}",
+                            rank=0, world_size=1, device="cuda",
+                            timeout_s=60)
+        mesh = mesh_lib.make_host_mesh(1, 1, backend=backend, device="cuda")
+        fn = build_distributed_match((20, 40), mesh, cfg, ("data",))
+        for b in range(4):
+            for k, v in fn([10 + b], Qb[b], Gb[b], Mb[b]).items():
+                out[f"{backend}.{b}.{k}"] = np.asarray(
+                    v.cpu() if torch.is_tensor(v) else v)
+        dist.destroy_process_group()
+else:
+    mesh_lib.init_group("gloo", init_method=f"file://{store}", rank=rank,
+                        world_size=world, device="cuda", timeout_s=60)
+    mesh = mesh_lib.make_host_mesh(world, 1, backend="gloo", device="cuda")
+    fn = build_distributed_match_batch((20, 40), mesh, cfg, ("data",), 4)
+    for k, v in fn([10 + b for b in range(4)], Qb, Gb, Mb).items():
+        out[k] = np.asarray(v.cpu() if torch.is_tensor(v) else v)
+np.savez(out_path, **out)
+print("MESH-OK")
+"""
+
+
+def _mesh_run(tmp_path, mode, world):
+    import os
+    import subprocess
+    import sys
+    from repro_torch.launch import mesh as mesh_lib
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    cmds = [[sys.executable, "-c", MESH_SCRIPT, mode, str(r), str(world),
+             str(tmp_path / "store"), str(tmp_path / f"r{r}.npz")]
+            for r in range(world)]
+    for _, so, se in mesh_lib.run_ranks(cmds, timeout_s=300, env=env):
+        assert "MESH-OK" in so, se[-4000:]
+    import numpy as np
+    return [dict(np.load(tmp_path / f"r{r}.npz")) for r in range(world)]
+
+
+def _single_batch(device):
+    Qb, Gb, Mb = (t.to(device) for t in cases.random_problem(4, 20, 40, 3))
+    cfg = pso.PSOConfig(num_particles=32, epochs=3, inner_steps=6,
+                        quantized=True, early_exit=True)
+    return pso.match_batch(Qb, Gb, Mb, cfg, streams=[10 + b for b in range(4)])
+
+
+def test_mesh_world_of_one_nccl_equals_gloo_on_card(device, tmp_path):
+    """A world of one over NCCL and over gloo on CUDA tensors gives the
+    same bits, and the single-device ``match_batch``'s outcomes."""
+    out = _mesh_run(tmp_path, "world1", 1)[0]
+    for k in (k for k in out if k.startswith("nccl.")):
+        assert (out[k] == out["gloo." + k[5:]]).all(), k
+    want = _single_batch(device)
+    for b in range(4):
+        assert int(out[f"nccl.{b}.epochs_run"]) == int(want["epochs_run"][b])
+        assert bool(out[f"nccl.{b}.feasible"].any()) == \
+            bool(want["feasible"][:, b].any())
+
+
+def test_mesh_problem_axis_batch_on_card(device, tmp_path):
+    """Two ranks on the one card (gloo on CUDA tensors): the problem-axis
+    ``match_batch`` is the single-device one bit for bit, on both."""
+    outs = _mesh_run(tmp_path, "batch", 2)
+    want = _single_batch(device)
+    for out in outs:
+        for k, v in want.items():
+            if k != "host_syncs":
+                assert (out[k] == v.cpu().numpy()).all(), k

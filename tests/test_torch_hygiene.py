@@ -91,6 +91,39 @@ def test_service_defaults_to_the_card():
         MatcherService(cfg).match(q, g)
 
 
+@pytest.mark.parametrize("name", ["quickstart", "fault_tolerant_rematch"])
+def test_examples_default_to_the_card(name):
+    """``python -m repro_torch.examples.<name>`` raises without a card
+    unless given ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": ""}
+    cmd = [sys.executable, "-m", f"repro_torch.examples.{name}"]
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    out = subprocess.run(cmd + ["--device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_mesh_matcher_defaults_to_the_card():
+    """A mesh ``IMMSchedMatcher`` and ``MatcherService`` run on the card
+    unless asked for the CPU, as the single-device ones do."""
+    from repro_torch.core import pso
+    from repro_torch.core.matcher import IMMSchedMatcher
+    from repro_torch.core.service import MatcherService
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    q, g = _tiny()
+    cfg = pso.PSOConfig(num_particles=4, epochs=1, inner_steps=2)
+    with pytest.raises(RuntimeError):
+        IMMSchedMatcher(cfg, mesh=object()).match(q, g)
+    with pytest.raises(RuntimeError):
+        MatcherService(cfg, mesh=object())
+
+
 def test_simulator_and_scheduler_default_to_the_card():
     """A simulation with IMMSched builds its matcher service on
     ``SimConfig.device``, the card by default, in analytic mode too."""

@@ -89,7 +89,23 @@ Phases, in order; any failure exits non-zero:
      and the ``ref`` suite on the same draws must give the same first
      epoch;
   7. profile: device time by kernel over one more ``match_batch`` of the
-     burst, and the device's idle share of its wall time.
+     burst, and the device's idle share of its wall time;
+  8. the LM serve path (``repro_torch.launch.serve``; no hand kernel: the
+     JAX package's LM stack has no Pallas kernel): (a) qwen2.5-3b and
+     qwen2-vl-7b at the reference smoke tests' size, float32, on the card
+     against the CPU on the same weights: train logits, prefill and 8
+     greedy decode steps within rtol 2e-4 / atol 2e-4, tokens equal; (b)
+     qwen1.5-0.5b at its published size (24 layers, 463,987,712
+     parameters, float32 weights, bfloat16 compute) and (c) qwen2.5-3b
+     and qwen2-vl-7b at full width with 4 layers, each served twice with
+     launch/serve's defaults (batch 4, prompt 64, 32 tokens): finite
+     logits, every token in the vocabulary, and the teacher-forcing
+     identity (prefill over t + 1 tokens against prefill over t and one
+     decode step) within ``SERVE_TF_ULPS`` bfloat16 units. One ``serve``
+     JSON line: per model the parameters, prefill ms, decode ms a token
+     (median after the first step), tokens/s, the first call's ms, peak
+     memory, the decode bound (parameter bytes at 3.35 TB/s) and one
+     decode step under the profiler (launches, device time, idle share).
 
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
@@ -194,6 +210,25 @@ MESH_TIMEOUT_S = 480
 MESH_GROUP_TIMEOUT_S = 120
 MESH_KERNELS = ("prune_fixpoint", "edge_fitness_quantized", "epoch_fused",
                 "epoch_finish")
+#: phase 8: the LM serve path. launch/serve's defaults; qwen1.5-0.5b at
+#: its published size (full width, full depth); qwen2.5-3b and qwen2-vl-7b
+#: at full width and SERVE_WIDE_LAYERS layers; the card against the CPU at
+#: the reference smoke tests' size, float32, within SERVE_TOL
+SERVE_ARGS = dict(batch=4, prompt_len=64, gen=32)
+SERVE_FULL = "qwen1.5-0.5b"
+SERVE_WIDE = ("qwen2.5-3b", "qwen2-vl-7b")
+SERVE_WIDE_LAYERS = 4
+SERVE_TINY = ("qwen2.5-3b", "qwen2-vl-7b")
+SERVE_TINY_ARGS = dict(batch=4, prompt_len=16, gen=9)   # 8 decode steps
+SERVE_TOL = dict(rtol=2e-4, atol=2e-4)
+#: the teacher-forcing identity at bfloat16 compute, in units in the last
+#: place of the largest |logit|: prefill over t + 1 tokens (the repeated-K
+#: products) and prefill over t then one decode step (the grouped
+#: products) sum in other orders, and every block rounds its products,
+#: norms and residual adds to bfloat16 (8 significant bits), so a logit
+#: may move by a few units; 8 units leaves room and still fails a wrong
+#: position, mask or cache entry, which moves logits by O(1)
+SERVE_TF_ULPS = 8
 
 
 def log(*a):
@@ -1286,6 +1321,170 @@ def sched_phase(pso, counters):
     return dict(real=line, analytic=analytic, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the LM serve path
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(x):
+    """One unit in the last place of bfloat16 at magnitude ``x``."""
+    e = int(np.floor(np.log2(max(float(x), 2.0 ** -126))))
+    return 2.0 ** (e - 7)
+
+
+def _teacher_forcing(model, t, seed):
+    """Prefill over t + 1 tokens against prefill over t and one decode
+    step at position t (patches first for a vlm): (max |diff|, the
+    tolerance, max |logit|)."""
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models.model import VLM_PATCHES
+    cfg, dev = model.cfg, model.device
+    full = prompt_batch(model, SERVE_ARGS["batch"], t + 1, seed)
+    part = dict(full, tokens=full["tokens"][:, :t])
+    step = {"tokens": full["tokens"][:, t:t + 1]}
+    at = t + (VLM_PATCHES if cfg.family == "vlm" else 0)
+    if cfg.mrope:
+        B = SERVE_ARGS["batch"]
+        for b, S in ((full, at + 1), (part, at)):
+            b["positions3"] = torch.arange(S, dtype=torch.int32,
+                                           device=dev).expand(3, B, S)
+        step["positions3"] = torch.full((3, B, 1), at, dtype=torch.int32,
+                                        device=dev)
+    lg_full, _ = model.prefill(full, max_len=at + 8)
+    _, caches = model.prefill(part, max_len=at + 8)
+    lg_step, _ = model.decode(step, caches, at)
+    a, b = lg_full[:, 0].float(), lg_step[:, 0].float()
+    top = float(a.abs().max())
+    return float((a - b).abs().max()), SERVE_TF_ULPS * _bf16_ulp(top), top
+
+
+def serve_phase():
+    """Phase 8: the LM serve path (``repro_torch.launch.serve``) on the
+    card. (a) the smoke tests' size, float32: the card against the CPU on
+    the same weights (drawn on the CPU, carried through
+    ``params_to_numpy`` / ``params_from_numpy``), train logits, prefill
+    and 8 greedy decode steps within ``SERVE_TOL``, tokens equal; (b)
+    qwen1.5-0.5b at its published size and (c) qwen2.5-3b and qwen2-vl-7b
+    at full width, ``SERVE_WIDE_LAYERS`` layers, weights from a seeded
+    generator on the card, each served twice with launch/serve's
+    defaults: finite logits, every token in the vocabulary, the
+    teacher-forcing identity within ``SERVE_TF_ULPS`` units. Turns off
+    cuBLAS's reduced-precision reduction for bfloat16 products (XLA
+    accumulates them in float32), as ``launch/serve.py``'s ``main``
+    does."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch, serve
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    params_to_numpy)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    out = {"parity": [], "models": []}
+    for arch in SERVE_TINY:
+        cfg = tiny_config(get_config(arch))
+        cpu = build_model(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(SEED))
+        card = params_from_numpy(build_model(cfg, device="cuda"),
+                                 params_to_numpy(cpu))
+        want = serve(cpu, seed=SEED + 1, **SERVE_TINY_ARGS)
+        got = serve(card, seed=SEED + 1, **SERVE_TINY_ARGS)
+        err = 0.0
+        for g, w in zip(got["logits"], want["logits"]):
+            try:
+                torch.testing.assert_close(g.cpu(), w, **SERVE_TOL)
+            except AssertionError as e:
+                fail(f"phase 8: {arch} (tiny) logits on the card differ "
+                     f"from the CPU's: {e}")
+            err = max(err, float((g.cpu() - w).abs().max()))
+        if not torch.equal(got["tokens"].cpu(), want["tokens"]):
+            fail(f"phase 8: {arch} (tiny) greedy tokens on the card differ "
+                 f"from the CPU's")
+        batch = prompt_batch(cpu, SERVE_TINY_ARGS["batch"],
+                             SERVE_TINY_ARGS["prompt_len"], SEED + 2)
+        with torch.no_grad():
+            tl_w = cpu.train_logits(batch)
+            tl_g = card.train_logits({k: v.cuda() for k, v in
+                                      batch.items()}).cpu()
+        try:
+            torch.testing.assert_close(tl_g, tl_w, **SERVE_TOL)
+        except AssertionError as e:
+            fail(f"phase 8: {arch} (tiny) train logits on the card differ "
+                 f"from the CPU's: {e}")
+        err = max(err, float((tl_g - tl_w).abs().max()))
+        out["parity"].append(dict(arch=arch, max_abs_err=err,
+                                  steps=SERVE_TINY_ARGS["gen"] - 1))
+        log(f"  {arch} tiny: card == CPU within {SERVE_TOL} (max abs err "
+            f"{err:.3g}), tokens equal")
+    wide = [(SERVE_FULL, None)] + [(a, SERVE_WIDE_LAYERS) for a in SERVE_WIDE]
+    for arch, layers in wide:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        n_params = model.num_params()
+        pbytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+        cold = serve(model, seed=SEED + 1, **SERVE_ARGS)
+        warm = serve(model, seed=SEED + 1, **SERVE_ARGS)
+        peak = torch.cuda.max_memory_allocated()
+        for name, r in (("cold", cold), ("warm", warm)):
+            if not all(bool(torch.isfinite(l).all()) for l in r["logits"]):
+                fail(f"phase 8: {arch}: non-finite logits ({name})")
+            toks = r["tokens"]
+            if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+                fail(f"phase 8: {arch}: a token outside the vocabulary")
+        # measurement only: one more decode step (the buffer's last
+        # position) under the profiler: launches and the card's idle share
+        step = {"tokens": warm["tokens"][:, -1:]}
+        at = warm["max_len"] - 1
+        if cfg.mrope:
+            step["positions3"] = torch.full(
+                (3, SERVE_ARGS["batch"], 1), at, dtype=torch.int32,
+                device="cuda")
+        _, wall_ms, rows = profiled(
+            lambda: model.decode(step, warm["caches"], at))
+        busy = sum(r[1] for r in rows)
+        step_profile = dict(
+            wall_ms=wall_ms, device_busy_ms=busy,
+            idle_share=1.0 - busy / max(wall_ms, 1e-9),
+            device_launches=sum(r[2] for r in rows),
+            top=[dict(kernel=k[:60], ms=ms, calls=c)
+                 for k, ms, c in rows[:5]])
+        tf_err, tf_tol, tf_top = _teacher_forcing(
+            model, SERVE_ARGS["prompt_len"], SEED + 3)
+        if not tf_err <= tf_tol:
+            fail(f"phase 8: {arch}: teacher forcing off by {tf_err} "
+                 f"(tolerance {tf_tol}, max |logit| {tf_top})")
+        rec = dict(
+            arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+            params=n_params, param_bytes=pbytes,
+            param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+            **SERVE_ARGS,
+            prefill_ms=warm["prefill_ms"],
+            decode_ms_per_token=warm["step_ms_median"],
+            decode_ms=warm["decode_ms"], tok_s=warm["tok_s"],
+            first_prefill_ms=cold["prefill_ms"],
+            first_decode_step_ms=cold["first_step_ms"],
+            cold_decode_ms_per_token=cold["step_ms_median"],
+            cold_tok_s=cold["tok_s"], peak_memory_bytes=peak,
+            bound_decode_ms=pbytes / HBM_BYTES_S * 1e3,
+            bound_decode_ms_bf16=n_params * 2 / HBM_BYTES_S * 1e3,
+            teacher_forcing_max_abs=tf_err, teacher_forcing_tol=tf_tol,
+            decode_step_profile=step_profile,
+            sample=warm["tokens"][0][:8].tolist())
+        out["models"].append(rec)
+        log(f"  {arch} ({cfg.num_layers} layers, {n_params} params): "
+            f"prefill {rec['prefill_ms']:.2f} ms, decode "
+            f"{rec['decode_ms_per_token']:.3f} ms a token "
+            f"({rec['tok_s']:.1f} tok/s), bound {rec['bound_decode_ms']:.3f}"
+            f" ms; teacher forcing {tf_err:.3g} <= {tf_tol:.3g}")
+        del model, cold, warm
+    torch.cuda.empty_cache()
+    return out
+
+
 def profiled(fn):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
@@ -1607,6 +1806,12 @@ def main():
         out_dir.mkdir(parents=True, exist_ok=True)
     detail["profile"] = profile_burst(pso, Qb, Gb, Mb, cfg, out_dir)
     log(f"profile: {json.dumps(detail['profile']['summary'])}")
+
+    # 8. the LM serve path: the card against the CPU, then qwen1.5-0.5b at
+    # its published size and two models at full width
+    card_now = card_line()
+    detail["serve"] = dict(card=card_now, **serve_phase())
+    log(json.dumps({"serve": detail["serve"]}))
 
     kern = []
     split_calls = detail["split_epoch"]["calls"]

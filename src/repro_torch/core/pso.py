@@ -45,8 +45,8 @@ _NEG_INF = float("-inf")
 @dataclasses.dataclass(frozen=True)
 class PSOConfig:
     """Static configuration of Algorithm 1, field for field the JAX
-    package's ``PSOConfig``; ``backend`` is ``"auto"``, ``"ref"`` or
-    ``"cuda"``."""
+    package's ``PSOConfig``; ``backend`` is ``"auto"``, ``"ref"``,
+    ``"cuda"`` or the name of a suite added with ``register_backend``."""
     num_particles: int = 64          # N
     epochs: int = 4                  # T
     inner_steps: int = 12            # K
@@ -60,7 +60,8 @@ class PSOConfig:
     refine_threshold: float = 0.5    # S ≥ τ·rowmax(S) enters the candidate set
     refine_iters: int = 6            # Ullmann pruning sweeps
     quantized: bool = False          # uint8 S + int32-MAC fitness (§3.4)
-    backend: str = "auto"            # "auto" (= "cuda") | "ref" | "cuda"
+    backend: str = "auto"            # "auto" | "ref" | "cuda" | a registered
+                                     # suite (kernels/backend.py)
     prune_mask: bool = True          # global Ullmann+injectivity pre-prune
     prune_iters: int = 0             # 0 = iterate the pre-prune to fixpoint
     early_exit: bool = False         # stop epochs once a good mapping exists
@@ -77,12 +78,12 @@ class PSOConfig:
     @classmethod
     def from_dict(cls, d: Dict) -> "PSOConfig":
         """Build from ``dataclasses.asdict`` of a JAX ``PSOConfig``. A JAX
-        backend name the port does not have (``pallas``, ``interpret``)
-        becomes ``"auto"``."""
+        backend name the port has not registered (``pallas``,
+        ``interpret``) becomes ``"auto"``."""
         names = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in names}
-        if str(kw.get("backend", "auto")).lower() not in ("auto", "ref",
-                                                          "cuda"):
+        if str(kw.get("backend", "auto")).strip().lower() not in (
+                "auto", *kernel_backend.registered_backends()):
             kw["backend"] = "auto"
         return cls(**kw)
 

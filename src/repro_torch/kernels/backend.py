@@ -7,8 +7,12 @@ Port of the JAX package's ``kernels/backend.py``. Two suites:
   * ``cuda`` — the dispatch layer (``kernels/ops.py``): hand-written CUDA
     kernels for CUDA tensors, the plain versions for CPU tensors.
 
-``auto`` resolves to ``cuda``. Selection precedence: an explicit name,
-then ``PSOConfig.backend`` when it is not ``"auto"``.
+Selection precedence, as the reference's: an explicit name, then
+``PSOConfig.backend`` unless it is ``"auto"`` or empty, then the
+``REPRO_KERNEL_BACKEND`` environment variable, then the platform default
+``cuda``. ``register_backend`` adds a suite (or replaces one) under its
+lower-cased name; a suite's ``ops_backend`` is the dispatch tag its
+inherited kernels run on.
 
 Kernels without a TPU kernel behind them (structured projection,
 feasibility, injectivity, the quantisation helpers, the elite consensus)
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import types
 from typing import Dict, Optional, Tuple
 
@@ -56,6 +61,13 @@ KERNEL_NAMES: Tuple[str, ...] = (
     "row_normalize_quantized",
 )
 
+ENV_VAR = "REPRO_KERNEL_BACKEND"
+
+#: Dispatch tags: ``cuda`` is the dispatch layer (the hand kernels on CUDA
+#: tensors, their plain versions on CPU tensors), ``ref`` the plain
+#: versions on every device.
+_OPS_TAGS = ("cuda", "ref")
+
 #: The plain versions under the dispatch layer's names.
 _PLAIN = types.SimpleNamespace(
     edge_fitness=edge_fitness_reference,
@@ -71,11 +83,26 @@ _PLAIN = types.SimpleNamespace(
 
 
 class KernelBackend:
-    """One kernel suite: every matcher kernel behind a uniform surface."""
+    """One kernel suite: every matcher kernel behind a uniform surface.
 
-    def __init__(self, name: str):
+    ``name`` is the registry key, lower-cased (selection lower-cases too,
+    so any casing resolves). ``ops_backend`` is the dispatch tag of the
+    kernels the suite does not override: ``"cuda"`` or ``"ref"``; a suite
+    named after a tag takes that tag, any other the platform default
+    ``"cuda"``."""
+
+    def __init__(self, name: str, ops_backend: Optional[str] = None):
         self.name = name.strip().lower()
-        self._ops = ops if self.name == "cuda" else _PLAIN
+        if ops_backend is None:
+            ops_backend = self.name if self.name in _OPS_TAGS else "cuda"
+        if ops_backend not in _OPS_TAGS:
+            raise ValueError(
+                f"ops_backend {ops_backend!r} is not a dispatch tag the "
+                f"dispatch layer understands ({_OPS_TAGS}); custom suites "
+                f"pick the tag their inherited kernels run on (or omit it "
+                f"for the platform default)")
+        self.ops_backend = ops_backend
+        self._ops = ops if ops_backend == "cuda" else _PLAIN
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"KernelBackend({self.name!r})"
@@ -226,20 +253,34 @@ class KernelBackend:
         return ref.row_normalize_quantized(S_q, mask, scale)
 
 
-_REGISTRY: Dict[str, KernelBackend] = {
-    name: KernelBackend(name) for name in ("ref", "cuda")}
+_REGISTRY: Dict[str, KernelBackend] = {}
+
+
+def register_backend(backend: KernelBackend) -> KernelBackend:
+    """Register (or replace) a suite under ``backend.name``."""
+    _REGISTRY[backend.name] = backend
+    return backend
 
 
 def registered_backends() -> Tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+for _name in _OPS_TAGS:
+    register_backend(KernelBackend(_name))
+del _name
+
+
 def resolve_backend_name(name: Optional[str] = None, config=None) -> str:
-    """Explicit name, then ``config.backend`` unless ``"auto"``, then
-    ``cuda``."""
-    for cand in (name, getattr(config, "backend", None)):
-        if cand and str(cand).strip().lower() != "auto":
-            return str(cand).strip().lower()
+    """An explicit name, then ``config.backend``, then the
+    ``REPRO_KERNEL_BACKEND`` variable, each unless ``"auto"`` or empty;
+    then the platform default ``cuda``."""
+    for cand in (name, getattr(config, "backend", None),
+                 os.environ.get(ENV_VAR)):
+        if cand:
+            cand = str(cand).strip().lower()
+            if cand and cand != "auto":
+                return cand
     return "cuda"
 
 
@@ -249,7 +290,9 @@ def get_backend(name: Optional[str] = None, *, config=None) -> KernelBackend:
         return _REGISTRY[resolved]
     except KeyError:
         raise KeyError(f"unknown kernel backend {resolved!r}; registered: "
-                       f"{sorted(_REGISTRY)}") from None
+                       f"{sorted(_REGISTRY)} (register custom suites with "
+                       f"repro_torch.kernels.backend.register_backend)"
+                       ) from None
 
 
 def for_config(cfg) -> KernelBackend:

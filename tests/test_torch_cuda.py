@@ -913,3 +913,31 @@ def test_mesh_problem_axis_batch_on_card(device, tmp_path):
         for k, v in want.items():
             if k != "host_syncs":
                 assert (out[k] == v.cpu().numpy()).all(), k
+
+
+def test_lm_serve_on_card_equals_the_cpu(device):
+    """qwen2.5-3b at the reference smoke tests' size (4 query heads over 2
+    KV heads, QKV bias, float32), served on the card and on the CPU with
+    the same weights: every step's logits within rtol 2e-4 / atol 2e-4,
+    the same greedy tokens, and the same train logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch, serve
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    params_to_numpy)
+    cfg = tiny_config(get_config("qwen2.5-3b"))
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = params_from_numpy(build_model(cfg, device=device),
+                             params_to_numpy(cpu))
+    want = serve(cpu, batch=4, prompt_len=16, gen=9, seed=1)
+    got = serve(card, batch=4, prompt_len=16, gen=9, seed=1)
+    assert torch.equal(got["tokens"].cpu(), want["tokens"])
+    for g, w in zip(got["logits"], want["logits"]):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-4)
+    batch = prompt_batch(cpu, 4, 16, seed=2)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            card.train_logits({k: v.to(device) for k, v in
+                               batch.items()}).cpu(),
+            cpu.train_logits(batch), rtol=2e-4, atol=2e-4)

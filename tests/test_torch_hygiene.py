@@ -234,3 +234,28 @@ def test_bindings_follow_a_swapped_library(monkeypatch):
     assert kb.bind("argmax_project", "masked_argmax", types) is fa
     assert (a.lookups, b.lookups) == (1, 1)
     assert kb.bind("argmax_project", "greedy_project", types).lib is a
+
+
+def test_lm_model_and_serve_default_to_the_card():
+    """``build_model`` and ``python -m repro_torch.launch.serve`` run on
+    the card unless asked for the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import build_model
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg = tiny_config(get_config("qwen1.5-0.5b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "CUDA_VISIBLE_DEVICES": ""}
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--reduced"]
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    out = subprocess.run(cmd + ["--device", "cpu", "--prompt-len", "8",
+                                "--gen", "3"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "tok/s" in out.stdout

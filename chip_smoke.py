@@ -94,18 +94,30 @@ Phases, in order; any failure exits non-zero:
      JAX package's LM stack has no Pallas kernel): (a) qwen2.5-3b and
      qwen2-vl-7b at the reference smoke tests' size, float32, on the card
      against the CPU on the same weights: train logits, prefill and 8
-     greedy decode steps within rtol 2e-4 / atol 2e-4, tokens equal; (b)
-     qwen1.5-0.5b at its published size (24 layers, 463,987,712
-     parameters, float32 weights, bfloat16 compute) and (c) qwen2.5-3b
-     and qwen2-vl-7b at full width with 4 layers, each served twice with
+     greedy decode steps within rtol 2e-4 / atol 2e-4, tokens equal; the
+     same for deepseek-v2-236b, arctic-480b, xlstm-1.3b, zamba2-7b and
+     seamless-m4t-medium, their free-running steps held with float32
+     caches and each bfloat16-cache step from the CPU's caches
+     (``_tiny_family_parity``); (b) qwen1.5-0.5b at its published size
+     (24 layers, 463,987,712 parameters, float32 weights, bfloat16
+     compute), (c) qwen2.5-3b and qwen2-vl-7b at full width with 4
+     layers, and (d) those five at full width (deepseek 3 layers: its
+     dense block0 and 2 MoE blocks; arctic 1 MoE block; xlstm, zamba2
+     and seamless at their published depths; the parameter counts the
+     reference's initialisers give), each served twice with
      launch/serve's defaults (batch 4, prompt 64, 32 tokens): finite
      logits, every token in the vocabulary, and the teacher-forcing
      identity (prefill over t + 1 tokens against prefill over t and one
-     decode step) within ``SERVE_TF_ULPS`` bfloat16 units. One ``serve``
+     decode step) within ``SERVE_TF_ULPS`` bfloat16 units (an MoE on one
+     row at t = 7, so that no pass can drop an assignment, an
+     encoder-decoder with frames as long as its caches; xlstm and zamba2
+     at float32 compute and caches within ``SERVE_TF_FLOAT32`` of the
+     largest |logit|, their bfloat16 figure recorded). One ``serve``
      JSON line: per model the parameters, prefill ms, decode ms a token
      (median after the first step), tokens/s, the first call's ms, peak
      memory, the decode bound (parameter bytes at 3.35 TB/s) and one
-     decode step under the profiler (launches, device time, idle share).
+     decode step under the profiler (launches, device time, idle
+     share).
 
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
@@ -122,8 +134,10 @@ the last line ``{"ok": true, "device": {...}}``. With ``--out DIR`` the
 details (a JSON record and the profiler's table) are also written to DIR.
 """
 import argparse
+import contextlib
 import copy
 import dataclasses
+import gc
 import hashlib
 import json
 import statistics
@@ -131,6 +145,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -220,6 +235,35 @@ SERVE_WIDE = ("qwen2.5-3b", "qwen2-vl-7b")
 SERVE_WIDE_LAYERS = 4
 SERVE_TINY = ("qwen2.5-3b", "qwen2-vl-7b")
 SERVE_TINY_ARGS = dict(batch=4, prompt_len=16, gen=9)   # 8 decode steps
+#: the other families at full width, at these depths (None: the
+#: published one): deepseek's dense block0 and 2 MoE blocks, one arctic
+#: MoE block with its dense residual; each model's parameter count,
+#: reckoned from the reference's initialisers (jax.eval_shape of its
+#: init at that depth)
+SERVE_FAMILIES = {
+    "deepseek-v2-236b": (3, 9_330_795_520),
+    "arctic-480b": (1, 14_069_945_344),
+    "xlstm-1.3b": (None, 3_530_504_528),
+    "zamba2-7b": (None, 6_727_887_072),
+    "seamless-m4t-medium": (None, 978_805_760),
+}
+#: an MoE's teacher-forcing identity: 1 row, a prefix of 7 tokens. An
+#: expert takes a token at most once, so a pass over at most 8 tokens
+#: (the least capacity) drops no assignment, whatever the routing; with
+#: launch/serve's batch of 4 the random router sends 9 of deepseek's 216
+#: assignments past capacity at t = 8 (a CPU rehearsal at d_model 128)
+SERVE_TF_MOE = dict(batch=1, t=7)
+#: the recurrent families (xlstm, zamba2): prefill runs the chunked form,
+#: decode the recurrent one on a state cached in bfloat16, and at
+#: bfloat16 compute the two round apart by more than SERVE_TF_ULPS in the
+#: reference itself (CPU, 24 layers at d_model 512 / 1024: zamba2 0.135–
+#: 0.255, xlstm 0.537–0.598, against 0.125–0.25). So their identity is
+#: held at float32 compute with float32 caches (the same weights), where
+#: both packages stay within 1.1e-5–1.9e-4 at those sizes: within this
+#: share of the largest |logit|, 2^-10, which leaves room for 48 and 81
+#: layers and still fails a wrong position, mask or state (O(1)); the
+#: bfloat16 figure is recorded
+SERVE_TF_FLOAT32 = 2.0 ** -10
 SERVE_TOL = dict(rtol=2e-4, atol=2e-4)
 #: the teacher-forcing identity at bfloat16 compute, in units in the last
 #: place of the largest |logit|: prefill over t + 1 tokens (the repeated-K
@@ -1331,30 +1375,284 @@ def _bf16_ulp(x):
     return 2.0 ** (e - 7)
 
 
-def _teacher_forcing(model, t, seed):
+def _dropped(model):
+    """Assignments the model's MoE layers dropped in its last pass."""
+    from repro_torch.models.moe import MoE
+    return sum(int(m.last_dropped) for m in model.modules()
+               if isinstance(m, MoE))
+
+
+def _teacher_forcing(model, t, seed, B=SERVE_ARGS["batch"]):
     """Prefill over t + 1 tokens against prefill over t and one decode
-    step at position t (patches first for a vlm): (max |diff|, the
-    tolerance, max |logit|)."""
+    step at position t (patches first for a vlm), B rows: (max |diff|,
+    the tolerance, max |logit|). An encoder-decoder's frames are as long
+    as the caches, so that prefill and decode see the same memory; an
+    MoE must drop no assignment in any pass (its capacity follows the
+    token count, so the passes could drop different ones)."""
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models.model import VLM_PATCHES
     cfg, dev = model.cfg, model.device
-    full = prompt_batch(model, SERVE_ARGS["batch"], t + 1, seed)
+    full = prompt_batch(model, B, t + 1, seed)
+    at = t + (VLM_PATCHES if cfg.family == "vlm" else 0)
+    max_len = at + 8
+    if "frames" in full:
+        full["frames"] = torch.randn(
+            (B, max_len, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed)).to(dev)
     part = dict(full, tokens=full["tokens"][:, :t])
     step = {"tokens": full["tokens"][:, t:t + 1]}
-    at = t + (VLM_PATCHES if cfg.family == "vlm" else 0)
     if cfg.mrope:
-        B = SERVE_ARGS["batch"]
         for b, S in ((full, at + 1), (part, at)):
             b["positions3"] = torch.arange(S, dtype=torch.int32,
                                            device=dev).expand(3, B, S)
         step["positions3"] = torch.full((3, B, 1), at, dtype=torch.int32,
                                         device=dev)
-    lg_full, _ = model.prefill(full, max_len=at + 8)
-    _, caches = model.prefill(part, max_len=at + 8)
+    lg_full, _ = model.prefill(full, max_len=max_len)
+    drops = [_dropped(model)]
+    _, caches = model.prefill(part, max_len=max_len)
+    drops.append(_dropped(model))
     lg_step, _ = model.decode(step, caches, at)
+    drops.append(_dropped(model))
+    if any(drops):
+        fail(f"phase 8: {cfg.name}: teacher forcing at t = {t} dropped "
+             f"{drops} MoE assignments (prefill t + 1, prefill t, decode)")
     a, b = lg_full[:, 0].float(), lg_step[:, 0].float()
     top = float(a.abs().max())
     return float((a - b).abs().max()), SERVE_TF_ULPS * _bf16_ulp(top), top
+
+
+@contextlib.contextmanager
+def _float32_caches():
+    """The models built or prefilled inside keep float32 caches (the
+    shipped ``CACHE_DTYPE`` is bfloat16)."""
+    from repro_torch.models import model as model_lib
+    shipped = model_lib.CACHE_DTYPE
+    model_lib.CACHE_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        model_lib.CACHE_DTYPE = shipped
+
+
+def _teacher_forcing_float32(cfg, t):
+    """A recurrent model's identity (``SERVE_TF_FLOAT32``): ``cfg`` at
+    float32 compute with float32 caches, on the weights ``_serve_wide``
+    drew (the same seeded generator, parameters at the same dtype)."""
+    from repro_torch.models import build_model
+    model = build_model(cfg.replace(compute_dtype="float32"),
+                        device="cuda", generator=torch.Generator(
+                            device="cuda").manual_seed(SEED))
+    with _float32_caches():
+        err, _, top = _teacher_forcing(model, t, SEED + 3)
+    tol = SERVE_TF_FLOAT32 * top
+    if not err <= tol:
+        fail(f"phase 8: {cfg.name}: teacher forcing at float32 off by "
+             f"{err} (tolerance {tol}, max |logit| {top})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(teacher_forcing_float32_max_abs=err,
+                teacher_forcing_float32_tol=tol)
+
+
+def _close(arch, what, got, want):
+    """``got`` (on the card) within ``SERVE_TOL`` of ``want`` (on the
+    CPU): the max abs error, or a failed run."""
+    got = got.cpu().float()
+    try:
+        torch.testing.assert_close(got, want.float(), **SERVE_TOL)
+    except AssertionError as e:
+        fail(f"phase 8: {arch} (tiny) {what} on the card differ from the "
+             f"CPU's: {e}")
+    return float((got - want.float()).abs().max())
+
+
+def _host_syncs(fn):
+    """The synchronizing CUDA calls ``fn()`` makes (torch's sync debug
+    mode, warning at each): their count and the source lines that made
+    them, ``file:line`` of the calling Python frame."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    at = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+          if "called a synchronizing CUDA operation" in str(w.message)]
+    return dict(count=len(at), at=sorted(set(at)))
+
+
+def _caches_to(caches, device):
+    if isinstance(caches, dict):
+        return {k: _caches_to(v, device) for k, v in caches.items()}
+    return caches.to(device, copy=True)
+
+
+def _tiny_family_parity(arch):
+    """Phase 8 (a) for a family of ``SERVE_FAMILIES`` (MoE with MLA,
+    xLSTM, the Mamba2 hybrid, the encoder-decoder): the card against the CPU on
+    the same weights at ``tiny_config``, float32. Its caches are
+    bfloat16, so a one-ulp float32 difference on a rounding boundary
+    moves an entry by a bfloat16 unit and, since the Mamba2 and mLSTM
+    states are rounded again at every step, two runs that each keep
+    their own caches drift apart. So: train logits within SERVE_TOL;
+    with float32 caches on both sides (``CACHE_DTYPE``, for this check
+    alone) prefill and 8 greedy decode steps within SERVE_TOL, tokens
+    equal; with the shipped bfloat16 caches the greedy tokens equal, and
+    each decode step from a copy of the CPU's caches within SERVE_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch, serve
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    params_to_numpy)
+    cfg = tiny_config(get_config(arch))
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(SEED))
+    card = params_from_numpy(build_model(cfg, device="cuda"),
+                             params_to_numpy(cpu))
+    batch = prompt_batch(cpu, SERVE_TINY_ARGS["batch"],
+                         SERVE_TINY_ARGS["prompt_len"], SEED + 2)
+    with torch.no_grad():
+        errs = {"train": _close(arch, "train logits", card.train_logits(
+            {k: v.cuda() for k, v in batch.items()}), cpu.train_logits(
+            batch))}
+    with _float32_caches():
+        want = serve(cpu, seed=SEED + 1, **SERVE_TINY_ARGS)
+        got = serve(card, seed=SEED + 1, **SERVE_TINY_ARGS)
+    errs["float32_caches"] = max(
+        _close(arch, "logits (float32 caches)", g, w)
+        for g, w in zip(got["logits"], want["logits"]))
+    if not torch.equal(got["tokens"].cpu(), want["tokens"]):
+        fail(f"phase 8: {arch} (tiny) greedy tokens on the card differ "
+             f"from the CPU's (float32 caches)")
+    want = serve(cpu, seed=SEED + 1, **SERVE_TINY_ARGS)
+    got = serve(card, seed=SEED + 1, **SERVE_TINY_ARGS)
+    if not torch.equal(got["tokens"].cpu(), want["tokens"]):
+        fail(f"phase 8: {arch} (tiny) greedy tokens on the card differ "
+             f"from the CPU's")
+    errs["free_running_bfloat16"] = max(
+        float((g.cpu() - w).abs().max())
+        for g, w in zip(got["logits"], want["logits"]))
+    inputs = prompt_batch(cpu, SERVE_TINY_ARGS["batch"],
+                          SERVE_TINY_ARGS["prompt_len"], SEED + 1)
+    start, step_err = SERVE_TINY_ARGS["prompt_len"], 0.0
+    _, caches = cpu.prefill(inputs, start + SERVE_TINY_ARGS["gen"])
+    for i, tok in enumerate(want["tokens"].unbind(1)[:-1]):
+        lg_g, _ = card.decode({"tokens": tok[:, None].cuda()},
+                              _caches_to(caches, "cuda"), start + i)
+        lg_w, caches = cpu.decode({"tokens": tok[:, None]}, caches,
+                                  start + i)
+        step_err = max(step_err, _close(arch, f"decode step {i} logits",
+                                        lg_g, lg_w))
+    errs["steps_from_the_cpu_caches"] = step_err
+    log(f"  {arch} tiny: card == CPU within {SERVE_TOL} (max abs err "
+        f"{errs}), tokens equal")
+    return dict(arch=arch, max_abs_err=max(v for k, v in errs.items()
+                                           if k != "free_running_bfloat16"),
+                errors=errs, steps=SERVE_TINY_ARGS["gen"] - 1)
+
+
+def _serve_wide(arch, cfg, params=None):
+    """Phase 8 (b): ``cfg`` at full width with weights from a seeded
+    generator on the card, served twice with launch/serve's defaults:
+    finite logits, every token in the vocabulary, the teacher-forcing
+    identity within ``SERVE_TF_ULPS`` units (a recurrent model's at
+    float32, ``_teacher_forcing_float32``); with ``params``, the
+    parameter count must equal it. Returns the model's record."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = model.num_params()
+    if params is not None and n_params != params:
+        fail(f"phase 8: {arch}: {n_params} parameters, the reference's "
+             f"initialisers give {params}")
+    pbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cold = serve(model, seed=SEED + 1, **SERVE_ARGS)
+    warm = serve(model, seed=SEED + 1, **SERVE_ARGS)
+    peak = torch.cuda.max_memory_allocated()
+    for name, r in (("cold", cold), ("warm", warm)):
+        if not all(bool(torch.isfinite(l).all()) for l in r["logits"]):
+            fail(f"phase 8: {arch}: non-finite logits ({name})")
+        toks = r["tokens"]
+        if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            fail(f"phase 8: {arch}: a token outside the vocabulary")
+    # measurement only: one more decode step (the buffer's last
+    # position) under the profiler: launches and the card's idle share
+    step = {"tokens": warm["tokens"][:, -1:]}
+    at = warm["max_len"] - 1
+    if cfg.mrope:
+        step["positions3"] = torch.full(
+            (3, SERVE_ARGS["batch"], 1), at, dtype=torch.int32,
+            device="cuda")
+    _, wall_ms, rows = profiled(
+        lambda: model.decode(step, warm["caches"], at))
+    busy = sum(r[1] for r in rows)
+    step_profile = dict(
+        wall_ms=wall_ms, device_busy_ms=busy,
+        idle_share=1.0 - busy / max(wall_ms, 1e-9),
+        device_launches=sum(r[2] for r in rows),
+        host_syncs=_host_syncs(
+            lambda: model.decode(step, warm["caches"], at)),
+        top=[dict(kernel=k[:60], ms=ms, calls=c)
+             for k, ms, c in rows[:5]])
+    tf = SERVE_TF_MOE if cfg.moe is not None else dict(
+        batch=SERVE_ARGS["batch"], t=SERVE_ARGS["prompt_len"])
+    tf_t = tf["t"]
+    tf_err, tf_tol, tf_top = _teacher_forcing(model, tf_t, SEED + 3,
+                                              tf["batch"])
+    recurrent = cfg.ssm is not None
+    if not recurrent and not tf_err <= tf_tol:
+        fail(f"phase 8: {arch}: teacher forcing off by {tf_err} "
+             f"(tolerance {tf_tol}, max |logit| {tf_top})")
+    rec = dict(
+        arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n_params, param_bytes=pbytes,
+        param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+        **SERVE_ARGS, init_s=init_s,
+        prefill_ms=warm["prefill_ms"],
+        decode_ms_per_token=warm["step_ms_median"],
+        decode_ms=warm["decode_ms"], tok_s=warm["tok_s"],
+        first_prefill_ms=cold["prefill_ms"],
+        first_decode_step_ms=cold["first_step_ms"],
+        cold_decode_ms_per_token=cold["step_ms_median"],
+        cold_tok_s=cold["tok_s"], peak_memory_bytes=peak,
+        bound_decode_ms=pbytes / HBM_BYTES_S * 1e3,
+        bound_decode_ms_bf16=n_params * 2 / HBM_BYTES_S * 1e3,
+        teacher_forcing_t=tf_t, teacher_forcing_batch=tf["batch"],
+        teacher_forcing_max_abs=tf_err, teacher_forcing_tol=tf_tol,
+        decode_step_profile=step_profile,
+        sample=warm["tokens"][0][:8].tolist())
+    log(f"  {arch} ({cfg.num_layers} layers, {n_params} params, "
+        f"{pbytes} B): prefill {rec['prefill_ms']:.2f} ms (first "
+        f"{rec['first_prefill_ms']:.2f}), decode "
+        f"{rec['decode_ms_per_token']:.3f} ms a token "
+        f"({rec['tok_s']:.1f} tok/s; first step "
+        f"{rec['first_decode_step_ms']:.2f} ms), bound "
+        f"{rec['bound_decode_ms']:.3f} ms; peak {peak} B; one decode step "
+        f"{step_profile['device_launches']} launches, "
+        f"{step_profile['host_syncs']['count']} host syncs "
+        f"{step_profile['host_syncs']['at']}, idle "
+        f"{step_profile['idle_share']:.3f}; teacher forcing at t = {tf_t} "
+        f"{tf_err:.3g} (tolerance {tf_tol:.3g})")
+    del model, cold, warm, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if recurrent:
+        rec.update(_teacher_forcing_float32(cfg, tf_t))
+        log(f"  {arch}: teacher forcing at float32 "
+            f"{rec['teacher_forcing_float32_max_abs']:.3g} <= "
+            f"{rec['teacher_forcing_float32_tol']:.3g} (bfloat16 "
+            f"{tf_err:.3g}, recorded)")
+    return rec
 
 
 def serve_phase():
@@ -1362,15 +1660,15 @@ def serve_phase():
     card. (a) the smoke tests' size, float32: the card against the CPU on
     the same weights (drawn on the CPU, carried through
     ``params_to_numpy`` / ``params_from_numpy``), train logits, prefill
-    and 8 greedy decode steps within ``SERVE_TOL``, tokens equal; (b)
-    qwen1.5-0.5b at its published size and (c) qwen2.5-3b and qwen2-vl-7b
-    at full width, ``SERVE_WIDE_LAYERS`` layers, weights from a seeded
-    generator on the card, each served twice with launch/serve's
-    defaults: finite logits, every token in the vocabulary, the
-    teacher-forcing identity within ``SERVE_TF_ULPS`` units. Turns off
-    cuBLAS's reduced-precision reduction for bfloat16 products (XLA
-    accumulates them in float32), as ``launch/serve.py``'s ``main``
-    does."""
+    and 8 greedy decode steps within ``SERVE_TOL``, tokens equal (the
+    families of ``SERVE_FAMILIES`` as ``_tiny_family_parity`` says); (b)
+    qwen1.5-0.5b at its published size, (c) qwen2.5-3b and qwen2-vl-7b
+    at full width, ``SERVE_WIDE_LAYERS`` layers, and (d) the models of
+    ``SERVE_FAMILIES`` at full width and their depths, weights from a
+    seeded generator on the card, each served twice with launch/serve's
+    defaults (``_serve_wide``). Turns off cuBLAS's reduced-precision
+    reduction for bfloat16 products (XLA accumulates them in float32),
+    as ``launch/serve.py``'s ``main`` does."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import prompt_batch, serve
     from repro_torch.launch.train import tiny_config
@@ -1387,101 +1685,32 @@ def serve_phase():
                                  params_to_numpy(cpu))
         want = serve(cpu, seed=SEED + 1, **SERVE_TINY_ARGS)
         got = serve(card, seed=SEED + 1, **SERVE_TINY_ARGS)
-        err = 0.0
-        for g, w in zip(got["logits"], want["logits"]):
-            try:
-                torch.testing.assert_close(g.cpu(), w, **SERVE_TOL)
-            except AssertionError as e:
-                fail(f"phase 8: {arch} (tiny) logits on the card differ "
-                     f"from the CPU's: {e}")
-            err = max(err, float((g.cpu() - w).abs().max()))
+        err = max(_close(arch, "logits", g, w)
+                  for g, w in zip(got["logits"], want["logits"]))
         if not torch.equal(got["tokens"].cpu(), want["tokens"]):
             fail(f"phase 8: {arch} (tiny) greedy tokens on the card differ "
                  f"from the CPU's")
         batch = prompt_batch(cpu, SERVE_TINY_ARGS["batch"],
                              SERVE_TINY_ARGS["prompt_len"], SEED + 2)
         with torch.no_grad():
-            tl_w = cpu.train_logits(batch)
-            tl_g = card.train_logits({k: v.cuda() for k, v in
-                                      batch.items()}).cpu()
-        try:
-            torch.testing.assert_close(tl_g, tl_w, **SERVE_TOL)
-        except AssertionError as e:
-            fail(f"phase 8: {arch} (tiny) train logits on the card differ "
-                 f"from the CPU's: {e}")
-        err = max(err, float((tl_g - tl_w).abs().max()))
+            err = max(err, _close(arch, "train logits", card.train_logits(
+                {k: v.cuda() for k, v in batch.items()}),
+                cpu.train_logits(batch)))
         out["parity"].append(dict(arch=arch, max_abs_err=err,
                                   steps=SERVE_TINY_ARGS["gen"] - 1))
         log(f"  {arch} tiny: card == CPU within {SERVE_TOL} (max abs err "
             f"{err:.3g}), tokens equal")
-    wide = [(SERVE_FULL, None)] + [(a, SERVE_WIDE_LAYERS) for a in SERVE_WIDE]
-    for arch, layers in wide:
+    for arch in SERVE_FAMILIES:
+        out["parity"].append(_tiny_family_parity(arch))
+    wide = [(SERVE_FULL, None, None)] + [
+        (a, SERVE_WIDE_LAYERS, None) for a in SERVE_WIDE] + [
+        (a, layers, params) for a, (layers, params) in
+        SERVE_FAMILIES.items()]
+    for arch, layers, params in wide:
         cfg = get_config(arch)
         if layers is not None:
             cfg = cfg.replace(num_layers=layers)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        model = build_model(cfg, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(SEED))
-        n_params = model.num_params()
-        pbytes = sum(p.numel() * p.element_size()
-                     for p in model.parameters())
-        cold = serve(model, seed=SEED + 1, **SERVE_ARGS)
-        warm = serve(model, seed=SEED + 1, **SERVE_ARGS)
-        peak = torch.cuda.max_memory_allocated()
-        for name, r in (("cold", cold), ("warm", warm)):
-            if not all(bool(torch.isfinite(l).all()) for l in r["logits"]):
-                fail(f"phase 8: {arch}: non-finite logits ({name})")
-            toks = r["tokens"]
-            if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-                fail(f"phase 8: {arch}: a token outside the vocabulary")
-        # measurement only: one more decode step (the buffer's last
-        # position) under the profiler: launches and the card's idle share
-        step = {"tokens": warm["tokens"][:, -1:]}
-        at = warm["max_len"] - 1
-        if cfg.mrope:
-            step["positions3"] = torch.full(
-                (3, SERVE_ARGS["batch"], 1), at, dtype=torch.int32,
-                device="cuda")
-        _, wall_ms, rows = profiled(
-            lambda: model.decode(step, warm["caches"], at))
-        busy = sum(r[1] for r in rows)
-        step_profile = dict(
-            wall_ms=wall_ms, device_busy_ms=busy,
-            idle_share=1.0 - busy / max(wall_ms, 1e-9),
-            device_launches=sum(r[2] for r in rows),
-            top=[dict(kernel=k[:60], ms=ms, calls=c)
-                 for k, ms, c in rows[:5]])
-        tf_err, tf_tol, tf_top = _teacher_forcing(
-            model, SERVE_ARGS["prompt_len"], SEED + 3)
-        if not tf_err <= tf_tol:
-            fail(f"phase 8: {arch}: teacher forcing off by {tf_err} "
-                 f"(tolerance {tf_tol}, max |logit| {tf_top})")
-        rec = dict(
-            arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
-            params=n_params, param_bytes=pbytes,
-            param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
-            **SERVE_ARGS,
-            prefill_ms=warm["prefill_ms"],
-            decode_ms_per_token=warm["step_ms_median"],
-            decode_ms=warm["decode_ms"], tok_s=warm["tok_s"],
-            first_prefill_ms=cold["prefill_ms"],
-            first_decode_step_ms=cold["first_step_ms"],
-            cold_decode_ms_per_token=cold["step_ms_median"],
-            cold_tok_s=cold["tok_s"], peak_memory_bytes=peak,
-            bound_decode_ms=pbytes / HBM_BYTES_S * 1e3,
-            bound_decode_ms_bf16=n_params * 2 / HBM_BYTES_S * 1e3,
-            teacher_forcing_max_abs=tf_err, teacher_forcing_tol=tf_tol,
-            decode_step_profile=step_profile,
-            sample=warm["tokens"][0][:8].tolist())
-        out["models"].append(rec)
-        log(f"  {arch} ({cfg.num_layers} layers, {n_params} params): "
-            f"prefill {rec['prefill_ms']:.2f} ms, decode "
-            f"{rec['decode_ms_per_token']:.3f} ms a token "
-            f"({rec['tok_s']:.1f} tok/s), bound {rec['bound_decode_ms']:.3f}"
-            f" ms; teacher forcing {tf_err:.3g} <= {tf_tol:.3g}")
-        del model, cold, warm
-    torch.cuda.empty_cache()
+        out["models"].append(_serve_wide(arch, cfg, params))
     return out
 
 

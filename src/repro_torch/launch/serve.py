@@ -32,8 +32,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.launch.train import reduced_config
 from repro_torch.models import build_model
-from repro_torch.models.model import (VLM_PATCHES, DecoderOnly,
-                                      resolve_device)
+from repro_torch.models.model import LM, VLM_PATCHES, resolve_device
 from repro_torch.runtime.serve_loop import make_decode_step, make_prefill_step
 
 
@@ -58,11 +57,11 @@ class _Clock:
             torch.cuda.synchronize()
 
 
-def prompt_batch(model: DecoderOnly, batch: int, prompt_len: int,
-                 seed: int):
-    """The seeded random prompt on the model's device: tokens, and 8
-    patch embeddings for a ``vlm``. Drawn on the host, so that one seed
-    gives one prompt on every device."""
+def prompt_batch(model: LM, batch: int, prompt_len: int, seed: int):
+    """The seeded random prompt on the model's device: tokens, 8 patch
+    embeddings for a ``vlm``, ``prompt_len`` frame embeddings for an
+    ``encdec``/``audio`` model. Drawn on the host, so that one seed gives
+    one prompt on every device."""
     cfg = model.cfg
     gen = torch.Generator().manual_seed(seed)
     out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
@@ -70,19 +69,31 @@ def prompt_batch(model: DecoderOnly, batch: int, prompt_len: int,
     if cfg.family == "vlm":
         out["patches"] = torch.randn((batch, VLM_PATCHES, cfg.d_model),
                                      generator=gen)
+    if cfg.family in ("encdec", "audio"):
+        out["frames"] = torch.randn((batch, prompt_len, cfg.d_model),
+                                    generator=gen)
     return {k: v.to(model.device) for k, v in out.items()}
 
 
-def serve(model: DecoderOnly, batch: int = 4, prompt_len: int = 64,
-          gen: int = 32, seed: int = 0) -> dict:
+def serve(model: LM, batch: int = 4, prompt_len: int = 64, gen: int = 32,
+          seed: int = 0) -> dict:
     """Prefill a seeded prompt, then ``gen`` − 1 greedy decode steps.
     Returns the generated tokens (B, gen), the logits of every step
-    (prefill's first), the caches and the times (ms)."""
+    (prefill's first), the caches and the times (ms).
+
+    The caches hold ``prompt_len + gen`` positions, as the reference
+    launcher's do. A ``vlm``'s prompt takes 8 more (the patches), so its
+    last 7 decode writes clamp onto the buffer's last slot, as theirs
+    do; with ``gen`` < 8 its prompt does not fit, and this raises."""
     cfg, device = model.cfg, model.device
-    inputs = prompt_batch(model, batch, prompt_len, seed)
     start = prompt_len + (VLM_PATCHES if cfg.family == "vlm" else 0)
-    # room for every position, the patches included
-    max_len = start + gen
+    max_len = prompt_len + gen
+    if start > max_len:
+        raise ValueError(f"the prompt fills {start} positions (patches "
+                         f"included), more than the cache's prompt_len + "
+                         f"gen = {max_len}: gen must be at least "
+                         f"{start - prompt_len}")
+    inputs = prompt_batch(model, batch, prompt_len, seed)
     prefill = make_prefill_step(model, max_len=max_len)
     decode = make_decode_step(model)
     clock = _Clock(device)

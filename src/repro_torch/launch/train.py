@@ -3,13 +3,13 @@ launcher and the card checks share.
 
 ``reduced_config`` is the JAX package's (``launch/train.py``);
 ``tiny_config`` is the smallest variant its smoke tests run
-(``tests/test_smoke_archs.py`` ``reduce_config``) for the families the
-port serves. The training launcher itself (optimizers, data pipeline, train
-step, checkpointed resume) is a later slice of the port.
+(``tests/test_smoke_archs.py`` ``reduce_config``), for every family. The
+training launcher itself (optimizers, data pipeline, train step,
+checkpointed resume) is a later slice of the port.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import MLAConfig, MoEConfig
+from repro_torch.configs.base import MLAConfig, MoEConfig, SSMConfig
 
 
 def reduced_config(cfg, d_model: int = 512, layers: int = 8):
@@ -44,14 +44,32 @@ def reduced_config(cfg, d_model: int = 512, layers: int = 8):
 
 
 def tiny_config(cfg):
-    """The smallest variant of a ``dense`` or ``vlm`` config: d_model 64,
-    2 layers, 4 query heads over 2 KV heads, d_ff 128, vocab 256,
-    float32."""
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(f"tiny_config: family {cfg.family!r}")
+    """The smallest variant of a config that keeps its family's
+    structure: d_model 64, 2 layers, 4 query heads over 2 KV heads, d_ff
+    128, vocab 256, float32; xlstm 4 layers in groups of 2, zamba2 5 (two
+    groups of 2 and a tail), 8 experts top-2, MLA of ranks 16 / 24."""
     kw = dict(num_layers=2, d_model=64, num_heads=4, kv_heads=2,
               d_ff=128, vocab_size=256, compute_dtype="float32",
               param_dtype="float32", remat="none")
+    if cfg.family == "ssm":      # xlstm: layers % slstm_period == 0
+        kw.update(num_layers=4, kv_heads=4,
+                  ssm=SSMConfig(kind="xlstm", expand=2, conv_dim=4,
+                                chunk=8, slstm_period=2))
+    if cfg.family == "hybrid":   # zamba2: groups of period + tail
+        kw.update(num_layers=5, kv_heads=4,
+                  ssm=SSMConfig(kind="mamba2", state_dim=8, expand=2,
+                                conv_dim=4, chunk=8, shared_attn_period=2))
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(
+            num_experts=8, top_k=2, expert_d_ff=32,
+            shared_experts=min(cfg.moe.shared_experts, 1),
+            dense_residual_d_ff=32 if cfg.moe.dense_residual_d_ff else 0)
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=16, q_lora_rank=24,
+                              rope_head_dim=4, nope_head_dim=8,
+                              v_head_dim=8)
     if cfg.mrope:
         kw["mrope_sections"] = (2, 3, 3)   # head_dim 16 -> half 8
+    if cfg.family in ("encdec", "audio"):
+        kw["encoder_layers"] = 2
     return cfg.replace(**kw)

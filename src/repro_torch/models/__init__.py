@@ -1,2 +1,2 @@
-from repro_torch.models.model import (DecoderOnly, build_model,
-                                      params_from_numpy, params_to_numpy)
+from repro_torch.models.model import (LM, build_model, params_from_numpy,
+                                      params_to_numpy)

@@ -1,14 +1,18 @@
-"""Attention: GQA/MHA with QKV bias and RoPE or M-RoPE, with a KV cache.
+"""Attention: GQA/MHA with QKV bias and RoPE or M-RoPE, cross-attention,
+and DeepSeek-V2's multi-head latent attention (MLA), with KV caches.
 
 Port of the JAX package's ``models/attention.py`` (``init_gqa``,
-``_sdpa``, ``gqa_attention``, ``init_gqa_cache``). MLA and
-cross-attention wait for the MoE and encoder-decoder slices.
+``_sdpa``, ``gqa_attention``, ``init_gqa_cache``, ``init_mla``,
+``mla_attention``, ``init_mla_cache``).
 
-A GQA cache is ``{"k", "v"}`` of (B, S_max, Hkv, Dh), written in place at
-``cache_index``; attention then runs over the whole buffer with the causal
-mask, as the reference does. Dtypes follow the reference: the products at
-the compute dtype, logits and softmax in float32, probabilities cast back
-to the compute dtype before the product with V.
+A GQA cache is ``{"k", "v"}`` of (B, S_max, Hkv, Dh); an MLA cache holds
+the compressed latents, ``{"ckv": (B, S_max, kv_lora), "k_rope": (B,
+S_max, rope_dim)}``, and K and V are expanded from the whole buffer at
+every step, as the reference does. Both are written in place at
+``cache_index``; attention then runs over the whole buffer with the
+causal mask. Dtypes follow the reference: the products at the compute
+dtype, logits and softmax in float32, probabilities cast back to the
+compute dtype before the product with V.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.common import apply_mrope, apply_rope, dense_init
+from repro_torch.models.common import (RMSNorm, apply_mrope, apply_rope,
+                                       dense_init)
 
 #: prefill query chunk: a query longer than this, and a multiple of it, is
 #: attended in chunks so that the (B, H, Sq, Skv) logits never exist whole
@@ -108,45 +113,75 @@ class GQA(nn.Module):
             self.bk = nn.Parameter(torch.zeros(Hkv * Dh, **zeros))
             self.bv = nn.Parameter(torch.zeros(Hkv * Dh, **zeros))
 
+    def ref_shapes(self) -> Dict[str, tuple]:
+        """The reference's shape of each parameter stored flattened."""
+        cfg = self.cfg
+        d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.kv_heads
+        Dh = cfg.resolved_head_dim
+        return {"wq": (d, H, Dh), "wk": (d, Hkv, Dh), "wv": (d, Hkv, Dh),
+                "wo": (H, Dh, d), "bq": (H, Dh), "bk": (Hkv, Dh),
+                "bv": (Hkv, Dh)}
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                cache_index: int = 0):
+                cache_index: int = 0,
+                kv_source: Optional[torch.Tensor] = None,
+                causal: bool = True):
         """x: (B, S, d) at the compute dtype; positions (B, S), or
         (3, B, S) for M-RoPE. With a cache, K/V are written at
         ``cache_index`` and the queries attend over the whole buffer.
-        Returns (out, cache)."""
+        ``kv_source`` (cross-attention) gives K/V's input in place of x,
+        and then neither q nor k is rotated; ``causal=False`` attends to
+        every key. Returns (out, cache)."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.resolved_head_dim
+        src = x if kv_source is None else kv_source
         q = x @ self.wq.to(x.dtype)
-        k = x @ self.wk.to(x.dtype)
-        v = x @ self.wv.to(x.dtype)
+        k = src @ self.wk.to(x.dtype)
+        v = src @ self.wv.to(x.dtype)
         if cfg.qkv_bias:
             q = q + self.bq.to(q.dtype)
             k = k + self.bk.to(k.dtype)
             v = v + self.bv.to(v.dtype)
-        q, k, v = (q.view(B, S, H, Dh), k.view(B, S, Hkv, Dh),
-                   v.view(B, S, Hkv, Dh))
-        if cfg.mrope:
-            q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
-            k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
-        else:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+        Skv = src.shape[1]
+        q, k, v = (q.view(B, S, H, Dh), k.view(B, Skv, Hkv, Dh),
+                   v.view(B, Skv, Hkv, Dh))
+        if kv_source is None:
+            if cfg.mrope:
+                q = apply_mrope(q, positions, cfg.mrope_sections,
+                                cfg.rope_theta)
+                k = apply_mrope(k, positions, cfg.mrope_sections,
+                                cfg.rope_theta)
+            else:
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
 
         offset = 0
         if cache is not None:
-            # the start clamps into the buffer, as the reference's
-            # dynamic_update_slice does; the mask keeps the true position
-            at = max(0, min(cache_index, cache["k"].shape[1] - S))
-            cache["k"][:, at:at + S] = k.to(cache["k"].dtype)
-            cache["v"][:, at:at + S] = v.to(cache["v"].dtype)
+            _write(cache, {"k": k, "v": v}, cache_index)
             k, v = cache["k"], cache["v"]
             offset = cache_index
-        mask = common.causal_mask(S, k.shape[1], offset, device=x.device)
+        kv_len = k.shape[1]
+        mask = (common.causal_mask(S, kv_len, offset, device=x.device)
+                if causal else
+                torch.ones((S, kv_len), dtype=torch.bool, device=x.device))
         out = _sdpa(q, k, v, mask, common.dt(cfg.compute_dtype))
         out = out.reshape(B, S, H * Dh)
         return (out @ self.wo.to(out.dtype)).to(x.dtype), cache
+
+
+def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+           cache_index: int) -> None:
+    """Write each (B, S, ...) entry of ``new`` into its (B, S_max, ...)
+    buffer at ``cache_index``, at the buffer's dtype. The start clamps
+    into the buffer, as the reference's dynamic_update_slice does; the
+    caller's mask keeps the true position."""
+    for name, t in new.items():
+        buf = cache[name]
+        S = t.shape[1]
+        at = max(0, min(cache_index, buf.shape[1] - S))
+        buf[:, at:at + S] = t.to(buf.dtype)
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -156,3 +191,91 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (batch, max_len, cfg.kv_heads, Dh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class MLA(nn.Module):
+    """DeepSeek-V2's multi-head latent attention of one block. Weights at
+    ``param_dtype`` in the reference's shapes: q through a low rank
+    (``wq_a`` (d, q_lora), ``q_norm``, ``wq_b`` (q_lora, H, nope + rope)),
+    K and V from a compressed latent (``wkv_a`` (d, kv_lora),
+    ``kv_norm``, ``wk_b`` / ``wv_b`` (kv_lora, H, ·)) plus one decoupled
+    rotary key (``wk_rope`` (d, rope)), ``wo`` (H, v, d)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        m = cfg.mla
+        d, H = cfg.d_model, cfg.num_heads
+        dtype = common.dt(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
+        qd = m.nope_head_dim + m.rope_head_dim
+        self.wq_a = nn.Parameter(dense_init((d, m.q_lora_rank), dtype, **kw))
+        self.q_norm = RMSNorm(m.q_lora_rank, dtype, cfg.norm_eps, device)
+        self.wq_b = nn.Parameter(dense_init((m.q_lora_rank, H, qd), dtype,
+                                            **kw))
+        self.wkv_a = nn.Parameter(dense_init((d, m.kv_lora_rank), dtype,
+                                             **kw))
+        self.kv_norm = RMSNorm(m.kv_lora_rank, dtype, cfg.norm_eps, device)
+        self.wk_rope = nn.Parameter(dense_init((d, m.rope_head_dim), dtype,
+                                               **kw))
+        self.wk_b = nn.Parameter(dense_init(
+            (m.kv_lora_rank, H, m.nope_head_dim), dtype, **kw))
+        self.wv_b = nn.Parameter(dense_init(
+            (m.kv_lora_rank, H, m.v_head_dim), dtype, **kw))
+        self.wo = nn.Parameter(dense_init((H, m.v_head_dim, d), dtype,
+                                          (0, 1), **kw))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_index: int = 0):
+        """x: (B, S, d) at the compute dtype; positions (B, S). With a
+        cache, the latents are written at ``cache_index`` (rounded to the
+        cache's dtype) and K/V are expanded from the whole buffer.
+        Returns (out, cache)."""
+        cfg, m = self.cfg, self.cfg.mla
+        cd = common.dt(cfg.compute_dtype)
+        B, S, _ = x.shape
+        H = cfg.num_heads
+        nope, rope = m.nope_head_dim, m.rope_head_dim
+
+        q_lat = self.q_norm(x @ self.wq_a.to(x.dtype))
+        q = (q_lat @ self.wq_b.to(x.dtype).flatten(1)).view(B, S, H,
+                                                            nope + rope)
+        q_nope, q_rope = q.split([nope, rope], dim=-1)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        ckv = self.kv_norm(x @ self.wkv_a.to(x.dtype))
+        k_rope = apply_rope((x @ self.wk_rope.to(x.dtype))[:, :, None, :],
+                            positions, cfg.rope_theta)[:, :, 0, :]
+
+        offset = 0
+        if cache is not None:
+            _write(cache, {"ckv": ckv, "k_rope": k_rope}, cache_index)
+            ckv, k_rope = cache["ckv"], cache["k_rope"]
+            offset = cache_index
+        T = ckv.shape[1]
+        mask = common.causal_mask(S, T, offset, device=x.device)
+
+        # the latents expanded to per-head K_nope and V (not absorbed
+        # into the queries: that form rounds differently)
+        c = ckv.to(cd)
+        k_nope = (c @ self.wk_b.to(cd).flatten(1)).view(B, T, H, nope)
+        v = (c @ self.wv_b.to(cd).flatten(1)).view(B, T, H, m.v_head_dim)
+        scale = _as((nope + rope) ** -0.5, cd)
+        logits = (q_nope.to(cd).transpose(1, 2) @ k_nope.permute(0, 2, 3, 1)
+                  + q_rope.to(cd).transpose(1, 2)
+                  @ k_rope.to(cd).transpose(1, 2)[:, None]) * scale
+        logits = torch.where(mask, logits.float(), _MASKED)
+        probs = torch.softmax(logits, dim=-1).to(cd)      # (B, H, S, T)
+        out = (probs @ v.transpose(1, 2)).transpose(1, 2)  # (B, S, H, v)
+        out = out.reshape(B, S, H * m.v_head_dim)
+        return (out @ self.wo.to(cd).flatten(0, 1)).to(x.dtype), cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> Dict[str,
+                                                              torch.Tensor]:
+    m = cfg.mla
+    kw = dict(dtype=dtype, device=device)
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
+            "k_rope": torch.zeros((batch, max_len, m.rope_head_dim), **kw)}

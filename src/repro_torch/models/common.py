@@ -12,6 +12,7 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+from torch import nn
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -57,6 +58,16 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     var = (x * x).mean(-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * scale.float()).to(orig)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(self.scale, x, self.eps)
 
 
 # ---------------------------------------------------------------------------

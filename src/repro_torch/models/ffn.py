@@ -1,7 +1,7 @@
-"""Feed-forward blocks: the SwiGLU MLP.
+"""Feed-forward blocks: the SwiGLU MLP (also the MoE's shared experts
+and Arctic's dense residual).
 
 Port of the JAX package's ``models/ffn.py`` (``init_mlp`` and ``mlp``).
-Arctic's dense residual waits for the MoE slice.
 """
 from __future__ import annotations
 

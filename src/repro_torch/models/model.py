@@ -1,30 +1,32 @@
-"""Model assembly: the decoder-only family behind the reference's API.
+"""Model assembly: one class a family, behind the reference's API.
 
-Port of the JAX package's ``models/model.py`` for the families ``dense``
-(llama3, qwen1.5, qwen2.5) and ``vlm`` (qwen2-vl's text backbone with
-stub patch embeddings and M-RoPE)::
+Port of the JAX package's ``models/model.py``::
 
-    build_model(cfg, device=None, generator=None) -> DecoderOnly with
+    build_model(cfg, device=None, generator=None) -> LM with
         .train_logits(batch)                  -> (B, S, V) logits
         .prefill(batch, max_len)              -> (logits, caches)
         .decode(batch, caches, index)         -> (logits, caches)
         .init_caches(batch_size, max_len)     -> caches
         .num_params()                         -> int
 
-The blocks are ``nn.Module``s in an ``nn.ModuleList`` holding parameters
-at ``param_dtype`` and casting them at use, as the reference does. Caches
-keep the reference's layout, ``{"blocks": {"k", "v"}}`` of (L, B, max_len,
-Hkv, Dh) in bfloat16 whatever the compute dtype, and are written in place
-at ``index`` (a Python int, so a decode step needs no host sync).
+Families: ``dense`` (llama3, qwen1.5, qwen2.5), ``moe`` (deepseek-v2
+with MLA and a dense first block, arctic with a dense residual FFN),
+``vlm`` (qwen2-vl's text backbone with stub patch embeddings and
+M-RoPE), ``ssm`` (xlstm: groups of mLSTM blocks and one sLSTM block),
+``hybrid`` (zamba2: groups of Mamba2 blocks, each followed by one shared
+attention block, then a tail) and ``encdec``/``audio`` (seamless: an
+encoder over stub frame embeddings, a decoder with cross-attention).
+
+The layers are ``nn.Module``s in ``nn.ModuleList``s holding parameters
+at ``param_dtype`` and casting them at use, as the reference does.
+Caches keep the reference's layout (a leading layer axis a stack, e.g.
+``{"blocks": {"k", "v"}}`` of (L, B, max_len, Hkv, Dh) in bfloat16) and
+are written in place at ``index`` (a Python int, so a decode step needs
+no host sync).
 
 ``params_from_numpy`` and ``params_to_numpy`` carry the reference's
-parameter pytree (numpy arrays, ``blocks`` stacked on a leading layer
-axis, ``wq`` as (d, H, Dh), ``wo`` as (H, Dh, d)) into and out of the
-port's modules.
-
-The families ``moe`` (deepseek-v2, arctic), ``ssm`` (xlstm), ``hybrid``
-(zamba2) and ``encdec``/``audio`` (seamless) are not ported yet:
-``build_model`` raises for them.
+parameter pytree (numpy arrays, stacks on leading layer axes, each leaf
+in the reference's shape) into and out of the port's modules.
 """
 from __future__ import annotations
 
@@ -35,38 +37,45 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common
-from repro_torch.models.common import dense_init, embed_init
+from repro_torch.models import attention, common, ssm
+from repro_torch.models.common import RMSNorm, dense_init, embed_init
 from repro_torch.models.ffn import MLP
+from repro_torch.models.moe import MoE
 
 CACHE_DTYPE = torch.bfloat16
 #: patch positions a ``vlm`` prompt starts with (the stub vision frontend)
 VLM_PATCHES = 8
 
 
-class RMSNorm(nn.Module):
-    def __init__(self, d: int, dtype: torch.dtype, eps: float, device=None):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+def _layer(caches: Dict[str, torch.Tensor], *idx) -> Dict[str, torch.Tensor]:
+    """One layer's cache: views into the stacked buffers, so that a
+    block's in-place writes land in them."""
+    return {name: c[idx] for name, c in caches.items()}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return common.rmsnorm(self.scale, x, self.eps)
+
+def _stacked(proto: Dict[str, torch.Tensor], *lead: int):
+    """Zeros of ``proto``'s entries with leading layer axes ``lead``."""
+    return {name: torch.zeros(tuple(lead) + tuple(c.shape), dtype=c.dtype,
+                              device=c.device)
+            for name, c in proto.items()}
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block: x + attn(ln1 x), then x + mlp(ln2 x)."""
+    """Pre-norm transformer block: x + attn(ln1 x), then x + ffn(ln2 x).
+    The attention is MLA or GQA, the FFN an MoE or a SwiGLU MLP, as the
+    config says."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
         super().__init__()
         dtype = common.dt(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
         self.ln1 = RMSNorm(cfg.d_model, dtype, cfg.norm_eps, device)
         self.ln2 = RMSNorm(cfg.d_model, dtype, cfg.norm_eps, device)
-        self.attn = attention.GQA(cfg, generator=generator, device=device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype,
-                       common.dt(cfg.compute_dtype), generator=generator,
-                       device=device)
+        self.attn = attention.MLA(cfg, **kw) if cfg.mla is not None \
+            else attention.GQA(cfg, **kw)
+        self.ffn = MoE(cfg, **kw) if cfg.moe is not None else MLP(
+            cfg.d_model, cfg.d_ff, dtype, common.dt(cfg.compute_dtype), **kw)
 
     def forward(self, x, positions, cache=None, cache_index: int = 0):
         a, cache = self.attn(self.ln1(x), positions, cache, cache_index)
@@ -74,8 +83,25 @@ class Block(nn.Module):
         return x + self.ffn(self.ln2(x)), cache
 
 
-class DecoderOnly(nn.Module):
-    """The ``dense`` and ``vlm`` decoder-only model."""
+class PreNorm(nn.Module):
+    """x + core(ln x): a layer of the xlstm and hybrid stacks."""
+
+    def __init__(self, cfg: ModelConfig, core: nn.Module, device=None):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, common.dt(cfg.param_dtype),
+                          cfg.norm_eps, device)
+        self.core = core
+
+    def forward(self, x, cache=None):
+        out, cache = self.core(self.ln(x), cache)
+        return x + out, cache
+
+
+class LM(nn.Module):
+    """What every family shares: the embedding, the final norm, the head
+    (tied to the embedding or not) and the reference's API. A family
+    defines ``_run`` (the layers over a batch, caches written in place)
+    and ``init_caches``."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -88,27 +114,15 @@ class DecoderOnly(nn.Module):
         self.final_ln = RMSNorm(cfg.d_model, dtype, cfg.norm_eps, device)
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
             dense_init((cfg.d_model, cfg.vocab_size), dtype, **kw))
-        self.blocks = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.num_layers))
-        self.patch_proj = nn.Parameter(dense_init(
-            (cfg.d_model, cfg.d_model), dtype, **kw)) \
-            if cfg.frontend == "vision" else None
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    # -- embedding and head ------------------------------------------------
-
-    def _assemble_x(self, batch) -> torch.Tensor:
-        cd = common.dt(self.cfg.compute_dtype)
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         # gather, then cast: the values of the reference's cast-then-gather
         # without a copy of the whole table a step
-        x = self.embed[batch["tokens"].long()].to(cd)
-        if self.patch_proj is not None and "patches" in batch:
-            pe = batch["patches"].to(cd) @ self.patch_proj.to(cd)
-            x = torch.cat([pe, x], dim=1)
-        return x
+        return self.embed[tokens.long()].to(common.dt(self.cfg.compute_dtype))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         cd = common.dt(self.cfg.compute_dtype)
@@ -116,38 +130,9 @@ class DecoderOnly(nn.Module):
         w = self.embed.t() if self.lm_head is None else self.lm_head
         return x.to(cd) @ w.to(cd)
 
-    def _positions(self, batch, B: int, S: int, cache_index: int):
-        if self.cfg.mrope:
-            pos = batch.get("positions3")
-            if pos is None:   # the reference's default: 0..S-1, no offset
-                pos = common.positions_for(B, S, device=self.device)[None]
-                pos = pos.expand(3, B, S)
-            return pos
-        return common.positions_for(B, S, cache_index, device=self.device)
-
-    def _run(self, batch, caches, cache_index: int):
-        x = self._assemble_x(batch)
-        B, S = x.shape[:2]
-        positions = self._positions(batch, B, S, cache_index)
-        for l, block in enumerate(self.blocks):
-            cache = None if caches is None else {
-                k: c[l] for k, c in caches["blocks"].items()}
-            x, _ = block(x, positions, cache, cache_index)
-        return x
-
-    # -- the reference's API -------------------------------------------------
-
     def train_logits(self, batch) -> torch.Tensor:
         """The forward alone over the whole sequence → (B, S, V)."""
         return self._head(self._run(batch, None, 0))
-
-    def init_caches(self, batch_size: int, max_len: int):
-        proto = attention.init_gqa_cache(self.cfg, batch_size, max_len,
-                                         CACHE_DTYPE, device=self.device)
-        L = self.cfg.num_layers
-        return {"blocks": {k: torch.zeros((L,) + tuple(c.shape),
-                                          dtype=c.dtype, device=c.device)
-                           for k, c in proto.items()}}
 
     @torch.inference_mode()
     def prefill(self, batch, max_len: int):
@@ -168,6 +153,273 @@ class DecoderOnly(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
 
+# ---------------------------------------------------------------------------
+# Dense / MoE / VLM decoder-only family
+# ---------------------------------------------------------------------------
+
+class DecoderOnly(LM):
+    """``dense``, ``moe`` and ``vlm``. deepseek's first block is dense
+    (an MLP of ``d_ff`` or 4·d_model, MLA kept) and caches apart, as
+    ``caches["block0"]`` with a leading axis of 1."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device=None):
+        super().__init__(cfg, generator=generator, device=device)
+        kw = dict(generator=generator, device=device)
+        first_dense = cfg.moe is not None and cfg.name.startswith("deepseek")
+        self.block0 = Block(cfg.replace(moe=None, d_ff=cfg.d_ff or
+                                        4 * cfg.d_model), **kw) \
+            if first_dense else None
+        self.blocks = nn.ModuleList(
+            Block(cfg, **kw) for _ in range(cfg.num_layers - first_dense))
+        self.patch_proj = nn.Parameter(dense_init(
+            (cfg.d_model, cfg.d_model), common.dt(cfg.param_dtype), **kw)) \
+            if cfg.frontend == "vision" else None
+
+    def _assemble_x(self, batch) -> torch.Tensor:
+        x = self._embed(batch["tokens"])
+        if self.patch_proj is not None and "patches" in batch:
+            cd = common.dt(self.cfg.compute_dtype)
+            pe = batch["patches"].to(cd) @ self.patch_proj.to(cd)
+            x = torch.cat([pe, x], dim=1)
+        return x
+
+    def _positions(self, batch, B: int, S: int, cache_index: int):
+        if self.cfg.mrope:
+            pos = batch.get("positions3")
+            if pos is None:   # the reference's default: 0..S-1, no offset
+                pos = common.positions_for(B, S, device=self.device)[None]
+                pos = pos.expand(3, B, S)
+            return pos
+        return common.positions_for(B, S, cache_index, device=self.device)
+
+    def _run(self, batch, caches, cache_index: int):
+        x = self._assemble_x(batch)
+        B, S = x.shape[:2]
+        positions = self._positions(batch, B, S, cache_index)
+        if self.block0 is not None:
+            x, _ = self.block0(x, positions, None if caches is None else
+                               _layer(caches["block0"], 0), cache_index)
+        for l, block in enumerate(self.blocks):
+            cache = None if caches is None else _layer(caches["blocks"], l)
+            x, _ = block(x, positions, cache, cache_index)
+        return x
+
+    def init_caches(self, batch_size: int, max_len: int):
+        init = attention.init_mla_cache if self.cfg.mla is not None \
+            else attention.init_gqa_cache
+        proto = init(self.cfg, batch_size, max_len, CACHE_DTYPE,
+                     device=self.device)
+        caches = {"blocks": _stacked(proto, len(self.blocks))}
+        if self.block0 is not None:
+            caches["block0"] = _stacked(proto, 1)
+        return caches
+
+
+# ---------------------------------------------------------------------------
+# xLSTM family (mLSTM groups + periodic sLSTM)
+# ---------------------------------------------------------------------------
+
+class XLSTM(LM):
+    """``ssm``: groups of ``slstm_period`` − 1 mLSTM blocks and one sLSTM
+    block. Recurrent, so decode needs no position."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device=None):
+        super().__init__(cfg, generator=generator, device=device)
+        kw = dict(generator=generator, device=device)
+        period = cfg.ssm.slstm_period
+        if cfg.num_layers % period:
+            raise ValueError(f"xlstm: {cfg.num_layers} layers are not a "
+                             f"multiple of the sLSTM period {period}")
+        groups = cfg.num_layers // period
+        self.mlstm = nn.ModuleList(
+            nn.ModuleList(PreNorm(cfg, ssm.MLSTM(cfg, **kw), device)
+                          for _ in range(period - 1))
+            for _ in range(groups))
+        self.slstm = nn.ModuleList(PreNorm(cfg, ssm.SLSTM(cfg, **kw), device)
+                                   for _ in range(groups))
+
+    def _run(self, batch, caches, cache_index: int):
+        x = self._embed(batch["tokens"])
+        for g, group in enumerate(self.mlstm):
+            for j, block in enumerate(group):
+                x, _ = block(x, None if caches is None else
+                             _layer(caches["mlstm"], g, j))
+            x, _ = self.slstm[g](x, None if caches is None else
+                                 _layer(caches["slstm"], g))
+        return x
+
+    def init_caches(self, batch_size: int, max_len: int):
+        groups, per_group = len(self.mlstm), self.cfg.ssm.slstm_period - 1
+        mc = ssm.init_mlstm_cache(self.cfg, batch_size, CACHE_DTYPE,
+                                  device=self.device)
+        sc = ssm.init_slstm_cache(self.cfg, batch_size, device=self.device)
+        return {"mlstm": _stacked(mc, groups, per_group),
+                "slstm": _stacked(sc, groups)}
+
+
+# ---------------------------------------------------------------------------
+# Zamba2-style hybrid (mamba2 stacks + one *shared* attention block)
+# ---------------------------------------------------------------------------
+
+class Hybrid(LM):
+    """``hybrid``: groups of ``shared_attn_period`` Mamba2 blocks, each
+    followed by the one shared attention block (one module, its weights
+    reused by every group; each group keeps its own KV cache), then a
+    tail of Mamba2 blocks."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device=None):
+        super().__init__(cfg, generator=generator, device=device)
+        kw = dict(generator=generator, device=device)
+        period = cfg.ssm.shared_attn_period
+        groups = cfg.num_layers // period
+        self.mamba = nn.ModuleList(
+            nn.ModuleList(PreNorm(cfg, ssm.Mamba2(cfg, **kw), device)
+                          for _ in range(period))
+            for _ in range(groups))
+        self.mamba_tail = nn.ModuleList(
+            PreNorm(cfg, ssm.Mamba2(cfg, **kw), device)
+            for _ in range(cfg.num_layers - groups * period))
+        self.shared_attn = Block(cfg.replace(moe=None), **kw)
+
+    def _run(self, batch, caches, cache_index: int):
+        x = self._embed(batch["tokens"])
+        B, S = batch["tokens"].shape
+        positions = common.positions_for(B, S, cache_index,
+                                         device=self.device)
+        for g, group in enumerate(self.mamba):
+            for j, block in enumerate(group):
+                x, _ = block(x, None if caches is None else
+                             _layer(caches["groups"]["mamba"], g, j))
+            x, _ = self.shared_attn(x, positions, None if caches is None else
+                                    _layer(caches["groups"]["attn"], g),
+                                    cache_index)
+        for j, block in enumerate(self.mamba_tail):
+            x, _ = block(x, None if caches is None else
+                         _layer(caches["tail"], j))
+        return x
+
+    def init_caches(self, batch_size: int, max_len: int):
+        groups, period = len(self.mamba), self.cfg.ssm.shared_attn_period
+        mc = ssm.init_mamba2_cache(self.cfg, batch_size, CACHE_DTYPE,
+                                   device=self.device)
+        ac = attention.init_gqa_cache(self.cfg, batch_size, max_len,
+                                      CACHE_DTYPE, device=self.device)
+        caches = {"groups": {"mamba": _stacked(mc, groups, period),
+                             "attn": _stacked(ac, groups)}}
+        if len(self.mamba_tail):
+            caches["tail"] = _stacked(mc, len(self.mamba_tail))
+        return caches
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (seamless-m4t text decoder over stub audio encodings)
+# ---------------------------------------------------------------------------
+
+class EncDecBlock(nn.Module):
+    """An encoder block (non-causal self-attention, then the MLP) or,
+    with ``cross``, a decoder block (causal self-attention with a cache,
+    cross-attention to the encoder's memory, then the MLP)."""
+
+    def __init__(self, cfg: ModelConfig, cross: bool, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        dtype = common.dt(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
+        self.ln1 = RMSNorm(cfg.d_model, dtype, cfg.norm_eps, device)
+        self.attn = attention.GQA(cfg, **kw)
+        self.ln2 = RMSNorm(cfg.d_model, dtype, cfg.norm_eps, device)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype,
+                       common.dt(cfg.compute_dtype), **kw)
+        self.ln_x = RMSNorm(cfg.d_model, dtype, cfg.norm_eps, device) \
+            if cross else None
+        self.cross = attention.GQA(cfg, **kw) if cross else None
+
+    def forward(self, x, positions, memory=None, cache=None,
+                cache_index: int = 0):
+        decoder = self.cross is not None
+        a, cache = self.attn(self.ln1(x), positions, cache, cache_index,
+                             causal=decoder)
+        x = x + a
+        if decoder:
+            c, _ = self.cross(self.ln_x(x), positions, kv_source=memory,
+                              causal=False)
+            x = x + c
+        return x + self.ffn(self.ln2(x)), cache
+
+
+class EncDec(LM):
+    """``encdec``/``audio``. The encoder memory is cached at prefill in
+    bfloat16, ``max_len`` frames: zeros past the encoder's length, longer
+    memories cropped. As in the reference, prefill cross-attends to the
+    unpadded memory and decode to the whole zero-padded buffer."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device=None):
+        super().__init__(cfg, generator=generator, device=device)
+        kw = dict(generator=generator, device=device)
+        self.frame_proj = nn.Parameter(dense_init(
+            (cfg.d_model, cfg.d_model), common.dt(cfg.param_dtype), **kw))
+        self.enc = nn.ModuleList(EncDecBlock(cfg, False, **kw)
+                                 for _ in range(cfg.encoder_layers))
+        self.dec = nn.ModuleList(EncDecBlock(cfg, True, **kw)
+                                 for _ in range(cfg.num_layers))
+
+    def _encode(self, batch) -> torch.Tensor:
+        cd = common.dt(self.cfg.compute_dtype)
+        x = batch["frames"].to(cd) @ self.frame_proj.to(cd)
+        positions = common.positions_for(*x.shape[:2], device=self.device)
+        for block in self.enc:
+            x, _ = block(x, positions)
+        return x
+
+    def _decode_stack(self, tokens, memory, caches, cache_index: int):
+        x = self._embed(tokens)
+        positions = common.positions_for(*tokens.shape, cache_index,
+                                         device=self.device)
+        for l, block in enumerate(self.dec):
+            cache = None if caches is None else _layer(caches, l)
+            x, _ = block(x, positions, memory, cache, cache_index)
+        return x
+
+    def _run(self, batch, caches, cache_index: int):
+        return self._decode_stack(batch["tokens"], self._encode(batch),
+                                  None, 0)
+
+    def init_caches(self, batch_size: int, max_len: int):
+        proto = attention.init_gqa_cache(self.cfg, batch_size, max_len,
+                                         CACHE_DTYPE, device=self.device)
+        return {"self": _stacked(proto, len(self.dec)),
+                "memory": torch.zeros((batch_size, max_len,
+                                       self.cfg.d_model), dtype=CACHE_DTYPE,
+                                      device=self.device)}
+
+    @torch.inference_mode()
+    def prefill(self, batch, max_len: int):
+        memory = self._encode(batch)
+        caches = self.init_caches(batch["tokens"].shape[0], max_len)
+        kept = memory[:, :max_len]
+        caches["memory"][:, :kept.shape[1]] = kept.to(CACHE_DTYPE)
+        x = self._decode_stack(batch["tokens"], memory, caches["self"], 0)
+        return self._head(x[:, -1:]), caches
+
+    @torch.inference_mode()
+    def decode(self, batch, caches, index: int):
+        memory = caches["memory"].to(common.dt(self.cfg.compute_dtype))
+        x = self._decode_stack(batch["tokens"], memory, caches["self"],
+                               int(index))
+        return self._head(x), caches
+
+
+# ---------------------------------------------------------------------------
+
+_FAMILIES = {"dense": DecoderOnly, "moe": DecoderOnly, "vlm": DecoderOnly,
+             "ssm": XLSTM, "hybrid": Hybrid, "encdec": EncDec,
+             "audio": EncDec}
+
+
 def resolve_device(device=None) -> torch.device:
     """``device``, the card if None; raises without a card unless the
     CPU is asked for."""
@@ -179,92 +431,103 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_model(cfg: ModelConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> DecoderOnly:
+                generator: Optional[torch.Generator] = None) -> LM:
     """The model of ``cfg`` on ``device`` (the card unless ``"cpu"``),
     its weights drawn from ``generator`` (one seeded with 0 on the device
     if None)."""
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP.md Queue 1 item 10 lists it")
+    family = _FAMILIES.get(cfg.family)
+    if family is None:
+        raise ValueError(f"unknown family {cfg.family!r}")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return DecoderOnly(cfg, generator=generator, device=device)
+    return family(cfg, generator=generator, device=device)
 
 
 # ---------------------------------------------------------------------------
 # The reference's parameter pytree, as numpy arrays
 # ---------------------------------------------------------------------------
 
-def _block_layout(cfg: ModelConfig) -> Dict[str, Dict[str, tuple]]:
-    """For each reference leaf of a block: (port attribute path, the
-    reference's per-layer shape)."""
-    d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.kv_heads
-    Dh, f = cfg.resolved_head_dim, cfg.d_ff
-    attn = {"wq": (d, H, Dh), "wk": (d, Hkv, Dh), "wv": (d, Hkv, Dh),
-            "wo": (H, Dh, d)}
-    if cfg.qkv_bias:
-        attn.update(bq=(H, Dh), bk=(Hkv, Dh), bv=(Hkv, Dh))
-    return {"ln1": {"scale": (d,)}, "ln2": {"scale": (d,)}, "attn": attn,
-            "ffn": {"gate": (d, f), "up": (d, f), "down": (f, d)}}
+def _ref_tree(module: nn.Module):
+    """The module's parameters in the reference's pytree: a dict of
+    (parameter, the reference's shape) leaves and sub-dicts, a
+    ``ModuleList`` as a list (a stack on a leading axis; an empty one is
+    left out, as the reference has no leaf for it)."""
+    if isinstance(module, nn.ModuleList):
+        return [_ref_tree(m) for m in module]
+    shapes = module.ref_shapes() if hasattr(module, "ref_shapes") else {}
+    tree = {name: (p, shapes.get(name, tuple(p.shape)))
+            for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        sub = _ref_tree(child)
+        if sub:
+            tree[name] = sub
+    return tree
 
 
-def params_from_numpy(model: DecoderOnly, tree) -> DecoderOnly:
-    """Copy the reference's parameter pytree (numpy arrays) into
-    ``model``, in place, at each parameter's dtype and device."""
-    cfg = model.cfg
+def _take(tree, i: int):
+    return {k: _take(v, i) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree[i]
 
-    def put(param: torch.Tensor, value) -> None:
+
+def _from_numpy(node, value, path: str) -> None:
+    if isinstance(node, tuple):
+        param, shape = node
         value = np.asarray(value)
-        if value.size != param.numel():
-            raise ValueError(f"parameter of {tuple(param.shape)} given "
-                             f"{value.shape}")
+        if value.shape != shape:
+            raise ValueError(f"{path}: the reference's shape is {shape}, "
+                             f"given {value.shape}")
         with torch.no_grad():
             param.copy_(torch.from_numpy(np.ascontiguousarray(
                 value, dtype=np.float32)).reshape(param.shape))
+    elif isinstance(node, list):
+        lead = {np.shape(a)[0] for a in _leaves(value)}
+        if lead != {len(node)}:
+            raise ValueError(f"{path}: stacks of {sorted(lead)} layers, the "
+                             f"model has {len(node)}")
+        for i, sub in enumerate(node):
+            _from_numpy(sub, _take(value, i), f"{path}[{i}]")
+    else:
+        if set(value) != set(node):
+            raise ValueError(f"{path}: the reference's keys are "
+                             f"{sorted(value)}, the model's {sorted(node)}")
+        for k, sub in node.items():
+            _from_numpy(sub, value[k], f"{path}/{k}")
 
-    put(model.embed, tree["embed"])
-    put(model.final_ln.scale, tree["final_ln"]["scale"])
-    if model.lm_head is not None:
-        put(model.lm_head, tree["lm_head"])
-    if model.patch_proj is not None:
-        put(model.patch_proj, tree["patch_proj"])
-    for group, leaves in _block_layout(cfg).items():
-        for leaf in leaves:
-            stacked = np.asarray(tree["blocks"][group][leaf])
-            if stacked.shape[0] != cfg.num_layers:
-                raise ValueError(f"blocks/{group}/{leaf}: {stacked.shape[0]}"
-                                 f" layers, the model has {cfg.num_layers}")
-            for l, block in enumerate(model.blocks):
-                sub = getattr(block, group)
-                put(getattr(sub, "scale" if group.startswith("ln") else leaf),
-                    stacked[l])
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _to_numpy(node):
+    if isinstance(node, tuple):
+        param, shape = node
+        return param.detach().float().cpu().numpy().reshape(shape)
+    if isinstance(node, list):
+        subs = [_to_numpy(n) for n in node]
+        return _stack(subs)
+    return {k: _to_numpy(v) for k, v in node.items()}
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_from_numpy(model: nn.Module, tree) -> nn.Module:
+    """Copy the reference's parameter pytree (numpy arrays) into
+    ``model`` (a whole model or one of its modules), in place, at each
+    parameter's dtype and device."""
+    _from_numpy(_ref_tree(model), tree, "params")
     return model
 
 
-def params_to_numpy(model: DecoderOnly) -> dict:
+def params_to_numpy(model: nn.Module) -> dict:
     """The inverse of ``params_from_numpy``: the reference's pytree, as
     float32 numpy arrays in the reference's shapes."""
-    cfg = model.cfg
-
-    def get(param: torch.Tensor, shape=None) -> np.ndarray:
-        a = param.detach().float().cpu().numpy()
-        return a if shape is None else a.reshape(shape)
-
-    tree = {"embed": get(model.embed),
-            "final_ln": {"scale": get(model.final_ln.scale)}}
-    if model.lm_head is not None:
-        tree["lm_head"] = get(model.lm_head)
-    if model.patch_proj is not None:
-        tree["patch_proj"] = get(model.patch_proj)
-    blocks: Dict[str, Dict[str, np.ndarray]] = {}
-    for group, leaves in _block_layout(cfg).items():
-        blocks[group] = {}
-        for leaf, shape in leaves.items():
-            attr = "scale" if group.startswith("ln") else leaf
-            blocks[group][leaf] = np.stack(
-                [get(getattr(getattr(b, group), attr), shape)
-                 for b in model.blocks])
-    tree["blocks"] = blocks
-    return tree
+    return _to_numpy(_ref_tree(model))

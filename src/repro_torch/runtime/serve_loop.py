@@ -12,17 +12,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.model import DecoderOnly
+from repro_torch.models.model import LM
 
 
-def make_prefill_step(model: DecoderOnly, max_len: int):
+def make_prefill_step(model: LM, max_len: int):
     @torch.inference_mode()
     def prefill_step(batch):
         return model.prefill(batch, max_len=max_len)
     return prefill_step
 
 
-def make_decode_step(model: DecoderOnly):
+def make_decode_step(model: LM):
     @torch.inference_mode()
     def decode_step(batch, caches, index: int):
         logits, caches = model.decode(batch, caches, index)

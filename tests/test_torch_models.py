@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JARCHS
 from repro.configs import get_config as jget_config
 from repro.models import attention as jattn
 from repro.models import build_model as jbuild_model
 from repro.models import common as jcommon
 from repro.models import ffn as jffn
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import model as tmodel
@@ -37,8 +39,14 @@ B, S = 2, 32
 
 
 def port_cfg(jcfg) -> ModelConfig:
-    """The port's twin of a (dense or vlm) reference config."""
-    return ModelConfig(**dataclasses.asdict(jcfg))
+    """The port's twin of a reference config, its nested MoE, MLA and
+    SSM configs included."""
+    kw = dataclasses.asdict(jcfg)
+    for name, cls in (("moe", MoEConfig), ("mla", MLAConfig),
+                      ("ssm", SSMConfig)):
+        if kw[name] is not None:
+            kw[name] = cls(**kw[name])
+    return ModelConfig(**kw)
 
 
 def as_np(x) -> np.ndarray:
@@ -344,8 +352,7 @@ def test_prefill_logits_and_caches_match_the_reference(arch):
         close(t, j, dict(rtol=2 ** -7, atol=1e-6))
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3-8b", "qwen1.5-110b",
-                                  "qwen2.5-3b", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", JARCHS)
 def test_tiny_config_is_the_reference_tests_reduction(arch):
     """The card checks' size is the reference smoke tests' own."""
     from repro_torch.configs import get_config
@@ -354,12 +361,17 @@ def test_tiny_config_is_the_reference_tests_reduction(arch):
             == dataclasses.asdict(reduce_config(jget_config(arch))))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b",
-                                  "xlstm-1.3b", "zamba2-7b",
-                                  "seamless-m4t-medium"])
-def test_unported_families_raise(arch):
-    """moe (with deepseek's MLA and dense block0), ssm, hybrid and encdec
-    raise; none runs a substitute."""
+@pytest.mark.parametrize("arch", JARCHS)
+def test_build_model_builds_every_config(arch):
+    """Every family builds at ``tiny_config`` on the CPU, with the
+    reference's parameter count; an unknown family raises."""
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tmodel.build_model(get_config(arch), device="cpu")
+    from repro_torch.launch.train import tiny_config
+    cfg = tiny_config(get_config(arch))
+    tm = tmodel.build_model(cfg, device="cpu")
+    jm = jbuild_model(reduce_config(jget_config(arch)))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    assert tm.num_params() == sum(int(np.prod(a.shape))
+                                  for a in jax.tree.leaves(shapes))
+    with pytest.raises(ValueError, match="unknown family"):
+        tmodel.build_model(cfg.replace(family="rnn"), device="cpu")

@@ -105,9 +105,10 @@ def test_decode_matches_prefill_logits():
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2-vl-7b"])
 def test_launch_serve_runs_on_the_cpu(arch, capsys):
+    # gen 9: a vlm's 8 patch positions must fit the prompt + gen buffer
     assert tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
                         "--batch", "2", "--prompt-len", "12",
-                        "--gen", "4"]) == 0
+                        "--gen", "9"]) == 0
     out = capsys.readouterr().out
     assert f"arch={arch} batch=2 prefill " in out
     assert " ms, decode " in out and " tok/s)" in out
@@ -116,12 +117,50 @@ def test_launch_serve_runs_on_the_cpu(arch, capsys):
 
 def test_serve_returns_tokens_in_the_vocabulary():
     _, _, tm = model_pair("qwen2-vl-7b")
-    r = tserve.serve(tm, batch=B, prompt_len=6, gen=5, seed=3)
-    assert r["tokens"].shape == (B, 5)
+    r = tserve.serve(tm, batch=B, prompt_len=6, gen=9, seed=3)
+    assert r["tokens"].shape == (B, 9)
     assert int(r["tokens"].min()) >= 0
     assert int(r["tokens"].max()) < tm.cfg.vocab_size
-    # the patches take 8 positions: the buffer holds prompt, patches, gen
-    assert r["max_len"] == 6 + 8 + 5
-    assert len(r["step_ms"]) == 4 and r["tok_s"] > 0
-    assert len(r["logits"]) == 5
+    # the reference launcher's buffer: prompt + gen, the patches not
+    # counted (its last decode writes clamp)
+    assert r["max_len"] == 6 + 9
+    assert len(r["step_ms"]) == 8 and r["tok_s"] > 0
+    assert len(r["logits"]) == 9
     assert all(torch.isfinite(l).all() for l in r["logits"])
+
+
+def test_vlm_serve_sizes_its_cache_as_the_reference_launcher():
+    """Repair F2: qwen2-vl served by the port's launcher and by the
+    reference's steps with its launcher's ``max_len = prompt_len + gen``
+    on the same weights, tokens and patches. Decode starts past the 8
+    patches, so its last 7 writes clamp onto the buffer's last slot;
+    every step's logits agree within 2e-4, the clamped ones included,
+    and the tokens are equal. With gen < 8 the prompt does not fit and
+    the port raises."""
+    jm, jp, tm = model_pair("qwen2-vl-7b")
+    prompt_len, gen = 12, 11
+    r = tserve.serve(tm, batch=B, prompt_len=prompt_len, gen=gen, seed=5)
+    assert r["max_len"] == prompt_len + gen
+    inputs = tserve.prompt_batch(tm, B, prompt_len, 5)
+    jprefill = jax.jit(jserve_loop.make_prefill_step(
+        jm, max_len=prompt_len + gen))
+    jdecode = jax.jit(jserve_loop.make_decode_step(jm))
+    jl, jc = jprefill(jp, {k: jnp.asarray(v.numpy())
+                           for k, v in inputs.items()})
+    tok = jnp.argmax(jl[:, -1], -1).astype(jnp.int32)
+    want, toks = [jl], [tok]
+    start = prompt_len + 8
+    for i in range(gen - 1):
+        p3 = jnp.full((3, B, 1), start + i, jnp.int32)
+        tok, jl, jc = jdecode(jp, {"tokens": tok[:, None],
+                                   "positions3": p3}, jc,
+                              jnp.int32(start + i))
+        want.append(jl)
+        toks.append(tok)
+    assert start + gen - 2 > prompt_len + gen - 1     # the writes clamp
+    for got, w in zip(r["logits"], want):
+        close(got, w, MODEL_TOL)
+    np.testing.assert_array_equal(r["tokens"].numpy(),
+                                  np.stack([np.asarray(t) for t in toks], 1))
+    with pytest.raises(ValueError, match="gen must be at least 8"):
+        tserve.serve(tm, batch=B, prompt_len=prompt_len, gen=7, seed=5)

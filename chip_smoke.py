@@ -117,7 +117,25 @@ Phases, in order; any failure exits non-zero:
      (median after the first step), tokens/s, the first call's ms, peak
      memory, the decode bound (parameter bytes at 3.35 TB/s) and one
      decode step under the profiler (launches, device time, idle
-     share).
+     share);
+  9. the LM training path (``repro_torch.launch.train``,
+     ``runtime/train_loop.py``, ``optim/``; no hand kernel): (a) seven
+     configs at the smoke tests' size, float32, one adamw and one
+     adafactor step of two microbatches on the card against the CPU on
+     the same weights and batch (loss, grad norm, every gradient leaf,
+     every parameter after the step); (b) qwen1.5-0.5b at its published
+     size through ``launch.train.main`` at its defaults, 8 steps with
+     checkpoints, then the same command resumed at step 4 with the same
+     losses, then 30 steps on one repeated batch (the loss must fall by
+     more than 1) and each other remat form timed; (c) qwen1.5-110b at
+     full width and 2 layers with the giants' policy (adafactor,
+     bfloat16 states and weights, 16 microbatches), 3 steps, finite,
+     the reference's parameter count and factored state; (d)
+     ``compressed_psum_tree`` over NCCL (int8 on the wire) against gloo.
+     One ``train`` JSON line: per model the parameters, step ms (median
+     after the first), the first step's ms, tokens/s, peak memory, the
+     compute bound and one profiled step (launches, device ms, host
+     syncs, idle share).
 
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
@@ -158,6 +176,9 @@ N_FREE, FREE_SEED, SEED = 96, 0, 0
 N, K = 64, 12
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
+#: dense bfloat16 tensor-core peak, the training phase's compute bound
+#: (same data sheet)
+PEAK_BF16 = 989e12
 PEAK = {"fp32": 67e12, "int8": 1979e12}
 KERNELS = {   # entry → (CUDA source, TPU kernel it replaces)
     "prune_fixpoint": ("src/repro_torch/csrc/prune_fixpoint.cu",
@@ -273,6 +294,73 @@ SERVE_TOL = dict(rtol=2e-4, atol=2e-4)
 #: may move by a few units; 8 units leaves room and still fails a wrong
 #: position, mask or cache entry, which moves logits by O(1)
 SERVE_TF_ULPS = 8
+#: phase 9: the LM training path. (a) one model a family at tiny_config,
+#: float32, the card against the CPU on the same weights and batch: one
+#: adamw and one adafactor step of TRAIN_TINY_CFG, two microbatches
+TRAIN_TINY = ("qwen2.5-3b", "qwen2-vl-7b", "deepseek-v2-236b",
+              "arctic-480b", "xlstm-1.3b", "zamba2-7b",
+              "seamless-m4t-medium")
+TRAIN_TINY_CFG = dict(microbatches=2, learning_rate=1e-3, warmup_steps=1,
+                      total_steps=10)
+TRAIN_TINY_BATCH = dict(batch=4, seq=16, patches=8, frames=16)
+#: the card against the CPU (float32, TF32 off): each gradient leaf within
+#: TRAIN_GRAD_RTOL of its largest |g| (+1e-6), the loss and grad norm
+#: within TRAIN_METRIC_RTOL; a parameter within TRAIN_STEP_TOL after the
+#: step, or, where Adam's normalisation flips a near-zero gradient's sign,
+#: within 2·lr: at most TRAIN_FLIP_SHARE of the elements
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_METRIC_RTOL = 1e-5
+TRAIN_STEP_TOL = 2e-6
+TRAIN_FLIP_SHARE = 1e-3
+#: (b) qwen1.5-0.5b at its published size through launch/train's main at
+#: its defaults (batch 8 x seq 256, the production policy): 8 steps
+#: with a checkpoint every 4, then a resume at step 4; then
+#: TRAIN_MEMO_STEPS steps on one repeated batch through make_train_step
+#: at TRAIN_MEMO_CFG (the policy's 100 warmup steps would hold lr near 0),
+#: whose loss must fall by more than TRAIN_MEMO_DROP (the reference's own
+#: criterion, tests/test_runtime.py)
+TRAIN_FULL = "qwen1.5-0.5b"
+TRAIN_FULL_PARAMS = 463_987_712
+TRAIN_LAUNCH_ARGS = ["--steps", "8", "--checkpoint-every", "4",
+                     "--log-every", "1"]
+TRAIN_RESUME_AT = 4
+TRAIN_MEMO_STEPS = 30
+TRAIN_MEMO_CFG = dict(learning_rate=3e-4, warmup_steps=5, total_steps=30)
+TRAIN_MEMO_DROP = 1.0
+#: measurement only: TRAIN_REMAT_STEPS steps of TRAIN_FULL with each other
+#: remat form (a fresh model each), beside the policy's "block"
+TRAIN_REMAT_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+#: (c) the giants' policy at qwen1.5-110b's full width, cut to
+#: TRAIN_GIANT_LAYERS layers (a reckoned peak of ~50 GB: bfloat16 weights
+#: 10.4 GB, float32 accumulators 20.8 GB, a microbatch's bfloat16
+#: gradients 10.4 GB or the embedding leaf's float32 temporaries, 5.0 GB
+#: each): adafactor with bfloat16 states, bfloat16 parameters, 16
+#: microbatches of 1 x 256, TRAIN_GIANT_STEPS steps. The parameter count
+#: and the factored state's shapes are the reference's (jax.eval_shape of
+#: its init and of adafactor's init at 2 layers)
+TRAIN_GIANT = "qwen1.5-110b"
+TRAIN_GIANT_LAYERS = 2
+TRAIN_GIANT_PARAMS = 5_209_387_008
+TRAIN_GIANT_STEPS = 3
+TRAIN_GIANT_BATCH = 16
+TRAIN_GIANT_FACTORS = {
+    ("blocks", "attn", "bk"): {"vr": (2, 8), "vc": (2, 128)},
+    ("blocks", "attn", "bq"): {"vr": (2, 64), "vc": (2, 128)},
+    ("blocks", "attn", "bv"): {"vr": (2, 8), "vc": (2, 128)},
+    ("blocks", "attn", "wk"): {"vr": (2, 8192, 8), "vc": (2, 8192, 128)},
+    ("blocks", "attn", "wo"): {"vr": (2, 64, 128), "vc": (2, 64, 8192)},
+    ("blocks", "attn", "wq"): {"vr": (2, 8192, 64), "vc": (2, 8192, 128)},
+    ("blocks", "attn", "wv"): {"vr": (2, 8192, 8), "vc": (2, 8192, 128)},
+    ("blocks", "ffn", "down"): {"vr": (2, 49152), "vc": (2, 8192)},
+    ("blocks", "ffn", "gate"): {"vr": (2, 8192), "vc": (2, 49152)},
+    ("blocks", "ffn", "up"): {"vr": (2, 8192), "vc": (2, 49152)},
+    ("blocks", "ln1", "scale"): {"vr": (2,), "vc": (8192,)},
+    ("blocks", "ln2", "scale"): {"vr": (2,), "vc": (8192,)},
+    ("embed",): {"vr": (152064,), "vc": (8192,)},
+    ("final_ln", "scale"): {"v": (8192,)},
+    ("lm_head",): {"vr": (8192,), "vc": (152064,)},
+}
 
 
 def log(*a):
@@ -1714,6 +1802,445 @@ def serve_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM training path
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, device, seed, batch, seq, patches=0, frames=0):
+    """A batch of the data pipeline's tokens and labels (labels ≥ 0), on
+    ``device``, with a vlm's patches and M-RoPE positions or an
+    encoder-decoder's frames drawn from a host generator."""
+    from repro_torch.data import DataPipeline, SyntheticLMDataset
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=seq,
+                            seed=seed)
+    out = {k: torch.from_numpy(v)
+           for k, v in DataPipeline(ds, global_batch=batch).next().items()}
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "vlm" and patches:
+        out["patches"] = torch.randn((batch, patches, cfg.d_model),
+                                     generator=gen)
+        out["positions3"] = torch.arange(
+            patches + seq, dtype=torch.int32).expand(3, batch, -1).clone()
+    if cfg.family in ("encdec", "audio") and frames:
+        out["frames"] = torch.randn((batch, frames, cfg.d_model),
+                                    generator=gen)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def _train_tiny_parity(arch):
+    """Phase 9 (a): ``arch`` at ``tiny_config``, float32, one adamw and
+    one adafactor step of ``TRAIN_TINY_CFG`` (two microbatches, a fifth
+    of the labels −1) on the card and on the CPU from the same weights
+    (drawn on the CPU, carried by ``params_to_numpy`` /
+    ``params_from_numpy``) and batch: loss, grad norm, every gradient
+    leaf and every parameter after the step within the TRAIN_*
+    tolerances. Returns the largest errors."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    params_to_numpy)
+    from repro_torch.optim.adamw import at
+    from repro_torch.runtime.train_loop import (make_train_state,
+                                                make_train_step)
+    cfg = tiny_config(get_config(arch))
+    weights = params_to_numpy(build_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(SEED)))
+    batch = _train_batch(cfg, "cpu", SEED + 4, **TRAIN_TINY_BATCH)
+    batch["labels"][:, ::5] = -1
+    rec = dict(arch=arch)
+    for optimizer in ("adamw", "adafactor"):
+        tcfg = TrainConfig(optimizer=optimizer, **TRAIN_TINY_CFG)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            model = params_from_numpy(build_model(cfg, device=device),
+                                      weights)
+            step = make_train_step(model, tcfg)
+            _, m = step(make_train_state(model, tcfg),
+                        {k: v.to(device) for k, v in batch.items()})
+            runs[device] = (m, [g.cpu() for g in step.grads],
+                            params_to_numpy(model), step.leaves)
+        (mw, gw, pw, leaves), (mg, gg, pg, _) = runs["cpu"], runs["cuda"]
+        for k in ("loss", "grad_norm", "lr"):
+            a, b = float(mg[k]), float(mw[k])
+            if not abs(a - b) <= TRAIN_METRIC_RTOL * abs(b):
+                fail(f"phase 9: {arch} (tiny) {optimizer}: {k} on the card "
+                     f"{a} against the CPU's {b}")
+        grad_err = 0.0
+        for leaf, a, b in zip(leaves, gg, gw):
+            err = float((a - b).abs().max())
+            tol = TRAIN_GRAD_RTOL * float(b.abs().max()) + 1e-6
+            if not err <= tol:
+                fail(f"phase 9: {arch} (tiny) {optimizer}: gradient of "
+                     f"{'/'.join(leaf.path)} off by {err} (tolerance {tol})")
+            grad_err = max(grad_err, err / max(float(b.abs().max()), 1e-30))
+        flips = total = 0
+        step_err = 0.0
+        for leaf in leaves:
+            d = np.abs(at(pg, leaf.path) - at(pw, leaf.path))
+            if not d.max() <= 2 * tcfg.learning_rate + TRAIN_STEP_TOL:
+                fail(f"phase 9: {arch} (tiny) {optimizer}: parameter "
+                     f"{'/'.join(leaf.path)} off by {d.max()} after the "
+                     f"step")
+            flips += int((d > TRAIN_STEP_TOL).sum())
+            total += d.size
+            step_err = max(step_err, float(np.where(
+                d > TRAIN_STEP_TOL, 0.0, d).max()))
+        if flips > TRAIN_FLIP_SHARE * total:
+            fail(f"phase 9: {arch} (tiny) {optimizer}: {flips} of {total} "
+                 f"parameters past {TRAIN_STEP_TOL} after the step")
+        rec[optimizer] = dict(
+            loss=float(mg["loss"]),
+            loss_abs_err=abs(float(mg["loss"]) - float(mw["loss"])),
+            grad_norm_abs_err=abs(float(mg["grad_norm"])
+                                  - float(mw["grad_norm"])),
+            grad_max_rel_err=grad_err, param_max_abs_err=step_err,
+            adam_flips=flips, params=total)
+    log(f"  {arch} tiny: card == CPU, adamw and adafactor steps of 2 "
+        f"microbatches ({json.dumps(rec)})")
+    return rec
+
+
+def _train_bound_ms(cfg, n_params, batch, seq):
+    """6 · parameters · tokens, plus attention's 12 · layers · d · S² ·
+    batch, at the dense bfloat16 peak."""
+    flops = 6 * n_params * batch * seq + \
+        12 * cfg.num_layers * cfg.d_model * seq ** 2 * batch
+    return flops / PEAK_BF16 * 1e3
+
+
+def _timed_steps(step, state, batches, steps):
+    """``steps`` train steps over ``batches`` (cycled), each between two
+    CUDA events, read after one synchronisation: (state, losses, grad
+    norms, ms a step)."""
+    marks, metrics = [], []
+    for i in range(steps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, m = step(state, batches[i % len(batches)])
+        t1.record()
+        marks.append((t0, t1))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return (state, [float(m["loss"]) for m in metrics],
+            [float(m["grad_norm"]) for m in metrics],
+            [a.elapsed_time(b) for a, b in marks])
+
+
+def _train_record(arch, cfg, step, state, batch, n_params, ms):
+    """The train line's record of a model: step ms (median after the
+    first step), the first step's ms, tokens/s, the peak memory, the
+    compute bound, and one more step under the profiler (launches,
+    device ms, idle share)."""
+    peak = torch.cuda.max_memory_allocated()
+    B, S = batch["labels"].shape
+    _, wall_ms, rows = profiled(lambda: step(state, batch))
+    syncs = _host_syncs(lambda: step(state, batch))
+    busy = sum(r[1] for r in rows)
+    med = statistics.median(ms[1:])
+    return dict(
+        arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n_params, param_dtype=cfg.param_dtype,
+        compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+        optimizer=step.cfg.optimizer,
+        opt_state_dtype=step.cfg.opt_state_dtype,
+        microbatches=step.cfg.microbatches, batch=B, seq=S,
+        step_ms=med, first_step_ms=ms[0], step_ms_all=ms,
+        tokens_per_s=B * S / (med / 1e3), peak_memory_bytes=peak,
+        bound_ms=_train_bound_ms(cfg, n_params, B, S),
+        step_profile=dict(wall_ms=wall_ms, device_busy_ms=busy,
+                          idle_share=1.0 - busy / max(wall_ms, 1e-9),
+                          device_launches=sum(r[2] for r in rows),
+                          host_syncs=syncs,
+                          top=[dict(kernel=k[:60], ms=t, calls=c)
+                               for k, t, c in rows[:5]]))
+
+
+@contextlib.contextmanager
+def _recorded_losses(train_mod, losses):
+    """launch/train's ``make_train_step`` wrapped so that each step's
+    loss is appended to ``losses`` (the launcher reads it anyway)."""
+    made = train_mod.make_train_step
+
+    def recording(model, tcfg):
+        step = made(model, tcfg)
+
+        def call(state, batch):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            return state, m
+        return call
+    train_mod.make_train_step = recording
+    try:
+        yield
+    finally:
+        train_mod.make_train_step = made
+
+
+def _train_full():
+    """Phase 9 (b): ``TRAIN_FULL`` at its published size through
+    ``launch.train.main`` at its defaults: 8 steps with checkpoints at 4
+    and 8; ``step_000000008`` removed, the same command resumes at step 4
+    and its steps 4–7 must give run 1's losses (deterministic algorithms
+    for the two runs, so that the embedding's backward adds in one
+    order). Then ``TRAIN_MEMO_STEPS`` steps on one repeated batch through
+    ``make_train_step``: the loss must fall by more than
+    ``TRAIN_MEMO_DROP``; these steps are the timed ones."""
+    import io
+    import shutil
+    from repro_torch.configs import get_config, get_train_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train_loop import (make_train_state,
+                                                make_train_step)
+    runs = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--arch", TRAIN_FULL, "--checkpoint-dir", ckpt,
+                *TRAIN_LAUNCH_ARGS]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for run in range(2):
+                losses, out = [], io.StringIO()
+                t0 = time.time()
+                with _recorded_losses(train_mod, losses), \
+                        contextlib.redirect_stdout(out), \
+                        warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    rc = train_mod.main(argv)
+                wall = time.time() - t0
+                text = out.getvalue()
+                log("    " + text.strip().replace("\n", "\n    "))
+                if rc != 0:
+                    fail(f"phase 9: launch/train main returned {rc} "
+                         f"(run {run + 1})")
+                runs.append(dict(losses=losses, wall_s=wall,
+                                 log=text.splitlines()))
+                if run == 0:
+                    shutil.rmtree(Path(ckpt) / "step_000000008")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    first, second = runs
+    if f"resumed from step {TRAIN_RESUME_AT}" not in "\n".join(
+            second["log"]):
+        fail(f"phase 9: the second run did not resume at step "
+             f"{TRAIN_RESUME_AT}")
+    if len(first["losses"]) != 8 or len(second["losses"]) != 4:
+        fail(f"phase 9: {len(first['losses'])} and "
+             f"{len(second['losses'])} steps, expected 8 and 4")
+    resume_err = max(abs(a - b) for a, b in zip(
+        first["losses"][TRAIN_RESUME_AT:], second["losses"]))
+    if resume_err != 0.0:
+        fail(f"phase 9: the resumed steps' losses {second['losses']} differ "
+             f"from run 1's {first['losses'][TRAIN_RESUME_AT:]}")
+    if not all(np.isfinite(first["losses"])):
+        fail("phase 9: non-finite loss in the launcher's run")
+    log(f"  {TRAIN_FULL}: launch/train 8 steps {first['losses']}, resumed "
+        f"at {TRAIN_RESUME_AT}: {second['losses']} (equal)")
+
+    # TRAIN_MEMO_STEPS steps on one batch, timed, then one profiled
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_FULL)
+    tcfg = dataclasses.replace(get_train_config(TRAIN_FULL),
+                               **TRAIN_MEMO_CFG)
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    n_params = model.num_params()
+    if n_params != TRAIN_FULL_PARAMS:
+        fail(f"phase 9: {TRAIN_FULL}: {n_params} parameters, the "
+             f"reference's initialisers give {TRAIN_FULL_PARAMS}")
+    step = make_train_step(model, tcfg)
+    batch = _train_batch(cfg, "cuda", SEED + 5, TRAIN_BATCH, TRAIN_SEQ)
+    state, losses, gnorms, ms = _timed_steps(
+        step, make_train_state(model, tcfg), [batch], TRAIN_MEMO_STEPS)
+    if not all(np.isfinite(losses + gnorms)):
+        fail(f"phase 9: {TRAIN_FULL}: non-finite loss or grad norm")
+    if not losses[-1] < losses[0] - TRAIN_MEMO_DROP:
+        fail(f"phase 9: {TRAIN_FULL}: the loss on a repeated batch went "
+             f"{losses[0]} -> {losses[-1]} in {TRAIN_MEMO_STEPS} steps")
+    rec = _train_record(TRAIN_FULL, cfg, step, state, batch, n_params, ms)
+    del step, state
+    rec["remat_forms"] = {"block": dict(step_ms=rec["step_ms"],
+                                        peak_memory_bytes=rec[
+                                            "peak_memory_bytes"])}
+    for form in ("none", "full"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        other = build_model(cfg.replace(remat=form), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(SEED))
+        st = make_train_step(other, tcfg)
+        _, _, _, fms = _timed_steps(st, make_train_state(other, tcfg),
+                                    [batch], TRAIN_REMAT_STEPS)
+        rec["remat_forms"][form] = dict(
+            step_ms=statistics.median(fms[1:]),
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+        del other, st
+    rec.update(launcher=dict(losses=first["losses"],
+                             resumed_losses=second["losses"],
+                             resume_max_abs_diff=resume_err,
+                             wall_s=[first["wall_s"], second["wall_s"]]),
+               memorise=dict(**TRAIN_MEMO_CFG, losses=losses,
+                             drop=losses[0] - losses[-1]))
+    log(f"  {TRAIN_FULL} ({n_params} params): {TRAIN_MEMO_STEPS} steps on "
+        f"one batch, loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{rec['step_ms']:.2f} ms (first {rec['first_step_ms']:.2f}), "
+        f"{rec['tokens_per_s']:.0f} tok/s, bound {rec['bound_ms']:.3f} ms, "
+        f"peak {rec['peak_memory_bytes']} B, one step "
+        f"{rec['step_profile']['device_launches']} launches, "
+        f"{rec['step_profile']['host_syncs']['count']} host syncs, idle "
+        f"{rec['step_profile']['idle_share']:.3f}; remat forms "
+        f"{json.dumps(rec['remat_forms'])}")
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_giant():
+    """Phase 9 (c): ``TRAIN_GIANT`` at full width and
+    ``TRAIN_GIANT_LAYERS`` layers with its production policy (adafactor,
+    bfloat16 states and parameters, 16 microbatches), a global batch of
+    ``TRAIN_GIANT_BATCH`` x ``TRAIN_SEQ``, ``TRAIN_GIANT_STEPS`` steps:
+    finite losses and grad norms, the reference's parameter count and
+    factored state shapes, bfloat16 states, float32 accumulators and no
+    ``.grad`` left on any parameter."""
+    from repro_torch.configs import get_config, get_train_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import at
+    from repro_torch.runtime.train_loop import (make_train_state,
+                                                make_train_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_GIANT).replace(num_layers=TRAIN_GIANT_LAYERS)
+    tcfg = get_train_config(TRAIN_GIANT)
+    if (tcfg.optimizer, tcfg.opt_state_dtype, tcfg.microbatches,
+            cfg.param_dtype) != ("adafactor", "bfloat16", 16, "bfloat16"):
+        fail(f"phase 9: {TRAIN_GIANT}'s policy is not the giants' "
+             f"({tcfg}, {cfg.param_dtype} parameters)")
+    t0 = time.time()
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = model.num_params()
+    if n_params != TRAIN_GIANT_PARAMS:
+        fail(f"phase 9: {TRAIN_GIANT} ({TRAIN_GIANT_LAYERS} layers): "
+             f"{n_params} parameters, the reference's initialisers give "
+             f"{TRAIN_GIANT_PARAMS}")
+    step = make_train_step(model, tcfg)
+    state = make_train_state(model, tcfg)
+    for path, want in TRAIN_GIANT_FACTORS.items():
+        got = at(state["opt"]["f"], path)
+        if {k: tuple(v.shape) for k, v in got.items()} != want or any(
+                v.dtype != torch.bfloat16 for v in got.values()):
+            fail(f"phase 9: {TRAIN_GIANT}: adafactor's state of "
+                 f"{'/'.join(path)} is "
+                 f"{ {k: (tuple(v.shape), v.dtype) for k, v in got.items()} }"
+                 f", the reference's {want} in bfloat16")
+    if len(step.leaves) != len(TRAIN_GIANT_FACTORS):
+        fail(f"phase 9: {TRAIN_GIANT}: {len(step.leaves)} leaves, the "
+             f"reference's tree has {len(TRAIN_GIANT_FACTORS)}")
+    batches = [_train_batch(cfg, "cuda", SEED + 6 + i, TRAIN_GIANT_BATCH,
+                            TRAIN_SEQ) for i in range(TRAIN_GIANT_STEPS)]
+    state, losses, gnorms, ms = _timed_steps(step, state, batches,
+                                             TRAIN_GIANT_STEPS)
+    if not all(np.isfinite(losses + gnorms)):
+        fail(f"phase 9: {TRAIN_GIANT}: non-finite loss or grad norm "
+             f"{losses} {gnorms}")
+    if any(g.dtype != torch.float32 for g in step.grads):
+        fail(f"phase 9: {TRAIN_GIANT}: a gradient accumulator is not "
+             f"float32")
+    if any(p.grad is not None for p in model.parameters()):
+        fail(f"phase 9: {TRAIN_GIANT}: a parameter holds a .grad")
+    if any(p.dtype != torch.bfloat16 for p in model.parameters()):
+        fail(f"phase 9: {TRAIN_GIANT}: a parameter is not bfloat16")
+    rec = _train_record(TRAIN_GIANT, cfg, step, state, batches[0], n_params,
+                        ms)
+    rec.update(init_s=init_s, losses=losses, grad_norms=gnorms,
+               accumulators="float32",
+               state_dtype=str(at(state["opt"]["f"], ("embed",))["vr"].dtype))
+    log(f"  {TRAIN_GIANT} ({TRAIN_GIANT_LAYERS} layers, {n_params} params, "
+        f"bfloat16, adafactor, 16 microbatches): losses {losses}, grad "
+        f"norms {gnorms}; step {rec['step_ms']:.1f} ms (first "
+        f"{rec['first_step_ms']:.1f}), {rec['tokens_per_s']:.0f} tok/s, "
+        f"bound {rec['bound_ms']:.2f} ms, peak {rec['peak_memory_bytes']} "
+        f"B, idle {rec['step_profile']['idle_share']:.3f}")
+    del model, step, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_compress():
+    """Phase 9 (d): ``compressed_psum_tree`` in a world of one over NCCL
+    on CUDA tensors (int8 on the wire), against the same call over a
+    gloo group of the same world on CPU tensors: mean and error bit for
+    bit."""
+    import torch.distributed as dist
+    from repro_torch.optim import compressed_psum_tree, init_compression
+    gen = torch.Generator().manual_seed(SEED + 7)
+    tree = {"w": torch.randn((64, 256), generator=gen),
+            "b": [torch.randn(300, generator=gen) * 1e-3]}
+    wire = []
+    all_reduce = dist.all_reduce
+
+    def recording(t, *a, **k):
+        wire.append((str(t.dtype), t.device.type))
+        return all_reduce(t, *a, **k)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            gloo = dist.new_group(backend="gloo")
+            dist.all_reduce = recording
+            try:
+                out = {}
+                for name, group, dev in (("nccl", None, "cuda"),
+                                         ("gloo", gloo, "cpu")):
+                    g = {"w": tree["w"].to(dev), "b": [tree["b"][0].to(dev)]}
+                    comp = init_compression(g)
+                    for _ in range(3):      # error feedback carries over
+                        mean, comp = compressed_psum_tree(g, comp, group, 1)
+                    out[name] = (mean, comp)
+            finally:
+                dist.all_reduce = all_reduce
+        finally:
+            dist.destroy_process_group()
+    (mn, cn), (mg, cg) = out["nccl"], out["gloo"]
+    same = (torch.equal(mn["w"].cpu(), mg["w"])
+            and torch.equal(mn["b"][0].cpu(), mg["b"][0])
+            and torch.equal(cn["w"].error.cpu(), cg["w"].error)
+            and torch.equal(cn["b"][0].error.cpu(), cg["b"][0].error))
+    if not same:
+        fail("phase 9: compressed_psum_tree over NCCL differs from gloo's")
+    if ("torch.int8", "cuda") not in wire:
+        fail(f"phase 9: no int8 all_reduce on the card ({wire})")
+    err = float((mn["w"].cpu() - tree["w"]).abs().max())
+    log(f"  compressed_psum_tree over NCCL (world of one): int8 on the "
+        f"wire, == gloo's bit for bit; |mean - g| <= {err:.3g}")
+    return dict(wire=sorted(set(wire)), bitwise_gloo=True,
+                max_abs_err_vs_g=err)
+
+
+def train_phase():
+    """Phase 9: the LM training path on the card, (a)–(d) as their
+    functions say. cuBLAS's reduced-precision bfloat16 reduction stays
+    off (phase 8 turned it off), TF32 too."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    t0 = time.time()
+    out = {"parity": [_train_tiny_parity(a) for a in TRAIN_TINY]}
+    out["models"] = [_train_full(), _train_giant()]
+    out["compress"] = _train_compress()
+    out["phase_s"] = time.time() - t0
+    return out
+
+
 def profiled(fn):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
@@ -2041,6 +2568,12 @@ def main():
     card_now = card_line()
     detail["serve"] = dict(card=card_now, **serve_phase())
     log(json.dumps({"serve": detail["serve"]}))
+
+    # 9. the LM training path: card against CPU, qwen1.5-0.5b through the
+    # launcher with a resume, the giants' policy at full width, int8
+    # compression over NCCL
+    detail["train"] = dict(card=card_line(), **train_phase())
+    log(json.dumps({"train": detail["train"]}))
 
     kern = []
     split_calls = detail["split_epoch"]["calls"]

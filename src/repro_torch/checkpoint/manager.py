@@ -127,7 +127,12 @@ def _leaf_file(path_names) -> str:
 
 
 def _to_numpy(x) -> np.ndarray:
+    """A leaf on the host. A bfloat16 tensor (numpy has no bfloat16) is
+    saved as float32, which holds it exactly; a restore casts it back to
+    its template's dtype, as the reference's restore casts."""
     if torch.is_tensor(x):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

@@ -3,7 +3,7 @@
 Port of the JAX package's ``configs/__init__.py``. ``get_config(arch)``
 returns the exact published ``ModelConfig``; ``get_train_config(arch)``
 the training policy (optimizer family, state dtype, gradient-accumulation
-microbatches), kept as data for the training slice; ``input_specs``
+microbatches), which ``launch/train.py`` reads; ``input_specs``
 builds the input dict: tensors on the ``meta`` device (shapes and dtypes,
 nothing allocated, the counterpart of ``jax.ShapeDtypeStruct``), or
 zeros on a device for smoke runs.
@@ -35,7 +35,7 @@ _MODULES = {
 ARCHS: List[str] = list(_MODULES)
 
 # the reference's training policies per arch (sized there for a 16 GB
-# accelerator); the port's training slice reads them
+# accelerator)
 _TRAIN_POLICY: Dict[str, TrainConfig] = {
     "llama3-8b": TrainConfig(microbatches=4),
     "qwen1.5-110b": TrainConfig(microbatches=16, optimizer="adafactor",

@@ -1,0 +1,2 @@
+from repro_torch.data.pipeline import (DataPipeline, FileLMDataset,
+                                       SyntheticLMDataset)

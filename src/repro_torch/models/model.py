@@ -26,15 +26,30 @@ no host sync).
 
 ``params_from_numpy`` and ``params_to_numpy`` carry the reference's
 parameter pytree (numpy arrays, stacks on leading layer axes, each leaf
-in the reference's shape) into and out of the port's modules.
+in the reference's shape) into and out of the port's modules;
+``ref_leaves`` names each leaf of that tree with the parameters that
+make it up, which the optimizers update as the reference's leaves.
+
+``cfg.remat`` checkpoints the layers of each stack that the reference
+scans under ``_maybe_remat`` (``blocks``, the mLSTM blocks, the Mamba2
+blocks, the encoder and the decoder; never deepseek's ``block0``, the
+sLSTM blocks or the hybrid's shared attention) when autograd records:
+``"full"`` saves nothing inside a layer, ``"block"`` saves the outputs
+of the 2-D products (``aten.mm``: the projections, whose operands have
+no batch dimension, as the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest.
+``prefill`` and ``decode`` run under ``inference_mode`` and never
+checkpoint.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, ssm
@@ -58,6 +73,29 @@ def _stacked(proto: Dict[str, torch.Tensor], *lead: int):
     return {name: torch.zeros(tuple(lead) + tuple(c.shape), dtype=c.dtype,
                               device=c.device)
             for name, c in proto.items()}
+
+
+def _save_products(ctx, func, *args, **kwargs):
+    """``remat="block"``'s policy: keep the 2-D products' outputs."""
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE
+            if func is torch.ops.aten.mm.default
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, layer: nn.Module, *args):
+    """``layer(*args)``, checkpointed as ``cfg.remat`` says when autograd
+    records (see the module's docstring)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return layer(*args)
+    if cfg.remat not in ("block", "full"):
+        raise ValueError(f"remat {cfg.remat!r}: none, block or full")
+    kw = {}
+    if cfg.remat == "block":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_products)
+    return torch_checkpoint.checkpoint(layer, *args, use_reentrant=False,
+                                       **kw)
 
 
 class Block(nn.Module):
@@ -201,8 +239,11 @@ class DecoderOnly(LM):
             x, _ = self.block0(x, positions, None if caches is None else
                                _layer(caches["block0"], 0), cache_index)
         for l, block in enumerate(self.blocks):
-            cache = None if caches is None else _layer(caches["blocks"], l)
-            x, _ = block(x, positions, cache, cache_index)
+            if caches is None:
+                x, _ = _remat(self.cfg, block, x, positions)
+            else:
+                x, _ = block(x, positions, _layer(caches["blocks"], l),
+                             cache_index)
         return x
 
     def init_caches(self, batch_size: int, max_len: int):
@@ -244,8 +285,8 @@ class XLSTM(LM):
         x = self._embed(batch["tokens"])
         for g, group in enumerate(self.mlstm):
             for j, block in enumerate(group):
-                x, _ = block(x, None if caches is None else
-                             _layer(caches["mlstm"], g, j))
+                x, _ = (_remat(self.cfg, block, x) if caches is None else
+                        block(x, _layer(caches["mlstm"], g, j)))
             x, _ = self.slstm[g](x, None if caches is None else
                                  _layer(caches["slstm"], g))
         return x
@@ -291,14 +332,14 @@ class Hybrid(LM):
                                          device=self.device)
         for g, group in enumerate(self.mamba):
             for j, block in enumerate(group):
-                x, _ = block(x, None if caches is None else
-                             _layer(caches["groups"]["mamba"], g, j))
+                x, _ = (_remat(self.cfg, block, x) if caches is None else
+                        block(x, _layer(caches["groups"]["mamba"], g, j)))
             x, _ = self.shared_attn(x, positions, None if caches is None else
                                     _layer(caches["groups"]["attn"], g),
                                     cache_index)
         for j, block in enumerate(self.mamba_tail):
-            x, _ = block(x, None if caches is None else
-                         _layer(caches["tail"], j))
+            x, _ = (_remat(self.cfg, block, x) if caches is None else
+                    block(x, _layer(caches["tail"], j)))
         return x
 
     def init_caches(self, batch_size: int, max_len: int):
@@ -372,7 +413,7 @@ class EncDec(LM):
         x = batch["frames"].to(cd) @ self.frame_proj.to(cd)
         positions = common.positions_for(*x.shape[:2], device=self.device)
         for block in self.enc:
-            x, _ = block(x, positions)
+            x, _ = _remat(self.cfg, block, x, positions)
         return x
 
     def _decode_stack(self, tokens, memory, caches, cache_index: int):
@@ -380,8 +421,11 @@ class EncDec(LM):
         positions = common.positions_for(*tokens.shape, cache_index,
                                          device=self.device)
         for l, block in enumerate(self.dec):
-            cache = None if caches is None else _layer(caches, l)
-            x, _ = block(x, positions, memory, cache, cache_index)
+            if caches is None:
+                x, _ = _remat(self.cfg, block, x, positions, memory)
+            else:
+                x, _ = block(x, positions, memory, _layer(caches, l),
+                             cache_index)
         return x
 
     def _run(self, batch, caches, cache_index: int):
@@ -465,69 +509,97 @@ def _ref_tree(module: nn.Module):
     return tree
 
 
-def _take(tree, i: int):
-    return {k: _take(v, i) for k, v in tree.items()} \
-        if isinstance(tree, dict) else tree[i]
+class RefLeaf(NamedTuple):
+    """One leaf of the reference's parameter pytree: its ``path`` of
+    dict keys, the port's ``params`` that make it up (one, or one a
+    layer of a stack, layer-major) and the reference's ``shape`` (a
+    stack's leading layer axes included)."""
+    path: Tuple[str, ...]
+    params: List[nn.Parameter]
+    shape: Tuple[int, ...]
+
+    def value(self) -> torch.Tensor:
+        """The leaf at the reference's shape: a view of an unstacked
+        parameter, a stacked copy of a stack's."""
+        if len(self.params) == 1:
+            return self.params[0].view(self.shape)
+        return torch.stack([p.reshape(-1) for p in self.params]
+                           ).view(self.shape)
+
+    def slices(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Views of ``t`` (at ``shape``) shaped as each parameter."""
+        rows = t.view(len(self.params), -1)
+        return [r.view(p.shape) for r, p in zip(rows, self.params)]
 
 
-def _from_numpy(node, value, path: str) -> None:
+def _leaves_of(node, path: Tuple[str, ...]) -> List[RefLeaf]:
     if isinstance(node, tuple):
         param, shape = node
-        value = np.asarray(value)
-        if value.shape != shape:
-            raise ValueError(f"{path}: the reference's shape is {shape}, "
-                             f"given {value.shape}")
-        with torch.no_grad():
-            param.copy_(torch.from_numpy(np.ascontiguousarray(
-                value, dtype=np.float32)).reshape(param.shape))
-    elif isinstance(node, list):
-        lead = {np.shape(a)[0] for a in _leaves(value)}
-        if lead != {len(node)}:
-            raise ValueError(f"{path}: stacks of {sorted(lead)} layers, the "
-                             f"model has {len(node)}")
-        for i, sub in enumerate(node):
-            _from_numpy(sub, _take(value, i), f"{path}[{i}]")
-    else:
-        if set(value) != set(node):
-            raise ValueError(f"{path}: the reference's keys are "
-                             f"{sorted(value)}, the model's {sorted(node)}")
-        for k, sub in node.items():
-            _from_numpy(sub, value[k], f"{path}/{k}")
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _to_numpy(node):
-    if isinstance(node, tuple):
-        param, shape = node
-        return param.detach().float().cpu().numpy().reshape(shape)
+        return [RefLeaf(path, [param], tuple(shape))]
     if isinstance(node, list):
-        subs = [_to_numpy(n) for n in node]
-        return _stack(subs)
-    return {k: _to_numpy(v) for k, v in node.items()}
+        layers = [_leaves_of(sub, path) for sub in node]
+        return [RefLeaf(col[0].path, [p for leaf in col for p in leaf.params],
+                        (len(node),) + col[0].shape)
+                for col in zip(*layers)]
+    return [leaf for k in sorted(node) for leaf in _leaves_of(node[k],
+                                                               path + (k,))]
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+def ref_leaves(module: nn.Module) -> List[RefLeaf]:
+    """The leaves of the reference's parameter pytree of ``module``, in
+    its flattening order (dict keys sorted). A stack is one leaf with
+    leading layer axes (a ``(L, d)`` norm scale, an ``(L, d, H, Dh)``
+    projection), as the reference's optimizers see it."""
+    return _leaves_of(_ref_tree(module), ())
+
+
+def nest(items) -> Dict:
+    """A nested dict from ``(path, value)`` pairs."""
+    tree: Dict = {}
+    for path, value in items:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+    return tree
+
+
+def _paths(tree, prefix: Tuple[str, ...] = ()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (k,))
+    else:
+        yield prefix, tree
 
 
 def params_from_numpy(model: nn.Module, tree) -> nn.Module:
     """Copy the reference's parameter pytree (numpy arrays) into
     ``model`` (a whole model or one of its modules), in place, at each
     parameter's dtype and device."""
-    _from_numpy(_ref_tree(model), tree, "params")
+    values = dict(_paths(tree))
+    leaves = ref_leaves(model)
+    differ = set(values) ^ {leaf.path for leaf in leaves}
+    if differ:
+        raise ValueError(f"params: the reference's tree and the model's "
+                         f"differ at {sorted('/'.join(p) for p in differ)}")
+    with torch.no_grad():
+        for leaf in leaves:
+            value = np.asarray(values[leaf.path])
+            if value.shape != leaf.shape:
+                raise ValueError(f"params/{'/'.join(leaf.path)}: the "
+                                 f"reference's shape is {leaf.shape}, "
+                                 f"given {value.shape}")
+            t = torch.from_numpy(np.ascontiguousarray(value,
+                                                      dtype=np.float32))
+            for p, v in zip(leaf.params, leaf.slices(t)):
+                p.copy_(v)
     return model
 
 
 def params_to_numpy(model: nn.Module) -> dict:
     """The inverse of ``params_from_numpy``: the reference's pytree, as
     float32 numpy arrays in the reference's shapes."""
-    return _to_numpy(_ref_tree(model))
+    return nest((leaf.path, np.stack([p.detach().float().cpu().numpy()
+                                      for p in leaf.params]
+                                     ).reshape(leaf.shape))
+                for leaf in ref_leaves(model))

@@ -3,7 +3,11 @@ PyTorch version on the same inputs (integers bit for bit, floats within
 rtol 1e-5 / atol 1e-4). Skips without a card; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The LM serve and train paths (no hand kernel) are held card against
+CPU here too (``-k "lm_serve or lm_train"``).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -941,3 +945,51 @@ def test_lm_serve_on_card_equals_the_cpu(device):
             card.train_logits({k: v.to(device) for k, v in
                                batch.items()}).cpu(),
             cpu.train_logits(batch), rtol=2e-4, atol=2e-4)
+
+
+def test_lm_train_step_on_card_equals_the_cpu(device):
+    """qwen2-vl-7b at the reference smoke tests' size (patches, M-RoPE
+    positions, float32): one adamw step of two microbatches on the card
+    and on the CPU from the same weights and batch: loss and grad norm
+    within rtol 1e-5, every gradient leaf within 1e-4 of its largest
+    |g|, every parameter within 2e-6 after the step but where Adam
+    flipped a near-zero gradient's sign (within 2·lr, at most 1e-3 of
+    them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    params_to_numpy)
+    from repro_torch.optim.adamw import at
+    from repro_torch.runtime.train_loop import (make_train_state,
+                                                make_train_step)
+    cfg = tiny_config(get_config("qwen2-vl-7b"))
+    weights = params_to_numpy(build_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, 256, (4, 16), generator=gen),
+             "labels": torch.randint(-1, 256, (4, 16), generator=gen),
+             "patches": torch.randn((4, 8, 64), generator=gen),
+             "positions3": torch.arange(24).expand(3, 4, 24).clone()}
+    tcfg = TrainConfig(microbatches=2, learning_rate=1e-3, warmup_steps=1,
+                       total_steps=10)
+    runs = {}
+    for dev in ("cpu", device):
+        model = params_from_numpy(build_model(cfg, device=dev), weights)
+        step = make_train_step(model, tcfg)
+        _, m = step(make_train_state(model, tcfg),
+                    {k: v.to(dev) for k, v in batch.items()})
+        runs[str(dev)] = (m, [g.cpu() for g in step.grads],
+                          params_to_numpy(model), step.leaves)
+    (mw, gw, pw, leaves), (mg, gg, pg, _) = runs["cpu"], runs[str(device)]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(mg[k]), float(mw[k]), rtol=1e-5)
+    flips = total = 0
+    for leaf, a, b in zip(leaves, gg, gw):
+        assert float((a - b).abs().max()) <= \
+            1e-4 * float(b.abs().max()) + 1e-6, leaf.path
+        d = np.abs(at(pg, leaf.path) - at(pw, leaf.path))
+        assert d.max() <= 2 * tcfg.learning_rate + 2e-6, leaf.path
+        flips += int((d > 2e-6).sum())
+        total += d.size
+    assert flips <= 1e-3 * total

@@ -136,6 +136,36 @@ Phases, in order; any failure exits non-zero:
      after the first), the first step's ms, tokens/s, peak memory, the
      compute bound and one profiled step (launches, device ms, host
      syncs, idle share).
+  10. the sharded LM path (``runtime/{sharding,mesh_ctx,shard}.py``,
+     the train and serve steps on a mesh; no hand kernel): (a) a world
+     of one over NCCL on a (1, 1) mesh: the tiny dense and vlm configs
+     of phase 9 (a), one adamw and one adafactor step of two
+     microbatches, and phase 8 (a)'s prefill and greedy decode with
+     float32 caches, through the mesh code path, against the
+     one-device step and decode on the card on the same weights and
+     batch (phase 9's tolerances, logits within 2e-4, equal tokens);
+     (b) four ranks spawned on the one card (gloo on CUDA tensors,
+     ``chip_smoke.py --lm-mesh-rank r --mesh-dir DIR``) on a (2, 2) mesh
+     with qwen1.5-0.5b as published, in two passes, each held against a
+     one-device run in this process on the same weights and batches.
+     The bfloat16 pass, launch/train's defaults (batch 8 x 256, adamw,
+     remat "block"), 3 steps, then launch/serve's defaults (batch 4,
+     prompt 64, 32 tokens) fed the one-device run's tokens: losses and
+     grad norms within ``LM_MESH_BF16_RTOL``, every step's logits within
+     ``SERVE_TF_ULPS`` units of the largest |logit|, the greedy tokens
+     equal wherever the one-device top-2 margin exceeds twice that, each
+     rank's resident parameters, optimizer state and accumulators at
+     most ``LM_MESH_SHARE`` of the one device's. The float32 pass, the
+     same at float32 compute and caches: losses and grad norms within
+     1e-5, the first step's gradient slices within 1e-4 of each leaf's
+     largest |g|, the parameter slices after the steps within 2e-6 (or
+     Adam's sign flips), the gathered state saved in the reference's
+     tree and resumed on one device with the same parameters and next
+     loss, then serve on the one device's bfloat16-trained weights:
+     logits within rtol 2e-4 / atol 2e-4, tokens equal. One ``lm_mesh``
+     JSON line: per rank the step ms, decode ms a token, collectives and
+     bytes moved a step and a token, peak memory; the 4-rank walls are
+     processes time-sliced on one card, not a scale-out figure.
 
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
@@ -361,6 +391,39 @@ TRAIN_GIANT_FACTORS = {
     ("final_ln", "scale"): {"v": (8192,)},
     ("lm_head",): {"vr": (8192,), "vc": (152064,)},
 }
+
+#: phase 10: the sharded LM path. (a) a world of one over NCCL, the tiny
+#: dense and vlm configs (phase 9's tolerances; serve within SERVE_TOL);
+#: (b) LM_MESH_WORLD ranks on the one card on an LM_MESH_SHAPE mesh with
+#: LM_MESH_ARCH as published, LM_MESH_STEPS steps at launch/train's
+#: defaults, then launch/serve's defaults, in two passes against the one
+#: device on the same weights. The float32 pass (float32 compute and
+#: caches) holds the state: phase 9's criteria (loss and grad norm within
+#: TRAIN_METRIC_RTOL, the first step's every gradient leaf within
+#: TRAIN_GRAD_RTOL of its largest |g|, the parameters after the steps
+#: within TRAIN_STEP_TOL or, on at most TRAIN_FLIP_SHARE of them, within
+#: twice the steps' summed learning rates), its checkpoint resumed on one
+#: device the same way, logits within SERVE_TOL and equal tokens. The
+#: bfloat16 pass (the production policy) gives the timings: its loss and
+#: grad norm within LM_MESH_BF16_RTOL (about 20 and 10 times what the
+#: (2, 2) mesh showed: 4.5e-6 and 5.2e-4; the column-parallel products'
+#: input gradients still sum partials rounded to bfloat16), each step's
+#: logits within SERVE_TF_ULPS units of the largest |logit| (a
+#: row-parallel product's partial sums are taken at float32 and rounded
+#: once, as on one device), its greedy tokens equal wherever the one
+#: device's top-2 margin exceeds twice that. Each rank's resident parameters, optimizer state and
+#: float32 accumulators at most LM_MESH_SHARE of the one device's (a
+#: quarter, plus the norm scales and biases the rules keep whole or cut
+#: over one axis)
+LM_MESH_TINY = ("qwen2.5-3b", "qwen2-vl-7b")
+LM_MESH_ARCH = "qwen1.5-0.5b"
+LM_MESH_WORLD = 4
+LM_MESH_SHAPE = (2, 2)
+LM_MESH_STEPS = 3
+LM_MESH_TIMEOUT_S = 600
+LM_MESH_GROUP_TIMEOUT_S = 300
+LM_MESH_BF16_RTOL = dict(losses=1e-4, grad_norms=5e-3)
+LM_MESH_SHARE = 0.26
 
 
 def log(*a):
@@ -2241,6 +2304,726 @@ def train_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the sharded LM path
+# ---------------------------------------------------------------------------
+
+def _lm_mesh_train_cfg(arch):
+    """launch/train's training config at its defaults (200 steps, one
+    microbatch, the arch's policy)."""
+    from repro_torch.configs import get_train_config
+    return dataclasses.replace(get_train_config(arch), microbatches=1,
+                               total_steps=200, warmup_steps=10)
+
+
+def _lm_mesh_batches(cfg):
+    """launch/train's first ``LM_MESH_STEPS`` + 1 global batches (its data
+    pipeline at batch 8 x 256, seed ``SEED``), on the host."""
+    from repro_torch.data import DataPipeline, SyntheticLMDataset
+    pipe = DataPipeline(SyntheticLMDataset(vocab_size=cfg.vocab_size,
+                                           seq_len=TRAIN_SEQ, seed=SEED),
+                        global_batch=TRAIN_BATCH)
+    return [{k: torch.from_numpy(v) for k, v in pipe.next().items()}
+            for _ in range(LM_MESH_STEPS + 1)]
+
+
+def _weights_digest(model):
+    """A float64 sum of every parameter: equal weights give equal sums."""
+    with torch.no_grad():
+        return float(sum(p.double().sum() for p in model.parameters()))
+
+
+def _tiny_mesh_parity(arch, mesh):
+    """Phase 10 (a) for one tiny config on the world of one: two steps
+    (the first at lr 0) of adamw and of adafactor, then prefill and
+    greedy decode with float32 caches, the (1, 1) mesh's path against
+    the one-device path on the card, same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import serve_loop as sl
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import train_loop as tl
+    dev = "cuda"
+    cfg = tiny_config(get_config(arch))
+    weights = tmodel.params_to_numpy(tmodel.build_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(SEED)))
+
+    def both():
+        one = tmodel.params_from_numpy(tmodel.build_model(cfg, device=dev),
+                                       weights)
+        sh = tmodel.params_from_numpy(shard.shard_model(tmodel.build_model(
+            cfg, device=dev), mesh), weights)
+        return one, sh
+    batch = _train_batch(cfg, dev, SEED + 4, **TRAIN_TINY_BATCH)
+    batch["labels"][:, ::5] = -1
+    rec = dict(arch=arch)
+    mesh_lib.collectives.reset()
+    for optimizer in ("adamw", "adafactor"):
+        tcfg = TrainConfig(optimizer=optimizer, **TRAIN_TINY_CFG)
+        one, sh = both()
+        s1, s2 = tl.make_train_state(one, tcfg), tl.make_train_state(sh,
+                                                                     tcfg)
+        step1 = tl.make_train_step(one, tcfg)
+        step2 = tl.make_train_step(sh, tcfg, mesh)
+        local = shard.shard_batch(batch, mesh)
+        metric_err = 0.0
+        for _ in range(2):
+            s1, m1 = step1(s1, batch)
+            s2, m2 = step2(s2, local)
+            for k in ("loss", "grad_norm"):
+                a, b = float(m2[k]), float(m1[k])
+                if not abs(a - b) <= TRAIN_METRIC_RTOL * abs(b):
+                    fail(f"phase 10: {arch} (tiny) {optimizer}: {k} on the "
+                         f"(1, 1) mesh {a}, one device {b}")
+                metric_err = max(metric_err, abs(a - b) / abs(b))
+        grad_err = 0.0
+        for leaf, g1, g2 in zip(step2.leaves, step1.grads, step2.grads):
+            err = float((g1 - g2).abs().max())
+            tol = TRAIN_GRAD_RTOL * float(g1.abs().max()) + 1e-6
+            if not err <= tol:
+                fail(f"phase 10: {arch} (tiny) {optimizer}: gradient of "
+                     f"{'/'.join(leaf.path)} off by {err} (tolerance {tol})")
+            grad_err = max(grad_err, err / max(float(g1.abs().max()), 1e-30))
+        pw = dict(_flat(tmodel.params_to_numpy(one)))
+        flips = total = 0
+        step_err = 0.0
+        for path, a in _flat(shard.gather_params(sh)):
+            d = np.abs(a - pw[path])
+            if not d.max() <= 2 * tcfg.learning_rate + TRAIN_STEP_TOL:
+                fail(f"phase 10: {arch} (tiny) {optimizer}: parameter "
+                     f"{'/'.join(path)} off by {d.max()}")
+            flips += int((d > TRAIN_STEP_TOL).sum())
+            total += d.size
+            step_err = max(step_err, float(np.where(d > TRAIN_STEP_TOL, 0.0,
+                                                    d).max()))
+        if flips > TRAIN_FLIP_SHARE * total:
+            fail(f"phase 10: {arch} (tiny) {optimizer}: {flips} of {total} "
+                 f"parameters past {TRAIN_STEP_TOL}")
+        rec[optimizer] = dict(metric_rel_err=metric_err,
+                              grad_max_rel_err=grad_err,
+                              param_max_abs_err=step_err, adam_flips=flips)
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        one, sh = both()
+        B, P, G = (SERVE_TINY_ARGS[k] for k in ("batch", "prompt_len",
+                                                 "gen"))
+        prompt = prompt_batch(one, B, P, SEED + 1)
+        start = P + (tmodel.VLM_PATCHES if cfg.family == "vlm" else 0)
+        l1, c1 = sl.make_prefill_step(one, max_len=start + G)(prompt)
+        l2, c2 = sl.make_prefill_step(sh, mesh, max_len=start + G)(
+            shard.shard_batch(prompt, mesh))
+        t1, t2 = sl.greedy_token(one, l1), sl.greedy_token(sh, l2)
+        dec1, dec2 = sl.make_decode_step(one), sl.make_decode_step(sh, mesh)
+        errs = [float((l1 - l2).abs().max())]
+        same = bool(torch.equal(t1, t2))
+        for i in range(G - 1):
+            inp1, inp2 = {"tokens": t1[:, None]}, {"tokens": t2[:, None]}
+            if cfg.mrope:
+                inp1["positions3"] = torch.full((3, B, 1), start + i,
+                                                dtype=torch.int32, device=dev)
+                inp2["positions3"] = inp1["positions3"]
+            t1, l1, c1 = dec1(inp1, c1, start + i)
+            t2, l2, c2 = dec2(inp2, c2, start + i)
+            errs.append(float((l1 - l2).abs().max()))
+            same &= bool(torch.equal(t1, t2))
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    if not same or not max(errs) <= SERVE_TOL["atol"]:
+        fail(f"phase 10: {arch} (tiny) decode on the (1, 1) mesh: tokens "
+             f"equal {same}, logits off by {max(errs)}")
+    rec["serve_logits_max_abs_err"] = max(errs)
+    rec["collectives"] = mesh_lib.collectives.count
+    return rec
+
+
+def _flat(tree, prefix=()):
+    """``(path, leaf)`` of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _lm_mesh_world1():
+    """Phase 10 (a): ``LM_MESH_TINY`` on a (1, 1) mesh over NCCL in this
+    process (``_tiny_mesh_parity``)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    with tempfile.TemporaryDirectory() as d:
+        mesh_lib.init_group("nccl", init_method=f"file://{d}/store", rank=0,
+                            world_size=1, device="cuda",
+                            timeout_s=LM_MESH_GROUP_TIMEOUT_S)
+        try:
+            mesh = mesh_lib.make_host_mesh(1, 1, backend="nccl",
+                                           device="cuda")
+            out = [_tiny_mesh_parity(a, mesh) for a in LM_MESH_TINY]
+        finally:
+            dist.destroy_process_group()
+    for rec in out:
+        log(f"  {rec['arch']} (tiny) on a (1, 1) mesh over NCCL == one "
+            f"device: {json.dumps(rec)}")
+    return out
+
+
+def _leaf_file(d, path):
+    """Where ``_save_leaves`` keeps the leaf at ``path``."""
+    return d / (".".join(path) + ".npy")
+
+
+def _save_leaves(tree, d):
+    """Each leaf of a nested dict of arrays as float32 ``.npy`` under
+    ``d``, one file a leaf, so that a rank reads only what it cuts."""
+    d.mkdir(parents=True, exist_ok=True)
+    for path, v in _flat(tree):
+        np.save(_leaf_file(d, path), np.asarray(v, dtype=np.float32))
+
+
+def _slices_of(d, leaves, mesh):
+    """``{path: this rank's slice}`` of each leaf saved under ``d``
+    (``_mesh_slice`` by the leaf's spec)."""
+    from repro_torch.checkpoint.manager import _mesh_slice
+    return {l.path: _mesh_slice(np.load(_leaf_file(d, l.path)), mesh,
+                                l.spec) for l in leaves}
+
+
+def _param_errs(got, want):
+    """(largest |Δ| within TRAIN_STEP_TOL, elements past it, elements,
+    largest |Δ|) of two lists of arrays."""
+    within = worst = 0.0
+    past = total = 0
+    for a, b in zip(got, want):
+        d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+        past += int((d > TRAIN_STEP_TOL).sum())
+        total += d.size
+        worst = max(worst, float(d.max()))
+        within = max(within, float(np.where(d > TRAIN_STEP_TOL, 0.0,
+                                            d).max()))
+    return dict(within=within, past=past, total=total, worst=worst)
+
+
+def lm_mesh_rank(rank, mesh_dir):
+    """One rank of phase 10 (b): ``LM_MESH_ARCH`` as published on the
+    ``LM_MESH_SHAPE`` mesh (gloo on CUDA tensors, every rank on the one
+    card), built from the seed and cut to this rank's slice, in two
+    passes. The bfloat16 pass (launch/train's and launch/serve's
+    defaults): the train steps, then prefill and decode fed the one-device
+    run's tokens, timed and counted. The float32 pass (float32 compute
+    and caches): the train steps, the first step's gradients and the
+    parameters after the steps held against the one device's slices, the
+    gathered state saved (first rank) and one more step, then the one
+    device's bfloat16-trained weights loaded and prefill and decode fed
+    its tokens. Writes ``rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint.manager import CheckpointManager, _mesh_slice
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import build_model
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import mesh_ctx, shard
+    from repro_torch.runtime import serve_loop as sl
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import train_loop as tl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    dev = "cuda"
+    torch.cuda.set_device(0)
+    d = Path(mesh_dir)
+    mesh_lib.init_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=LM_MESH_WORLD, device=dev,
+                        timeout_s=LM_MESH_GROUP_TIMEOUT_S)
+    mesh = mesh_lib.make_host_mesh(*LM_MESH_SHAPE, backend="gloo",
+                                   device=dev)
+    cfg = get_config(LM_MESH_ARCH)
+    tcfg = _lm_mesh_train_cfg(LM_MESH_ARCH)
+    batches = [shard.shard_batch({k: v.to(dev) for k, v in b.items()}, mesh)
+               for b in _lm_mesh_batches(cfg)]
+    ref = np.load(d / "serve.npz")
+    B, P, G = (SERVE_ARGS[k] for k in ("batch", "prompt_len", "gen"))
+    lspec = shd.logits_spec(mesh)
+    rows = _mesh_slice(np.arange(B), mesh, lspec[:1])
+
+    def counted(fn):
+        mesh_lib.collectives.reset()
+        mesh_ctx.traffic.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ((time.perf_counter() - t0) * 1e3,
+                     mesh_lib.collectives.count, mesh_ctx.traffic.gathered,
+                     mesh_ctx.traffic.reduced)
+
+    def build(c):
+        model = build_model(c, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        digest = _weights_digest(model)
+        shard.shard_model(model, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return model, digest
+
+    def train(model, rec, after_step=None):
+        state = tl.make_train_state(model, tcfg)
+        step = tl.make_train_step(model, tcfg, mesh)
+        for i in range(LM_MESH_STEPS):
+            (state, m), (ms, n, g, r) = counted(
+                lambda: step(state, batches[i]))
+            for k, v in (("losses", float(m["loss"])),
+                         ("grad_norms", float(m["grad_norm"])),
+                         ("lrs", float(m["lr"])), ("step_ms", ms),
+                         ("collectives_per_step", n),
+                         ("bytes_gathered_per_step", g),
+                         ("bytes_reduced_per_step", r)):
+                rec.setdefault(k, []).append(v)
+            if after_step is not None:
+                after_step(i, step)
+        return state, step
+
+    def decode_run(model, logits_key):
+        """Prefill and greedy decode fed the one device's tokens: each
+        step's (max |Δ| logits, max (|Δ| - rtol |want|), tokens), and the
+        decode step's ms and counts."""
+        prompt = shard.shard_batch(prompt_batch(model, B, P, SEED + 1), mesh)
+        (logits, caches), prefill = counted(
+            lambda: sl.make_prefill_step(model, mesh, max_len=P + G)(prompt))
+        out = dict(prefill_ms=prefill[0], err=[], excess=[], tokens=[],
+                   ms=[], collectives=[], gathered=[], reduced=[])
+
+        def score(i, logits):
+            got = logits[:, -1].float().cpu().numpy()
+            want = _mesh_slice(ref[logits_key][i], mesh, lspec[::2])
+            diff = np.abs(got - want)
+            out["err"].append(float(diff.max()))
+            out["excess"].append(float((diff - SERVE_TOL["rtol"]
+                                        * np.abs(want)).max()))
+            out["tokens"].append(sl.greedy_token(model, logits).cpu()
+                                 .tolist())
+        score(0, logits)
+        step_tok = {"tokens": torch.zeros((B, 1), dtype=torch.int32)}
+        decode = sl.jit_decode_step(model, mesh, caches,
+                                    shd.infer_batch_specs(step_tok, mesh))
+        for i in range(G - 1):
+            inp = {"tokens": torch.from_numpy(
+                ref["tokens"][rows, i][:, None]).to(dev)}
+            (_, logits, caches), c = counted(
+                lambda: decode(inp, caches, P + i))
+            for k, v in zip(("ms", "collectives", "gathered", "reduced"), c):
+                out[k].append(v)
+            score(i + 1, logits)
+        return out
+
+    # the bfloat16 pass
+    model, digest = build(cfg)
+    rec = dict(rank=rank, rows=rows.tolist(), digest=digest)
+    torch.cuda.reset_peak_memory_stats()
+    state, step = train(model, rec)
+    rec["resident_bytes"] = dict(
+        params=shard.resident_bytes(model),
+        opt=shard.resident_bytes(state["opt"]),
+        grads=shard.resident_bytes(step.grads))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["serve"] = decode_run(model, "logits")
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the float32 pass
+    gmax = json.loads((d / "f32.json").read_text())["grad_max"]
+    model, digest = build(cfg.replace(compute_dtype="float32"))
+    f32 = dict(digest=digest)
+
+    def check_grads(i, step):
+        if i:
+            return
+        want = _slices_of(d / "g0", step.leaves, mesh)
+        worst, bad = 0.0, []
+        for leaf, g in zip(step.leaves, step.grads):
+            err = float(np.abs(g.cpu().numpy() - want[leaf.path]).max())
+            tol = TRAIN_GRAD_RTOL * gmax["/".join(leaf.path)] + 1e-6
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                bad.append(f"{'/'.join(leaf.path)} off by {err} ({tol})")
+        f32.update(grad_err_share_of_tol=worst, grad_bad=bad)
+    state, step = train(model, f32, check_grads)
+    want = _slices_of(d / "w", step.leaves, mesh)
+    f32["params"] = _param_errs(
+        [l.value().detach().float().cpu().numpy() for l in step.leaves],
+        [want[l.path] for l in step.leaves])
+    del want
+    t0 = time.perf_counter()
+    tree = shard.gather_state(state, shard.abstract_state(
+        model.cfg, tcfg))
+    if mesh_lib.mesh_writer(mesh):
+        CheckpointManager(str(d / "ckpt"), async_save=False).save(
+            LM_MESH_STEPS, tree, extras={"step": LM_MESH_STEPS})
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_lib.barrier()
+    f32["gather_save_ms"] = (time.perf_counter() - t0) * 1e3
+    state, m = step(state, batches[LM_MESH_STEPS])
+    f32["next_loss"] = float(m["loss"])
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmodel.params_from_numpy(model, tmodel.nest(_slices_of(
+        d / "w_bf16", model.layout.leaves, mesh).items()))
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        f32["serve"] = decode_run(model, "logits32")
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    rec["f32"] = f32
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+    mesh_lib.barrier()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def _lm_mesh_one_device(d):
+    """Phase 10 (b)'s one-device bfloat16 run on the card, the same
+    weights (``SEED``), batches and prompt as the ranks': the train
+    steps, the resident bytes, and launch/serve's ``serve`` (tokens and
+    every step's logits); the weights after the steps saved under
+    ``d/w_bf16``. Returns its record and the serve arrays."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import train_loop as tl
+    cfg = get_config(LM_MESH_ARCH)
+    tcfg = _lm_mesh_train_cfg(LM_MESH_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    rec = dict(digest=_weights_digest(model), losses=[], grad_norms=[],
+               step_ms=[])
+    state = tl.make_train_state(model, tcfg)
+    step = tl.make_train_step(model, tcfg)
+    batches = [{k: v.cuda() for k, v in b.items()}
+               for b in _lm_mesh_batches(cfg)]
+    for i in range(LM_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        rec["losses"].append(float(m["loss"]))
+        rec["grad_norms"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    rec["resident_bytes"] = dict(
+        params=shard.resident_bytes(model),
+        opt=shard.resident_bytes(state["opt"]),
+        grads=shard.resident_bytes(step.grads))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = serve(model, seed=SEED + 1, **SERVE_ARGS)
+    logits = torch.stack([l[:, -1].float() for l in r["logits"]]
+                         ).cpu().numpy()                    # (G, B, V)
+    rec.update(decode_ms_per_token=r["step_ms_median"],
+               prefill_ms=r["prefill_ms"],
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    arrays = dict(tokens=r["tokens"].cpu().numpy(), logits=logits)
+    weights = tmodel.params_to_numpy(model)
+    _save_leaves(weights, d / "w_bf16")
+    del model, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    arrays["logits32"], rec["bf16_noise"] = _lm_mesh_float32_serve(
+        cfg, weights, arrays)
+    arrays["tokens32"] = arrays["logits32"].argmax(-1).T     # (B, G)
+    rec["float32_token_mismatches"] = int(
+        (arrays["tokens32"] != arrays["tokens"]).sum())
+    return rec, arrays
+
+
+def _lm_mesh_float32_serve(cfg, weights, arrays):
+    """The one-device run's weights (``weights``, after its train steps)
+    at float32 compute with float32 caches, fed its tokens: every step's
+    last logits (G, B, V), and the bfloat16 run's noise at each step (the
+    largest |difference| of its logits from these)."""
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import build_model
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import serve_loop as sl
+    B, P, G = (SERVE_ARGS[k] for k in ("batch", "prompt_len", "gen"))
+    model = tmodel.params_from_numpy(build_model(
+        cfg.replace(compute_dtype="float32"), device="cuda"), weights)
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        logits, caches = sl.make_prefill_step(model, max_len=P + G)(
+            prompt_batch(model, B, P, SEED + 1))
+        out = [logits[:, -1].float().cpu().numpy()]
+        decode = sl.make_decode_step(model)
+        for i in range(G - 1):
+            tok = torch.from_numpy(arrays["tokens"][:, i][:, None]).cuda()
+            _, logits, caches = decode({"tokens": tok}, caches, P + i)
+            out.append(logits[:, -1].float().cpu().numpy())
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    out = np.stack(out)
+    noise = [float(np.abs(a - b).max()) for a, b in zip(out,
+                                                        arrays["logits"])]
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, noise
+
+
+def _lm_mesh_one_device_f32(d):
+    """Phase 10 (b)'s float32 pass on one device: the same weights and
+    batches at float32 compute: the train steps' losses, grad norms and
+    learning rates, the first step's gradients (``d/g0``, and each leaf's
+    largest |g|) and the parameters after the steps (``d/w``) saved, then
+    one more step's loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import train_loop as tl
+    cfg = get_config(LM_MESH_ARCH).replace(compute_dtype="float32")
+    tcfg = _lm_mesh_train_cfg(LM_MESH_ARCH)
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    rec = dict(digest=_weights_digest(model), losses=[], grad_norms=[],
+               lrs=[])
+    state = tl.make_train_state(model, tcfg)
+    step = tl.make_train_step(model, tcfg)
+    batches = [{k: v.cuda() for k, v in b.items()}
+               for b in _lm_mesh_batches(cfg)]
+    for i in range(LM_MESH_STEPS):
+        state, m = step(state, batches[i])
+        for k, v in (("losses", m["loss"]), ("grad_norms", m["grad_norm"]),
+                     ("lrs", m["lr"])):
+            rec[k].append(float(v))
+        if i == 0:
+            grads = tmodel.nest((l.path, g.cpu().numpy())
+                                for l, g in zip(step.leaves, step.grads))
+            _save_leaves(grads, d / "g0")
+            rec["grad_max"] = {"/".join(p): float(np.abs(v).max())
+                               for p, v in _flat(grads)}
+            del grads
+    _save_leaves(tmodel.params_to_numpy(model), d / "w")
+    state, m = step(state, batches[LM_MESH_STEPS])
+    rec["next_loss"] = float(m["loss"])
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_mesh_resume(d, one32, ranks_next_loss):
+    """The ranks' float32 checkpoint (the gathered state after the train
+    steps) restored on one device: its parameters against the one
+    device's after the same steps, and the next step's loss against the
+    one device's and the ranks' (TRAIN_METRIC_RTOL); ``ok`` when every
+    one holds."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import train_loop as tl
+    cfg = get_config(LM_MESH_ARCH).replace(compute_dtype="float32")
+    tcfg = _lm_mesh_train_cfg(LM_MESH_ARCH)
+    model = build_model(cfg, device="cuda")
+    state = tl.make_train_state(model, tcfg)
+    t0 = time.perf_counter()
+    tree, extras = CheckpointManager(str(d / "ckpt")).restore(
+        tl.train_state_tree(state))
+    state = tl.load_train_state(state, tree)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    leaves = tmodel.ref_leaves(model)
+    params = _param_errs(
+        [l.value().detach().float().cpu().numpy() for l in leaves],
+        [np.load(_leaf_file(d / "w", l.path)) for l in leaves])
+    batch = {k: v.cuda() for k, v in _lm_mesh_batches(cfg)[-1].items()}
+    state, m = tl.make_train_step(model, tcfg)(state, batch)
+    loss = float(m["loss"])
+    ok = (int(extras["step"]) == LM_MESH_STEPS
+          and int(state["step"]) == LM_MESH_STEPS + 1
+          and _params_ok(params, one32["lrs"])
+          and abs(loss - one32["next_loss"])
+          <= TRAIN_METRIC_RTOL * abs(one32["next_loss"])
+          and abs(loss - ranks_next_loss)
+          <= TRAIN_METRIC_RTOL * abs(ranks_next_loss))
+    del model, state, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(restore_ms=restore_ms, resumed_step=int(extras["step"]),
+                params=params, resumed_loss=loss,
+                one_device_next_loss=one32["next_loss"],
+                ranks_next_loss=ranks_next_loss, ok=ok)
+
+
+def _params_ok(errs, lrs):
+    """Phase 9's rule after several steps: every element within
+    TRAIN_STEP_TOL, or (Adam's sign flips) within twice the steps' summed
+    learning rates on at most TRAIN_FLIP_SHARE of them."""
+    return (errs["within"] <= TRAIN_STEP_TOL
+            and errs["past"] <= TRAIN_FLIP_SHARE * errs["total"]
+            and errs["worst"] <= 2 * sum(lrs) + TRAIN_STEP_TOL)
+
+
+def lm_mesh_phase():
+    """Phase 10, as the module's docstring says: (a) in this process,
+    then (b)'s one-device runs here and ``LM_MESH_WORLD`` ranks spawned
+    on the one card (``lm_mesh_rank``), held against them. Fails on any
+    check, a rank's non-zero exit or timeout. One ``lm_mesh`` JSON
+    line."""
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.time()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    line = dict(card=card_line(), world1=_lm_mesh_world1(),
+                arch=LM_MESH_ARCH, mesh=list(LM_MESH_SHAPE),
+                steps=LM_MESH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                serve=dict(SERVE_ARGS),
+                note=f"the {LM_MESH_WORLD}-rank walls are {LM_MESH_WORLD} "
+                     f"processes time-sliced on one card over gloo, not a "
+                     f"scale-out figure")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        one, arrays = _lm_mesh_one_device(d)
+        one32 = _lm_mesh_one_device_f32(d)
+        line["one_device"], line["one_device_f32"] = one, {
+            k: v for k, v in one32.items() if k != "grad_max"}
+        np.savez(d / "serve.npz", **arrays)
+        (d / "f32.json").write_text(json.dumps(one32))
+        cmds = [[sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--lm-mesh-rank", str(r), "--mesh-dir", str(d)]
+                for r in range(LM_MESH_WORLD)]
+        t0 = time.perf_counter()
+        try:
+            mesh_lib.run_ranks(cmds, timeout_s=LM_MESH_TIMEOUT_S,
+                               cwd=str(ROOT))
+        except (TimeoutError, mesh_lib.RankFailed) as e:
+            fail(f"phase 10: {e}")
+        line["ranks_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        recs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(LM_MESH_WORLD)]
+        line["resume"] = _lm_mesh_resume(d, one32,
+                                         recs[0]["f32"]["next_loss"])
+    logits, tokens = arrays["logits"], arrays["tokens"]
+    top2 = np.sort(logits, axis=-1)[..., -2:]               # (G, B, 2)
+    margin = top2[..., 1] - top2[..., 0]
+    tols = [SERVE_TF_ULPS * _bf16_ulp(np.abs(l).max()) for l in logits]
+    bad = [] if line["resume"]["ok"] else [
+        f"the (2, 2) float32 checkpoint resumed on one device: "
+        f"{line['resume']}"]
+    mism = set()
+    for r, rec in enumerate(recs):
+        f32 = rec["f32"]
+        for what, got, want in (("bfloat16", rec, one),
+                                ("float32", f32, one32)):
+            if abs(got["digest"] - want["digest"]) > 1e-9 * abs(
+                    want["digest"]):
+                bad.append(f"rank {r} built other {what} weights "
+                           f"({got['digest']} against {want['digest']})")
+        for k in ("losses", "grad_norms"):
+            for what, got, want, rtol in (
+                    ("bfloat16", rec[k], one[k], LM_MESH_BF16_RTOL[k]),
+                    ("float32", f32[k], one32[k], TRAIN_METRIC_RTOL)):
+                if not all(abs(a - b) <= rtol * abs(b)
+                           for a, b in zip(got, want)):
+                    bad.append(f"rank {r} {what}: {k} {got} on the mesh, "
+                               f"{want} on one device")
+        if f32["grad_bad"]:
+            bad.append(f"rank {r} float32 gradients: {f32['grad_bad'][:3]}")
+        if not _params_ok(f32["params"], one32["lrs"]):
+            bad.append(f"rank {r} float32 parameters after "
+                       f"{LM_MESH_STEPS} steps: {f32['params']}")
+        for k, v in rec["resident_bytes"].items():
+            if not v <= LM_MESH_SHARE * one["resident_bytes"][k]:
+                bad.append(f"rank {r} holds {v} B of {k}, the one device "
+                           f"{one['resident_bytes'][k]}")
+        sv, sv32 = rec["serve"], f32["serve"]
+        for i, (err, tol) in enumerate(zip(sv["err"], tols)):
+            if not err <= tol:
+                bad.append(f"rank {r}: bfloat16 step {i}'s logits off by "
+                           f"{err} (tolerance {tol})")
+            if not sv32["excess"][i] <= SERVE_TOL["atol"]:
+                bad.append(f"rank {r}: float32 step {i}'s logits off by "
+                           f"{sv32['err'][i]}")
+            for j, row in enumerate(rec["rows"]):
+                want = int(tokens[row, i])
+                if sv["tokens"][i][j] != want:
+                    mism.add((row, i))
+                if sv["tokens"][i][j] != want and margin[i, row] > 2 * tol:
+                    bad.append(f"rank {r}: bfloat16 step {i} row {row}: "
+                               f"token {sv['tokens'][i][j]}, one device "
+                               f"{want} (margin {margin[i, row]})")
+                if sv32["tokens"][i][j] != int(arrays["tokens32"][row, i]):
+                    bad.append(f"rank {r}: float32 step {i} row {row}: "
+                               f"token {sv32['tokens'][i][j]}, one device "
+                               f"{int(arrays['tokens32'][row, i])}")
+    line["ranks"] = [dict(
+        rank=rec["rank"], losses=rec["losses"], grad_norms=rec["grad_norms"],
+        step_ms=rec["step_ms"], collectives_per_step=rec[
+            "collectives_per_step"],
+        bytes_gathered_per_step=rec["bytes_gathered_per_step"],
+        bytes_reduced_per_step=rec["bytes_reduced_per_step"],
+        resident_bytes=rec["resident_bytes"],
+        resident_share={k: v / one["resident_bytes"][k]
+                        for k, v in rec["resident_bytes"].items()},
+        prefill_ms=rec["serve"]["prefill_ms"],
+        decode_ms_per_token=statistics.median(rec["serve"]["ms"][1:]),
+        decode_collectives_per_token=rec["serve"]["collectives"][-1],
+        decode_bytes_gathered_per_token=rec["serve"]["gathered"][-1],
+        decode_bytes_reduced_per_token=rec["serve"]["reduced"][-1],
+        logits_max_abs_err=max(rec["serve"]["err"]),
+        peak_memory_bytes=rec["peak_memory_bytes"],
+        f32=dict(losses=rec["f32"]["losses"],
+                 grad_norms=rec["f32"]["grad_norms"],
+                 step_ms=rec["f32"]["step_ms"],
+                 grad_err_share_of_tol=rec["f32"]["grad_err_share_of_tol"],
+                 params=rec["f32"]["params"],
+                 gather_save_ms=rec["f32"]["gather_save_ms"],
+                 next_loss=rec["f32"]["next_loss"],
+                 logits_max_abs_err=max(rec["f32"]["serve"]["err"]),
+                 decode_ms_per_token=statistics.median(
+                     rec["f32"]["serve"]["ms"][1:])))
+        for rec in recs]
+    line["checks"] = dict(
+        loss_rel_err=max(abs(a - b) / abs(b) for rec in recs
+                         for a, b in zip(rec["losses"], one["losses"])),
+        grad_norm_rel_err=max(abs(a - b) / abs(b) for rec in recs
+                              for a, b in zip(rec["grad_norms"],
+                                              one["grad_norms"])),
+        f32_loss_rel_err=max(abs(a - b) / abs(b) for rec in recs
+                             for a, b in zip(rec["f32"]["losses"],
+                                             one32["losses"])),
+        f32_grad_norm_rel_err=max(
+            abs(a - b) / abs(b) for rec in recs
+            for a, b in zip(rec["f32"]["grad_norms"], one32["grad_norms"])),
+        logits_max_abs_err=max(max(rec["serve"]["err"]) for rec in recs),
+        logits_tol=[min(tols), max(tols)],
+        f32_logits_max_abs_err=max(max(rec["f32"]["serve"]["err"])
+                                   for rec in recs),
+        token_mismatches=len(mism), tokens=int(tokens.size),
+        failed=bad)
+    line["phase_s"] = time.time() - t_phase
+    log(json.dumps({"lm_mesh": line}))
+    if bad:
+        fail("phase 10: " + "; ".join(bad[:5]))
+    return line
+
+
 def profiled(fn):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
@@ -2292,6 +3075,8 @@ def main():
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # phase 4e's ranks
     ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--lm-mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 10 (b)'s ranks
     args = ap.parse_args()
     out_dir = args.out
     if not torch.cuda.is_available():
@@ -2299,6 +3084,8 @@ def main():
         return 2
     if args.mesh_rank is not None:
         return mesh_rank(args.mesh_rank, args.mesh_dir)
+    if args.lm_mesh_rank is not None:
+        return lm_mesh_rank(args.lm_mesh_rank, args.mesh_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import pso
     from repro_torch.core.matcher import (IMMSchedMatcher,
@@ -2574,6 +3361,10 @@ def main():
     # compression over NCCL
     detail["train"] = dict(card=card_line(), **train_phase())
     log(json.dumps({"train": detail["train"]}))
+
+    # 10. the sharded LM path: a world of one over NCCL, then four ranks
+    # on a (2, 2) mesh with qwen1.5-0.5b as published
+    detail["lm_mesh"] = lm_mesh_phase()
 
     kern = []
     split_calls = detail["split_epoch"]["calls"]

@@ -25,6 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import (RMSNorm, apply_mrope, apply_rope,
                                        dense_init)
+from repro_torch.runtime.mesh_ctx import (constrain, enter_tensor,
+                                          row_parallel, tensor_axes, weight)
 
 #: prefill query chunk: a query longer than this, and a multiple of it, is
 #: attended in chunks so that the (B, H, Sq, Skv) logits never exist whole
@@ -46,7 +48,9 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Decode (Sq = 1) groups the H query heads over the Hkv cached heads;
     prefill and training (Sq > 1) repeat K/V to all H heads, and chunk the
-    queries past ``_Q_CHUNK``."""
+    queries past ``_Q_CHUNK``. On a mesh the heads here are this rank's
+    (``GQA`` cuts them over the model axis); ``constrain`` marks where
+    the reference pins their layout."""
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     groups = H // Hkv
@@ -54,6 +58,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = _as(Dh ** -0.5, cd)
 
     if Sq == 1:
+        k = constrain(k, "batch", "tensor", None, None)
+        v = constrain(v, "batch", "tensor", None, None)
         qg = q.reshape(B, Hkv, groups, Dh).to(cd)
         logits = torch.matmul(qg, k.to(cd).permute(0, 2, 3, 1)) * scale
         logits = torch.where(mask, logits.float(), _MASKED)
@@ -64,12 +70,16 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if groups > 1:
         k = k.repeat_interleave(groups, dim=2)
         v = v.repeat_interleave(groups, dim=2)
-    qh = q.to(cd).transpose(1, 2)                         # (B, H, Sq, Dh)
-    kt = k.to(cd).permute(0, 2, 3, 1)                     # (B, H, Dh, Skv)
-    vh = v.to(cd).transpose(1, 2)                         # (B, H, Skv, Dh)
+    q = constrain(q.to(cd), "batch", None, "tensor", None)
+    k = constrain(k.to(cd), "batch", None, "tensor", None)
+    v = constrain(v.to(cd), "batch", None, "tensor", None)
+    qh = q.transpose(1, 2)                                # (B, H, Sq, Dh)
+    kt = k.permute(0, 2, 3, 1)                            # (B, H, Dh, Skv)
+    vh = v.transpose(1, 2)                                # (B, H, Skv, Dh)
 
     def att(q_blk, mask_blk):
-        logits = torch.matmul(q_blk, kt) * scale
+        logits = constrain(torch.matmul(q_blk, kt) * scale,
+                           "batch", "tensor", None, None)
         logits = torch.where(mask_blk, logits.float(), _MASKED)
         probs = torch.softmax(logits, dim=-1).to(cd)
         return torch.matmul(probs, vh)                    # (B, H, s, Dh)
@@ -88,7 +98,13 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class GQA(nn.Module):
     """Grouped-query self-attention of one block. Weights at
     ``param_dtype``: ``wq`` (d, H·Dh), ``wk``/``wv`` (d, Hkv·Dh), ``wo``
-    (H·Dh, d), biases (H·Dh,) / (Hkv·Dh,) when ``qkv_bias``."""
+    (H·Dh, d), biases (H·Dh,) / (Hkv·Dh,) when ``qkv_bias``.
+
+    On a mesh (``runtime.shard``) a rank holds the heads of its model
+    coordinate, H/t query and Hkv/t KV heads (column-parallel ``wq``,
+    ``wk``, ``wv`` and biases, row-parallel ``wo`` with an all-reduce),
+    and its FSDP slice of d, gathered at use; the head counts are read
+    off the local weights."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -122,6 +138,10 @@ class GQA(nn.Module):
                 "wo": (H, Dh, d), "bq": (H, Dh), "bk": (Hkv, Dh),
                 "bv": (Hkv, Dh)}
 
+    def local_kv_heads(self) -> int:
+        """The KV heads this rank holds (all of them off a mesh)."""
+        return self.wk.shape[1] // self.cfg.resolved_head_dim
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: int = 0,
@@ -135,18 +155,20 @@ class GQA(nn.Module):
         every key. Returns (out, cache)."""
         cfg = self.cfg
         B, S, _ = x.shape
-        H, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.resolved_head_dim
-        src = x if kv_source is None else kv_source
-        q = x @ self.wq.to(x.dtype)
-        k = src @ self.wk.to(x.dtype)
-        v = src @ self.wv.to(x.dtype)
+        Dh = cfg.resolved_head_dim
+        tp = tensor_axes(self.wq)
+        x = enter_tensor(x, tp)
+        src = x if kv_source is None else enter_tensor(kv_source, tp)
+        q = x @ weight(self.wq, x.dtype)
+        k = src @ weight(self.wk, x.dtype)
+        v = src @ weight(self.wv, x.dtype)
         if cfg.qkv_bias:
             q = q + self.bq.to(q.dtype)
             k = k + self.bk.to(k.dtype)
             v = v + self.bv.to(v.dtype)
         Skv = src.shape[1]
-        q, k, v = (q.view(B, S, H, Dh), k.view(B, Skv, Hkv, Dh),
-                   v.view(B, Skv, Hkv, Dh))
+        q, k, v = (q.view(B, S, -1, Dh), k.view(B, Skv, -1, Dh),
+                   v.view(B, Skv, -1, Dh))
         if kv_source is None:
             if cfg.mrope:
                 q = apply_mrope(q, positions, cfg.mrope_sections,
@@ -167,8 +189,8 @@ class GQA(nn.Module):
                 if causal else
                 torch.ones((S, kv_len), dtype=torch.bool, device=x.device))
         out = _sdpa(q, k, v, mask, common.dt(cfg.compute_dtype))
-        out = out.reshape(B, S, H * Dh)
-        return (out @ self.wo.to(out.dtype)).to(x.dtype), cache
+        out = out.reshape(B, S, -1)
+        return row_parallel(out, self.wo, tp).to(x.dtype), cache
 
 
 def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],

@@ -10,11 +10,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import dense_init
+from repro_torch.runtime.mesh_ctx import (enter_tensor, row_parallel,
+                                          tensor_axes, weight)
 
 
 class MLP(nn.Module):
     """SwiGLU: down(silu(x·gate) ⊙ (x·up)), the products at
-    ``compute_dtype``, the output at the input's dtype."""
+    ``compute_dtype``, the output at the input's dtype. On a mesh
+    ``gate``/``up`` are column-parallel on F and ``down`` row-parallel
+    with an all-reduce over the model axis (``runtime.mesh_ctx``)."""
 
     def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
                  compute_dtype: torch.dtype, *,
@@ -28,6 +32,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        xc = x.to(cd)
-        h = F.silu(xc @ self.gate.to(cd)) * (xc @ self.up.to(cd))
-        return (h @ self.down.to(cd)).to(x.dtype)
+        tp = tensor_axes(self.gate)
+        xc = enter_tensor(x.to(cd), tp)
+        h = F.silu(xc @ weight(self.gate, cd)) * (xc @ weight(self.up, cd))
+        return row_parallel(h, self.down, tp).to(x.dtype)

@@ -44,7 +44,8 @@ checkpoint.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +57,9 @@ from repro_torch.models import attention, common, ssm
 from repro_torch.models.common import RMSNorm, dense_init, embed_init
 from repro_torch.models.ffn import MLP
 from repro_torch.models.moe import MoE
+from repro_torch.runtime.mesh_ctx import (all_reduce, axes_of, enter_tensor,
+                                          gather_tensor, reduce_tensor,
+                                          shard_of, tensor_axes, weight)
 
 CACHE_DTYPE = torch.bfloat16
 #: patch positions a ``vlm`` prompt starts with (the stub vision frontend)
@@ -158,15 +162,44 @@ class LM(nn.Module):
         return self.embed.device
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        # gather, then cast: the values of the reference's cast-then-gather
-        # without a copy of the whole table a step
-        return self.embed[tokens.long()].to(common.dt(self.cfg.compute_dtype))
+        cd = common.dt(self.cfg.compute_dtype)
+        if shard_of(self.embed) is None:
+            # gather, then cast: the values of the reference's
+            # cast-then-gather without a copy of the whole table a step
+            return self.embed[tokens.long()].to(cd)
+        # on a mesh: the table cast and gathered over FSDP; vocab-parallel
+        # over the model axis (a token outside this rank's rows gives
+        # zeros, then the ranks' rows are summed)
+        w = weight(self.embed, cd)
+        tp = tensor_axes(self.embed)
+        idx = tokens.long()
+        if tp is None:
+            return w[idx]
+        # a negative id counts from the end, as the one-device index does
+        idx = torch.where(idx < 0, idx + self.cfg.vocab_size, idx)
+        idx = idx - tp.index * w.shape[0]
+        inside = (idx >= 0) & (idx < w.shape[0])
+        rows = w[idx.clamp(0, w.shape[0] - 1)]
+        return reduce_tensor(torch.where(inside[..., None], rows,
+                                         torch.zeros((), dtype=cd,
+                                                     device=rows.device)),
+                             tp)
+
+    def vocab_axes(self):
+        """The model axis that cuts the logits' vocabulary (the head's V,
+        the only dim the rules put on it), None when they are whole."""
+        return tensor_axes(self.embed if self.lm_head is None
+                           else self.lm_head)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits of ``x``; on a mesh vocab-parallel: this rank's V/t
+        columns (``runtime.sharding.logits_spec``)."""
         cd = common.dt(self.cfg.compute_dtype)
         x = self.final_ln(x)
-        w = self.embed.t() if self.lm_head is None else self.lm_head
-        return x.to(cd) @ w.to(cd)
+        p = self.embed if self.lm_head is None else self.lm_head
+        x = enter_tensor(x, self.vocab_axes())
+        w = weight(p, cd)
+        return x.to(cd) @ (w.t() if self.lm_head is None else w)
 
     def train_logits(self, batch) -> torch.Tensor:
         """The forward alone over the whole sequence → (B, S, V)."""
@@ -218,7 +251,10 @@ class DecoderOnly(LM):
         x = self._embed(batch["tokens"])
         if self.patch_proj is not None and "patches" in batch:
             cd = common.dt(self.cfg.compute_dtype)
-            pe = batch["patches"].to(cd) @ self.patch_proj.to(cd)
+            pe = batch["patches"].to(cd) @ weight(self.patch_proj, cd)
+            # on a mesh the projection's output width is cut over the
+            # model axis; the sequence needs it whole
+            pe = gather_tensor(pe, -1, tensor_axes(self.patch_proj))
             x = torch.cat([pe, x], dim=1)
         return x
 
@@ -247,9 +283,14 @@ class DecoderOnly(LM):
         return x
 
     def init_caches(self, batch_size: int, max_len: int):
+        """Zero caches; on a mesh ``batch_size`` is this rank's rows and
+        the KV heads are its own."""
         init = attention.init_mla_cache if self.cfg.mla is not None \
             else attention.init_gqa_cache
-        proto = init(self.cfg, batch_size, max_len, CACHE_DTYPE,
+        cfg = self.cfg
+        if cfg.mla is None:
+            cfg = cfg.replace(kv_heads=self.blocks[0].attn.local_kv_heads())
+        proto = init(cfg, batch_size, max_len, CACHE_DTYPE,
                      device=self.device)
         caches = {"blocks": _stacked(proto, len(self.blocks))}
         if self.block0 is not None:
@@ -512,11 +553,20 @@ def _ref_tree(module: nn.Module):
 class RefLeaf(NamedTuple):
     """One leaf of the reference's parameter pytree: its ``path`` of
     dict keys, the port's ``params`` that make it up (one, or one a
-    layer of a stack, layer-major) and the reference's ``shape`` (a
-    stack's leading layer axes included)."""
+    layer of a stack, layer-major), the reference's ``shape`` (a
+    stack's leading layer axes included) and ``lead``, the number of
+    those axes.
+
+    On a mesh (``runtime.shard.shard_model``) the leaf is this rank's
+    slice: ``shape`` is the slice's, ``global_shape`` the whole leaf's,
+    ``spec`` its dim-spec on ``mesh``; off a mesh those three are None."""
     path: Tuple[str, ...]
     params: List[nn.Parameter]
     shape: Tuple[int, ...]
+    lead: int = 0
+    global_shape: Optional[Tuple[int, ...]] = None
+    spec: Optional[Tuple] = None
+    mesh: Any = None
 
     def value(self) -> torch.Tensor:
         """The leaf at the reference's shape: a view of an unstacked
@@ -531,6 +581,29 @@ class RefLeaf(NamedTuple):
         rows = t.view(len(self.params), -1)
         return [r.view(p.shape) for r, p in zip(rows, self.params)]
 
+    def mean(self, x: torch.Tensor, dim: Optional[int] = None,
+             of: Optional[int] = None) -> torch.Tensor:
+        """``x.mean(dim)`` (all of ``x`` for None) of the whole leaf's
+        ``x``. On a mesh, from this rank's slice: the sum is all-reduced
+        over the axes that cut the leaf's dim ``of`` (``dim`` by default;
+        every axis of the spec for ``dim`` None), then divided by that
+        dim's whole size (a float32 0-dim tensor)."""
+        if self.spec is None:
+            return x.mean() if dim is None else x.mean(dim)
+        if dim is None:
+            entries, count = self.spec, math.prod(self.global_shape)
+        else:
+            of = (dim if of is None else of) % len(self.spec)
+            entries, count = (self.spec[of],), self.global_shape[of]
+        axes = tuple(a for e in entries if e is not None
+                     for a in ((e,) if isinstance(e, str) else e))
+        if not axes:
+            return x.mean() if dim is None else x.mean(dim)
+        s = x.sum() if dim is None else x.sum(dim)
+        s = all_reduce(s, axes_of(self.mesh, axes))
+        return s / torch.full((), count, dtype=torch.float32,
+                              device=s.device)
+
 
 def _leaves_of(node, path: Tuple[str, ...]) -> List[RefLeaf]:
     if isinstance(node, tuple):
@@ -539,7 +612,7 @@ def _leaves_of(node, path: Tuple[str, ...]) -> List[RefLeaf]:
     if isinstance(node, list):
         layers = [_leaves_of(sub, path) for sub in node]
         return [RefLeaf(col[0].path, [p for leaf in col for p in leaf.params],
-                        (len(node),) + col[0].shape)
+                        (len(node),) + col[0].shape, col[0].lead + 1)
                 for col in zip(*layers)]
     return [leaf for k in sorted(node) for leaf in _leaves_of(node[k],
                                                                path + (k,))]
@@ -549,7 +622,11 @@ def ref_leaves(module: nn.Module) -> List[RefLeaf]:
     """The leaves of the reference's parameter pytree of ``module``, in
     its flattening order (dict keys sorted). A stack is one leaf with
     leading layer axes (a ``(L, d)`` norm scale, an ``(L, d, H, Dh)``
-    projection), as the reference's optimizers see it."""
+    projection), as the reference's optimizers see it. A model laid out
+    on a mesh (``runtime.shard.shard_model``) gives its rank's slices."""
+    layout = getattr(module, "layout", None)
+    if layout is not None:
+        return layout.leaves
     return _leaves_of(_ref_tree(module), ())
 
 
@@ -575,8 +652,12 @@ def _paths(tree, prefix: Tuple[str, ...] = ()):
 def params_from_numpy(model: nn.Module, tree) -> nn.Module:
     """Copy the reference's parameter pytree (numpy arrays) into
     ``model`` (a whole model or one of its modules), in place, at each
-    parameter's dtype and device."""
+    parameter's dtype and device. A model on a mesh takes either the
+    whole arrays (it keeps its rank's slice of each) or its slices."""
     values = dict(_paths(tree))
+    layout = getattr(model, "layout", None)
+    if layout is not None:
+        values = layout.local_values(values)
     leaves = ref_leaves(model)
     differ = set(values) ^ {leaf.path for leaf in leaves}
     if differ:
@@ -598,7 +679,8 @@ def params_from_numpy(model: nn.Module, tree) -> nn.Module:
 
 def params_to_numpy(model: nn.Module) -> dict:
     """The inverse of ``params_from_numpy``: the reference's pytree, as
-    float32 numpy arrays in the reference's shapes."""
+    float32 numpy arrays in the reference's shapes (on a mesh, this
+    rank's slices; ``runtime.shard.gather_params`` gives them whole)."""
     return nest((leaf.path, np.stack([p.detach().float().cpu().numpy()
                                       for p in leaf.params]
                                      ).reshape(leaf.shape))

@@ -13,7 +13,8 @@ step, whichever experts the tokens chose, as in the reference.
 
 Covers DeepSeek-V2 (160 routed top-6 + 2 shared experts) and Arctic (128
 routed top-2 + a parallel dense residual FFN). The reference's sharding
-constraints are no-ops on one device and are left out.
+constraints (``constrain`` in its ``moe_ffn``) wait for the MoE's sharded
+slice: ``runtime.shard.shard_model`` refuses the family on a mesh.
 """
 from __future__ import annotations
 

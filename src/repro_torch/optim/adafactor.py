@@ -9,6 +9,12 @@ factored (``vr`` of (L,), ``vc`` of (d,), a mean over the layers), and
 the RMS step clipping takes one RMS over the whole stacked leaf. The
 state is ``{"f": {... {"vr", "vc"} | {"v"}}, "count"}`` in the
 reference's tree and shapes, ``count`` int32.
+
+Every mean is the whole leaf's, through ``RefLeaf.mean``: on a mesh a
+leaf is this rank's slice and its state the slice of the reference's,
+and the means over a dim the mesh cuts (``vr`` over the last, ``vc``
+over the second-to-last, ``vr``'s mean, the RMS over the whole leaf)
+are all-reduced.
 """
 from __future__ import annotations
 
@@ -59,12 +65,13 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
             g2 = (g * g).add_(eps)
             if _factored(leaf.shape):
                 vr = beta * st["vr"].to(torch.float32) + \
-                    (1 - beta) * g2.mean(dim=-1)
+                    (1 - beta) * leaf.mean(g2, -1)
                 vc = beta * st["vc"].to(torch.float32) + \
-                    (1 - beta) * g2.mean(dim=-2)
+                    (1 - beta) * leaf.mean(g2, -2)
                 del g2
                 step = (vr[..., None] * vc[..., None, :]).div_(
-                    torch.maximum(vr.mean(-1)[..., None, None], eps32)
+                    torch.maximum(leaf.mean(vr, -1, of=-2)[..., None, None],
+                                  eps32)
                 ).add_(eps)
                 new_st = {"vr": vr.to(sdt), "vc": vc.to(sdt)}
             else:
@@ -74,7 +81,7 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
                 new_st = {"v": v.to(sdt)}
             step = step.rsqrt_().mul_(g)                 # g · rsqrt(· + eps)
             # relative step clipping (RMS-based), over the whole leaf
-            rms = torch.sqrt(torch.mean(step * step) + eps)
+            rms = torch.sqrt(leaf.mean(step * step) + eps)
             step.div_(torch.clamp(rms / f32_scalar(clip_threshold, rms),
                                   min=1.0))
             p32 = leaf.value().to(torch.float32, copy=True)

@@ -1,0 +1,276 @@
+"""Mesh context: which mesh the model's layers run on, and the
+collectives a sharded layer calls.
+
+Port of the JAX package's ``runtime/mesh_ctx.py``. The step factories
+(``train_loop``, ``serve_loop``) enter ``with mesh_context(mesh,
+profile)`` around the model call. There the reference's
+``constrain(x, *symbols)`` pins an activation's sharding for GSPMD. In
+eager PyTorch a tensor on a rank *is* its local shard, so ``constrain``
+moves no data and returns ``x``; its call sites stay where the
+reference's are, and ``constrain_spec`` is the resolution it stands
+for: "batch" → the combined FSDP/data axes, "tensor" → the model axis,
+None → replicated, and a dim whose size does not divide its axes → None
+(the contract of ``runtime.sharding``).
+
+What GSPMD derives from the layouts, a sharded layer does by hand,
+reading its parameters' ``shard`` (``ParamShard``, set by
+``runtime.shard.shard_model``):
+
+  * ``weight(p, dtype)`` — a parameter whose d_model dim is sharded
+    over the FSDP axes is cast to ``dtype`` and all-gathered over them
+    just before use (freed after); the gradient returns by the
+    conjugate reduction (a SUM over those axes, in float32) into this
+    rank's slice. A recompute under remat gathers again;
+  * ``enter_tensor(x, ax)`` / ``row_parallel(x, p, ax)`` — Megatron's
+    pair around a column- then row-parallel product: identity forward
+    and an all-reduce of the gradient over the model axis; the
+    row-parallel product taken at float32 on each rank, all-reduced and
+    rounded once to ``x``'s dtype (as one device's product, which
+    accumulates in float32, rounds once), identity backward.
+    ``reduce_tensor(y, ax)`` is the bare all-reduce;
+  * ``gather_tensor(x, dim, ax)`` — a width the model axis shards that
+    the next layer needs whole (vlm's patch projection): all-gather
+    forward, this rank's slice of the gradient backward.
+
+``traffic`` counts the bytes these move (``gathered``: all-gathers,
+``reduced``: all-reduces), beside ``launch.mesh.collectives``.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.mesh import MeshAxes
+from repro_torch.runtime.sharding import mesh_axes, mesh_shape
+
+_STATE = threading.local()
+
+
+def current_mesh():
+    return getattr(_STATE, "mesh", None)
+
+
+def current_profile() -> str:
+    return getattr(_STATE, "profile", "2d")
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, profile: str = "2d"):
+    prev, prev_p = current_mesh(), current_profile()
+    _STATE.mesh, _STATE.profile = mesh, profile
+    try:
+        yield
+    finally:
+        _STATE.mesh, _STATE.profile = prev, prev_p
+
+
+def constrain_spec(shape, *symbols, mesh=None, profile: Optional[str] = None
+                   ) -> Tuple:
+    """The dim-spec ``constrain(x, *symbols)`` pins an ``x`` of global
+    ``shape`` to on ``mesh`` (the active one by default)."""
+    mesh = current_mesh() if mesh is None else mesh
+    fsdp, tensor = mesh_axes(mesh, current_profile() if profile is None
+                             else profile)
+    sizes = mesh_shape(mesh)
+    spec = []
+    for dim, sym in enumerate(symbols):
+        if sym == "batch" and fsdp:
+            size = math.prod(sizes[a] for a in fsdp)
+            spec.append((fsdp if len(fsdp) > 1 else fsdp[0])
+                        if shape[dim] % size == 0 and shape[dim] > 1
+                        else None)
+        elif sym == "tensor" and tensor:
+            spec.append(tensor if shape[dim] % sizes[tensor] == 0
+                        else None)
+        else:
+            spec.append(None)
+    return tuple(spec)
+
+
+def constrain(x, *symbols):
+    """The reference's sharding constraint. A tensor on a rank is its
+    local shard already: returns ``x``."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# what a sharded layer reads, and the collectives it calls
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ParamShard:
+    """How a parameter is cut, in the port's layout: its dim-spec, the
+    dim sharded over the FSDP axes and the dim sharded over the model
+    axis (None where the rules replicate), with those axes' groups."""
+    spec: Tuple
+    fsdp_dim: Optional[int]
+    fsdp: Optional[MeshAxes]
+    tensor_dim: Optional[int]
+    tensor: Optional[MeshAxes]
+
+
+class Traffic:
+    """Bytes moved by the sharded layers' collectives."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.gathered = 0
+        self.reduced = 0
+
+
+traffic = Traffic()
+
+
+def axes_of(mesh, axes) -> MeshAxes:
+    """The ``MeshAxes`` of a spec entry (one axis name or a tuple), in
+    the mesh's axis order (data-major, as ``_mesh_slice`` cuts)."""
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    order = tuple(mesh.mesh_dim_names)
+    return mesh_lib.mesh_axes(mesh, tuple(a for a in order if a in names))
+
+
+def shard_of(p) -> Optional[ParamShard]:
+    return getattr(p, "shard", None)
+
+
+def tensor_axes(p) -> Optional[MeshAxes]:
+    """The model axis ``p`` is split over, or None (whole on each rank)."""
+    s = shard_of(p)
+    return None if s is None else s.tensor
+
+
+def all_gather(x: torch.Tensor, dim: int, ax: MeshAxes) -> torch.Tensor:
+    traffic.gathered += x.numel() * x.element_size() * (ax.size - 1)
+    return mesh_lib.all_gather(x, dim, ax)
+
+
+def all_reduce(x: torch.Tensor, ax: MeshAxes, op=None) -> torch.Tensor:
+    traffic.reduced += x.numel() * x.element_size()
+    return mesh_lib.all_reduce(x, dist.ReduceOp.SUM if op is None else op,
+                               ax)
+
+
+def own_slice(x: torch.Tensor, dim: int, ax: MeshAxes) -> torch.Tensor:
+    """This rank's piece of ``x`` cut into ``ax.size`` along ``dim``."""
+    n = x.shape[dim] // ax.size
+    return x.narrow(dim, ax.index * n, n)
+
+
+class _GatherWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, dtype, dim, ax):
+        ctx.dim, ctx.ax, ctx.pdtype = dim, ax, p.dtype
+        return all_gather(p.to(dtype), dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.to(torch.float32), ctx.ax)
+        return (own_slice(g, ctx.dim, ctx.ax).to(ctx.pdtype), None, None,
+                None)
+
+
+class _EnterTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.ax), None
+
+
+class _ReduceTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, ax):
+        return _reduce(y, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return all_gather(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return own_slice(g, ctx.dim, ctx.ax), None, None
+
+
+class _RowParallel(torch.autograd.Function):
+    """``x @ w`` at float32 (the products of 16-bit inputs are exact in
+    float32, their sums accumulate in float32, as inside a 16-bit GEMM);
+    the backward at ``x``'s dtype, as one device's product's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.dtype == torch.float32 or not x.is_cuda:
+            return x.float() @ w.float()
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.view(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.t()
+        gw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return gx, gw
+
+
+def _reduce(y: torch.Tensor, ax: MeshAxes) -> torch.Tensor:
+    """SUM over ``ax``, in float32 for a 16-bit ``y``. A 16-bit ``y`` is
+    a sum of partials each rounded already (the input gradient of a
+    column-parallel product, in ``enter_tensor``'s backward), so it is
+    rounded twice where one device rounds once; ``row_parallel`` takes
+    its partials at float32 and rounds once."""
+    if y.dtype in (torch.bfloat16, torch.float16):
+        return all_reduce(y.to(torch.float32), ax).to(y.dtype)
+    return all_reduce(y, ax)
+
+
+def weight(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``p`` at ``dtype``, whole along its FSDP dim (all-gathered when a
+    mesh shards it; the model axis's cut stays)."""
+    s = shard_of(p)
+    if s is None or s.fsdp is None:
+        return p.to(dtype)
+    return _GatherWeight.apply(p, dtype, s.fsdp_dim, s.fsdp)
+
+
+def enter_tensor(x: torch.Tensor, ax: Optional[MeshAxes]) -> torch.Tensor:
+    return x if ax is None else _EnterTensor.apply(x, ax)
+
+
+def reduce_tensor(y: torch.Tensor, ax: Optional[MeshAxes]) -> torch.Tensor:
+    return y if ax is None else _ReduceTensor.apply(y, ax)
+
+
+def row_parallel(x: torch.Tensor, p: torch.Tensor,
+                 ax: Optional[MeshAxes]) -> torch.Tensor:
+    """``x @ p`` at ``x``'s dtype, ``p`` row-parallel over the model axis
+    ``ax`` (None: whole): each rank's partial product at float32, the
+    SUM over ``ax`` rounded once to ``x``'s dtype."""
+    w = weight(p, x.dtype)
+    if ax is None:
+        return x @ w
+    return reduce_tensor(_RowParallel.apply(x, w), ax).to(x.dtype)
+
+
+def gather_tensor(x: torch.Tensor, dim: int,
+                  ax: Optional[MeshAxes]) -> torch.Tensor:
+    return x if ax is None else _GatherTensor.apply(x, dim % x.dim(), ax)

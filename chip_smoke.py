@@ -138,8 +138,8 @@ Phases, in order; any failure exits non-zero:
      syncs, idle share).
   10. the sharded LM path (``runtime/{sharding,mesh_ctx,shard}.py``,
      the train and serve steps on a mesh; no hand kernel): (a) a world
-     of one over NCCL on a (1, 1) mesh: the tiny dense and vlm configs
-     of phase 9 (a), one adamw and one adafactor step of two
+     of one over NCCL on a (1, 1) mesh: the tiny dense, vlm, deepseek
+     and arctic configs of phase 9 (a), one adamw and one adafactor step of two
      microbatches, and phase 8 (a)'s prefill and greedy decode with
      float32 caches, through the mesh code path, against the
      one-device step and decode on the card on the same weights and
@@ -149,8 +149,8 @@ Phases, in order; any failure exits non-zero:
      with qwen1.5-0.5b as published, in two passes, each held against a
      one-device run in this process on the same weights and batches.
      The bfloat16 pass, launch/train's defaults (batch 8 x 256, adamw,
-     remat "block"), 3 steps, then launch/serve's defaults (batch 4,
-     prompt 64, 32 tokens) fed the one-device run's tokens: losses and
+     remat "block"), 3 steps, then launch/serve's batch and prompt (4 x
+     64, 8 tokens) fed the one-device run's tokens: losses and
      grad norms within ``LM_MESH_BF16_RTOL``, every step's logits within
      ``SERVE_TF_ULPS`` units of the largest |logit|, the greedy tokens
      equal wherever the one-device top-2 margin exceeds twice that, each
@@ -165,7 +165,21 @@ Phases, in order; any failure exits non-zero:
      logits within rtol 2e-4 / atol 2e-4, tokens equal. One ``lm_mesh``
      JSON line: per rank the step ms, decode ms a token, collectives and
      bytes moved a step and a token, peak memory; the 4-rank walls are
-     processes time-sliced on one card, not a scale-out figure.
+     processes time-sliced on one card, not a scale-out figure. (c)
+     the MoE family on the same mesh, four ranks spawned the same way
+     (``chip_smoke.py --moe-mesh-rank r``): the tiny deepseek and
+     arctic of (a) at a capacity factor at which the global batch
+     drops (each rank against the one device, the drop counts equal
+     and above 0); deepseek-v2-236b at full width, a float32 serve at
+     block0 + 1 MoE block (logits within 2e-4, equal tokens and
+     drops), then bfloat16 train steps there (adafactor, one
+     microbatch; loss, grad norm, each leaf's changed share, the next
+     batch's loss) and a bfloat16 serve at block0 + 2 MoE blocks, each
+     model built by the ranks in turn from the seed and held against a
+     one-device run in this process (``MOE_MESH_*``). One ``moe_mesh``
+     JSON line: per rank the resident bytes, collectives and bytes a
+     step and a token (the latent caches' gathers apart), step and
+     decode ms, peak memory and the global drops.
 
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
@@ -188,6 +202,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -342,6 +357,17 @@ TRAIN_GRAD_RTOL = 1e-4
 TRAIN_METRIC_RTOL = 1e-5
 TRAIN_STEP_TOL = 2e-6
 TRAIN_FLIP_SHARE = 1e-3
+#: phase 10's MoE: a factored leaf's row or column whose non-zero
+#: gradient is rounding noise in the one-device run (at most this share
+#: of the leaf's largest |g|; its exact value is 0: the router's column
+#: of an expert that no token chose, which the top-k renormalisation
+#: cuts off the loss) is scaled by Adafactor's factored normaliser to
+#: steps of O(1), each run's from its own noise, and through the RMS
+#: clip over the whole leaf moves every element of it. Such a leaf (the
+#: mesh's gradient must be noise there too) is counted and left out of
+#: the parameter check after the steps, and the sharded Adafactor is
+#: held instead on the same gradients (``_same_grads``)
+TRAIN_ZERO_GRAD = 1e-7
 #: (b) qwen1.5-0.5b at its published size through launch/train's main at
 #: its defaults (batch 8 x seq 256, the production policy): 8 steps
 #: with a checkpoint every 4, then a resume at step 4; then
@@ -415,7 +441,8 @@ TRAIN_GIANT_FACTORS = {
 #: float32 accumulators at most LM_MESH_SHARE of the one device's (a
 #: quarter, plus the norm scales and biases the rules keep whole or cut
 #: over one axis)
-LM_MESH_TINY = ("qwen2.5-3b", "qwen2-vl-7b")
+LM_MESH_TINY = ("qwen2.5-3b", "qwen2-vl-7b", "deepseek-v2-236b",
+                "arctic-480b")
 LM_MESH_ARCH = "qwen1.5-0.5b"
 LM_MESH_WORLD = 4
 LM_MESH_SHAPE = (2, 2)
@@ -424,6 +451,57 @@ LM_MESH_TIMEOUT_S = 600
 LM_MESH_GROUP_TIMEOUT_S = 300
 LM_MESH_BF16_RTOL = dict(losses=1e-4, grad_norms=5e-3)
 LM_MESH_SHARE = 0.26
+#: (b)'s serve: launch/serve's batch and prompt, its tokens cut from 32
+#: to 8 so that phase 10 with (c) keeps within the run's time
+LM_MESH_SERVE = dict(SERVE_ARGS, gen=8)
+#: (c) the MoE family on LM_MESH_SHAPE, LM_MESH_WORLD ranks spawned as
+#: (b)'s are. (1) the tiny deepseek-v2-236b and arctic-480b of (a) at
+#: capacity factor MOE_MESH_TINY_FACTOR, at which the global batch drops
+#: assignments: held as (a) is, each rank's slices against the one
+#: device, the global drop counts equal and above 0. (2) deepseek-v2-236b
+#: at full width, block0 + 1 MoE block (MOE_MESH_F32_PARAMS parameters,
+#: the reference's count), float32 weights, compute and caches:
+#: launch/serve's batch and prompt, MOE_MESH_F32_GEN tokens, against the
+#: one device on the same weights: logits within SERVE_TOL, equal tokens
+#: and global drops. (3) the same at bfloat16 for the timings: the train
+#: steps at block0 + 1 MoE block on the arch's policy (adafactor,
+#: bfloat16 states and weights) at launch/train's batch, MOE_MESH_TRAIN_M
+#: microbatches in place of the policy's 16 (each gathers every weight
+#: over gloo again), MOE_MESH_TRAIN_STEPS steps at MOE_MESH_TRAIN_CFG
+#: (no warmup, so that both steps move the bfloat16 weights): loss and
+#: grad norm within LM_MESH_BF16_RTOL, each leaf's share of elements that
+#: the steps changed within MOE_MESH_CHANGED_TOL of the one device's, and
+#: the loss of one more batch after the steps within LM_MESH_BF16_RTOL's
+#: (an unapplied update changes no element; a stale one moves that loss);
+#: then serve at phase 8's cut (block0 + 2 MoE blocks) at launch/serve's
+#: batch and prompt, MOE_MESH_BF16_GEN tokens: each step's logits within
+#: the larger of SERVE_TF_ULPS units and the one device's own bfloat16
+#: error (its max |bfloat16 − float32| on the same weights and tokens:
+#: at bfloat16 the mesh's rounding flips some tokens' top-k experts,
+#: and a flipped token moves by an expert's output, not by units), tokens
+#: equal where the one device's top-2 margin exceeds twice that. Each
+#: rank's resident parameters and accumulators at most LM_MESH_SHARE of
+#: the one device's, its optimizer state the bytes of its slices (a
+#: factored state's vector is cut by one axis where its leaf's other dim
+#: is the one the mesh cuts twice)
+MOE_MESH_ARCH = "deepseek-v2-236b"
+MOE_MESH_TINY = ("deepseek-v2-236b", "arctic-480b")
+MOE_MESH_TINY_FACTOR = 0.5
+MOE_MESH_F32_LAYERS = 2
+MOE_MESH_F32_PARAMS = 5_358_679_040
+MOE_MESH_F32_GEN = 3
+MOE_MESH_TRAIN_LAYERS = 2
+MOE_MESH_TRAIN_M = 1
+MOE_MESH_TRAIN_STEPS = 2
+MOE_MESH_TRAIN_CFG = dict(learning_rate=1e-3, warmup_steps=0,
+                          total_steps=200)
+MOE_MESH_CHANGED_TOL = 0.02
+MOE_MESH_BF16_GEN = 3
+MOE_MESH_TIMEOUT_S = 600
+#: ranks that build a whole full-width model at once and then cut it
+#: (two float32 2-layer models, 42.9 GB, beside the others' slices fit
+#: the card; four do not)
+MOE_MESH_BUILDERS = 2
 
 
 def log(*a):
@@ -2328,16 +2406,59 @@ def _lm_mesh_batches(cfg):
 
 
 def _weights_digest(model):
-    """A float64 sum of every parameter: equal weights give equal sums."""
+    """A float64 sum of every parameter: equal weights give equal sums.
+    Summed in pieces of 2^26 elements: a float64 copy of a full-width
+    expert leaf would take 10 GB."""
     with torch.no_grad():
-        return float(sum(p.double().sum() for p in model.parameters()))
+        return float(sum(c.sum(dtype=torch.float64)
+                         for p in model.parameters()
+                         for c in p.reshape(-1).split(1 << 26)))
 
 
-def _tiny_mesh_parity(arch, mesh):
-    """Phase 10 (a) for one tiny config on the world of one: two steps
-    (the first at lr 0) of adamw and of adafactor, then prefill and
-    greedy decode with float32 caches, the (1, 1) mesh's path against
-    the one-device path on the card, same weights and batch."""
+def _same_grads(both, grads, mine, where):
+    """Adafactor on the mesh and on one device fed the same gradients
+    (the one device's ``grads``, each rank its slice), two updates at
+    ``TRAIN_TINY_CFG``'s learning rate from fresh models: every
+    parameter within ``TRAIN_STEP_TOL``. This holds the sharded update
+    where a leaf's step depends on its gradient's rounding noise
+    (``TRAIN_ZERO_GRAD``). Returns the largest difference."""
+    from repro_torch.models.model import ref_leaves
+    from repro_torch.optim import get_optimizer
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    opt = get_optimizer(TrainConfig(optimizer="adafactor"))
+    one, sh = both()
+    l1, l2 = ref_leaves(one), ref_leaves(sh)
+    g2 = [torch.from_numpy(mine(g, leaf.spec)).to(g.device)
+          for leaf, g in zip(l2, grads)]
+    lr = torch.full((), TRAIN_TINY_CFG["learning_rate"],
+                    device=grads[0].device)
+    s1, s2 = opt.init(l1), opt.init(l2)
+    for _ in range(2):
+        s1 = opt.update([g.clone() for g in grads], s1, l1, lr)
+        s2 = opt.update([g.clone() for g in g2], s2, l2, lr)
+    pw = dict(_flat(tmodel.params_to_numpy(one)))
+    worst = 0.0
+    for path, a in _flat(shard.gather_params(sh)):
+        worst = max(worst, float(np.abs(a - pw[path]).max()))
+    if not worst <= TRAIN_STEP_TOL:
+        fail(f"phase 10: {where}: adafactor fed the same gradients moves "
+             f"the mesh's parameters {worst} from one device's")
+    return worst
+
+
+def _tiny_mesh_parity(arch, mesh, capacity_factor=None):
+    """Phase 10 (a), and (c)'s tiny MoE on each rank of the (2, 2) mesh,
+    for one tiny config: two steps (the first at lr 0) of adamw and of
+    adafactor, then prefill and greedy decode with float32 caches, the
+    mesh's path on this rank's rows against the one-device path on the
+    whole batch, both on the card, same weights and batch; each rank
+    holds its slice of the one device's gradients, logits and tokens
+    (``_mesh_slice``), and the whole parameters (gathered). An MoE's
+    global drop counts equal the one device's after every pass
+    (``capacity_factor`` overrides the config's)."""
+    from repro_torch.checkpoint.manager import _mesh_slice
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import mesh as mesh_lib
@@ -2346,11 +2467,20 @@ def _tiny_mesh_parity(arch, mesh):
     from repro_torch.models import model as tmodel
     from repro_torch.runtime import serve_loop as sl
     from repro_torch.runtime import shard
+    from repro_torch.runtime import sharding as shd
     from repro_torch.runtime import train_loop as tl
     dev = "cuda"
     cfg = tiny_config(get_config(arch))
+    if capacity_factor is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
     weights = tmodel.params_to_numpy(tmodel.build_model(
         cfg, device="cpu", generator=torch.Generator().manual_seed(SEED)))
+    where = f"{arch} (tiny) on {tuple(shd.mesh_shape(mesh).values())}"
+    lspec = shd.logits_spec(mesh)
+
+    def mine(t, spec):
+        return _mesh_slice(t.detach().float().cpu().numpy(), mesh, spec)
 
     def both():
         one = tmodel.params_from_numpy(tmodel.build_model(cfg, device=dev),
@@ -2358,6 +2488,14 @@ def _tiny_mesh_parity(arch, mesh):
         sh = tmodel.params_from_numpy(shard.shard_model(tmodel.build_model(
             cfg, device=dev), mesh), weights)
         return one, sh
+    drops = []
+
+    def same_drops(one, sh, what):
+        pair = [_dropped(one), _dropped(sh)]
+        if pair[0] != pair[1]:
+            fail(f"phase 10: {where} {what}: {pair[1]} assignments dropped "
+                 f"on the mesh, {pair[0]} on one device")
+        drops.append(pair[0])
     batch = _train_batch(cfg, dev, SEED + 4, **TRAIN_TINY_BATCH)
     batch["labels"][:, ::5] = -1
     rec = dict(arch=arch)
@@ -2374,38 +2512,60 @@ def _tiny_mesh_parity(arch, mesh):
         for _ in range(2):
             s1, m1 = step1(s1, batch)
             s2, m2 = step2(s2, local)
+            same_drops(one, sh, f"{optimizer} step")
             for k in ("loss", "grad_norm"):
                 a, b = float(m2[k]), float(m1[k])
                 if not abs(a - b) <= TRAIN_METRIC_RTOL * abs(b):
-                    fail(f"phase 10: {arch} (tiny) {optimizer}: {k} on the "
-                         f"(1, 1) mesh {a}, one device {b}")
+                    fail(f"phase 10: {where} {optimizer}: {k} on the mesh "
+                         f"{a}, one device {b}")
                 metric_err = max(metric_err, abs(a - b) / abs(b))
         grad_err = 0.0
+        noisy = set()
         for leaf, g1, g2 in zip(step2.leaves, step1.grads, step2.grads):
-            err = float((g1 - g2).abs().max())
+            err = float(np.abs(mine(g1, leaf.spec)
+                               - g2.cpu().numpy()).max())
             tol = TRAIN_GRAD_RTOL * float(g1.abs().max()) + 1e-6
             if not err <= tol:
-                fail(f"phase 10: {arch} (tiny) {optimizer}: gradient of "
+                fail(f"phase 10: {where} {optimizer}: gradient of "
                      f"{'/'.join(leaf.path)} off by {err} (tolerance {tol})")
             grad_err = max(grad_err, err / max(float(g1.abs().max()), 1e-30))
+            if optimizer == "adafactor" and g1.dim() >= 2:
+                floor = TRAIN_ZERO_GRAD * float(g1.abs().max())
+                a = g1.abs()
+                mask = ((a.amax(-2, keepdim=True) <= floor)
+                        | (a.amax(-1, keepdim=True) <= floor)) & (a > 0)
+                if bool(mask.any()):
+                    sel = mine(mask, leaf.spec) > 0
+                    if sel.any() and not np.abs(
+                            g2.cpu().numpy()[sel]).max() <= floor:
+                        fail(f"phase 10: {where}: {'/'.join(leaf.path)}'s "
+                             f"gradient is noise on one device only")
+                    noisy.add(leaf.path)
         pw = dict(_flat(tmodel.params_to_numpy(one)))
-        flips = total = 0
+        flips = total = excused = 0
         step_err = 0.0
         for path, a in _flat(shard.gather_params(sh)):
+            if path in noisy:
+                excused += a.size
+                continue
             d = np.abs(a - pw[path])
             if not d.max() <= 2 * tcfg.learning_rate + TRAIN_STEP_TOL:
-                fail(f"phase 10: {arch} (tiny) {optimizer}: parameter "
+                fail(f"phase 10: {where} {optimizer}: parameter "
                      f"{'/'.join(path)} off by {d.max()}")
             flips += int((d > TRAIN_STEP_TOL).sum())
             total += d.size
             step_err = max(step_err, float(np.where(d > TRAIN_STEP_TOL, 0.0,
                                                     d).max()))
         if flips > TRAIN_FLIP_SHARE * total:
-            fail(f"phase 10: {arch} (tiny) {optimizer}: {flips} of {total} "
+            fail(f"phase 10: {where} {optimizer}: {flips} of {total} "
                  f"parameters past {TRAIN_STEP_TOL}")
         rec[optimizer] = dict(metric_rel_err=metric_err,
                               grad_max_rel_err=grad_err,
-                              param_max_abs_err=step_err, adam_flips=flips)
+                              param_max_abs_err=step_err, adam_flips=flips,
+                              noise_leaf_elements=excused)
+        if optimizer == "adafactor":
+            rec[optimizer]["same_grads_param_max_abs_err"] = _same_grads(
+                both, step1.grads, mine, where)
     saved = tmodel.CACHE_DTYPE
     tmodel.CACHE_DTYPE = torch.float32
     try:
@@ -2417,27 +2577,38 @@ def _tiny_mesh_parity(arch, mesh):
         l1, c1 = sl.make_prefill_step(one, max_len=start + G)(prompt)
         l2, c2 = sl.make_prefill_step(sh, mesh, max_len=start + G)(
             shard.shard_batch(prompt, mesh))
+        same_drops(one, sh, "prefill")
         t1, t2 = sl.greedy_token(one, l1), sl.greedy_token(sh, l2)
         dec1, dec2 = sl.make_decode_step(one), sl.make_decode_step(sh, mesh)
-        errs = [float((l1 - l2).abs().max())]
-        same = bool(torch.equal(t1, t2))
+        errs, same = [], True
+
+        def score(l1, l2, t1, t2):
+            nonlocal same
+            errs.append(float(np.abs(mine(l1, lspec)
+                                     - l2.float().cpu().numpy()).max()))
+            same &= bool(np.array_equal(mine(t1, lspec[:1]),
+                                        t2.cpu().numpy()))
+        score(l1, l2, t1, t2)
         for i in range(G - 1):
             inp1, inp2 = {"tokens": t1[:, None]}, {"tokens": t2[:, None]}
             if cfg.mrope:
-                inp1["positions3"] = torch.full((3, B, 1), start + i,
-                                                dtype=torch.int32, device=dev)
-                inp2["positions3"] = inp1["positions3"]
+                for inp in (inp1, inp2):
+                    inp["positions3"] = torch.full(
+                        (3, inp["tokens"].shape[0], 1), start + i,
+                        dtype=torch.int32, device=dev)
             t1, l1, c1 = dec1(inp1, c1, start + i)
             t2, l2, c2 = dec2(inp2, c2, start + i)
-            errs.append(float((l1 - l2).abs().max()))
-            same &= bool(torch.equal(t1, t2))
+            same_drops(one, sh, f"decode step {i}")
+            score(l1, l2, t1, t2)
     finally:
         tmodel.CACHE_DTYPE = saved
     if not same or not max(errs) <= SERVE_TOL["atol"]:
-        fail(f"phase 10: {arch} (tiny) decode on the (1, 1) mesh: tokens "
-             f"equal {same}, logits off by {max(errs)}")
+        fail(f"phase 10: {where} decode: tokens equal {same}, logits off "
+             f"by {max(errs)}")
     rec["serve_logits_max_abs_err"] = max(errs)
     rec["collectives"] = mesh_lib.collectives.count
+    if cfg.moe is not None:
+        rec["drops"] = drops
     return rec
 
 
@@ -2507,6 +2678,72 @@ def _param_errs(got, want):
     return dict(within=within, past=past, total=total, worst=worst)
 
 
+def _counted(fn):
+    """``fn()`` timed on the host clock between two synchronizes, with
+    the collectives and the bytes gathered, all-reduced and gathered of
+    the latent caches that it made: (out, (ms, collectives, gathered,
+    reduced, cache_gathered))."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import mesh_ctx
+    mesh_lib.collectives.reset()
+    mesh_ctx.traffic.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    tr = mesh_ctx.traffic
+    return out, ((time.perf_counter() - t0) * 1e3,
+                 mesh_lib.collectives.count, tr.gathered, tr.reduced,
+                 tr.cache_gathered)
+
+
+def _mesh_serve(model, mesh, want_logits, tokens, G):
+    """Prefill of launch/serve's prompt (``SERVE_ARGS``' batch and
+    prompt, this rank's rows) and G − 1 greedy decode steps fed the one
+    device's ``tokens`` (B, G), on a model laid out on ``mesh``: each
+    step's (max |Δ| logits, max (|Δ| − rtol |want|)) against this rank's
+    slice of ``want_logits`` (G, B, V), its tokens and the MoE's global
+    drops, and the decode steps' ms, collectives and bytes moved."""
+    from repro_torch.checkpoint.manager import _mesh_slice
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.runtime import serve_loop as sl
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import sharding as shd
+    B, P = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
+    lspec = shd.logits_spec(mesh)
+    rows = _mesh_slice(np.arange(B), mesh, lspec[:1])
+    prompt = shard.shard_batch(prompt_batch(model, B, P, SEED + 1), mesh)
+    (logits, caches), prefill = _counted(
+        lambda: sl.make_prefill_step(model, mesh, max_len=P + G)(prompt))
+    out = dict(prefill_ms=prefill[0], err=[], excess=[], tokens=[],
+               drops=[], ms=[], collectives=[], gathered=[], reduced=[],
+               cache_gathered=[])
+
+    def score(i, logits):
+        got = logits[:, -1].float().cpu().numpy()
+        want = _mesh_slice(want_logits[i], mesh, lspec[::2])
+        diff = np.abs(got - want)
+        out["err"].append(float(diff.max()))
+        out["excess"].append(float((diff - SERVE_TOL["rtol"]
+                                    * np.abs(want)).max()))
+        out["tokens"].append(sl.greedy_token(model, logits).cpu().tolist())
+        out["drops"].append(_dropped(model))
+    score(0, logits)
+    step_tok = {"tokens": torch.zeros((B, 1), dtype=torch.int32)}
+    decode = sl.jit_decode_step(model, mesh, caches,
+                                shd.infer_batch_specs(step_tok, mesh))
+    for i in range(G - 1):
+        inp = {"tokens": torch.from_numpy(
+            tokens[rows, i][:, None]).to(model.device)}
+        (_, logits, caches), c = _counted(
+            lambda: decode(inp, caches, P + i))
+        for k, v in zip(("ms", "collectives", "gathered", "reduced",
+                         "cache_gathered"), c):
+            out[k].append(v)
+        score(i + 1, logits)
+    return out
+
+
 def lm_mesh_rank(rank, mesh_dir):
     """One rank of phase 10 (b): ``LM_MESH_ARCH`` as published on the
     ``LM_MESH_SHAPE`` mesh (gloo on CUDA tensors, every rank on the one
@@ -2523,11 +2760,9 @@ def lm_mesh_rank(rank, mesh_dir):
     from repro_torch.checkpoint.manager import CheckpointManager, _mesh_slice
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import build_model
     from repro_torch.models import model as tmodel
-    from repro_torch.runtime import mesh_ctx, shard
-    from repro_torch.runtime import serve_loop as sl
+    from repro_torch.runtime import shard
     from repro_torch.runtime import sharding as shd
     from repro_torch.runtime import train_loop as tl
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2546,20 +2781,9 @@ def lm_mesh_rank(rank, mesh_dir):
     batches = [shard.shard_batch({k: v.to(dev) for k, v in b.items()}, mesh)
                for b in _lm_mesh_batches(cfg)]
     ref = np.load(d / "serve.npz")
-    B, P, G = (SERVE_ARGS[k] for k in ("batch", "prompt_len", "gen"))
-    lspec = shd.logits_spec(mesh)
-    rows = _mesh_slice(np.arange(B), mesh, lspec[:1])
-
-    def counted(fn):
-        mesh_lib.collectives.reset()
-        mesh_ctx.traffic.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, ((time.perf_counter() - t0) * 1e3,
-                     mesh_lib.collectives.count, mesh_ctx.traffic.gathered,
-                     mesh_ctx.traffic.reduced)
+    G = LM_MESH_SERVE["gen"]
+    rows = _mesh_slice(np.arange(SERVE_ARGS["batch"]), mesh,
+                       shd.logits_spec(mesh)[:1])
 
     def build(c):
         model = build_model(c, device=dev, generator=torch.Generator(
@@ -2574,7 +2798,7 @@ def lm_mesh_rank(rank, mesh_dir):
         state = tl.make_train_state(model, tcfg)
         step = tl.make_train_step(model, tcfg, mesh)
         for i in range(LM_MESH_STEPS):
-            (state, m), (ms, n, g, r) = counted(
+            (state, m), (ms, n, g, r, _) = _counted(
                 lambda: step(state, batches[i]))
             for k, v in (("losses", float(m["loss"])),
                          ("grad_norms", float(m["grad_norm"])),
@@ -2588,37 +2812,7 @@ def lm_mesh_rank(rank, mesh_dir):
         return state, step
 
     def decode_run(model, logits_key):
-        """Prefill and greedy decode fed the one device's tokens: each
-        step's (max |Δ| logits, max (|Δ| - rtol |want|), tokens), and the
-        decode step's ms and counts."""
-        prompt = shard.shard_batch(prompt_batch(model, B, P, SEED + 1), mesh)
-        (logits, caches), prefill = counted(
-            lambda: sl.make_prefill_step(model, mesh, max_len=P + G)(prompt))
-        out = dict(prefill_ms=prefill[0], err=[], excess=[], tokens=[],
-                   ms=[], collectives=[], gathered=[], reduced=[])
-
-        def score(i, logits):
-            got = logits[:, -1].float().cpu().numpy()
-            want = _mesh_slice(ref[logits_key][i], mesh, lspec[::2])
-            diff = np.abs(got - want)
-            out["err"].append(float(diff.max()))
-            out["excess"].append(float((diff - SERVE_TOL["rtol"]
-                                        * np.abs(want)).max()))
-            out["tokens"].append(sl.greedy_token(model, logits).cpu()
-                                 .tolist())
-        score(0, logits)
-        step_tok = {"tokens": torch.zeros((B, 1), dtype=torch.int32)}
-        decode = sl.jit_decode_step(model, mesh, caches,
-                                    shd.infer_batch_specs(step_tok, mesh))
-        for i in range(G - 1):
-            inp = {"tokens": torch.from_numpy(
-                ref["tokens"][rows, i][:, None]).to(dev)}
-            (_, logits, caches), c = counted(
-                lambda: decode(inp, caches, P + i))
-            for k, v in zip(("ms", "collectives", "gathered", "reduced"), c):
-                out[k].append(v)
-            score(i + 1, logits)
-        return out
+        return _mesh_serve(model, mesh, ref[logits_key], ref["tokens"], G)
 
     # the bfloat16 pass
     model, digest = build(cfg)
@@ -2733,7 +2927,7 @@ def _lm_mesh_one_device(d):
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
-    r = serve(model, seed=SEED + 1, **SERVE_ARGS)
+    r = serve(model, seed=SEED + 1, **LM_MESH_SERVE)
     logits = torch.stack([l[:, -1].float() for l in r["logits"]]
                          ).cpu().numpy()                    # (G, B, V)
     rec.update(decode_ms_per_token=r["step_ms_median"],
@@ -2762,7 +2956,7 @@ def _lm_mesh_float32_serve(cfg, weights, arrays):
     from repro_torch.models import build_model
     from repro_torch.models import model as tmodel
     from repro_torch.runtime import serve_loop as sl
-    B, P, G = (SERVE_ARGS[k] for k in ("batch", "prompt_len", "gen"))
+    B, P, G = (LM_MESH_SERVE[k] for k in ("batch", "prompt_len", "gen"))
     model = tmodel.params_from_numpy(build_model(
         cfg.replace(compute_dtype="float32"), device="cuda"), weights)
     saved = tmodel.CACHE_DTYPE
@@ -2893,7 +3087,7 @@ def lm_mesh_phase():
     line = dict(card=card_line(), world1=_lm_mesh_world1(),
                 arch=LM_MESH_ARCH, mesh=list(LM_MESH_SHAPE),
                 steps=LM_MESH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                serve=dict(SERVE_ARGS),
+                serve=dict(LM_MESH_SERVE),
                 note=f"the {LM_MESH_WORLD}-rank walls are {LM_MESH_WORLD} "
                      f"processes time-sliced on one card over gloo, not a "
                      f"scale-out figure")
@@ -3024,6 +3218,472 @@ def lm_mesh_phase():
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 10 (c): the MoE family on the mesh
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(layers, dtype=None):
+    """``MOE_MESH_ARCH`` at full width cut to ``layers`` (block0 and
+    layers − 1 MoE blocks), its weights and compute at ``dtype`` (None:
+    the config's bfloat16)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_MESH_ARCH).replace(num_layers=layers)
+    if dtype is not None:
+        cfg = cfg.replace(param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+def _moe_train_cfg():
+    """The arch's policy (adafactor, bfloat16 states) at
+    ``MOE_MESH_TRAIN_M`` microbatches and ``MOE_MESH_TRAIN_CFG``."""
+    from repro_torch.configs import get_train_config
+    return dataclasses.replace(get_train_config(MOE_MESH_ARCH),
+                               microbatches=MOE_MESH_TRAIN_M,
+                               **MOE_MESH_TRAIN_CFG)
+
+
+def _build_seeded(cfg):
+    """``cfg``'s model on the card from ``SEED`` and its digest."""
+    from repro_torch.models import build_model
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    return model, _weights_digest(model)
+
+
+def _free():
+    """Free what the card's and the host's caches hold: gloo stages a
+    collective on CUDA tensors through pinned host buffers, which
+    PyTorch's host allocator keeps (a full-width expert leaf's are
+    gigabytes a rank)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host = getattr(torch._C, "_host_emptyCache", None)   # CUDA builds
+    if empty_host is not None:
+        empty_host()
+
+
+def _mem_line(what):
+    """This process's allocated and reserved bytes, the card's free
+    bytes and this process's resident host bytes, on stderr (a rank that
+    fails shows the tail of its stderr)."""
+    free, total = torch.cuda.mem_get_info()
+    rss = next((int(l.split()[1]) * 1024 for l in
+                Path("/proc/self/status").read_text().splitlines()
+                if l.startswith("VmRSS:")), None)
+    print(f"memory {what}: allocated {torch.cuda.memory_allocated()}, "
+          f"reserved {torch.cuda.memory_reserved()}, card free {free} of "
+          f"{total}, host resident {rss}", file=sys.stderr, flush=True)
+
+
+def _changed_shares(leaves, before):
+    """Each leaf's share of elements that differ from ``before`` (the
+    leaves' values before the steps, on the host or the card)."""
+    return {"/".join(l.path): int((l.value().detach().to(b.device) != b)
+                                  .sum()) / b.numel()
+            for l, b in zip(leaves, before)}
+
+
+def _moe_serve_one(model, G, feed=None):
+    """The one device's prefill of launch/serve's prompt and G − 1 greedy
+    decode steps (fed the tokens ``feed`` (B, G) in place of its own when
+    given): (record with prefill and decode ms and each pass's drops,
+    arrays with each step's last logits (G, B, V) and the tokens (B,
+    G))."""
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.runtime import serve_loop as sl
+    B, P = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
+    prompt = prompt_batch(model, B, P, SEED + 1)
+    (logits, caches), (ms, *_) = _counted(
+        lambda: sl.make_prefill_step(model, max_len=P + G)(prompt))
+    rec = dict(prefill_ms=ms, decode_ms=[], drops=[_dropped(model)])
+    decode = sl.make_decode_step(model)
+    tok = sl.greedy_token(model, logits)
+    out, toks = [logits[:, -1].float().cpu().numpy()], [tok]
+    for i in range(G - 1):
+        if feed is not None:
+            tok = torch.from_numpy(feed[:, i]).to(model.device)
+        (tok, logits, caches), (ms, *_) = _counted(
+            lambda: decode({"tokens": tok[:, None]}, caches, P + i))
+        rec["decode_ms"].append(ms)
+        rec["drops"].append(_dropped(model))
+        out.append(logits[:, -1].float().cpu().numpy())
+        toks.append(tok)
+    return rec, dict(logits=np.stack(out),
+                     tokens=torch.stack(toks, dim=1).cpu().numpy())
+
+
+def _moe_one_device():
+    """Phase 10 (c)'s one-device runs on the card, each model built from
+    ``SEED`` and freed after: (2)'s float32 serve, (3)'s bfloat16 train
+    steps (losses, grad norms, the leaves' changed shares, the next
+    batch's loss, resident bytes) and bfloat16 serve. Returns the record
+    and the arrays the ranks are held against."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import train_loop as tl
+    rec, arrays = {}, {}
+    _free()
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        model, digest = _build_seeded(_moe_cfg(MOE_MESH_F32_LAYERS,
+                                               "float32"))
+        if model.num_params() != MOE_MESH_F32_PARAMS:
+            fail(f"phase 10: {MOE_MESH_ARCH} at {MOE_MESH_F32_LAYERS} "
+                 f"layers has {model.num_params()} parameters, the "
+                 f"reference's {MOE_MESH_F32_PARAMS}")
+        r, a = _moe_serve_one(model, MOE_MESH_F32_GEN)
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    rec["f32_serve"] = dict(digest=digest, params=model.num_params(), **r)
+    arrays.update(f32_logits=a["logits"], f32_tokens=a["tokens"])
+    del model
+    _free()
+
+    tcfg = _moe_train_cfg()
+    model, digest = _build_seeded(_moe_cfg(MOE_MESH_TRAIN_LAYERS))
+    torch.cuda.reset_peak_memory_stats()
+    batches = [{k: v.cuda() for k, v in b.items()}
+               for b in _lm_mesh_batches(model.cfg)]
+    state = tl.make_train_state(model, tcfg)
+    step = tl.make_train_step(model, tcfg)
+    before = [l.value().detach().clone() for l in step.leaves]
+    tr = dict(digest=digest, losses=[], grad_norms=[], lrs=[], step_ms=[],
+              drops=[])
+    for i in range(MOE_MESH_TRAIN_STEPS):
+        (state, m), (ms, *_) = _counted(lambda: step(state, batches[i]))
+        for k, v in (("losses", m["loss"]), ("grad_norms", m["grad_norm"]),
+                     ("lrs", m["lr"])):
+            tr[k].append(float(v))
+        tr["step_ms"].append(ms)
+        tr["drops"].append(_dropped(model))
+    tr["changed"] = _changed_shares(step.leaves, before)
+    del before
+    with torch.no_grad():
+        tr["next_loss"] = float(step.loss(batches[MOE_MESH_TRAIN_STEPS]))
+    tr["resident_bytes"] = dict(
+        params=shard.resident_bytes(model),
+        opt=shard.resident_bytes(state["opt"]),
+        grads=shard.resident_bytes(step.grads))
+    tr["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["train"] = tr
+    del model, state, step, batches
+    _free()
+
+    cfg = _moe_cfg(SERVE_FAMILIES[MOE_MESH_ARCH][0])
+    model, digest = _build_seeded(cfg)
+    r, a = _moe_serve_one(model, MOE_MESH_BF16_GEN)
+    rec["serve"] = dict(digest=digest, params=model.num_params(), **r)
+    arrays.update(logits=a["logits"], tokens=a["tokens"])
+    del model
+    _free()
+    # the one device's own bfloat16 error: the same weights at float32
+    # compute with float32 caches, fed the same tokens
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        model, digest32 = _build_seeded(cfg.replace(compute_dtype="float32"))
+        _, a32 = _moe_serve_one(model, MOE_MESH_BF16_GEN, feed=a["tokens"])
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    if digest32 != digest:
+        fail(f"phase 10 (c): the float32-compute model's weights differ "
+             f"({digest32} against {digest})")
+    rec["serve"]["bf16_error"] = [float(np.abs(x - y).max()) for x, y in
+                                  zip(a["logits"], a32["logits"])]
+    del model
+    _free()
+    return rec, arrays
+
+
+def moe_mesh_rank(rank, mesh_dir):
+    """One rank of phase 10 (c) on the ``LM_MESH_SHAPE`` mesh (gloo on
+    CUDA tensors, every rank on the one card): (1) the tiny MoE configs
+    (``_tiny_mesh_parity``, which fails this rank on a miss); (2) the
+    full-width float32 serve and (3) the bfloat16 train steps and serve,
+    each model built in turn by every rank from the seed and cut to its
+    slice, fed the one device's tokens. Writes ``rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import _mesh_slice
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import train_loop as tl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    dev = "cuda"
+    torch.cuda.set_device(0)
+    d = Path(mesh_dir)
+    mesh_lib.init_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=LM_MESH_WORLD, device=dev,
+                        timeout_s=LM_MESH_GROUP_TIMEOUT_S)
+    mesh = mesh_lib.make_host_mesh(*LM_MESH_SHAPE, backend="gloo",
+                                   device=dev)
+    ref = np.load(d / "moe.npz")
+    rows = _mesh_slice(np.arange(SERVE_ARGS["batch"]), mesh,
+                       shd.logits_spec(mesh)[:1])
+    rec = dict(rank=rank, rows=rows.tolist(), tiny=[
+        _tiny_mesh_parity(a, mesh, MOE_MESH_TINY_FACTOR)
+        for a in MOE_MESH_TINY])
+    _free()
+    _mem_line(f"rank {rank} after the tiny configs")
+
+    def build_in_turn(cfg):
+        """``MOE_MESH_BUILDERS`` ranks at a time build the whole model
+        and cut it (four whole full-width models would not fit on the
+        card at once)."""
+        model = digest = None
+        for turn in range(0, LM_MESH_WORLD, MOE_MESH_BUILDERS):
+            if turn <= rank < turn + MOE_MESH_BUILDERS:
+                _mem_line(f"rank {rank} before building {cfg.num_layers} "
+                          f"layers at {cfg.param_dtype}")
+                model, digest = _build_seeded(cfg)
+                shard.shard_model(model, mesh)
+                _free()
+                _mem_line(f"rank {rank} cut")
+            mesh_lib.barrier()
+        return model, digest
+
+    # (2) float32 serve
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        model, digest = build_in_turn(_moe_cfg(MOE_MESH_F32_LAYERS,
+                                               "float32"))
+        torch.cuda.reset_peak_memory_stats()
+        rec["f32_serve"] = dict(digest=digest, **_mesh_serve(
+            model, mesh, ref["f32_logits"], ref["f32_tokens"],
+            MOE_MESH_F32_GEN))
+        rec["f32_serve"]["peak_memory_bytes"] = \
+            torch.cuda.max_memory_allocated()
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    del model
+    _free()
+    _mem_line(f"rank {rank} after the float32 serve")
+
+    # (3) bfloat16 train steps
+    tcfg = _moe_train_cfg()
+    model, digest = build_in_turn(_moe_cfg(MOE_MESH_TRAIN_LAYERS))
+    torch.cuda.reset_peak_memory_stats()
+    batches = [shard.shard_batch({k: v.to(dev) for k, v in b.items()}, mesh)
+               for b in _lm_mesh_batches(model.cfg)]
+    state = tl.make_train_state(model, tcfg)
+    step = tl.make_train_step(model, tcfg, mesh)
+    before = [l.value().detach().to("cpu", copy=True) for l in step.leaves]
+    tr = dict(digest=digest)
+    for i in range(MOE_MESH_TRAIN_STEPS):
+        (state, m), c = _counted(lambda: step(state, batches[i]))
+        for k, v in (("losses", float(m["loss"])),
+                     ("grad_norms", float(m["grad_norm"])),
+                     ("lrs", float(m["lr"])), ("drops", _dropped(model)),
+                     *zip(("step_ms", "collectives_per_step",
+                           "bytes_gathered_per_step",
+                           "bytes_reduced_per_step"), c)):
+            tr.setdefault(k, []).append(v)
+        _mem_line(f"rank {rank} after train step {i}")
+    tr["changed"] = _changed_shares(step.leaves, before)
+    del before
+    with torch.no_grad():
+        loss = step.loss(batches[MOE_MESH_TRAIN_STEPS])
+        tr["next_loss"] = float(mesh_lib.all_reduce(
+            loss, dist.ReduceOp.SUM, model.layout.dp))
+    abstract = shard.abstract_state(model.cfg, tcfg)
+    specs = tl.state_specs(abstract, mesh)
+    tr["resident_bytes"] = dict(
+        params=shard.resident_bytes(model),
+        opt=shard.resident_bytes(state["opt"]),
+        grads=shard.resident_bytes(step.grads))
+    tr["opt_slices_bytes"] = sum(
+        t.element_size() * int(np.prod(shd.local_shape(tuple(t.shape), s,
+                                                       mesh)))
+        for (_, t), (_, s) in zip(_flat(abstract["opt"]),
+                                  _flat(specs["opt"])))
+    tr["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["train"] = tr
+    del model, state, step, batches
+    _free()
+    _mem_line(f"rank {rank} after the train steps")
+
+    # (3) bfloat16 serve at phase 8's cut
+    model, digest = build_in_turn(_moe_cfg(SERVE_FAMILIES[MOE_MESH_ARCH][0]))
+    torch.cuda.reset_peak_memory_stats()
+    rec["serve"] = dict(digest=digest, **_mesh_serve(
+        model, mesh, ref["logits"], ref["tokens"], MOE_MESH_BF16_GEN))
+    rec["serve"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["serve"]["resident_param_bytes"] = shard.resident_bytes(model)
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+    mesh_lib.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _moe_checks(one, arrays, recs):
+    """What phase 10 (c)'s ranks must meet against the one device: a
+    list of the misses."""
+    bad = []
+    tr1 = one["train"]
+    logits, tokens = arrays["logits"], arrays["tokens"]
+    margin = np.diff(np.sort(logits, axis=-1)[..., -2:], axis=-1)[..., 0]
+    tols = [max(SERVE_TF_ULPS * _bf16_ulp(np.abs(l).max()), e)
+            for l, e in zip(logits, one["serve"]["bf16_error"])]
+    for r, rec in enumerate(recs):
+        for t in rec["tiny"]:
+            if not sum(t["drops"]) > 0:
+                bad.append(f"rank {r}: {t['arch']} (tiny) dropped nothing")
+        for what in ("f32_serve", "train", "serve"):
+            if abs(rec[what]["digest"] - one[what]["digest"]) > 1e-9 * abs(
+                    one[what]["digest"]):
+                bad.append(f"rank {r} built other {what} weights")
+        f32, rows = rec["f32_serve"], rec["rows"]
+        for i, excess in enumerate(f32["excess"]):
+            if not excess <= SERVE_TOL["atol"]:
+                bad.append(f"rank {r}: float32 step {i}'s logits off by "
+                           f"{f32['err'][i]}")
+            if f32["tokens"][i] != arrays["f32_tokens"][rows, i].tolist():
+                bad.append(f"rank {r}: float32 step {i}'s tokens "
+                           f"{f32['tokens'][i]}, one device "
+                           f"{arrays['f32_tokens'][rows, i].tolist()}")
+        if f32["drops"] != one["f32_serve"]["drops"]:
+            bad.append(f"rank {r}: float32 drops {f32['drops']}, one "
+                       f"device {one['f32_serve']['drops']}")
+        tr = rec["train"]
+        for k in ("losses", "grad_norms"):
+            if not all(abs(a - b) <= LM_MESH_BF16_RTOL[k] * abs(b)
+                       for a, b in zip(tr[k], tr1[k])):
+                bad.append(f"rank {r}: {k} {tr[k]} on the mesh, {tr1[k]} "
+                           f"on one device")
+        if not abs(tr["next_loss"] - tr1["next_loss"]) <= \
+                LM_MESH_BF16_RTOL["losses"] * abs(tr1["next_loss"]):
+            bad.append(f"rank {r}: the loss after the steps "
+                       f"{tr['next_loss']}, one device {tr1['next_loss']}")
+        res, res1 = tr["resident_bytes"], tr1["resident_bytes"]
+        for k in ("params", "grads"):
+            if not res[k] <= LM_MESH_SHARE * res1[k]:
+                bad.append(f"rank {r} holds {res[k]} B of {k}, the one "
+                           f"device {res1[k]}")
+        if res["opt"] != tr["opt_slices_bytes"]:
+            bad.append(f"rank {r} holds {res['opt']} B of optimizer state, "
+                       f"its slices {tr['opt_slices_bytes']}")
+        sv = rec["serve"]
+        for i, (err, tol) in enumerate(zip(sv["err"], tols)):
+            if not err <= tol:
+                bad.append(f"rank {r}: bfloat16 step {i}'s logits off by "
+                           f"{err} (tolerance {tol})")
+            for j, row in enumerate(rows):
+                if sv["tokens"][i][j] != int(tokens[row, i]) and \
+                        margin[i, row] > 2 * tol:
+                    bad.append(f"rank {r}: bfloat16 step {i} row {row}: "
+                               f"token {sv['tokens'][i][j]}, one device "
+                               f"{int(tokens[row, i])}")
+    for path, want in tr1["changed"].items():
+        got = float(np.mean([rec["train"]["changed"][path] for rec in recs]))
+        if not abs(got - want) <= MOE_MESH_CHANGED_TOL:
+            bad.append(f"{path}: the steps changed {got} of its elements "
+                       f"on the mesh, {want} on one device")
+    return bad
+
+
+def _moe_reckon(cfg, weight_bytes):
+    """What the rules give a rank of the ``LM_MESH_SHAPE`` mesh for
+    ``cfg``, from the shapes alone (a model on ``meta``): its share of
+    the parameters, and the bytes its FSDP gathers receive in one
+    forward with weights at ``weight_bytes`` (the float32 router at 4),
+    those of the stacked blocks apart (gathered again under remat), and
+    the float32 gradients their backward all-reduces."""
+    from repro_torch.models import build_model
+    from repro_torch.models.model import ref_leaves
+    from repro_torch.runtime import sharding as shd
+    mesh = dict(zip(("data", "model"), LM_MESH_SHAPE))
+    dp = mesh["data"]
+    whole = mine = gathered = blocks = reduced = 0
+    for leaf in ref_leaves(build_model(cfg, device="meta",
+                                       generator=torch.Generator())):
+        spec = shd.spec_for_param(leaf.path, leaf.shape, mesh) or \
+            (None,) * len(leaf.shape)
+        n = int(np.prod(shd.local_shape(leaf.shape, spec, mesh)))
+        whole += int(np.prod(leaf.shape))
+        mine += n
+        if "data" in shd.spec_axes(spec):
+            b = n * (dp - 1) * (4 if leaf.path[-1] == "router"
+                                else weight_bytes)
+            gathered += b
+            blocks += b if leaf.path[0] == "blocks" else 0
+            reduced += n * dp * 4
+    return dict(param_share=mine / whole, gathered_forward=gathered,
+                gathered_blocks=blocks, reduced_weight_grads=reduced)
+
+
+def moe_mesh_phase():
+    """Phase 10 (c), as the module's docstring says: the one-device runs
+    here, then ``LM_MESH_WORLD`` ranks spawned on the one card
+    (``moe_mesh_rank``), held against them. Fails on any check, a rank's
+    non-zero exit or timeout. One ``moe_mesh`` JSON line."""
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.time()
+    one, arrays = _moe_one_device()
+    line = dict(card=card_line(), arch=MOE_MESH_ARCH,
+                mesh=list(LM_MESH_SHAPE), one_device=one, reckoned=dict(
+                    f32_serve=_moe_reckon(_moe_cfg(MOE_MESH_F32_LAYERS), 4),
+                    train=_moe_reckon(_moe_cfg(MOE_MESH_TRAIN_LAYERS), 2),
+                    serve=_moe_reckon(_moe_cfg(
+                        SERVE_FAMILIES[MOE_MESH_ARCH][0]), 2)),
+                note=f"the {LM_MESH_WORLD}-rank walls are {LM_MESH_WORLD} "
+                     f"processes time-sliced on one card over gloo, not a "
+                     f"scale-out figure")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        np.savez(d / "moe.npz", **arrays)
+        cmds = [[sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--moe-mesh-rank", str(r), "--mesh-dir", str(d)]
+                for r in range(LM_MESH_WORLD)]
+        _mem_line("phase 10 (c) before the ranks")
+        t0 = time.perf_counter()
+        try:
+            # four ranks share the card: segments that grow keep a freed
+            # gather's memory from stranding in a rank's cache
+            outs = mesh_lib.run_ranks(
+                cmds, timeout_s=MOE_MESH_TIMEOUT_S, cwd=str(ROOT),
+                env=dict(os.environ,
+                         PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+        except (TimeoutError, mesh_lib.RankFailed) as e:
+            fail(f"phase 10 (c): {e}")
+        line["ranks_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        line["rank_memory"] = [[m for m in err.splitlines()
+                                if m.startswith("memory")]
+                               for _, _, err in outs]
+        recs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(LM_MESH_WORLD)]
+    bad = _moe_checks(one, arrays, recs)
+    tr1 = one["train"]["resident_bytes"]
+    line["ranks"] = [dict(
+        rank=rec["rank"], tiny=rec["tiny"],
+        f32_serve={k: v for k, v in rec["f32_serve"].items()
+                   if k not in ("tokens", "digest")},
+        train={k: v for k, v in rec["train"].items()
+               if k not in ("changed", "digest")},
+        resident_share={k: v / tr1[k] for k, v in
+                        rec["train"]["resident_bytes"].items()},
+        serve={k: v for k, v in rec["serve"].items()
+               if k not in ("tokens", "digest")},
+        decode_ms_per_token=statistics.median(rec["serve"]["ms"][1:]
+                                              or rec["serve"]["ms"]),
+        f32_decode_ms_per_token=statistics.median(
+            rec["f32_serve"]["ms"][1:] or rec["f32_serve"]["ms"]))
+        for rec in recs]
+    line["changed_share_max_diff"] = max(
+        abs(float(np.mean([rec["train"]["changed"][p] for rec in recs]))
+            - w) for p, w in one["train"]["changed"].items())
+    line["failed"] = bad
+    line["phase_s"] = time.time() - t_phase
+    log(json.dumps({"moe_mesh": line}))
+    if bad:
+        fail("phase 10 (c): " + "; ".join(bad[:5]))
+    return line
+
+
 def profiled(fn):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
@@ -3077,6 +3737,8 @@ def main():
     ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--lm-mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # phase 10 (b)'s ranks
+    ap.add_argument("--moe-mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 10 (c)'s ranks
     args = ap.parse_args()
     out_dir = args.out
     if not torch.cuda.is_available():
@@ -3086,6 +3748,8 @@ def main():
         return mesh_rank(args.mesh_rank, args.mesh_dir)
     if args.lm_mesh_rank is not None:
         return lm_mesh_rank(args.lm_mesh_rank, args.mesh_dir)
+    if args.moe_mesh_rank is not None:
+        return moe_mesh_rank(args.moe_mesh_rank, args.mesh_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import pso
     from repro_torch.core.matcher import (IMMSchedMatcher,
@@ -3363,8 +4027,10 @@ def main():
     log(json.dumps({"train": detail["train"]}))
 
     # 10. the sharded LM path: a world of one over NCCL, then four ranks
-    # on a (2, 2) mesh with qwen1.5-0.5b as published
+    # on a (2, 2) mesh with qwen1.5-0.5b as published, then the MoE
+    # family there (tiny, and deepseek-v2-236b at full width)
     detail["lm_mesh"] = lm_mesh_phase()
+    detail["moe_mesh"] = moe_mesh_phase()
 
     kern = []
     split_calls = detail["split_epoch"]["calls"]

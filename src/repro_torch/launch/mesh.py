@@ -143,7 +143,8 @@ def all_reduce(x: torch.Tensor, op, ax: MeshAxes) -> torch.Tensor:
     """``x`` reduced over ``ax``'s shards with ``op``
     (``dist.ReduceOp.MAX`` / ``SUM``), into a new tensor; bool travels
     as uint8."""
-    y = x.to(torch.uint8) if x.dtype == torch.bool else x.clone()
+    y = (x.to(torch.uint8) if x.dtype == torch.bool else x).clone(
+        memory_format=torch.contiguous_format)   # NCCL takes dense rows
     dist.all_reduce(y, op=op, group=ax.group)
     collectives.add()
     return y.bool() if x.dtype == torch.bool else y

@@ -25,7 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import (RMSNorm, apply_mrope, apply_rope,
                                        dense_init)
-from repro_torch.runtime.mesh_ctx import (constrain, enter_tensor,
+from repro_torch.runtime.mesh_ctx import (NOT_YET, constrain, enter_tensor,
+                                          gather_cache, own_slice,
                                           row_parallel, tensor_axes, weight)
 
 #: prefill query chunk: a query longer than this, and a multiple of it, is
@@ -221,7 +222,17 @@ class MLA(nn.Module):
     (``wq_a`` (d, q_lora), ``q_norm``, ``wq_b`` (q_lora, H, nope + rope)),
     K and V from a compressed latent (``wkv_a`` (d, kv_lora),
     ``kv_norm``, ``wk_b`` / ``wv_b`` (kv_lora, H, ·)) plus one decoupled
-    rotary key (``wk_rope`` (d, rope)), ``wo`` (H, v, d)."""
+    rotary key (``wk_rope`` (d, rope)), ``wo`` (H, v, d).
+
+    On a mesh (``runtime.shard``) the down projections ``wq_a``,
+    ``wkv_a`` and ``wk_rope`` are cut on d over the FSDP axes and
+    gathered at use, and the norms run whole on every model rank; the
+    up projections ``wq_b``, ``wk_b``, ``wv_b`` are column-parallel on
+    the heads (each rank expands K_nope and V for its H/t heads from the
+    whole latent, which enters through ``enter_tensor``), and ``wo`` is
+    row-parallel. The latent cache ``ckv`` is cut on R over the model
+    axis (``infer_cache_specs``): a rank writes its R-slice and gathers
+    the whole buffer at each step; ``k_rope`` is whole."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -248,6 +259,22 @@ class MLA(nn.Module):
         self.wo = nn.Parameter(dense_init((H, m.v_head_dim, d), dtype,
                                           (0, 1), **kw))
 
+    def latent_axes(self):
+        """The model axis that cuts the latent cache's R: the one that
+        cuts the heads (None off a mesh or when they are whole)."""
+        return tensor_axes(self.wk_b)
+
+    def local_latent_rank(self) -> int:
+        """The width of this rank's slice of the ``ckv`` cache."""
+        R, tp = self.cfg.mla.kv_lora_rank, self.latent_axes()
+        if tp is None:
+            return R
+        if R % tp.size:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the latent rank {R} over a model axis "
+                f"of {tp.size} ({NOT_YET})")
+        return R // tp.size
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: int = 0):
@@ -258,40 +285,44 @@ class MLA(nn.Module):
         cfg, m = self.cfg, self.cfg.mla
         cd = common.dt(cfg.compute_dtype)
         B, S, _ = x.shape
-        H = cfg.num_heads
         nope, rope = m.nope_head_dim, m.rope_head_dim
+        tp = self.latent_axes()
 
-        q_lat = self.q_norm(x @ self.wq_a.to(x.dtype))
-        q = (q_lat @ self.wq_b.to(x.dtype).flatten(1)).view(B, S, H,
-                                                            nope + rope)
+        q_lat = self.q_norm(x @ weight(self.wq_a, x.dtype))
+        q = enter_tensor(q_lat, tp) @ weight(self.wq_b, x.dtype).flatten(1)
+        q = q.view(B, S, -1, nope + rope)                  # this rank's heads
         q_nope, q_rope = q.split([nope, rope], dim=-1)
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-        ckv = self.kv_norm(x @ self.wkv_a.to(x.dtype))
-        k_rope = apply_rope((x @ self.wk_rope.to(x.dtype))[:, :, None, :],
+        ckv = self.kv_norm(x @ weight(self.wkv_a, x.dtype))
+        k_rope = apply_rope((x @ weight(self.wk_rope, x.dtype))[:, :, None, :],
                             positions, cfg.rope_theta)[:, :, 0, :]
 
         offset = 0
         if cache is not None:
-            _write(cache, {"ckv": ckv, "k_rope": k_rope}, cache_index)
-            ckv, k_rope = cache["ckv"], cache["k_rope"]
+            mine = ckv if tp is None else own_slice(ckv, -1, tp)
+            _write(cache, {"ckv": mine, "k_rope": k_rope}, cache_index)
+            ckv = gather_cache(cache["ckv"], -1, tp)
+            k_rope = cache["k_rope"]
             offset = cache_index
         T = ckv.shape[1]
         mask = common.causal_mask(S, T, offset, device=x.device)
 
         # the latents expanded to per-head K_nope and V (not absorbed
         # into the queries: that form rounds differently)
-        c = ckv.to(cd)
-        k_nope = (c @ self.wk_b.to(cd).flatten(1)).view(B, T, H, nope)
-        v = (c @ self.wv_b.to(cd).flatten(1)).view(B, T, H, m.v_head_dim)
+        c = enter_tensor(ckv.to(cd), tp)
+        k_nope = (c @ weight(self.wk_b, cd).flatten(1)).view(B, T, -1, nope)
+        v = (c @ weight(self.wv_b, cd).flatten(1)).view(B, T, -1,
+                                                        m.v_head_dim)
+        kr = enter_tensor(k_rope.to(cd), tp)
         scale = _as((nope + rope) ** -0.5, cd)
         logits = (q_nope.to(cd).transpose(1, 2) @ k_nope.permute(0, 2, 3, 1)
                   + q_rope.to(cd).transpose(1, 2)
-                  @ k_rope.to(cd).transpose(1, 2)[:, None]) * scale
+                  @ kr.transpose(1, 2)[:, None]) * scale
         logits = torch.where(mask, logits.float(), _MASKED)
         probs = torch.softmax(logits, dim=-1).to(cd)      # (B, H, S, T)
         out = (probs @ v.transpose(1, 2)).transpose(1, 2)  # (B, S, H, v)
-        out = out.reshape(B, S, H * m.v_head_dim)
-        return (out @ self.wo.to(cd).flatten(0, 1)).to(x.dtype), cache
+        out = out.reshape(B, S, -1)
+        return row_parallel(out, self.wo, tp).to(x.dtype), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,

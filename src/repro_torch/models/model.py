@@ -43,6 +43,7 @@ checkpoint.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -283,13 +284,16 @@ class DecoderOnly(LM):
         return x
 
     def init_caches(self, batch_size: int, max_len: int):
-        """Zero caches; on a mesh ``batch_size`` is this rank's rows and
-        the KV heads are its own."""
-        init = attention.init_mla_cache if self.cfg.mla is not None \
-            else attention.init_gqa_cache
-        cfg = self.cfg
+        """Zero caches; on a mesh ``batch_size`` is this rank's rows, the
+        KV heads are its own and MLA's latent ``ckv`` is its R-slice."""
+        cfg, attn = self.cfg, self.blocks[0].attn
         if cfg.mla is None:
-            cfg = cfg.replace(kv_heads=self.blocks[0].attn.local_kv_heads())
+            init = attention.init_gqa_cache
+            cfg = cfg.replace(kv_heads=attn.local_kv_heads())
+        else:
+            init = attention.init_mla_cache
+            cfg = cfg.replace(mla=dataclasses.replace(
+                cfg.mla, kv_lora_rank=attn.local_latent_rank()))
         proto = init(cfg, batch_size, max_len, CACHE_DTYPE,
                      device=self.device)
         caches = {"blocks": _stacked(proto, len(self.blocks))}

@@ -12,9 +12,33 @@ dense residual FFN added. Every expert's weights are multiplied at every
 step, whichever experts the tokens chose, as in the reference.
 
 Covers DeepSeek-V2 (160 routed top-6 + 2 shared experts) and Arctic (128
-routed top-2 + a parallel dense residual FFN). The reference's sharding
-constraints (``constrain`` in its ``moe_ffn``) wait for the MoE's sharded
-slice: ``runtime.shard.shard_model`` refuses the family on a mesh.
+routed top-2 + a parallel dense residual FFN).
+
+On a mesh (``runtime.shard.shard_model``: the experts' E over the model
+axis, their d over the FSDP axes, the router's d over the FSDP axes) the
+layer keeps the reference's global semantics, which its ``jit`` gets from
+seeing every token: the capacity is taken over the global token count,
+and the slots number the assignments in global token order, which is
+data-rank-major (the batch rows are cut in contiguous blocks). Each rank:
+
+  * routes its own tokens, whole on every model rank (replicated
+    compute, outside ``enter_tensor``: its input gradient is not summed
+    over the model axis);
+  * all-gathers its per-expert assignment counts over the batch axes and
+    offsets its one-hot cumsum by the earlier data ranks' counts, so that
+    each slot, ``keep`` and the drop count are the one device's;
+  * scatters its kept assignments to the experts it owns into an (E/t,
+    C, d) buffer at their global slots (the other data ranks' rows stay
+    zero; the SwiGLU is row-wise, so each row's product is the one
+    device's), the input through ``enter_tensor`` and the expert leaves
+    gathered over FSDP by ``weight``;
+  * gathers the rows of its owned assignments (zeros for the others) and
+    sums them over the model axis (``reduce_tensor``: one rank adds the
+    one non-zero, so the sum is exact and its backward the identity),
+    then takes the weighted sum over the k experts locally.
+
+The reference's ``constrain`` call sites stay where they are (no-ops in
+eager PyTorch, ``runtime.mesh_ctx``).
 """
 from __future__ import annotations
 
@@ -25,9 +49,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.launch.mesh import MeshAxes
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
 from repro_torch.models.ffn import MLP
+from repro_torch.runtime.mesh_ctx import (all_gather, constrain,
+                                          enter_tensor, reduce_tensor,
+                                          tensor_axes, weight)
 
 
 def _capacity(tokens: int, m: MoEConfig) -> int:
@@ -54,7 +82,9 @@ class MoE(nn.Module):
     and the optional ``shared`` and ``dense_residual`` MLPs.
     ``last_dropped`` is the number of assignments the last call dropped
     for want of capacity (a 0-dim tensor on the device, so that reading
-    it is the caller's sync)."""
+    it is the caller's sync), the global batch's on a mesh.
+    ``batch_axes`` are the mesh's batch axes (``launch.mesh.MeshAxes``),
+    set by ``runtime.shard.shard_model``; None off a mesh."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -75,44 +105,77 @@ class MoE(nn.Module):
         self.dense_residual = MLP(d, m.dense_residual_d_ff, dtype, cd, **kw) \
             if m.dense_residual_d_ff else None
         self.last_dropped: Optional[torch.Tensor] = None
+        self.batch_axes: Optional[MeshAxes] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, S, d) → (B, S, d) at x's dtype."""
+        """x: (B, S, d) → (B, S, d) at x's dtype (on a mesh, this rank's
+        rows)."""
         m = self.cfg.moe
         cd = common.dt(self.cfg.compute_dtype)
         B, S, d = x.shape
         T, k, E = B * S, m.top_k, m.num_experts
-        xf = x.reshape(T, d)
+        xf = constrain(x.reshape(T, d), "batch", None)
 
-        # routing (a float32 router, the production default)
-        probs = torch.softmax(xf.float() @ self.router, dim=-1)
+        # routing (a float32 router, the production default), whole on
+        # every model rank
+        logits = constrain(xf.float() @ weight(self.router, torch.float32),
+                           "batch", None)
+        probs = torch.softmax(logits, dim=-1)
         top_p, top_e = probs.topk(k, dim=-1)                  # (T, k)
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
 
         # each assignment's slot in its expert's buffer: a one-hot cumsum
-        C = _capacity(T, m)
+        # in global token order (the earlier data ranks' counts first)
         e_flat = top_e.reshape(-1)                            # (T·k,)
-        pos = F.one_hot(e_flat, E).cumsum(0) - 1              # (T·k, E)
+        onehot = F.one_hot(e_flat, E)
+        pos = onehot.cumsum(0) - 1                            # (T·k, E)
+        counts = onehot.sum(0)                                # (E,)
+        dp = self.batch_axes
+        if dp is not None and dp.size > 1:
+            every = all_gather(counts[None], 0, dp)           # (ranks, E)
+            pos = pos + every[:dp.index].sum(0)
+            counts = every.sum(0)
+            T *= dp.size
+        C = _capacity(T, m)
         pos_flat = pos.gather(1, e_flat[:, None])[:, 0]
         keep = pos_flat < C                                   # overflow drops
         p_clip = pos_flat.clamp(0, C - 1)
-        self.last_dropped = (~keep).sum()
+        self.last_dropped = (counts - C).clamp_min(0).sum()
 
-        # dispatch: scatter-add the tokens into (E, C, d) buffers (a
-        # dropped assignment adds zeros to its expert's last slot)
-        x_rep = xf.repeat_interleave(k, dim=0).to(cd) * keep[:, None].to(cd)
-        buf = torch.zeros((E, C, d), dtype=cd, device=x.device)
-        buf.index_put_((e_flat, p_clip), x_rep, accumulate=True)
-
-        # the SwiGLU, batched over all E experts
+        # the experts this rank owns (all of them off the model axis)
         ex = self.experts
-        h = torch.bmm(buf, ex["gate"].to(cd))
-        u = torch.bmm(buf, ex["up"].to(cd))
-        y = torch.bmm(F.silu(h) * u, ex["down"].to(cd))
+        tp = tensor_axes(ex["gate"])
+        E_own = ex["gate"].shape[0]
+        e_own = e_flat if tp is None else e_flat - tp.index * E_own
+        own = (e_own >= 0) & (e_own < E_own)
+        e_own = e_own.clamp(0, E_own - 1)
 
-        # combine: gather, then the weighted sum over the token's k experts
+        # dispatch: scatter-add the tokens into (E/t, C, d) buffers (a
+        # dropped assignment, or one of another rank's experts, adds
+        # zeros)
+        x_rep = enter_tensor(xf, tp).repeat_interleave(k, dim=0).to(cd)
+        x_rep = constrain(x_rep * (keep & own)[:, None].to(cd), "batch",
+                          None)
+        buf = torch.zeros((E_own, C, d), dtype=cd, device=x.device)
+        buf.index_put_((e_own, p_clip), x_rep, accumulate=True)
+        buf = constrain(buf, "tensor", None, None)
+
+        # the SwiGLU, batched over the owned experts
+        h = torch.bmm(buf, weight(ex["gate"], cd))
+        u = torch.bmm(buf, weight(ex["up"], cd))
+        y = torch.bmm(F.silu(h) * u, weight(ex["down"], cd))
+        y = constrain(y, "tensor", None, None)
+
+        # combine: gather (each row from its expert's owner), then the
+        # weighted sum over the token's k experts
+        y_tok = y[e_own, p_clip]
+        if tp is not None:
+            y_tok = reduce_tensor(torch.where(
+                own[:, None], y_tok, torch.zeros((), dtype=cd,
+                                                 device=x.device)), tp)
+        y_tok = constrain(y_tok, "batch", None)               # (T·k, d)
         w = (top_p.reshape(-1).to(cd) * keep.to(cd))[:, None]
-        out = (y[e_flat, p_clip] * w).reshape(T, k, d).sum(dim=1)
+        out = (y_tok * w).reshape(B * S, k, d).sum(dim=1)
         out = out.reshape(B, S, d).to(x.dtype)
 
         if self.shared is not None:

@@ -19,8 +19,9 @@ reading its parameters' ``shard`` (``ParamShard``, set by
   * ``weight(p, dtype)`` — a parameter whose d_model dim is sharded
     over the FSDP axes is cast to ``dtype`` and all-gathered over them
     just before use (freed after); the gradient returns by the
-    conjugate reduction (a SUM over those axes, in float32) into this
-    rank's slice. A recompute under remat gathers again;
+    conjugate reduction (a SUM over those axes, in float32, one
+    all-reduce a rank's slice) into this rank's slice. A recompute
+    under remat gathers again;
   * ``enter_tensor(x, ax)`` / ``row_parallel(x, p, ax)`` — Megatron's
     pair around a column- then row-parallel product: identity forward
     and an all-reduce of the gradient over the model axis; the
@@ -33,7 +34,9 @@ reading its parameters' ``shard`` (``ParamShard``, set by
     forward, this rank's slice of the gradient backward.
 
 ``traffic`` counts the bytes these move (``gathered``: all-gathers,
-``reduced``: all-reduces), beside ``launch.mesh.collectives``.
+``reduced``: all-reduces; ``cache_gathered``: the part of ``gathered``
+that MLA's latent caches, cut over the model axis, gather at each decode
+step), beside ``launch.mesh.collectives``.
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ from repro_torch.launch.mesh import MeshAxes
 from repro_torch.runtime.sharding import mesh_axes, mesh_shape
 
 _STATE = threading.local()
+#: what a layout this slice does not run names when it raises
+NOT_YET = "ROADMAP Queue 1, item 10d"
 
 
 def current_mesh():
@@ -125,6 +130,7 @@ class Traffic:
     def reset(self) -> None:
         self.gathered = 0
         self.reduced = 0
+        self.cache_gathered = 0
 
 
 traffic = Traffic()
@@ -173,9 +179,23 @@ class _GatherWeight(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = all_reduce(g.to(torch.float32), ctx.ax)
-        return (own_slice(g, ctx.dim, ctx.ax).to(ctx.pdtype), None, None,
-                None)
+        # a reduce-scatter as one all-reduce a rank's slice, each in a
+        # float32 copy of that slice alone: a full-width expert leaf's
+        # gradient is 2.5 GB at float32, and gloo stages a collective in
+        # pinned host memory
+        ax, dim = ctx.ax, ctx.dim
+        n = g.shape[dim] // ax.size
+        mine = None
+        for j in range(ax.size):
+            part = g.narrow(dim, j * n, n).to(
+                torch.float32, memory_format=torch.contiguous_format,
+                copy=True)
+            traffic.reduced += part.numel() * part.element_size()
+            dist.all_reduce(part, group=ax.group)
+            mesh_lib.collectives.add()
+            if j == ax.index:
+                mine = part
+        return mine.to(ctx.pdtype), None, None, None
 
 
 class _EnterTensor(torch.autograd.Function):
@@ -264,8 +284,9 @@ def row_parallel(x: torch.Tensor, p: torch.Tensor,
                  ax: Optional[MeshAxes]) -> torch.Tensor:
     """``x @ p`` at ``x``'s dtype, ``p`` row-parallel over the model axis
     ``ax`` (None: whole): each rank's partial product at float32, the
-    SUM over ``ax`` rounded once to ``x``'s dtype."""
-    w = weight(p, x.dtype)
+    SUM over ``ax`` rounded once to ``x``'s dtype. A ``p`` of more than
+    two dims (MLA's ``wo``, (H, v, d)) has its leading dims merged."""
+    w = weight(p, x.dtype).flatten(0, -2)
     if ax is None:
         return x @ w
     return reduce_tensor(_RowParallel.apply(x, w), ax).to(x.dtype)
@@ -274,3 +295,14 @@ def row_parallel(x: torch.Tensor, p: torch.Tensor,
 def gather_tensor(x: torch.Tensor, dim: int,
                   ax: Optional[MeshAxes]) -> torch.Tensor:
     return x if ax is None else _GatherTensor.apply(x, dim % x.dim(), ax)
+
+
+def gather_cache(x: torch.Tensor, dim: int,
+                 ax: Optional[MeshAxes]) -> torch.Tensor:
+    """A cache buffer cut over the model axis ``ax`` along ``dim``, whole
+    (``gather_tensor``; a cache is read under inference mode, so no
+    gradient); its bytes also count in ``traffic.cache_gathered``."""
+    if ax is None:
+        return x
+    traffic.cache_gathered += x.numel() * x.element_size() * (ax.size - 1)
+    return gather_tensor(x, dim, ax)

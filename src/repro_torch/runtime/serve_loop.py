@@ -8,12 +8,14 @@ written in place, as the reference's donated buffers are.
 
 On a mesh (a model cut by ``runtime.shard.shard_model``, the batch this
 rank's rows) the caches are laid out by ``infer_cache_specs``: batch
-over the batch axes, KV heads over the model axis, so each rank's cache
-is the slice of the one-device cache and is written in place. The
-logits are vocab-parallel (``logits_spec``) and the greedy token is the
-global argmax, the same on every rank of the model axis. Layouts that
-shard the cache's sequence (batch 1, KV heads that the model axis does
-not divide) raise ``NotImplementedError``. Nothing is compiled:
+over the batch axes, GQA's KV heads or MLA's latent rank over the model
+axis, so each rank's cache is the slice of the one-device cache and is
+written in place. The logits are vocab-parallel (``logits_spec``) and
+the greedy token is the global argmax, the same on every rank of the
+model axis. Layouts that shard the cache's sequence (batch 1, KV heads
+that the model axis does not divide) or that MLA does not divide raise
+``NotImplementedError`` (``check_serve_layout`` tells on a production
+mesh's shape alone). Nothing is compiled:
 ``jit_decode_step`` checks the layouts the reference's jit would be
 given and returns the step.
 """
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, build_model, nest
 from repro_torch.runtime import shard as shard_lib
 from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.mesh_ctx import all_gather, mesh_context
@@ -43,37 +45,93 @@ def greedy_token(model: LM, logits: torch.Tensor) -> torch.Tensor:
     return ids.gather(0, best[None])[0].to(torch.int32)
 
 
-def check_cache_layout(model: LM, caches, profile: str = "2d") -> None:
-    """Raise ``NotImplementedError`` unless this rank's ``caches`` are
-    the slices ``infer_cache_specs`` gives of the one-device caches: the
-    batch over the batch axes, the KV heads over the model axis when
-    they are cut, nothing of the sequence."""
-    layout = model.layout
-    mesh = layout.mesh
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def cache_specs(cfg, caches, mesh, profile: str = "2d"):
+    """The dim-specs ``infer_cache_specs`` gives ``caches`` (the
+    one-device caches, or tensors of their global shapes on ``meta``) on
+    ``mesh`` (a ``DeviceMesh`` or a dict of axis sizes). Raises
+    ``NotImplementedError`` for a layout this slice does not run: a
+    sequence cut (a batch of 1, or KV heads fewer than the model axis:
+    the reference's flash-decode fallback), a GQA cache cut on Dh, and
+    MLA whose heads or latent rank the model axis does not divide."""
     sizes = shd.mesh_shape(mesh)
-    dp_size = 1 if layout.dp is None else layout.dp.size
-    heads_tp = model.blocks[0].attn.wk.shard.tensor
+    _, tensor = shd.mesh_axes(mesh, profile)
+    t = shd.axes_size(sizes, tensor) if tensor else 1
+    if cfg.mla is not None and t > 1 and (
+            cfg.num_heads % t or cfg.mla.kv_lora_rank % t):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA's {cfg.num_heads} heads and latent rank "
+            f"{cfg.mla.kv_lora_rank} over a model axis of {t} "
+            f"({shard_lib.NOT_YET})")
+    specs = shd.infer_cache_specs(caches, mesh, profile)
 
     def cuts(entry) -> bool:
         return entry is not None and shd.axes_size(sizes, entry) > 1
-
-    def visit(node, name):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                visit(v, k)
-            return
-        glob = list(node.shape)                 # (..., B, S, Hkv, Dh)
-        glob[-4] *= dp_size
-        if heads_tp is not None:
-            glob[-2] *= heads_tp.size
-        spec = shd.spec_for_cache_leaf(name, glob, mesh, profile)
-        if cuts(spec[-3]) or cuts(spec[-1]) or tuple(node.shape) != \
-                shd.local_shape(glob, spec, mesh):
+    for (path, leaf), (_, spec) in zip(_flat(caches), _flat(specs)):
+        gqa = path[-1] in ("k", "v")
+        if cuts(spec[-3 if gqa else -2]) or (gqa and cuts(spec[-1])):
             raise NotImplementedError(
-                f"cache {name} of global shape {tuple(glob)}: spec {spec} "
-                f"on {sizes} (a sequence-sharded cache, "
-                f"{shard_lib.NOT_YET})")
-    visit(caches, "")
+                f"cache {'/'.join(path)} of global shape "
+                f"{tuple(leaf.shape)}: spec {spec} on {sizes} (a "
+                f"sequence-sharded cache, {shard_lib.NOT_YET})")
+    return specs
+
+
+def check_serve_layout(cfg, batch: int, max_len: int, mesh,
+                       profile: str = "2d") -> None:
+    """Raise ``NotImplementedError`` unless this slice serves ``cfg`` at
+    a global ``batch`` and ``max_len`` on ``mesh``, which may be a
+    production shape given as a dict of axis sizes (no process group):
+    the family, the batch's and the caches' layouts (``cache_specs``)."""
+    if cfg.family not in shard_lib.SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a mesh "
+            f"({shard_lib.NOT_YET})")
+    tok = torch.empty((batch, 1), device="meta")
+    shard_lib.check_batch_specs(shd.infer_batch_specs({"tokens": tok}, mesh,
+                                                      profile), mesh, profile)
+    # a stack's depth is a leading axis no rule cuts: 2 layers tell
+    model = build_model(cfg.replace(num_layers=2), device="meta",
+                        generator=torch.Generator())
+    cache_specs(cfg, model.init_caches(batch, max_len), mesh, profile)
+
+
+def check_cache_layout(model: LM, caches, profile: str = "2d") -> None:
+    """Raise ``NotImplementedError`` unless this rank's ``caches`` are
+    the slices ``infer_cache_specs`` gives of the one-device caches: the
+    batch over the batch axes, the KV heads (GQA) or the latent rank R
+    (MLA's ``ckv``) over the model axis when they are cut, nothing of
+    the sequence (``cache_specs``)."""
+    layout, cfg = model.layout, model.cfg
+    mesh = layout.mesh
+    dp_size = 1 if layout.dp is None else layout.dp.size
+
+    def whole(name, shape):
+        glob = list(shape)
+        if name in ("k", "v"):                  # (..., B, S, Hkv, Dh)
+            glob[-4] *= dp_size
+            glob[-2] = cfg.kv_heads
+        else:                                   # (..., B, S, R)
+            glob[-3] *= dp_size
+            if name == "ckv":
+                glob[-1] = cfg.mla.kv_lora_rank
+        return torch.empty(glob, device="meta")
+    glob = nest((p, whole(p[-1], v.shape)) for p, v in _flat(caches))
+    specs = cache_specs(cfg, glob, mesh, profile)
+    for (path, local), (_, g), (_, spec) in zip(_flat(caches), _flat(glob),
+                                                 _flat(specs)):
+        want = shd.local_shape(tuple(g.shape), spec, mesh)
+        if tuple(local.shape) != want:
+            raise NotImplementedError(
+                f"cache {'/'.join(path)}: {tuple(local.shape)} on this "
+                f"rank, its slice is {want} ({shard_lib.NOT_YET})")
 
 
 def make_prefill_step(model: LM, mesh=None, max_len: int = 0,

@@ -14,10 +14,12 @@ they need (``runtime.mesh_ctx``).
     is mapped onto the port's layout dim by dim, and a merged dim may be
     cut only on its leading part (H of H·Dh; the rules never shard Dh,
     and this checks it).
-  * The sharded compute covers the ``dense`` and ``vlm`` families; the
-    others, and layouts that need a sequence-sharded batch or cache
-    (batch 1, KV heads that the model axis does not divide), raise
-    ``NotImplementedError`` (ROADMAP Queue 1, 10d), never run replicated.
+  * The sharded compute covers the ``dense``, ``vlm`` and ``moe``
+    families (the routed experts on the model axis, MLA's heads on it and
+    its latent cache cut on R); the others, and layouts that need a
+    sequence-sharded batch or cache (batch 1, KV heads that the model
+    axis does not divide), raise ``NotImplementedError`` (ROADMAP Queue
+    1, 10d), never run replicated.
   * ``shard_batch``, ``slice_state`` and ``gather_state`` carry inputs
     and state between the global (reference) tree and a rank's slices
     (``abstract_state`` gives the global shapes the specs resolve on);
@@ -32,15 +34,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.attention import MLA
 from repro_torch.models.model import (LM, RefLeaf, build_model, nest,
                                       ref_leaves)
+from repro_torch.models.moe import MoE
 from repro_torch.optim import get_optimizer
 from repro_torch.runtime import sharding as shd
-from repro_torch.runtime.mesh_ctx import ParamShard, all_gather, axes_of
+from repro_torch.runtime.mesh_ctx import (NOT_YET, ParamShard, all_gather,
+                                          axes_of)
 
 #: families whose layers run sharded
-SHARDED_FAMILIES = ("dense", "vlm")
-NOT_YET = "ROADMAP Queue 1, item 10d"
+SHARDED_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _cut(t: torch.Tensor, spec, mesh) -> torch.Tensor:
@@ -116,9 +120,24 @@ def _owners(model: nn.Module) -> Dict[int, Tuple[nn.Module, str]]:
 
 def _check_consistent(model: LM) -> None:
     """Raise for a layout this slice does not run: KV heads that the
-    model axis does not divide while the query heads are cut."""
-    for block in model.blocks:
+    model axis does not divide while the query heads are cut. MLA has no
+    KV heads of its own: its K and V heads are the query heads, cut by
+    ``wk_b`` / ``wv_b`` as ``wq_b`` and ``wo`` are."""
+    blocks = list(model.blocks)
+    if getattr(model, "block0", None) is not None:
+        blocks.append(model.block0)
+    for block in blocks:
         attn = block.attn
+        if isinstance(attn, MLA):
+            q_cut = attn.wq_b.shard.tensor is not None
+            kv_cut = {attn.wk_b.shard.tensor is not None,
+                      attn.wv_b.shard.tensor is not None,
+                      attn.wo.shard.tensor is not None}
+            if kv_cut != {q_cut}:
+                raise NotImplementedError(
+                    f"{model.cfg.name}: MLA's up projections cut unlike "
+                    f"its query heads ({NOT_YET})")
+            continue
         q_cut = attn.wq.shard.tensor is not None
         kv_cut = attn.wk.shard.tensor is not None
         if q_cut != kv_cut:
@@ -179,6 +198,9 @@ def shard_model(model: LM, mesh, profile: str = "2d") -> LM:
                 global_shape=leaf.shape, spec=spec, mesh=mesh))
     model.layout = Layout(mesh, profile, leaves)
     _check_consistent(model)
+    for module in model.modules():
+        if isinstance(module, MoE):
+            module.batch_axes = model.layout.dp
     return model
 
 

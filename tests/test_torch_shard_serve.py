@@ -17,7 +17,8 @@ the vlm (patches, M-RoPE):
   the slice of the one-device caches, and its logits are within 2e-4;
 * ``jit_decode_step`` takes the cache and batch layouts the rules give,
   and a batch of 1 (a sequence-sharded cache), a family outside
-  dense/vlm and a one-device step on a sharded model raise.
+  dense/vlm/moe (xlstm's ssm) and a one-device step on a sharded model
+  raise.
 """
 import json
 import os
@@ -33,7 +34,7 @@ WORLD = 4
 WORLD_TIMEOUT_S = 240
 TOL = 2e-4
 ARCHS = ("qwen2.5-3b", "qwen2-vl-7b")
-RAISES = ("batch-1-prefill", "batch-1-decode", "moe-family",
+RAISES = ("batch-1-prefill", "batch-1-decode", "ssm-family",
           "one-device-step")
 
 WORKER = r'''
@@ -161,8 +162,8 @@ def raises_case():
     caches = sh.init_caches(1, 16)
     expect("batch-1-decode", lambda: sl.jit_decode_step(
         sh, mesh, caches, shd.infer_batch_specs(tok, mesh)))
-    expect("moe-family", lambda: shard.shard_model(tmodel.build_model(
-        tiny_config(get_config("arctic-480b")), device="cpu"), mesh))
+    expect("ssm-family", lambda: shard.shard_model(tmodel.build_model(
+        tiny_config(get_config("xlstm-1.3b")), device="cpu"), mesh))
     expect("one-device-step", lambda: sl.make_decode_step(sh), ValueError)
     return out
 

@@ -30,7 +30,7 @@ batch and the sharded step on its rows, and writes what it measured:
 * a bfloat16 row-parallel product (``mesh_ctx.row_parallel``) on
   (2, 2) rounds once, as one device's product does.
 * what this slice does not run raises ``NotImplementedError``: a family
-  outside dense/vlm, KV heads the model axis does not divide, a batch
+  outside dense/vlm/moe (xlstm's ssm), KV heads the model axis does not divide, a batch
   of 1 (sequence-sharded), microbatches whose rows do not divide.
 * the JAX package's sharded step on an Auto-axis (4, 2) mesh (8 fake
   CPU devices, in its own process; ``jax.make_mesh`` makes Explicit
@@ -76,7 +76,7 @@ TRAIN_CASES = [
      "none"),
     ("4x2-vlm-adamw", 8, (4, 2), "2d", "qwen2-vl-7b", "adamw", "none"),
 ]
-RAISES = ("moe-family", "kv-heads", "batch-1", "microbatch-rows",
+RAISES = ("ssm-family", "kv-heads", "batch-1", "microbatch-rows",
           "unsharded-model")
 
 WORKER = r'''
@@ -284,8 +284,8 @@ def raises_case(c):
         except exc as e:
             out[name] = "raised: " + str(e)[:200]
     dense = tiny_config(get_config("qwen2.5-3b"))
-    expect("moe-family", lambda: shard.shard_model(tmodel.build_model(
-        tiny_config(get_config("deepseek-v2-236b")), device="cpu"), mesh))
+    expect("ssm-family", lambda: shard.shard_model(tmodel.build_model(
+        tiny_config(get_config("xlstm-1.3b")), device="cpu"), mesh))
     expect("kv-heads", lambda: shard.shard_model(tmodel.build_model(
         dense.replace(kv_heads=1), device="cpu"), mesh))
     expect("batch-1", lambda: shard.shard_batch(

@@ -138,8 +138,8 @@ Phases, in order; any failure exits non-zero:
      syncs, idle share).
   10. the sharded LM path (``runtime/{sharding,mesh_ctx,shard}.py``,
      the train and serve steps on a mesh; no hand kernel): (a) a world
-     of one over NCCL on a (1, 1) mesh: the tiny dense, vlm, deepseek
-     and arctic configs of phase 9 (a), one adamw and one adafactor step of two
+     of one over NCCL on a (1, 1) mesh: a tiny config of every family
+     (phase 9 (a)'s), one adamw and one adafactor step of two
      microbatches, and phase 8 (a)'s prefill and greedy decode with
      float32 caches, through the mesh code path, against the
      one-device step and decode on the card on the same weights and
@@ -179,7 +179,23 @@ Phases, in order; any failure exits non-zero:
      one-device run in this process (``MOE_MESH_*``). One ``moe_mesh``
      JSON line: per rank the resident bytes, collectives and bytes a
      step and a token (the latent caches' gathers apart), step and
-     decode ms, peak memory and the global drops.
+     decode ms, peak memory and the global drops. (d) the xLSTM,
+     Mamba2-hybrid and encoder-decoder families on the same mesh
+     (``chip_smoke.py --ssm-mesh-rank r``): the tiny xlstm, zamba2 and
+     seamless of (a), each rank against the one device; zamba2-7b at
+     full width cut to 7 layers (one group of 6 Mamba2 blocks, the
+     shared attention and a tail of 1), in a float32 pass (a serve,
+     logits within 2e-4 and equal tokens; two train steps at
+     launch/train's defaults, loss, grad norm and the next batch's loss
+     within 1e-5) and a bfloat16 pass (the same, held within the one
+     device's own bfloat16 error where that is larger than the fixed
+     bounds), each leaf's changed share in both; xlstm-1.3b at full
+     width, one group, a float32
+     serve, its resident parameters exactly its slices' bytes
+     (``SSM_MESH_*``). One ``ssm_mesh`` JSON line: per rank the
+     collectives and bytes a step and a token, step, first-step and
+     decode ms, peak memory, the resident shares and every check's
+     number.
 
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
@@ -355,6 +371,8 @@ TRAIN_TINY_BATCH = dict(batch=4, seq=16, patches=8, frames=16)
 #: within 2·lr: at most TRAIN_FLIP_SHARE of the elements
 TRAIN_GRAD_RTOL = 1e-4
 TRAIN_METRIC_RTOL = 1e-5
+TRAIN_METRIC_RTOL_BY = dict(losses=TRAIN_METRIC_RTOL,
+                            grad_norms=TRAIN_METRIC_RTOL)
 TRAIN_STEP_TOL = 2e-6
 TRAIN_FLIP_SHARE = 1e-3
 #: phase 10's MoE: a factored leaf's row or column whose non-zero
@@ -442,7 +460,8 @@ TRAIN_GIANT_FACTORS = {
 #: quarter, plus the norm scales and biases the rules keep whole or cut
 #: over one axis)
 LM_MESH_TINY = ("qwen2.5-3b", "qwen2-vl-7b", "deepseek-v2-236b",
-                "arctic-480b")
+                "arctic-480b", "xlstm-1.3b", "zamba2-7b",
+                "seamless-m4t-medium")
 LM_MESH_ARCH = "qwen1.5-0.5b"
 LM_MESH_WORLD = 4
 LM_MESH_SHAPE = (2, 2)
@@ -502,6 +521,51 @@ MOE_MESH_TIMEOUT_S = 600
 #: (two float32 2-layer models, 42.9 GB, beside the others' slices fit
 #: the card; four do not)
 MOE_MESH_BUILDERS = 2
+#: (d) the ssm, hybrid and encdec families on LM_MESH_SHAPE, LM_MESH_WORLD
+#: ranks spawned as (b)'s and (c)'s are. (1) the tiny xlstm, zamba2 and
+#: seamless of (a), held as (a) is, each rank's slices against the one
+#: device. (2) SSM_MESH_ARCH at full width cut in depth only to
+#: SSM_MESH_LAYERS (one group of 6 Mamba2 blocks, the shared attention
+#: block and a tail of 1: SSM_MESH_PARAMS parameters, the reference's
+#: count), against the one device on the same weights, in two passes as
+#: (b)'s. Both take launch/serve's batch and prompt and SSM_MESH_GEN
+#: tokens, then SSM_MESH_TRAIN_STEPS train steps on the same model at
+#: launch/train's defaults, as (b)'s (``_lm_mesh_train_cfg``: batch 8 x
+#: 256, AdamW as the arch's policy says at one microbatch, not its 4,
+#: each of which would gather every weight over gloo again; warmup 10 of
+#: 200 steps). The float32 pass (float32 compute and caches) holds the
+#: state: logits within SERVE_TOL and equal tokens, losses, grad norms
+#: and the next batch's loss within TRAIN_METRIC_RTOL. The bfloat16 pass
+#: (the config's compute, float32 parameters) gives the timings: each
+#: serve step's logits within the larger of SERVE_TF_ULPS units and the
+#: one device's own bfloat16 error, tokens equal where its top-2 margin
+#: exceeds twice that (the recurrent families round apart at bfloat16,
+#: SERVE_TF_FLOAT32's note); losses, grad norms and the next batch's
+#: loss within the larger of LM_MESH_BF16_RTOL and the one device's own
+#: bfloat16 error (its bfloat16 run against its float32 pass): AdamW
+#: makes each gradient whose sign the rounding flips a full step, and a
+#: recurrent model's bfloat16 gradients are 9-18% (of a leaf's norm)
+#: from the float32 ones on one device and on the mesh alike, so after
+#: one step the next loss parted by 1.25e-4 at lr 3e-5 and 1.1e-3 at lr
+#: 1e-3 from the first step (PERF.md §6). Each leaf's changed share
+#: within MOE_MESH_CHANGED_TOL of the one device's in both passes;
+#: parameters and accumulators at most LM_MESH_SHARE of the one
+#: device's, the optimizer state its slices' bytes. (3) SSM_MESH_XLSTM
+#: at full width, one group (SSM_MESH_XLSTM_LAYERS: 7 mLSTM blocks and 1
+#: sLSTM block, SSM_MESH_XLSTM_PARAMS parameters), a float32 serve held
+#: as (2)'s; its resident parameters exactly its slices' bytes (the
+#: rules cut no FSDP dim of the mLSTM's wqkv and wif: 0.36744 of the one
+#: device's)
+SSM_MESH_TINY = ("xlstm-1.3b", "zamba2-7b", "seamless-m4t-medium")
+SSM_MESH_ARCH = "zamba2-7b"
+SSM_MESH_LAYERS = 7
+SSM_MESH_PARAMS = 978_745_376
+SSM_MESH_GEN = 3
+SSM_MESH_TRAIN_STEPS = 2
+SSM_MESH_XLSTM = "xlstm-1.3b"
+SSM_MESH_XLSTM_LAYERS = 8
+SSM_MESH_XLSTM_PARAMS = 760_123_448
+SSM_MESH_TIMEOUT_S = 600
 
 
 def log(*a):
@@ -3283,7 +3347,73 @@ def _changed_shares(leaves, before):
             for l, b in zip(leaves, before)}
 
 
-def _moe_serve_one(model, G, feed=None):
+def _train_steps(model, tcfg, steps, mesh=None, rank=None):
+    """``steps`` train steps of ``model`` (laid out on ``mesh``, or on
+    one device) on launch/train's first batches (this rank's rows on a
+    mesh), then the loss of the next batch (the global batch's). Returns
+    the losses, grad norms, learning rates, step ms, collectives and
+    bytes gathered and all-reduced a step, the MoE's drops, each leaf's
+    share of elements the steps changed, the resident parameters,
+    optimizer state and accumulators (on a mesh also the optimizer
+    state's slices' bytes) and the peak memory. A rank keeps the leaves'
+    values before the steps on the host (four ranks share the card)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import train_loop as tl
+    torch.cuda.reset_peak_memory_stats()
+    batches = [{k: v.cuda() for k, v in b.items()}
+               for b in _lm_mesh_batches(model.cfg)]
+    if mesh is not None:
+        batches = [shard.shard_batch(b, mesh) for b in batches]
+    state = tl.make_train_state(model, tcfg)
+    step = tl.make_train_step(model, tcfg, mesh)
+    keep = model.device if mesh is None else "cpu"
+    before = [l.value().detach().to(keep, copy=True) for l in step.leaves]
+    tr = {}
+    with torch.no_grad():   # the next batch before the steps
+        loss = step.loss(batches[steps])
+        if mesh is not None:
+            loss = mesh_lib.all_reduce(loss, dist.ReduceOp.SUM,
+                                       model.layout.dp)
+        tr["next_loss_before"] = float(loss)
+    for i in range(steps):
+        (state, m), c = _counted(lambda: step(state, batches[i]))
+        for k, v in (("losses", float(m["loss"])),
+                     ("grad_norms", float(m["grad_norm"])),
+                     ("lrs", float(m["lr"])), ("drops", _dropped(model)),
+                     *zip(("step_ms", "collectives_per_step",
+                           "bytes_gathered_per_step",
+                           "bytes_reduced_per_step"), c)):
+            tr.setdefault(k, []).append(v)
+        if mesh is not None:
+            _mem_line(f"rank {rank} after train step {i}")
+    tr["changed"] = _changed_shares(step.leaves, before)
+    del before
+    with torch.no_grad():
+        loss = step.loss(batches[steps])
+        if mesh is not None:
+            loss = mesh_lib.all_reduce(loss, dist.ReduceOp.SUM,
+                                       model.layout.dp)
+        tr["next_loss"] = float(loss)
+    tr["resident_bytes"] = dict(
+        params=shard.resident_bytes(model),
+        opt=shard.resident_bytes(state["opt"]),
+        grads=shard.resident_bytes(step.grads))
+    if mesh is not None:
+        abstract = shard.abstract_state(model.cfg, tcfg)
+        specs = tl.state_specs(abstract, mesh)
+        tr["opt_slices_bytes"] = sum(
+            t.element_size() * int(np.prod(shd.local_shape(
+                tuple(t.shape), s, mesh)))
+            for (_, t), (_, s) in zip(_flat(abstract["opt"]),
+                                      _flat(specs["opt"])))
+    tr["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return tr
+
+
+def _serve_one(model, G, feed=None):
     """The one device's prefill of launch/serve's prompt and G − 1 greedy
     decode steps (fed the tokens ``feed`` (B, G) in place of its own when
     given): (record with prefill and decode ms and each pass's drops,
@@ -3319,8 +3449,6 @@ def _moe_one_device():
     batch's loss, resident bytes) and bfloat16 serve. Returns the record
     and the arrays the ranks are held against."""
     from repro_torch.models import model as tmodel
-    from repro_torch.runtime import shard
-    from repro_torch.runtime import train_loop as tl
     rec, arrays = {}, {}
     _free()
     saved = tmodel.CACHE_DTYPE
@@ -3332,7 +3460,7 @@ def _moe_one_device():
             fail(f"phase 10: {MOE_MESH_ARCH} at {MOE_MESH_F32_LAYERS} "
                  f"layers has {model.num_params()} parameters, the "
                  f"reference's {MOE_MESH_F32_PARAMS}")
-        r, a = _moe_serve_one(model, MOE_MESH_F32_GEN)
+        r, a = _serve_one(model, MOE_MESH_F32_GEN)
     finally:
         tmodel.CACHE_DTYPE = saved
     rec["f32_serve"] = dict(digest=digest, params=model.num_params(), **r)
@@ -3340,39 +3468,15 @@ def _moe_one_device():
     del model
     _free()
 
-    tcfg = _moe_train_cfg()
     model, digest = _build_seeded(_moe_cfg(MOE_MESH_TRAIN_LAYERS))
-    torch.cuda.reset_peak_memory_stats()
-    batches = [{k: v.cuda() for k, v in b.items()}
-               for b in _lm_mesh_batches(model.cfg)]
-    state = tl.make_train_state(model, tcfg)
-    step = tl.make_train_step(model, tcfg)
-    before = [l.value().detach().clone() for l in step.leaves]
-    tr = dict(digest=digest, losses=[], grad_norms=[], lrs=[], step_ms=[],
-              drops=[])
-    for i in range(MOE_MESH_TRAIN_STEPS):
-        (state, m), (ms, *_) = _counted(lambda: step(state, batches[i]))
-        for k, v in (("losses", m["loss"]), ("grad_norms", m["grad_norm"]),
-                     ("lrs", m["lr"])):
-            tr[k].append(float(v))
-        tr["step_ms"].append(ms)
-        tr["drops"].append(_dropped(model))
-    tr["changed"] = _changed_shares(step.leaves, before)
-    del before
-    with torch.no_grad():
-        tr["next_loss"] = float(step.loss(batches[MOE_MESH_TRAIN_STEPS]))
-    tr["resident_bytes"] = dict(
-        params=shard.resident_bytes(model),
-        opt=shard.resident_bytes(state["opt"]),
-        grads=shard.resident_bytes(step.grads))
-    tr["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    rec["train"] = tr
-    del model, state, step, batches
+    rec["train"] = dict(digest=digest, **_train_steps(
+        model, _moe_train_cfg(), MOE_MESH_TRAIN_STEPS))
+    del model
     _free()
 
     cfg = _moe_cfg(SERVE_FAMILIES[MOE_MESH_ARCH][0])
     model, digest = _build_seeded(cfg)
-    r, a = _moe_serve_one(model, MOE_MESH_BF16_GEN)
+    r, a = _serve_one(model, MOE_MESH_BF16_GEN)
     rec["serve"] = dict(digest=digest, params=model.num_params(), **r)
     arrays.update(logits=a["logits"], tokens=a["tokens"])
     del model
@@ -3382,7 +3486,7 @@ def _moe_one_device():
     tmodel.CACHE_DTYPE = torch.float32
     try:
         model, digest32 = _build_seeded(cfg.replace(compute_dtype="float32"))
-        _, a32 = _moe_serve_one(model, MOE_MESH_BF16_GEN, feed=a["tokens"])
+        _, a32 = _serve_one(model, MOE_MESH_BF16_GEN, feed=a["tokens"])
     finally:
         tmodel.CACHE_DTYPE = saved
     if digest32 != digest:
@@ -3409,7 +3513,6 @@ def moe_mesh_rank(rank, mesh_dir):
     from repro_torch.models import model as tmodel
     from repro_torch.runtime import shard
     from repro_torch.runtime import sharding as shd
-    from repro_torch.runtime import train_loop as tl
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
@@ -3431,20 +3534,7 @@ def moe_mesh_rank(rank, mesh_dir):
     _mem_line(f"rank {rank} after the tiny configs")
 
     def build_in_turn(cfg):
-        """``MOE_MESH_BUILDERS`` ranks at a time build the whole model
-        and cut it (four whole full-width models would not fit on the
-        card at once)."""
-        model = digest = None
-        for turn in range(0, LM_MESH_WORLD, MOE_MESH_BUILDERS):
-            if turn <= rank < turn + MOE_MESH_BUILDERS:
-                _mem_line(f"rank {rank} before building {cfg.num_layers} "
-                          f"layers at {cfg.param_dtype}")
-                model, digest = _build_seeded(cfg)
-                shard.shard_model(model, mesh)
-                _free()
-                _mem_line(f"rank {rank} cut")
-            mesh_lib.barrier()
-        return model, digest
+        return _build_in_turn(cfg, mesh, rank)
 
     # (2) float32 serve
     saved = tmodel.CACHE_DTYPE
@@ -3465,45 +3555,10 @@ def moe_mesh_rank(rank, mesh_dir):
     _mem_line(f"rank {rank} after the float32 serve")
 
     # (3) bfloat16 train steps
-    tcfg = _moe_train_cfg()
     model, digest = build_in_turn(_moe_cfg(MOE_MESH_TRAIN_LAYERS))
-    torch.cuda.reset_peak_memory_stats()
-    batches = [shard.shard_batch({k: v.to(dev) for k, v in b.items()}, mesh)
-               for b in _lm_mesh_batches(model.cfg)]
-    state = tl.make_train_state(model, tcfg)
-    step = tl.make_train_step(model, tcfg, mesh)
-    before = [l.value().detach().to("cpu", copy=True) for l in step.leaves]
-    tr = dict(digest=digest)
-    for i in range(MOE_MESH_TRAIN_STEPS):
-        (state, m), c = _counted(lambda: step(state, batches[i]))
-        for k, v in (("losses", float(m["loss"])),
-                     ("grad_norms", float(m["grad_norm"])),
-                     ("lrs", float(m["lr"])), ("drops", _dropped(model)),
-                     *zip(("step_ms", "collectives_per_step",
-                           "bytes_gathered_per_step",
-                           "bytes_reduced_per_step"), c)):
-            tr.setdefault(k, []).append(v)
-        _mem_line(f"rank {rank} after train step {i}")
-    tr["changed"] = _changed_shares(step.leaves, before)
-    del before
-    with torch.no_grad():
-        loss = step.loss(batches[MOE_MESH_TRAIN_STEPS])
-        tr["next_loss"] = float(mesh_lib.all_reduce(
-            loss, dist.ReduceOp.SUM, model.layout.dp))
-    abstract = shard.abstract_state(model.cfg, tcfg)
-    specs = tl.state_specs(abstract, mesh)
-    tr["resident_bytes"] = dict(
-        params=shard.resident_bytes(model),
-        opt=shard.resident_bytes(state["opt"]),
-        grads=shard.resident_bytes(step.grads))
-    tr["opt_slices_bytes"] = sum(
-        t.element_size() * int(np.prod(shd.local_shape(tuple(t.shape), s,
-                                                       mesh)))
-        for (_, t), (_, s) in zip(_flat(abstract["opt"]),
-                                  _flat(specs["opt"])))
-    tr["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    rec["train"] = tr
-    del model, state, step, batches
+    rec["train"] = dict(digest=digest, **_train_steps(
+        model, _moe_train_cfg(), MOE_MESH_TRAIN_STEPS, mesh, rank))
+    del model
     _free()
     _mem_line(f"rank {rank} after the train steps")
 
@@ -3520,15 +3575,134 @@ def moe_mesh_rank(rank, mesh_dir):
     return 0
 
 
+def _build_in_turn(cfg, mesh, rank):
+    """``cfg``'s model from ``SEED``, cut to this rank's slice:
+    ``MOE_MESH_BUILDERS`` ranks at a time build the whole model and cut
+    it (four whole full-width models would not fit on the card at once).
+    Returns (model, digest of the whole weights)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import shard
+    model = digest = None
+    for turn in range(0, LM_MESH_WORLD, MOE_MESH_BUILDERS):
+        if turn <= rank < turn + MOE_MESH_BUILDERS:
+            _mem_line(f"rank {rank} before building {cfg.num_layers} "
+                      f"layers at {cfg.param_dtype}")
+            model, digest = _build_seeded(cfg)
+            shard.shard_model(model, mesh)
+            _free()
+            _mem_line(f"rank {rank} cut")
+        mesh_lib.barrier()
+    return model, digest
+
+
+def _bf16_tolerances(logits, own_error):
+    """Each bfloat16 serve step's tolerance, the larger of
+    ``SERVE_TF_ULPS`` units of its largest |logit| and the one device's
+    own bfloat16 error, and the one device's top-2 margins (G, B)."""
+    margin = np.diff(np.sort(logits, axis=-1)[..., -2:], axis=-1)[..., 0]
+    return [max(SERVE_TF_ULPS * _bf16_ulp(np.abs(l).max()), e)
+            for l, e in zip(logits, own_error)], margin
+
+
+def _bf16_serve_misses(r, sv, rows, tokens, tols, margin):
+    """A rank's bfloat16 serve against the one device: each step's
+    logits within its tolerance, tokens equal where the one device's
+    top-2 margin exceeds twice that."""
+    bad = []
+    for i, (err, tol) in enumerate(zip(sv["err"], tols)):
+        if not err <= tol:
+            bad.append(f"rank {r}: bfloat16 step {i}'s logits off by "
+                       f"{err} (tolerance {tol})")
+        for j, row in enumerate(rows):
+            if sv["tokens"][i][j] != int(tokens[row, i]) and \
+                    margin[i, row] > 2 * tol:
+                bad.append(f"rank {r}: bfloat16 step {i} row {row}: "
+                           f"token {sv['tokens'][i][j]}, one device "
+                           f"{int(tokens[row, i])}")
+    return bad
+
+
+def _f32_serve_misses(r, what, f32, rows, tokens):
+    """A rank's float32 serve against the one device's: logits within
+    ``SERVE_TOL``, equal tokens."""
+    bad = []
+    for i, excess in enumerate(f32["excess"]):
+        if not excess <= SERVE_TOL["atol"]:
+            bad.append(f"rank {r}: {what} step {i}'s logits off by "
+                       f"{f32['err'][i]}")
+        if f32["tokens"][i] != tokens[rows, i].tolist():
+            bad.append(f"rank {r}: {what} step {i}'s tokens "
+                       f"{f32['tokens'][i]}, one device "
+                       f"{tokens[rows, i].tolist()}")
+    return bad
+
+
+def _train_misses(r, tr, tr1, rtol=LM_MESH_BF16_RTOL, own=None):
+    """A rank's train steps against the one device's (``_train_steps``):
+    losses, grad norms and the next batch's loss within ``rtol`` (a
+    dict by "losses" and "grad_norms"), or within the one device's own
+    bfloat16 error where ``own`` gives it and it is larger (``own``: the
+    one device's float32-compute run, ``_own_errors``), parameters and
+    accumulators at most ``LM_MESH_SHARE`` of the one device's, the
+    optimizer state its slices' bytes."""
+    bad = []
+    tol = {k: [rtol[k] * abs(b) for b in tr1[k]]
+           for k in ("losses", "grad_norms")}
+    tol["next_loss"] = rtol["losses"] * abs(tr1["next_loss"])
+    if own is not None:
+        tol = {k: (max(t, own[k]) if k == "next_loss" else
+                   [max(a, b) for a, b in zip(t, own[k])])
+               for k, t in tol.items()}
+    for k in ("losses", "grad_norms"):
+        if not all(abs(a - b) <= t
+                   for a, b, t in zip(tr[k], tr1[k], tol[k])):
+            bad.append(f"rank {r}: {k} {tr[k]} on the mesh, {tr1[k]} on "
+                       f"one device (tolerances {tol[k]})")
+    if not abs(tr["next_loss"] - tr1["next_loss"]) <= tol["next_loss"]:
+        bad.append(f"rank {r}: the loss after the steps {tr['next_loss']}, "
+                   f"one device {tr1['next_loss']} (tolerance "
+                   f"{tol['next_loss']})")
+    res, res1 = tr["resident_bytes"], tr1["resident_bytes"]
+    for k in ("params", "grads"):
+        if not res[k] <= LM_MESH_SHARE * res1[k]:
+            bad.append(f"rank {r} holds {res[k]} B of {k}, the one device "
+                       f"{res1[k]}")
+    if res["opt"] != tr["opt_slices_bytes"]:
+        bad.append(f"rank {r} holds {res['opt']} B of optimizer state, its "
+                   f"slices {tr['opt_slices_bytes']}")
+    return bad
+
+
+def _own_errors(tr1, tr32):
+    """The one device's own bfloat16 error in each train metric: its
+    bfloat16 run's losses, grad norms and next batch's loss against its
+    float32-compute run's on the same weights and batches."""
+    own = {k: [abs(a - b) for a, b in zip(tr1[k], tr32[k])]
+           for k in ("losses", "grad_norms")}
+    own["next_loss"] = abs(tr1["next_loss"] - tr32["next_loss"])
+    return own
+
+
+def _changed_misses(tr1, recs, what="train"):
+    """Each leaf's share of elements the steps changed (of ``what``),
+    the ranks' mean against the one device's, within
+    ``MOE_MESH_CHANGED_TOL``."""
+    bad = []
+    for path, want in tr1["changed"].items():
+        got = float(np.mean([rec[what]["changed"][path] for rec in recs]))
+        if not abs(got - want) <= MOE_MESH_CHANGED_TOL:
+            bad.append(f"{path}: the steps changed {got} of its elements "
+                       f"on the mesh, {want} on one device")
+    return bad
+
+
 def _moe_checks(one, arrays, recs):
     """What phase 10 (c)'s ranks must meet against the one device: a
     list of the misses."""
     bad = []
     tr1 = one["train"]
-    logits, tokens = arrays["logits"], arrays["tokens"]
-    margin = np.diff(np.sort(logits, axis=-1)[..., -2:], axis=-1)[..., 0]
-    tols = [max(SERVE_TF_ULPS * _bf16_ulp(np.abs(l).max()), e)
-            for l, e in zip(logits, one["serve"]["bf16_error"])]
+    tols, margin = _bf16_tolerances(arrays["logits"],
+                                    one["serve"]["bf16_error"])
     for r, rec in enumerate(recs):
         for t in rec["tiny"]:
             if not sum(t["drops"]) > 0:
@@ -3538,52 +3712,15 @@ def _moe_checks(one, arrays, recs):
                     one[what]["digest"]):
                 bad.append(f"rank {r} built other {what} weights")
         f32, rows = rec["f32_serve"], rec["rows"]
-        for i, excess in enumerate(f32["excess"]):
-            if not excess <= SERVE_TOL["atol"]:
-                bad.append(f"rank {r}: float32 step {i}'s logits off by "
-                           f"{f32['err'][i]}")
-            if f32["tokens"][i] != arrays["f32_tokens"][rows, i].tolist():
-                bad.append(f"rank {r}: float32 step {i}'s tokens "
-                           f"{f32['tokens'][i]}, one device "
-                           f"{arrays['f32_tokens'][rows, i].tolist()}")
+        bad += _f32_serve_misses(r, "float32", f32, rows,
+                                 arrays["f32_tokens"])
         if f32["drops"] != one["f32_serve"]["drops"]:
             bad.append(f"rank {r}: float32 drops {f32['drops']}, one "
                        f"device {one['f32_serve']['drops']}")
-        tr = rec["train"]
-        for k in ("losses", "grad_norms"):
-            if not all(abs(a - b) <= LM_MESH_BF16_RTOL[k] * abs(b)
-                       for a, b in zip(tr[k], tr1[k])):
-                bad.append(f"rank {r}: {k} {tr[k]} on the mesh, {tr1[k]} "
-                           f"on one device")
-        if not abs(tr["next_loss"] - tr1["next_loss"]) <= \
-                LM_MESH_BF16_RTOL["losses"] * abs(tr1["next_loss"]):
-            bad.append(f"rank {r}: the loss after the steps "
-                       f"{tr['next_loss']}, one device {tr1['next_loss']}")
-        res, res1 = tr["resident_bytes"], tr1["resident_bytes"]
-        for k in ("params", "grads"):
-            if not res[k] <= LM_MESH_SHARE * res1[k]:
-                bad.append(f"rank {r} holds {res[k]} B of {k}, the one "
-                           f"device {res1[k]}")
-        if res["opt"] != tr["opt_slices_bytes"]:
-            bad.append(f"rank {r} holds {res['opt']} B of optimizer state, "
-                       f"its slices {tr['opt_slices_bytes']}")
-        sv = rec["serve"]
-        for i, (err, tol) in enumerate(zip(sv["err"], tols)):
-            if not err <= tol:
-                bad.append(f"rank {r}: bfloat16 step {i}'s logits off by "
-                           f"{err} (tolerance {tol})")
-            for j, row in enumerate(rows):
-                if sv["tokens"][i][j] != int(tokens[row, i]) and \
-                        margin[i, row] > 2 * tol:
-                    bad.append(f"rank {r}: bfloat16 step {i} row {row}: "
-                               f"token {sv['tokens'][i][j]}, one device "
-                               f"{int(tokens[row, i])}")
-    for path, want in tr1["changed"].items():
-        got = float(np.mean([rec["train"]["changed"][path] for rec in recs]))
-        if not abs(got - want) <= MOE_MESH_CHANGED_TOL:
-            bad.append(f"{path}: the steps changed {got} of its elements "
-                       f"on the mesh, {want} on one device")
-    return bad
+        bad += _train_misses(r, rec["train"], tr1)
+        bad += _bf16_serve_misses(r, rec["serve"], rows, arrays["tokens"],
+                                  tols, margin)
+    return bad + _changed_misses(tr1, recs)
 
 
 def _moe_reckon(cfg, weight_bytes):
@@ -3684,6 +3821,309 @@ def moe_mesh_phase():
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 10 (d): the ssm, hybrid and encdec families on the mesh
+# ---------------------------------------------------------------------------
+
+def _ssm_cfg(arch, layers, dtype=None):
+    """``arch`` at full width cut to ``layers``, its weights and compute
+    at ``dtype`` (None: the config's bfloat16)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(num_layers=layers)
+    if dtype is not None:
+        cfg = cfg.replace(param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+def _ssm_one_device():
+    """Phase 10 (d)'s one-device runs on the card, each model built from
+    ``SEED`` and freed after: (2)'s bfloat16 serve and train steps on one
+    model, then its float32 serve, the same serve fed the bfloat16 run's
+    tokens (the one device's own bfloat16 error) and the float32 train
+    steps on one model, and (3)'s float32 serve. Returns the record and
+    the arrays the ranks are held against."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    rec, arrays = {}, {}
+    saved = tmodel.CACHE_DTYPE
+    tcfg = _lm_mesh_train_cfg(SSM_MESH_ARCH)
+    _free()
+    model, digest = _build_seeded(_ssm_cfg(SSM_MESH_ARCH, SSM_MESH_LAYERS))
+    r, a = _serve_one(model, SSM_MESH_GEN)
+    rec["serve"] = dict(digest=digest, **r)
+    arrays.update(logits=a["logits"], tokens=a["tokens"])
+    rec["train"] = dict(digest=digest, **_train_steps(
+        model, tcfg, SSM_MESH_TRAIN_STEPS))
+    del model
+    _free()
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        for key, arch, layers, want in (
+                ("f32_serve", SSM_MESH_ARCH, SSM_MESH_LAYERS,
+                 SSM_MESH_PARAMS),
+                ("xlstm_f32_serve", SSM_MESH_XLSTM, SSM_MESH_XLSTM_LAYERS,
+                 SSM_MESH_XLSTM_PARAMS)):
+            model, digest = _build_seeded(_ssm_cfg(arch, layers, "float32"))
+            if model.num_params() != want:
+                fail(f"phase 10 (d): {arch} at {layers} layers has "
+                     f"{model.num_params()} parameters, the reference's "
+                     f"{want}")
+            r, a32 = _serve_one(model, SSM_MESH_GEN)
+            rec[key] = dict(digest=digest, params=model.num_params(),
+                            resident_param_bytes=shard.resident_bytes(model),
+                            **r)
+            arrays.update({f"{key}_logits": a32["logits"],
+                           f"{key}_tokens": a32["tokens"]})
+            if arch == SSM_MESH_ARCH:
+                # the same weights as the bfloat16 run's (float32
+                # parameters, the compute at float32): its own bfloat16
+                # error in the serve, fed the same tokens, and in the
+                # train steps
+                if digest != rec["serve"]["digest"]:
+                    fail(f"phase 10 (d): the float32 model's weights "
+                         f"differ ({digest} against "
+                         f"{rec['serve']['digest']})")
+                _, fed = _serve_one(model, SSM_MESH_GEN, feed=a["tokens"])
+                rec["serve"]["bf16_error"] = [
+                    float(np.abs(x - y).max())
+                    for x, y in zip(a["logits"], fed["logits"])]
+                rec["f32_train"] = dict(digest=digest, **_train_steps(
+                    model, tcfg, SSM_MESH_TRAIN_STEPS))
+            del model
+            _free()
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    return rec, arrays
+
+
+def _slices_bytes(model):
+    """The bytes of the slices the rules give this rank of every
+    parameter leaf, at the parameters' dtypes."""
+    from repro_torch.runtime import sharding as shd
+    return sum(l.params[0].element_size() * int(np.prod(shd.local_shape(
+        l.global_shape, l.spec, l.mesh))) for l in model.layout.leaves)
+
+
+def ssm_mesh_rank(rank, mesh_dir):
+    """One rank of phase 10 (d) on the ``LM_MESH_SHAPE`` mesh (gloo on
+    CUDA tensors, every rank on the one card): (1) the tiny xlstm,
+    zamba2 and seamless configs (``_tiny_mesh_parity``, which fails this
+    rank on a miss); (2) zamba2-7b's float32 serve and train steps on
+    one model, then its bfloat16 serve and train steps on another; (3)
+    xlstm-1.3b's float32 serve;
+    each model built in turn by every rank from the seed and cut to its
+    slice, fed the one device's tokens. Writes ``rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import _mesh_slice
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import sharding as shd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    dev = "cuda"
+    torch.cuda.set_device(0)
+    d = Path(mesh_dir)
+    mesh_lib.init_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=LM_MESH_WORLD, device=dev,
+                        timeout_s=LM_MESH_GROUP_TIMEOUT_S)
+    mesh = mesh_lib.make_host_mesh(*LM_MESH_SHAPE, backend="gloo",
+                                   device=dev)
+    ref = np.load(d / "ssm.npz")
+    rows = _mesh_slice(np.arange(SERVE_ARGS["batch"]), mesh,
+                       shd.logits_spec(mesh)[:1])
+    t0 = time.perf_counter()
+    rec = dict(rank=rank, rows=rows.tolist(), tiny=[
+        _tiny_mesh_parity(a, mesh) for a in SSM_MESH_TINY])
+    rec["tiny_ms"] = (time.perf_counter() - t0) * 1e3
+    _free()
+
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        for key, arch, layers in (
+                ("f32_serve", SSM_MESH_ARCH, SSM_MESH_LAYERS),
+                ("xlstm_f32_serve", SSM_MESH_XLSTM, SSM_MESH_XLSTM_LAYERS)):
+            model, digest = _build_in_turn(_ssm_cfg(arch, layers, "float32"),
+                                           mesh, rank)
+            torch.cuda.reset_peak_memory_stats()
+            rec[key] = dict(digest=digest, **_mesh_serve(
+                model, mesh, ref[f"{key}_logits"], ref[f"{key}_tokens"],
+                SSM_MESH_GEN))
+            rec[key].update(
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                resident_param_bytes=shard.resident_bytes(model),
+                slices_bytes=_slices_bytes(model))
+            if arch == SSM_MESH_ARCH:
+                rec["f32_train"] = dict(digest=digest, **_train_steps(
+                    model, _lm_mesh_train_cfg(SSM_MESH_ARCH),
+                    SSM_MESH_TRAIN_STEPS, mesh, rank))
+            del model
+            _free()
+    finally:
+        tmodel.CACHE_DTYPE = saved
+
+    model, digest = _build_in_turn(_ssm_cfg(SSM_MESH_ARCH, SSM_MESH_LAYERS),
+                                   mesh, rank)
+    torch.cuda.reset_peak_memory_stats()
+    rec["serve"] = dict(digest=digest, **_mesh_serve(
+        model, mesh, ref["logits"], ref["tokens"], SSM_MESH_GEN))
+    rec["serve"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["train"] = dict(digest=digest, **_train_steps(
+        model, _lm_mesh_train_cfg(SSM_MESH_ARCH), SSM_MESH_TRAIN_STEPS,
+        mesh, rank))
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+    mesh_lib.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _ssm_checks(one, arrays, recs):
+    """What phase 10 (d)'s ranks must meet against the one device: a list
+    of the misses."""
+    bad = []
+    tr1 = one["train"]
+    tols, margin = _bf16_tolerances(arrays["logits"],
+                                    one["serve"]["bf16_error"])
+    for r, rec in enumerate(recs):
+        for what in ("f32_serve", "xlstm_f32_serve", "train", "serve",
+                     "f32_train"):
+            if abs(rec[what]["digest"] - one[what]["digest"]) > 1e-9 * abs(
+                    one[what]["digest"]):
+                bad.append(f"rank {r} built other {what} weights")
+        rows = rec["rows"]
+        for key in ("f32_serve", "xlstm_f32_serve"):
+            bad += _f32_serve_misses(r, key, rec[key], rows,
+                                     arrays[f"{key}_tokens"])
+        xl = rec["xlstm_f32_serve"]
+        if xl["resident_param_bytes"] != xl["slices_bytes"]:
+            bad.append(f"rank {r} holds {xl['resident_param_bytes']} B of "
+                       f"xlstm parameters, its slices {xl['slices_bytes']}")
+        bad += _train_misses(r, rec["f32_train"], one["f32_train"],
+                             TRAIN_METRIC_RTOL_BY)
+        bad += _train_misses(r, rec["train"], tr1,
+                             own=_own_errors(tr1, one["f32_train"]))
+        bad += _bf16_serve_misses(r, rec["serve"], rows, arrays["tokens"],
+                                  tols, margin)
+    return (bad + _changed_misses(tr1, recs)
+            + _changed_misses(one["f32_train"], recs, "f32_train"))
+
+
+def ssm_mesh_phase():
+    """Phase 10 (d), as the module's docstring says: the one-device runs
+    here, then ``LM_MESH_WORLD`` ranks spawned on the one card
+    (``ssm_mesh_rank``), held against them. Fails on any check, a rank's
+    non-zero exit or timeout. One ``ssm_mesh`` JSON line."""
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.time()
+    one, arrays = _ssm_one_device()
+    line = dict(card=card_line(), arch=SSM_MESH_ARCH,
+                layers=SSM_MESH_LAYERS, xlstm_layers=SSM_MESH_XLSTM_LAYERS,
+                mesh=list(LM_MESH_SHAPE), one_device=one,
+                one_device_s=time.time() - t_phase, reckoned=dict(
+                    f32_serve=_moe_reckon(_ssm_cfg(
+                        SSM_MESH_ARCH, SSM_MESH_LAYERS), 4),
+                    train=_moe_reckon(_ssm_cfg(SSM_MESH_ARCH,
+                                               SSM_MESH_LAYERS), 2),
+                    xlstm_f32_serve=_moe_reckon(_ssm_cfg(
+                        SSM_MESH_XLSTM, SSM_MESH_XLSTM_LAYERS), 4)),
+                note=f"the {LM_MESH_WORLD}-rank walls are {LM_MESH_WORLD} "
+                     f"processes time-sliced on one card over gloo, not a "
+                     f"scale-out figure")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        np.savez(d / "ssm.npz", **arrays)
+        cmds = [[sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--ssm-mesh-rank", str(r), "--mesh-dir", str(d)]
+                for r in range(LM_MESH_WORLD)]
+        t0 = time.perf_counter()
+        try:
+            outs = mesh_lib.run_ranks(
+                cmds, timeout_s=SSM_MESH_TIMEOUT_S, cwd=str(ROOT),
+                env=dict(os.environ,
+                         PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+        except (TimeoutError, mesh_lib.RankFailed) as e:
+            fail(f"phase 10 (d): {e}")
+        line["ranks_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        line["rank_memory"] = [[m for m in err.splitlines()
+                                if m.startswith("memory")][-2:]
+                               for _, _, err in outs]
+        recs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(LM_MESH_WORLD)]
+    bad = _ssm_checks(one, arrays, recs)
+    tr1 = one["train"]["resident_bytes"]
+
+    def per_token(sv):
+        return dict(decode_ms_per_token=statistics.median(sv["ms"][1:]
+                                                          or sv["ms"]),
+                    collectives_per_token=sv["collectives"][-1],
+                    bytes_gathered_per_token=sv["gathered"][-1],
+                    bytes_reduced_per_token=sv["reduced"][-1],
+                    prefill_ms=sv["prefill_ms"],
+                    logits_max_abs_err=max(sv["err"]),
+                    peak_memory_bytes=sv["peak_memory_bytes"])
+    line["ranks"] = [dict(
+        rank=rec["rank"], tiny=rec["tiny"], tiny_ms=rec["tiny_ms"],
+        f32_serve=per_token(rec["f32_serve"]),
+        xlstm_f32_serve=dict(
+            per_token(rec["xlstm_f32_serve"]),
+            resident_param_share=rec["xlstm_f32_serve"][
+                "resident_param_bytes"]
+            / one["xlstm_f32_serve"]["resident_param_bytes"],
+            resident_param_bytes=rec["xlstm_f32_serve"][
+                "resident_param_bytes"],
+            slices_bytes=rec["xlstm_f32_serve"]["slices_bytes"]),
+        serve=per_token(rec["serve"]),
+        train={k: v for k, v in rec["train"].items()
+               if k not in ("changed", "digest")},
+        f32_train={k: v for k, v in rec["f32_train"].items()
+                   if k not in ("changed", "digest")},
+        first_step_ms=rec["train"]["step_ms"][0],
+        resident_share={k: v / tr1[k] for k, v in
+                        rec["train"]["resident_bytes"].items()})
+        for rec in recs]
+    def rel_errs(what):
+        """The largest relative gap of the ranks' train metrics to the
+        one device's: losses, grad norms, next loss; and the changed
+        shares' largest gap."""
+        tr1 = one[what]
+        out = {k: max(abs(a - b) / abs(b) for rec in recs
+                      for a, b in zip(rec[what][k], tr1[k]))
+               for k in ("losses", "grad_norms")}
+        out["next_loss"] = max(abs(rec[what]["next_loss"]
+                                   - tr1["next_loss"]) / abs(tr1["next_loss"])
+                               for rec in recs)
+        out["changed_share_max_diff"] = max(
+            abs(float(np.mean([rec[what]["changed"][p] for rec in recs]))
+                - w) for p, w in tr1["changed"].items())
+        return out
+    own = _own_errors(one["train"], one["f32_train"])
+    line["checks"] = dict(
+        bf16_train_rel_err=rel_errs("train"),
+        bf16_train_own_rel_err=dict(
+            losses=max(e / abs(b) for e, b in zip(
+                own["losses"], one["train"]["losses"])),
+            grad_norms=max(e / abs(b) for e, b in zip(
+                own["grad_norms"], one["train"]["grad_norms"])),
+            next_loss=own["next_loss"] / abs(one["train"]["next_loss"])),
+        f32_train_rel_err=rel_errs("f32_train"),
+        f32_logits_max_abs_err=max(max(rec["f32_serve"]["err"])
+                                   for rec in recs),
+        xlstm_f32_logits_max_abs_err=max(max(rec["xlstm_f32_serve"]["err"])
+                                         for rec in recs),
+        bf16_logits_max_abs_err=max(max(rec["serve"]["err"])
+                                    for rec in recs),
+        bf16_own_error=one["serve"]["bf16_error"],
+        failed=bad)
+    line["phase_s"] = time.time() - t_phase
+    log(json.dumps({"ssm_mesh": line}))
+    if bad:
+        fail("phase 10 (d): " + "; ".join(bad[:5]))
+    return line
+
+
 def profiled(fn):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
@@ -3739,6 +4179,8 @@ def main():
                     help=argparse.SUPPRESS)   # phase 10 (b)'s ranks
     ap.add_argument("--moe-mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # phase 10 (c)'s ranks
+    ap.add_argument("--ssm-mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 10 (d)'s ranks
     args = ap.parse_args()
     out_dir = args.out
     if not torch.cuda.is_available():
@@ -3750,6 +4192,8 @@ def main():
         return lm_mesh_rank(args.lm_mesh_rank, args.mesh_dir)
     if args.moe_mesh_rank is not None:
         return moe_mesh_rank(args.moe_mesh_rank, args.mesh_dir)
+    if args.ssm_mesh_rank is not None:
+        return ssm_mesh_rank(args.ssm_mesh_rank, args.mesh_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import pso
     from repro_torch.core.matcher import (IMMSchedMatcher,
@@ -4028,9 +4472,12 @@ def main():
 
     # 10. the sharded LM path: a world of one over NCCL, then four ranks
     # on a (2, 2) mesh with qwen1.5-0.5b as published, then the MoE
-    # family there (tiny, and deepseek-v2-236b at full width)
+    # family there (tiny, and deepseek-v2-236b at full width), then the
+    # ssm, hybrid and encdec families (tiny, zamba2-7b and xlstm-1.3b at
+    # full width)
     detail["lm_mesh"] = lm_mesh_phase()
     detail["moe_mesh"] = moe_mesh_phase()
+    detail["ssm_mesh"] = ssm_mesh_phase()
 
     kern = []
     split_calls = detail["split_epoch"]["calls"]

@@ -14,6 +14,9 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from repro_torch.runtime.mesh_ctx import (enter_tensor, own_slice,
+                                          reduce_shared)
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -66,8 +69,19 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rmsnorm(self.scale, x, self.eps)
+    def forward(self, x: torch.Tensor, ax=None) -> torch.Tensor:
+        """The norm of ``x``; with ``ax`` (a model axis that cuts the
+        normed width) ``x`` is this rank's slice of it: the float32 sum
+        of squares is summed over ``ax`` forward and backward
+        (``reduce_shared``), and the whole scale, replicated, enters
+        through ``enter_tensor`` before this rank reads its slice."""
+        if ax is None:
+            return rmsnorm(self.scale, x, self.eps)
+        xf = x.float()
+        ss = reduce_shared((xf * xf).sum(-1, keepdim=True), ax)
+        xf = xf * torch.rsqrt(ss / (x.shape[-1] * ax.size) + self.eps)
+        scale = own_slice(enter_tensor(self.scale, ax), 0, ax)
+        return (xf * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -337,9 +337,13 @@ class XLSTM(LM):
         return x
 
     def init_caches(self, batch_size: int, max_len: int):
+        """Zero caches; on a mesh ``batch_size`` is this rank's rows and
+        the mLSTM caches its slices (the sLSTM's are whole over the
+        model axis)."""
         groups, per_group = len(self.mlstm), self.cfg.ssm.slstm_period - 1
-        mc = ssm.init_mlstm_cache(self.cfg, batch_size, CACHE_DTYPE,
-                                  device=self.device)
+        mc = ssm.init_mlstm_cache(
+            self.cfg, batch_size, CACHE_DTYPE, device=self.device,
+            tp=tensor_axes(self.mlstm[0][0].core.down_proj))
         sc = ssm.init_slstm_cache(self.cfg, batch_size, device=self.device)
         return {"mlstm": _stacked(mc, groups, per_group),
                 "slstm": _stacked(sc, groups)}
@@ -353,7 +357,9 @@ class Hybrid(LM):
     """``hybrid``: groups of ``shared_attn_period`` Mamba2 blocks, each
     followed by the one shared attention block (one module, its weights
     reused by every group; each group keeps its own KV cache), then a
-    tail of Mamba2 blocks."""
+    tail of Mamba2 blocks. On a mesh each use of the shared block
+    gathers its FSDP weights again, and its gradients sum over the
+    groups through autograd."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -388,11 +394,18 @@ class Hybrid(LM):
         return x
 
     def init_caches(self, batch_size: int, max_len: int):
+        """Zero caches; on a mesh ``batch_size`` is this rank's rows, the
+        Mamba2 caches its heads' and channels' slices and the shared
+        attention's its KV heads."""
         groups, period = len(self.mamba), self.cfg.ssm.shared_attn_period
+        first = (self.mamba[0] if groups else self.mamba_tail)[0].core
         mc = ssm.init_mamba2_cache(self.cfg, batch_size, CACHE_DTYPE,
-                                   device=self.device)
-        ac = attention.init_gqa_cache(self.cfg, batch_size, max_len,
-                                      CACHE_DTYPE, device=self.device)
+                                   device=self.device,
+                                   tp=tensor_axes(first.out_proj))
+        attn = self.shared_attn.attn
+        ac = attention.init_gqa_cache(
+            self.cfg.replace(kv_heads=attn.local_kv_heads()), batch_size,
+            max_len, CACHE_DTYPE, device=self.device)
         caches = {"groups": {"mamba": _stacked(mc, groups, period),
                              "attn": _stacked(ac, groups)}}
         if len(self.mamba_tail):
@@ -440,7 +453,10 @@ class EncDec(LM):
     """``encdec``/``audio``. The encoder memory is cached at prefill in
     bfloat16, ``max_len`` frames: zeros past the encoder's length, longer
     memories cropped. As in the reference, prefill cross-attends to the
-    unpadded memory and decode to the whole zero-padded buffer."""
+    unpadded memory and decode to the whole zero-padded buffer. On a
+    mesh ``frame_proj``'s output columns are cut over the model axis and
+    gathered whole for the encoder (``gather_tensor``), and the memory
+    cache is this rank's batch rows, whole over the model axis."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -455,7 +471,10 @@ class EncDec(LM):
 
     def _encode(self, batch) -> torch.Tensor:
         cd = common.dt(self.cfg.compute_dtype)
-        x = batch["frames"].to(cd) @ self.frame_proj.to(cd)
+        x = batch["frames"].to(cd) @ weight(self.frame_proj, cd)
+        # on a mesh the projection's output width is cut over the model
+        # axis; the encoder needs it whole
+        x = gather_tensor(x, -1, tensor_axes(self.frame_proj))
         positions = common.positions_for(*x.shape[:2], device=self.device)
         for block in self.enc:
             x, _ = _remat(self.cfg, block, x, positions)
@@ -478,7 +497,11 @@ class EncDec(LM):
                                   None, 0)
 
     def init_caches(self, batch_size: int, max_len: int):
-        proto = attention.init_gqa_cache(self.cfg, batch_size, max_len,
+        """Zero caches; on a mesh ``batch_size`` is this rank's rows, the
+        self-attention's KV heads its own and the memory whole over the
+        model axis."""
+        cfg = self.cfg.replace(kv_heads=self.dec[0].attn.local_kv_heads())
+        proto = attention.init_gqa_cache(cfg, batch_size, max_len,
                                          CACHE_DTYPE, device=self.device)
         return {"self": _stacked(proto, len(self.dec)),
                 "memory": torch.zeros((batch_size, max_len,

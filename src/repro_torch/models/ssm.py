@@ -21,6 +21,40 @@ A block takes and returns its cache, as attention does, and writes it
 in place. A conv cache is held at the compute dtype: the reference's is
 bfloat16 only until its first step, which returns it at the compute
 dtype (``_causal_conv`` concatenates at the input's dtype).
+
+On a mesh (``runtime.shard``) a block holds the reference's rules'
+slices and runs on its share of the heads (``runtime.mesh_ctx``):
+
+  * Mamba2: ``in_proj`` is column-parallel on z | xBC | dt, whose cut
+    does not fall between the streams, so its output is gathered whole
+    (``gather_partial``); the depthwise conv runs on the channels of
+    this rank's ``conv_w`` slice (and ``conv`` cache slice), contiguous
+    over xBC, and its output is gathered whole again, of which the rank
+    keeps its heads' x and the whole B and C. The SSD core runs on
+    H/t heads with the H-cut ``state`` cache; the d_in norm sums its
+    squares over the model axis; ``out_proj`` is row-parallel;
+  * mLSTM: ``up_proj``'s output is gathered whole the same way; the
+    conv runs on this rank's d_in channels, then ``wqkv`` and ``wif``
+    (cut on their input dim d_in) are row-parallel, which gives whole
+    q/k/v and gates. The core runs as the ``state`` cache is cut: on
+    this rank's heads (H cut), or on its slice of Dk (q·state and q·k
+    are partial sums over Dk, the output is summed over the model axis;
+    the state update k[Dk] ⊗ v is local), or whole where the rules
+    leave the state whole; then the d_in norm and a row-parallel
+    ``down_proj``;
+  * sLSTM: with its heads cut (``w_in`` and the block-diagonal ``r``) a
+    head-parallel recurrence with no collective inside the time loop;
+    with ``w_in``/``r`` replicated (H that the model axis does not
+    divide) the whole recurrence on every rank. The c/n/h/m caches are
+    whole over the model axis: a head-parallel run reads its heads and
+    writes back the whole state, gathered once after the loop. Then the
+    norm (over the cut d when the heads are cut) and a row-parallel
+    ``out_proj``.
+
+A replicated vector that a rank reads only in its heads (``A_log``,
+``D``, ``dt_bias``, ``if_bias``, sLSTM's ``bias``, the norm scales)
+enters through ``enter_tensor``, so its gradient is the sum of the
+ranks'.
 """
 from __future__ import annotations
 
@@ -35,6 +69,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.attention import _as
 from repro_torch.models.common import RMSNorm, dense_init
+from repro_torch.runtime.mesh_ctx import (enter_tensor, gather_cache,
+                                          gather_partial, own, reduce_tensor,
+                                          row_parallel, tensor_axes, weight)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -63,12 +100,15 @@ def chunked_gla(q, k, v, log_f, chunk: int, state0=None):
     total = cum[..., -1]                                  # (B, N, H)
 
     # inside a chunk: (q_t·k_s) · exp(cum_t − cum_s) for s ≤ t. The decay
-    # above the diagonal is positive and may overflow to inf; the mask
-    # takes it out before it multiplies (inf·0 would be NaN)
+    # above the diagonal is positive and overflows to inf once a chunk's
+    # gates sum below −88.7 (zamba2's 256 positions at dt ~0.7): it is
+    # masked to −inf before the exp, so that neither the product (inf·0)
+    # nor exp's backward (0·inf, where the reference's gradient is NaN)
+    # meets it; the values are the reference's
     att = qc @ kc.transpose(-1, -2)                       # (B, N, H, t, s)
     decay = cum[..., :, None] - cum[..., None, :]
     mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
-    att = att * torch.where(mask, decay.exp(), 0.0).to(cd)
+    att = att * decay.masked_fill(~mask, -math.inf).exp().to(cd)
     out = att @ vc                                        # (B, N, H, L, Dv)
 
     # across chunks: the q side decays by exp(cum_t), the k side by
@@ -155,7 +195,8 @@ class Mamba2(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None):
         """x: (B, S, d). cache: {"conv": (B, K − 1, C), "state": (B, H,
-        N, P)}. Returns (out, cache)."""
+        N, P)} (on a mesh this rank's slices: C/t channels, H/t heads).
+        Returns (out, cache)."""
         s, cfg = self.cfg.ssm, self.cfg
         cd = common.dt(cfg.compute_dtype)
         B, S, d = x.shape
@@ -163,20 +204,27 @@ class Mamba2(nn.Module):
         H = cfg.num_heads
         P = d_in // H
         N = s.state_dim
+        tp = tensor_axes(self.out_proj)        # the heads' cut
+        Hl = H if tp is None else H // tp.size
 
-        z_xbc_dt = x.to(cd) @ self.in_proj.to(cd)
+        xc = enter_tensor(x.to(cd), tp)
+        z_xbc_dt = gather_partial(xc @ weight(self.in_proj, cd), -1, tp)
         z, xbc, dt = z_xbc_dt.split([d_in, d_in + 2 * N, H], dim=-1)
-        xbc, new_conv = _causal_conv(xbc, self.conv_w.to(cd),
+        xbc, new_conv = _causal_conv(own(xbc, -1, tp), self.conv_w.to(cd),
                                      self.conv_b.to(cd),
                                      None if cache is None else cache["conv"])
-        xs, Bmat, Cmat = xbc.split([d_in, N, N], dim=-1)
+        xs, Bmat, Cmat = gather_partial(xbc, -1, tp).split([d_in, N, N],
+                                                           dim=-1)
+        xs, z, dt = own(xs, -1, tp), own(z, -1, tp), own(dt, -1, tp)
 
-        dt = F.softplus(dt.float() + self.dt_bias)         # (B, S, H)
-        log_f = dt * -self.A_log.exp()                     # ≤ 0
+        def mine(p):                           # this rank's heads of p
+            return own(enter_tensor(p, tp), 0, tp)
+        dt = F.softplus(dt.float() + mine(self.dt_bias))   # (B, S, Hl)
+        log_f = dt * -mine(self.A_log).exp()               # ≤ 0
 
-        v = xs.reshape(B, S, H, P) * dt[..., None].to(cd)
-        k = Bmat[:, :, None, :].expand(B, S, H, N).to(cd)
-        q = Cmat[:, :, None, :].expand(B, S, H, N).to(cd)
+        v = xs.reshape(B, S, Hl, P) * dt[..., None].to(cd)
+        k = Bmat[:, :, None, :].expand(B, S, Hl, N).to(cd)
+        q = Cmat[:, :, None, :].expand(B, S, Hl, N).to(cd)
 
         if S == 1 and cache is not None:
             out, new_state = gla_step(cache["state"], q[:, 0], k[:, 0],
@@ -186,22 +234,26 @@ class Mamba2(nn.Module):
             out, new_state = chunked_gla(
                 q, k, v, log_f, s.chunk,
                 None if cache is None else cache["state"])
-        out = out + v * self.D.to(cd)[:, None]
-        out = self.norm(out.reshape(B, S, d_in)) * F.silu(z)
-        out = (out @ self.out_proj.to(cd)).to(x.dtype)
+        out = out + v * mine(self.D).to(cd)[:, None]
+        out = self.norm(out.reshape(B, S, Hl * P), tp) * F.silu(z)
+        out = row_parallel(out, self.out_proj, tp).to(x.dtype)
         return out, _update(cache, {"conv": new_conv, "state": new_state})
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-                      device=None) -> Cache:
+                      device=None, tp=None) -> Cache:
+    """Zero caches; with ``tp`` (the model axis that cuts the heads) this
+    rank's slices: C/t conv channels, H/t heads of the state."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     H = cfg.num_heads
+    t = 1 if tp is None else tp.size
     return {
-        "conv": torch.zeros((batch, s.conv_dim - 1, d_in + 2 * s.state_dim),
+        "conv": torch.zeros((batch, s.conv_dim - 1,
+                             (d_in + 2 * s.state_dim) // t),
                             dtype=common.dt(cfg.compute_dtype),
                             device=device),
-        "state": torch.zeros((batch, H, s.state_dim, d_in // H),
+        "state": torch.zeros((batch, H // t, s.state_dim, d_in // H),
                              dtype=dtype, device=device),
     }
 
@@ -239,30 +291,43 @@ class MLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None):
         """x: (B, S, d). cache: {"conv": (B, K − 1, d_in), "state": (B,
-        H, Dh, Dh + 1)}. Returns (out, cache)."""
+        H, Dh, Dh + 1)} (on a mesh this rank's slices: d_in/t channels,
+        the state cut as ``mlstm_state_cut`` says). Returns (out,
+        cache)."""
         s, cfg = self.cfg.ssm, self.cfg
         cd = common.dt(cfg.compute_dtype)
         B, S, d = x.shape
         d_in = s.expand * d
         H = cfg.num_heads
         Dh = d_in // H
+        tp = tensor_axes(self.down_proj)       # the d_in cut
+        cut = mlstm_state_cut(cfg, tp)
 
-        h_in, gate = (x.to(cd) @ self.up_proj.to(cd)).chunk(2, dim=-1)
-        h_conv, new_conv = _causal_conv(h_in, self.conv_w.to(cd),
+        xc = enter_tensor(x.to(cd), tp)
+        up = gather_partial(xc @ weight(self.up_proj, cd), -1, tp)
+        h_in, gate = up.chunk(2, dim=-1)
+        h_conv, new_conv = _causal_conv(own(h_in, -1, tp),
+                                        self.conv_w.to(cd),
                                         self.conv_b.to(cd),
                                         None if cache is None
                                         else cache["conv"])
-        qkv = (h_conv @ self.wqkv.to(cd).flatten(1)).view(B, S, 3, H, Dh)
-        q, k, v = qkv.unbind(2)
+        qkv = row_parallel(h_conv, self.wqkv, tp, out_dims=3)
+        if_gates = row_parallel(h_conv, self.wif, tp).float() + self.if_bias
+        heads = tp if cut == "heads" else None
+        if cut in ("heads", "dk"):   # each rank reads its part of them
+            qkv, if_gates = enter_tensor(qkv, tp), enter_tensor(if_gates, tp)
+        q, k, v = own(qkv.view(B, S, 3, H, Dh), 3, heads).unbind(2)
         k = k / _as(math.sqrt(Dh), cd)
 
-        if_gates = (h_conv @ self.wif.to(cd)).float() + self.if_bias
-        i_gate, f_gate = if_gates.chunk(2, dim=-1)            # (B, S, H)
+        i_gate, f_gate = (own(g, -1, heads)                   # (B, S, H)
+                          for g in if_gates.chunk(2, dim=-1))
         log_f = -F.softplus(-f_gate)                          # log σ(f)
         # the exponential input gate folded into k; the normalizer is an
         # extra column of ones in v
         k_eff = k * i_gate.clamp(max=8.0).exp()[..., None].to(cd)
         v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
+        dk = tp if cut == "dk" else None
+        q, k_eff = own(q, -1, dk), own(k_eff, -1, dk)
 
         if S == 1 and cache is not None:
             out_aug, new_state = gla_step(cache["state"], q[:, 0],
@@ -273,23 +338,47 @@ class MLSTM(nn.Module):
             out_aug, new_state = chunked_gla(
                 q, k_eff, v_aug, log_f, s.chunk,
                 None if cache is None else cache["state"])
+        # a Dk slice's output is a partial sum over Dk
+        out_aug = reduce_tensor(out_aug, dk)
         out, n = out_aug[..., :Dh], out_aug[..., Dh:]
-        out = out / n.abs().clamp(min=1.0)
-        out = self.norm(out.reshape(B, S, d_in)) * F.silu(gate)
-        out = (out @ self.down_proj.to(cd)).to(x.dtype)
+        out = (out / n.abs().clamp(min=1.0)).reshape(B, S, -1)
+        if tp is not None and cut != "heads":   # whole: keep this rank's
+            out = own(enter_tensor(out, tp), -1, tp)
+        out = self.norm(out, tp) * F.silu(own(gate, -1, tp))
+        out = row_parallel(out, self.down_proj, tp).to(x.dtype)
         return out, _update(cache, {"conv": new_conv, "state": new_state})
 
 
+def mlstm_state_cut(cfg: ModelConfig, tp) -> Optional[str]:
+    """How the rules cut the mLSTM's ``state`` cache (B, H, Dh, Dh + 1)
+    over the model axis ``tp`` (``runtime.sharding.spec_for_cache_leaf``):
+    ``"heads"`` where it divides H, else ``"dk"`` where it divides Dh,
+    else None (whole), as off a mesh."""
+    if tp is None:
+        return None
+    H = cfg.num_heads
+    Dh = cfg.ssm.expand * cfg.d_model // H
+    return "heads" if H % tp.size == 0 else (
+        "dk" if Dh % tp.size == 0 else None)
+
+
 def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-                     device=None) -> Cache:
+                     device=None, tp=None) -> Cache:
+    """Zero caches; with ``tp`` (the model axis that cuts d_in) this
+    rank's slices: d_in/t conv channels, the state's heads or Dk cut as
+    ``mlstm_state_cut`` says."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
-    Dh = d_in // cfg.num_heads
+    H = cfg.num_heads
+    Dh = d_in // H
+    t = 1 if tp is None else tp.size
+    cut = mlstm_state_cut(cfg, tp)
     return {
-        "conv": torch.zeros((batch, s.conv_dim - 1, d_in),
+        "conv": torch.zeros((batch, s.conv_dim - 1, d_in // t),
                             dtype=common.dt(cfg.compute_dtype),
                             device=device),
-        "state": torch.zeros((batch, cfg.num_heads, Dh, Dh + 1),
+        "state": torch.zeros((batch, H // t if cut == "heads" else H,
+                              Dh // t if cut == "dk" else Dh, Dh + 1),
                              dtype=dtype, device=device),
     }
 
@@ -314,20 +403,26 @@ class SLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None):
         """A loop over time. cache: {"c", "n", "h", "m"}, each (B, H, Dh)
-        float32. Returns (out, cache)."""
+        float32 (on a mesh whole over the model axis). Returns (out,
+        cache)."""
         cd = common.dt(self.cfg.compute_dtype)
         B, S, d = x.shape
         H = self.cfg.num_heads
         Dh = d // H
-        zx = (x.to(cd) @ self.w_in.to(cd).flatten(1)).view(B, S, 4, H, Dh)
+        tp = tensor_axes(self.w_in)            # the heads' cut, if any
+        tp_out = tensor_axes(self.out_proj)
+        Hl = H if tp is None else H // tp.size
+        xc = enter_tensor(x.to(cd), tp)
+        zx = (xc @ weight(self.w_in, cd).flatten(1)).view(B, S, 4, Hl, Dh)
         st = cache if cache is not None else init_slstm_cache(
             self.cfg, B, device=x.device)
-        c, n, h, m = st["c"], st["n"], st["h"], st["m"]
+        c, n, h, m = (own(st[k], 1, tp) for k in ("c", "n", "h", "m"))
         r = self.r.to(cd).flatten(2)                        # (H, Dh, 4·Dh)
+        bias = own(enter_tensor(self.bias, tp), 1, tp)
         hs = []
         for t in range(S):
-            rec = (h.to(cd).transpose(0, 1) @ r).view(H, B, 4, Dh)
-            pre = (zx[:, t] + rec.permute(1, 2, 0, 3)).float() + self.bias
+            rec = (h.to(cd).transpose(0, 1) @ r).view(Hl, B, 4, Dh)
+            pre = (zx[:, t] + rec.permute(1, 2, 0, 3)).float() + bias
             z_t = torch.tanh(pre[:, 0])
             i_t = pre[:, 1]
             o_t = torch.sigmoid(pre[:, 3])
@@ -341,9 +436,15 @@ class SLSTM(nn.Module):
             h = o_t * c / n.clamp(min=1.0)
             m = m_new
             hs.append(h.to(cd))
-        out = self.norm(torch.stack(hs, dim=1).reshape(B, S, d))
-        out = (out @ self.out_proj.to(cd)).to(x.dtype)
-        return out, _update(cache, {"c": c, "n": n, "h": h, "m": m})
+        out = self.norm(torch.stack(hs, dim=1).reshape(B, S, Hl * Dh), tp)
+        if tp is None and tp_out is not None:   # whole: keep this rank's
+            out = own(enter_tensor(out, tp_out), -1, tp_out)
+        out = row_parallel(out, self.out_proj, tp_out).to(x.dtype)
+        if cache is None:
+            return out, None
+        return out, _update(cache, {k: gather_cache(v, 1, tp) for k, v in
+                                    (("c", c), ("n", n), ("h", h),
+                                     ("m", m))})
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> Cache:

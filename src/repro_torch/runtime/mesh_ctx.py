@@ -31,7 +31,16 @@ reading its parameters' ``shard`` (``ParamShard``, set by
     ``reduce_tensor(y, ax)`` is the bare all-reduce;
   * ``gather_tensor(x, dim, ax)`` — a width the model axis shards that
     the next layer needs whole (vlm's patch projection): all-gather
-    forward, this rank's slice of the gradient backward.
+    forward, this rank's slice of the gradient backward. That is right
+    where every rank computes the same from the whole tensor;
+    ``gather_partial`` is the gather for a whole tensor that each rank
+    then uses only in part (Mamba2's z | xBC | dt, of which a rank
+    keeps its heads and B and C): its backward sums the ranks'
+    gradients over ``ax`` before it takes this rank's slice;
+  * ``reduce_shared(y, ax)`` — a sum every rank needs whole and reaches
+    the loss through on its own slice (a norm's sum of squares over a
+    width the model axis cuts, ``models.common.RMSNorm``): all-reduce
+    forward and backward.
 
 ``traffic`` counts the bytes these move (``gathered``: all-gathers,
 ``reduced``: all-reduces; ``cache_gathered``: the part of ``gathered``
@@ -230,6 +239,29 @@ class _GatherTensor(torch.autograd.Function):
         return own_slice(g, ctx.dim, ctx.ax), None, None
 
 
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return all_gather(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return own_slice(_reduce(g.contiguous(), ctx.ax), ctx.dim,
+                         ctx.ax), None, None
+
+
+class _ReduceShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, ax):
+        ctx.ax = ax
+        return _reduce(y, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g.contiguous(), ctx.ax), None
+
+
 class _RowParallel(torch.autograd.Function):
     """``x @ w`` at float32 (the products of 16-bit inputs are exact in
     float32, their sums accumulate in float32, as inside a 16-bit GEMM);
@@ -281,12 +313,14 @@ def reduce_tensor(y: torch.Tensor, ax: Optional[MeshAxes]) -> torch.Tensor:
 
 
 def row_parallel(x: torch.Tensor, p: torch.Tensor,
-                 ax: Optional[MeshAxes]) -> torch.Tensor:
+                 ax: Optional[MeshAxes], out_dims: int = 1) -> torch.Tensor:
     """``x @ p`` at ``x``'s dtype, ``p`` row-parallel over the model axis
     ``ax`` (None: whole): each rank's partial product at float32, the
     SUM over ``ax`` rounded once to ``x``'s dtype. A ``p`` of more than
-    two dims (MLA's ``wo``, (H, v, d)) has its leading dims merged."""
-    w = weight(p, x.dtype).flatten(0, -2)
+    two dims has its leading dims merged into the rows and its last
+    ``out_dims`` into the columns (MLA's ``wo``, (H, v, d), at 1; the
+    mLSTM's ``wqkv``, (d_in, 3, H, Dh), at 3)."""
+    w = weight(p, x.dtype).flatten(0, -1 - out_dims).flatten(1)
     if ax is None:
         return x @ w
     return reduce_tensor(_RowParallel.apply(x, w), ax).to(x.dtype)
@@ -295,6 +329,20 @@ def row_parallel(x: torch.Tensor, p: torch.Tensor,
 def gather_tensor(x: torch.Tensor, dim: int,
                   ax: Optional[MeshAxes]) -> torch.Tensor:
     return x if ax is None else _GatherTensor.apply(x, dim % x.dim(), ax)
+
+
+def gather_partial(x: torch.Tensor, dim: int,
+                   ax: Optional[MeshAxes]) -> torch.Tensor:
+    return x if ax is None else _GatherPartial.apply(x, dim % x.dim(), ax)
+
+
+def reduce_shared(y: torch.Tensor, ax: Optional[MeshAxes]) -> torch.Tensor:
+    return y if ax is None else _ReduceShared.apply(y, ax)
+
+
+def own(x: torch.Tensor, dim: int, ax: Optional[MeshAxes]) -> torch.Tensor:
+    """``own_slice``, or ``x`` when ``ax`` is None."""
+    return x if ax is None else own_slice(x, dim, ax)
 
 
 def gather_cache(x: torch.Tensor, dim: int,

@@ -8,9 +8,11 @@ written in place, as the reference's donated buffers are.
 
 On a mesh (a model cut by ``runtime.shard.shard_model``, the batch this
 rank's rows) the caches are laid out by ``infer_cache_specs``: batch
-over the batch axes, GQA's KV heads or MLA's latent rank over the model
-axis, so each rank's cache is the slice of the one-device cache and is
-written in place. The logits are vocab-parallel (``logits_spec``) and
+over the batch axes; GQA's KV heads, MLA's latent rank, the recurrent
+states' heads (or the mLSTM state's Dk) and the conv caches' channels
+over the model axis; the sLSTM's c/n/h/m and the encoder's memory whole
+over it. So each rank's cache is the slice of the one-device cache and
+is written in place. The logits are vocab-parallel (``logits_spec``) and
 the greedy token is the global argmax, the same on every rank of the
 model axis. Layouts that shard the cache's sequence (batch 1, KV heads
 that the model axis does not divide) or that MLA does not divide raise
@@ -53,14 +55,20 @@ def _flat(tree, prefix=()):
         yield prefix, tree
 
 
+#: the sequence dim of each cache leaf that has one; the others (the
+#: recurrent ``state``, ``conv`` and c/n/h/m) hold no sequence
+SEQ_DIM = {"k": -3, "v": -3, "ckv": -2, "k_rope": -2, "memory": -2}
+
+
 def cache_specs(cfg, caches, mesh, profile: str = "2d"):
     """The dim-specs ``infer_cache_specs`` gives ``caches`` (the
     one-device caches, or tensors of their global shapes on ``meta``) on
     ``mesh`` (a ``DeviceMesh`` or a dict of axis sizes). Raises
     ``NotImplementedError`` for a layout this slice does not run: a
     sequence cut (a batch of 1, or KV heads fewer than the model axis:
-    the reference's flash-decode fallback), a GQA cache cut on Dh, and
-    MLA whose heads or latent rank the model axis does not divide."""
+    the reference's flash-decode fallback), a GQA cache cut on Dh, MLA
+    whose heads or latent rank the model axis does not divide, and a
+    Mamba2 state cut on N (heads the model axis does not divide)."""
     sizes = shd.mesh_shape(mesh)
     _, tensor = shd.mesh_axes(mesh, profile)
     t = shd.axes_size(sizes, tensor) if tensor else 1
@@ -75,13 +83,42 @@ def cache_specs(cfg, caches, mesh, profile: str = "2d"):
     def cuts(entry) -> bool:
         return entry is not None and shd.axes_size(sizes, entry) > 1
     for (path, leaf), (_, spec) in zip(_flat(caches), _flat(specs)):
-        gqa = path[-1] in ("k", "v")
-        if cuts(spec[-3 if gqa else -2]) or (gqa and cuts(spec[-1])):
+        name = path[-1]
+        seq = SEQ_DIM.get(name)
+        if (seq is not None and cuts(spec[seq])) or (
+                name in ("k", "v") and cuts(spec[-1])):
             raise NotImplementedError(
                 f"cache {'/'.join(path)} of global shape "
                 f"{tuple(leaf.shape)}: spec {spec} on {sizes} (a "
                 f"sequence-sharded cache, {shard_lib.NOT_YET})")
+        if cfg.family == "hybrid" and name == "state" and cuts(spec[-2]):
+            raise NotImplementedError(
+                f"cache {'/'.join(path)}: {cfg.num_heads} Mamba2 heads "
+                f"over a model axis of {t}, the state cut on N "
+                f"({shard_lib.NOT_YET})")
     return specs
+
+
+def _whole_tail(cfg, name: str, shape) -> tuple:
+    """A cache leaf's global dims after its batch dim, from this rank's
+    ``shape`` of it (whose sequence, where it has one, is whole)."""
+    if name in ("k", "v"):                      # (..., B, S, Hkv, Dh)
+        return (shape[-3], cfg.kv_heads, cfg.resolved_head_dim)
+    if name == "ckv":                           # (..., B, S, R)
+        return (shape[-2], cfg.mla.kv_lora_rank)
+    if name in ("k_rope", "memory"):            # (..., B, S, ·), whole
+        return tuple(shape[-2:])
+    s, H = cfg.ssm, cfg.num_heads
+    d_in = s.expand * cfg.d_model
+    mamba = cfg.family == "hybrid"
+    if name == "state":                         # (..., B, H, Dk, Dv)
+        return (H, s.state_dim, d_in // H) if mamba else \
+            (H, d_in // H, d_in // H + 1)
+    if name == "conv":                          # (..., B, K − 1, C)
+        return (s.conv_dim - 1, d_in + 2 * s.state_dim if mamba else d_in)
+    if name in ("c", "n", "h", "m"):            # (..., B, H, Dh)
+        return (H, cfg.d_model // H)
+    raise ValueError(f"cache leaf {name!r}")
 
 
 def check_serve_layout(cfg, batch: int, max_len: int, mesh,
@@ -97,8 +134,15 @@ def check_serve_layout(cfg, batch: int, max_len: int, mesh,
     tok = torch.empty((batch, 1), device="meta")
     shard_lib.check_batch_specs(shd.infer_batch_specs({"tokens": tok}, mesh,
                                                       profile), mesh, profile)
-    # a stack's depth is a leading axis no rule cuts: 2 layers tell
-    model = build_model(cfg.replace(num_layers=2), device="meta",
+    # a stack's depth is a leading axis no rule cuts: 2 layers tell (a
+    # group of the recurrent families: xlstm's period, zamba2's period
+    # and a tail)
+    layers = 2
+    if cfg.family == "ssm":
+        layers = cfg.ssm.slstm_period
+    elif cfg.family == "hybrid":
+        layers = cfg.ssm.shared_attn_period + 1
+    model = build_model(cfg.replace(num_layers=layers), device="meta",
                         generator=torch.Generator())
     cache_specs(cfg, model.init_caches(batch, max_len), mesh, profile)
 
@@ -106,23 +150,19 @@ def check_serve_layout(cfg, batch: int, max_len: int, mesh,
 def check_cache_layout(model: LM, caches, profile: str = "2d") -> None:
     """Raise ``NotImplementedError`` unless this rank's ``caches`` are
     the slices ``infer_cache_specs`` gives of the one-device caches: the
-    batch over the batch axes, the KV heads (GQA) or the latent rank R
-    (MLA's ``ckv``) over the model axis when they are cut, nothing of
-    the sequence (``cache_specs``)."""
+    batch over the batch axes, the KV heads (GQA), the latent rank R
+    (MLA's ``ckv``), the recurrent states' heads or Dk and the conv
+    channels over the model axis when they are cut, nothing of the
+    sequence (``cache_specs``)."""
     layout, cfg = model.layout, model.cfg
     mesh = layout.mesh
     dp_size = 1 if layout.dp is None else layout.dp.size
 
     def whole(name, shape):
-        glob = list(shape)
-        if name in ("k", "v"):                  # (..., B, S, Hkv, Dh)
-            glob[-4] *= dp_size
-            glob[-2] = cfg.kv_heads
-        else:                                   # (..., B, S, R)
-            glob[-3] *= dp_size
-            if name == "ckv":
-                glob[-1] = cfg.mla.kv_lora_rank
-        return torch.empty(glob, device="meta")
+        tail = _whole_tail(cfg, name, shape)
+        b = len(shape) - 1 - len(tail)          # the batch dim
+        return torch.empty(tuple(shape[:b]) + (shape[b] * dp_size,) + tail,
+                           device="meta")
     glob = nest((p, whole(p[-1], v.shape)) for p, v in _flat(caches))
     specs = cache_specs(cfg, glob, mesh, profile)
     for (path, local), (_, g), (_, spec) in zip(_flat(caches), _flat(glob),

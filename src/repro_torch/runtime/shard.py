@@ -14,11 +14,13 @@ they need (``runtime.mesh_ctx``).
     is mapped onto the port's layout dim by dim, and a merged dim may be
     cut only on its leading part (H of H·Dh; the rules never shard Dh,
     and this checks it).
-  * The sharded compute covers the ``dense``, ``vlm`` and ``moe``
-    families (the routed experts on the model axis, MLA's heads on it and
-    its latent cache cut on R); the others, and layouts that need a
+  * The sharded compute covers every family: ``dense``, ``vlm``, ``moe``
+    (the routed experts on the model axis, MLA's heads on it and its
+    latent cache cut on R), ``ssm`` (xLSTM), ``hybrid`` (Zamba2's Mamba2
+    blocks and shared attention) and ``encdec``/``audio`` (the
+    recurrent blocks' layouts in ``models.ssm``). Layouts that need a
     sequence-sharded batch or cache (batch 1, KV heads that the model
-    axis does not divide), raise ``NotImplementedError`` (ROADMAP Queue
+    axis does not divide) raise ``NotImplementedError`` (ROADMAP Queue
     1, 10d), never run replicated.
   * ``shard_batch``, ``slice_state`` and ``gather_state`` carry inputs
     and state between the global (reference) tree and a rank's slices
@@ -34,7 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.attention import MLA
+from repro_torch.models import ssm
+from repro_torch.models.attention import GQA, MLA
 from repro_torch.models.model import (LM, RefLeaf, build_model, nest,
                                       ref_leaves)
 from repro_torch.models.moe import MoE
@@ -44,7 +47,8 @@ from repro_torch.runtime.mesh_ctx import (NOT_YET, ParamShard, all_gather,
                                           axes_of)
 
 #: families whose layers run sharded
-SHARDED_FAMILIES = ("dense", "vlm", "moe")
+SHARDED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec",
+                    "audio")
 
 
 def _cut(t: torch.Tensor, spec, mesh) -> torch.Tensor:
@@ -118,34 +122,57 @@ def _owners(model: nn.Module) -> Dict[int, Tuple[nn.Module, str]]:
             for name, p in m._parameters.items() if p is not None}
 
 
+def _cuts(module: nn.Module, *names: str) -> set:
+    """Whether each named parameter of ``module`` is cut over the model
+    axis."""
+    return {getattr(module, n).shard.tensor is not None for n in names}
+
+
 def _check_consistent(model: LM) -> None:
-    """Raise for a layout this slice does not run: KV heads that the
-    model axis does not divide while the query heads are cut. MLA has no
-    KV heads of its own: its K and V heads are the query heads, cut by
-    ``wk_b`` / ``wv_b`` as ``wq_b`` and ``wo`` are."""
-    blocks = list(model.blocks)
-    if getattr(model, "block0", None) is not None:
-        blocks.append(model.block0)
-    for block in blocks:
-        attn = block.attn
-        if isinstance(attn, MLA):
-            q_cut = attn.wq_b.shard.tensor is not None
-            kv_cut = {attn.wk_b.shard.tensor is not None,
-                      attn.wv_b.shard.tensor is not None,
-                      attn.wo.shard.tensor is not None}
-            if kv_cut != {q_cut}:
+    """Raise for a layout this slice does not run, walking every
+    attention and recurrent module (the hybrid's shared attention, the
+    encoder's and decoder's self- and cross-attention included): KV
+    heads that the model axis does not divide while the query heads are
+    cut; MLA's up projections cut unlike its query heads (MLA has no KV
+    heads of its own: its K and V heads are the query heads, cut by
+    ``wk_b`` / ``wv_b`` as ``wq_b`` and ``wo`` are); a recurrent block
+    whose projections the rules cut unlike each other, or Mamba2 heads
+    that the model axis does not divide (its state would be cut on N)."""
+    name = model.cfg.name
+    for m in model.modules():
+        if isinstance(m, MLA):
+            if _cuts(m, "wk_b", "wv_b", "wo") != _cuts(m, "wq_b"):
                 raise NotImplementedError(
-                    f"{model.cfg.name}: MLA's up projections cut unlike "
-                    f"its query heads ({NOT_YET})")
-            continue
-        q_cut = attn.wq.shard.tensor is not None
-        kv_cut = attn.wk.shard.tensor is not None
-        if q_cut != kv_cut:
-            raise NotImplementedError(
-                f"{model.cfg.name}: {model.cfg.kv_heads} KV heads on a "
-                f"model axis that cuts the {model.cfg.num_heads} query "
-                f"heads (the reference's sequence-sharded fallback, "
-                f"{NOT_YET})")
+                    f"{name}: MLA's up projections cut unlike its query "
+                    f"heads ({NOT_YET})")
+        elif isinstance(m, GQA):
+            if _cuts(m, "wq") != _cuts(m, "wk"):
+                raise NotImplementedError(
+                    f"{name}: {model.cfg.kv_heads} KV heads on a model "
+                    f"axis that cuts the {model.cfg.num_heads} query heads "
+                    f"(the reference's sequence-sharded fallback, "
+                    f"{NOT_YET})")
+        elif isinstance(m, (ssm.Mamba2, ssm.MLSTM, ssm.SLSTM)):
+            names = {ssm.Mamba2: ("in_proj", "conv_w", "conv_b",
+                                  "out_proj"),
+                     ssm.MLSTM: ("up_proj", "conv_w", "conv_b", "wqkv",
+                                 "wif", "down_proj"),
+                     ssm.SLSTM: ("w_in", "r")}[type(m)]
+            if len(_cuts(m, *names)) > 1:
+                raise NotImplementedError(
+                    f"{name}: {type(m).__name__}'s {', '.join(names)} cut "
+                    f"unlike each other on this mesh ({NOT_YET})")
+            if isinstance(m, ssm.SLSTM) and _cuts(m, "w_in") == {True} \
+                    and _cuts(m, "out_proj") != {True}:
+                raise NotImplementedError(
+                    f"{name}: sLSTM heads cut, its out_proj whole "
+                    f"({NOT_YET})")
+            tp = m.out_proj.shard.tensor if isinstance(m, ssm.Mamba2) \
+                else None
+            if tp is not None and model.cfg.num_heads % tp.size:
+                raise NotImplementedError(
+                    f"{name}: {model.cfg.num_heads} Mamba2 heads on a model "
+                    f"axis of {tp.size} (a state cut on N, {NOT_YET})")
 
 
 def shard_model(model: LM, mesh, profile: str = "2d") -> LM:

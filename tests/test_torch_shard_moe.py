@@ -34,11 +34,13 @@ rows, and writes what it measured:
   the model axis, ``k_rope`` on the batch only, GQA's ``k``/``v`` on the
   KV heads) the ``_mesh_slice`` of the one-device cache in shape and
   within 2e-4 in value.
-* what this slice does not run raises ``NotImplementedError``: the
-  hybrid and encoder-decoder families on a mesh, MLA's latent rank that
-  the model axis does not divide, a batch of 1, and arctic on the
-  production (16, 16) mesh, whose 8 KV heads need the sequence-sharded
-  fallback (``serve_loop.check_serve_layout`` on the mesh's shape).
+* what this slice does not run raises ``NotImplementedError``: MLA's
+  latent rank that the model axis does not divide, a batch of 1 (also
+  ``hybrid-family`` and ``encdec-family``: zamba2's and seamless's
+  families, which run sharded since the recurrent families' slice, at
+  a batch of 1), and arctic on the production (16, 16) mesh, whose 8 KV
+  heads need the sequence-sharded fallback
+  (``serve_loop.check_serve_layout`` on the mesh's shape).
 * the JAX package's sharded step on an Auto-axis (4, 2) mesh (8 fake CPU
   devices, in its own process) at ``tests/test_smoke_archs.py``'s
   ``reduce_config`` of deepseek-v2-236b, fed the same weights and batch:
@@ -303,10 +305,12 @@ def raises_case(c):
             out[name] = "ran"
         except exc as e:
             out[name] = "raised: " + str(e)[:200]
-    expect("hybrid-family", lambda: shard.shard_model(tmodel.build_model(
-        config("zamba2-7b"), device="cpu"), mesh))
-    expect("encdec-family", lambda: shard.shard_model(tmodel.build_model(
-        config("seamless-m4t-medium"), device="cpu"), mesh))
+    for name, arch in (("hybrid-family", "zamba2-7b"),
+                       ("encdec-family", "seamless-m4t-medium")):
+        fam = shard.shard_model(tmodel.build_model(config(arch),
+                                                   device="cpu"), mesh)
+        expect(name, lambda: sl.make_prefill_step(fam, mesh, max_len=16)(
+            shard.shard_batch(prompt_batch(fam, 1, 8, seed=1), mesh)))
     ds = config("deepseek-v2-236b")
     odd = ds.replace(mla=dataclasses.replace(ds.mla, kv_lora_rank=15))
     sh = shard.shard_model(tmodel.build_model(odd, device="cpu"), mesh)

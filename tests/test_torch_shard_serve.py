@@ -16,9 +16,12 @@ the vlm (patches, M-RoPE):
 * bfloat16 caches, step by step: each sharded decode step starts from
   the slice of the one-device caches, and its logits are within 2e-4;
 * ``jit_decode_step`` takes the cache and batch layouts the rules give,
-  and a batch of 1 (a sequence-sharded cache), a family outside
-  dense/vlm/moe (xlstm's ssm) and a one-device step on a sharded model
-  raise.
+  and a batch of 1 (a sequence-sharded cache; ``ssm-family``: xlstm's,
+  whose family runs sharded since the recurrent families' slice, at a
+  batch of 1) and a one-device step on a sharded model raise;
+* ``check_serve_layout`` passes xlstm-1.3b, zamba2-7b and
+  seamless-m4t-medium on the production (16, 16) mesh and on (1, 8)
+  (the mLSTM state cut on Dk there), on the shapes alone.
 """
 import json
 import os
@@ -162,8 +165,10 @@ def raises_case():
     caches = sh.init_caches(1, 16)
     expect("batch-1-decode", lambda: sl.jit_decode_step(
         sh, mesh, caches, shd.infer_batch_specs(tok, mesh)))
-    expect("ssm-family", lambda: shard.shard_model(tmodel.build_model(
-        tiny_config(get_config("xlstm-1.3b")), device="cpu"), mesh))
+    xl = shard.shard_model(tmodel.build_model(
+        tiny_config(get_config("xlstm-1.3b")), device="cpu"), mesh)
+    expect("ssm-family", lambda: sl.make_prefill_step(xl, mesh, max_len=16)(
+        shard.shard_batch(prompt_batch(xl, 1, 8, seed=34), mesh)))
     expect("one-device-step", lambda: sl.make_decode_step(sh), ValueError)
     return out
 
@@ -220,3 +225,15 @@ def test_sharded_decode_with_bfloat16_caches_step_by_step(ranks, arch):
 def test_unimplemented_serve_layouts_raise(ranks, what):
     for r in ranks:
         assert r["raises"][what].startswith("raised"), r["raises"][what]
+
+
+def test_recurrent_families_pass_the_serve_layout_check():
+    """xlstm-1.3b, zamba2-7b and seamless-m4t-medium as published, at a
+    batch of 16 and 4096 positions, on the production (16, 16) mesh and
+    on (1, 8), where the rules cut xlstm's mLSTM state on Dk (its 4
+    heads over 8) and replicate its sLSTM's ``w_in`` and ``r``."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import serve_loop as sl
+    for arch in ("xlstm-1.3b", "zamba2-7b", "seamless-m4t-medium"):
+        for mesh in ({"data": 16, "model": 16}, {"data": 1, "model": 8}):
+            sl.check_serve_layout(get_config(arch), 16, 4096, mesh)

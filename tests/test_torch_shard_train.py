@@ -29,9 +29,11 @@ batch and the sharded step on its rows, and writes what it measured:
   one-device next loss.
 * a bfloat16 row-parallel product (``mesh_ctx.row_parallel``) on
   (2, 2) rounds once, as one device's product does.
-* what this slice does not run raises ``NotImplementedError``: a family
-  outside dense/vlm/moe (xlstm's ssm), KV heads the model axis does not divide, a batch
-  of 1 (sequence-sharded), microbatches whose rows do not divide.
+* what this slice does not run raises ``NotImplementedError``: KV heads
+  the model axis does not divide, a batch of 1 (sequence-sharded; also
+  ``ssm-family``: xlstm's ssm family, which runs sharded since the
+  recurrent families' slice, at a batch of 1), microbatches whose rows
+  do not divide.
 * the JAX package's sharded step on an Auto-axis (4, 2) mesh (8 fake
   CPU devices, in its own process; ``jax.make_mesh`` makes Explicit
   axes in jax 0.9, on which the reference's own test fails) at
@@ -284,8 +286,8 @@ def raises_case(c):
         except exc as e:
             out[name] = "raised: " + str(e)[:200]
     dense = tiny_config(get_config("qwen2.5-3b"))
-    expect("ssm-family", lambda: shard.shard_model(tmodel.build_model(
-        tiny_config(get_config("xlstm-1.3b")), device="cpu"), mesh))
+    expect("ssm-family", lambda: shard.shard_batch(make_batch(
+        tiny_config(get_config("xlstm-1.3b")), 1, 1, 16), mesh))
     expect("kv-heads", lambda: shard.shard_model(tmodel.build_model(
         dense.replace(kv_heads=1), device="cpu"), mesh))
     expect("batch-1", lambda: shard.shard_batch(

@@ -97,6 +97,26 @@ def test_chunked_gla_masks_the_decay_before_it_multiplies():
     close(got, want)
 
 
+def test_chunked_gla_gradient_is_finite_where_the_decay_overflows():
+    """Forget gates of −6 a step over a chunk of 32: the decay above the
+    diagonal overflows to inf, and the reference's gradient there is NaN
+    (exp's backward meets 0·inf). The port masks the decay before the
+    exp: its gradients (q, k, v and the gates) equal the reference's at
+    a chunk of 8, where nothing overflows (the same function)."""
+    q, k, v, _ = gla_inputs(5, 32)
+    log_f = np.full((B, 32, H), -6.0, np.float32)
+
+    def ref(*xs):
+        return jchunked_gla(*xs, 8)[0].sum()
+    want = jax.grad(ref, argnums=(0, 1, 2, 3))(*j(q, k, v, log_f))
+    ins = [x.requires_grad_() for x in t(q, k, v, log_f)]
+    tssm.chunked_gla(*ins, 32)[0].sum().backward()
+    for x, w in zip(ins, want):
+        assert torch.isfinite(x.grad).all()
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w),
+                                   rtol=1e-4, atol=1e-4)
+
+
 def test_gla_step_is_one_step_of_chunked_gla():
     q, k, v, log_f = gla_inputs(5, 1)
     s0 = np.random.default_rng(6).standard_normal(

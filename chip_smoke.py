@@ -196,6 +196,23 @@ Phases, in order; any failure exits non-zero:
      collectives and bytes a step and a token, step, first-step and
      decode ms, peak memory, the resident shares and every check's
      number.
+     (e) sequence-sharded caches and batches, four ranks spawned the
+     same way (``chip_smoke.py --seq-mesh-rank r``) on two meshes of
+     one world, (2, 2) and (1, 4): the tiny config of every family at a
+     batch of 1 on (2, 2) (the prompt and the KV, latent and memory
+     caches cut on the sequence over the data axis; one KV head: also
+     Dh over the model axis) and the GQA families' at 2 KV heads on
+     (1, 4) (the cache cut on S over the model axis, flash-decode), a
+     serve and a train step each against the one device; qwen2.5-3b at
+     full width on (1, 4), a float32 serve (logits within 2e-4, equal
+     tokens) and a bfloat16 one (within the one device's own bfloat16
+     error), then a float32 and a bfloat16 train step at 4 layers
+     (wk/wv's gradients against the one device's); zamba2-7b and
+     xlstm-1.3b at a batch of 1 on (2, 2), float32, a prompt of 64 into
+     caches of 4,096 (``SEQ_MESH_*``). One ``seq_mesh`` JSON line: per
+     rank the collectives and bytes a prefill, a token and a step,
+     prefill, decode and step ms, peak memory, the resident shares and
+     every check's number.
 
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
@@ -566,6 +583,55 @@ SSM_MESH_XLSTM = "xlstm-1.3b"
 SSM_MESH_XLSTM_LAYERS = 8
 SSM_MESH_XLSTM_PARAMS = 760_123_448
 SSM_MESH_TIMEOUT_S = 600
+#: (e) sequence-sharded caches and batches (ROADMAP 10d-ii), LM_MESH_WORLD
+#: ranks spawned as (b)–(d)'s are, on two meshes of the same world: (1)
+#: the tiny configs of (a): each of SEQ_MESH_TINY_B1 at a batch of 1 on
+#: LM_MESH_SHAPE (its prompt and its KV, latent and memory caches cut on
+#: the sequence over the data axis), a dense one with one KV head there
+#: too (the cache also cut on Dh over the model axis), and each of
+#: SEQ_MESH_TINY_KV at launch/serve's batch on SEQ_MESH_KV_SHAPE, whose
+#: model axis of 4 does not divide their 2 KV heads (the cache cut on S
+#: over it, flash-decode): prefill and SEQ_MESH_TINY_GEN greedy tokens
+#: at float32 caches (logits within SERVE_TOL, equal tokens and MoE
+#: drops at MOE_MESH_TINY_FACTOR), and one AdamW step of the same batch
+#: (loss and grad norm within TRAIN_METRIC_RTOL, every gradient leaf
+#: within TRAIN_GRAD_RTOL of its largest |g|: at a batch of 1 the
+#: training sequence is cut, and on SEQ_MESH_KV_SHAPE wk/wv/bk/bv are
+#: whole on each model rank, their gradients summed over it). (2)
+#: SEQ_MESH_ARCH at full width (16 heads over 2 KV heads, vocabulary
+#: 151,936, tied) on SEQ_MESH_KV_SHAPE, all SEQ_MESH_LAYERS layers
+#: (SEQ_MESH_PARAMS parameters, the reference's count): launch/serve's
+#: batch and prompt and SEQ_MESH_GEN tokens in a float32 pass (logits
+#: within SERVE_TOL, equal tokens) and a bfloat16 pass (within the one
+#: device's own bfloat16 error, as (c)); then one train step at
+#: launch/train's defaults at SEQ_MESH_TRAIN_LAYERS layers
+#: (SEQ_MESH_TRAIN_PARAMS; all 36 would take ~49 GB at ~16 B a
+#: parameter on the one device and as much again on the ranks) in a
+#: float32 pass (loss and next loss within SEQ_MESH_F32_RTOL, and
+#: wk/wv's gradients within TRAIN_GRAD_RTOL of the one device's) and a
+#: bfloat16 pass (as (d)'s). (3) SSM_MESH_ARCH at SSM_MESH_LAYERS and
+#: SSM_MESH_XLSTM at SSM_MESH_XLSTM_LAYERS, float32, at a batch of 1 on
+#: LM_MESH_SHAPE (SEQ_MESH_B1: the prompt cut 32 a data rank, caches of
+#: 4,096 positions, the shared attention's cut on S over the data axis,
+#: the recurrent states whole over it): logits within SERVE_TOL, equal
+#: tokens. Every model's resident parameters are exactly its slices'
+#: bytes
+SEQ_MESH_TINY_B1 = ("qwen2.5-3b", "qwen2-vl-7b", "deepseek-v2-236b",
+                    "arctic-480b", "xlstm-1.3b", "zamba2-7b",
+                    "seamless-m4t-medium")
+SEQ_MESH_TINY_KV = ("qwen2.5-3b", "qwen2-vl-7b", "arctic-480b", "zamba2-7b",
+                    "seamless-m4t-medium")
+SEQ_MESH_TINY_GEN = 4
+SEQ_MESH_KV_SHAPE = (1, 4)
+SEQ_MESH_ARCH = "qwen2.5-3b"
+SEQ_MESH_LAYERS = 36
+SEQ_MESH_PARAMS = 3_085_938_688
+SEQ_MESH_GEN = 8
+SEQ_MESH_TRAIN_LAYERS = 4
+SEQ_MESH_TRAIN_PARAMS = 619_474_944
+SEQ_MESH_F32_RTOL = dict(losses=1e-5, grad_norms=5e-6)
+SEQ_MESH_B1 = dict(batch=1, prompt_len=64, max_len=4096)
+SEQ_MESH_TIMEOUT_S = 600
 
 
 def log(*a):
@@ -2761,27 +2827,36 @@ def _counted(fn):
                  tr.cache_gathered)
 
 
-def _mesh_serve(model, mesh, want_logits, tokens, G):
-    """Prefill of launch/serve's prompt (``SERVE_ARGS``' batch and
-    prompt, this rank's rows) and G − 1 greedy decode steps fed the one
-    device's ``tokens`` (B, G), on a model laid out on ``mesh``: each
-    step's (max |Δ| logits, max (|Δ| − rtol |want|)) against this rank's
-    slice of ``want_logits`` (G, B, V), its tokens and the MoE's global
-    drops, and the decode steps' ms, collectives and bytes moved."""
+def _mesh_serve(model, mesh, want_logits, tokens, G,
+                batch=SERVE_ARGS["batch"],
+                prompt_len=SERVE_ARGS["prompt_len"], max_len=None):
+    """Prefill of launch/serve's prompt (``batch`` x ``prompt_len``,
+    this rank's slice: its rows, or at a batch the data axis does not
+    divide, its part of the sequence; caches of ``max_len``, P + G by
+    default) and G − 1 greedy decode steps fed the one device's
+    ``tokens`` (B, G), on a model laid out on ``mesh``: each step's (max
+    |Δ| logits, max (|Δ| − rtol |want|)) against this rank's slice of
+    ``want_logits`` (G, B, V), its tokens and the MoE's global drops,
+    the prefill's and the decode steps' ms, collectives and bytes
+    moved, and this rank's rows."""
     from repro_torch.checkpoint.manager import _mesh_slice
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.runtime import serve_loop as sl
     from repro_torch.runtime import shard
     from repro_torch.runtime import sharding as shd
-    B, P = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
-    lspec = shd.logits_spec(mesh)
-    rows = _mesh_slice(np.arange(B), mesh, lspec[:1])
+    B, P = batch, prompt_len
     prompt = shard.shard_batch(prompt_batch(model, B, P, SEED + 1), mesh)
+    # the logits' rows are cut as the batch's are, or whole on every rank
+    lspec = (prompt.specs["tokens"][0], None, shd.logits_spec(mesh)[2])
+    rows = _mesh_slice(np.arange(B), mesh, lspec[:1])
     (logits, caches), prefill = _counted(
-        lambda: sl.make_prefill_step(model, mesh, max_len=P + G)(prompt))
+        lambda: sl.make_prefill_step(model, mesh, max_len=max_len or P + G)(
+            prompt))
     out = dict(prefill_ms=prefill[0], err=[], excess=[], tokens=[],
                drops=[], ms=[], collectives=[], gathered=[], reduced=[],
-               cache_gathered=[])
+               cache_gathered=[], rows=rows.tolist(), prefill_collectives=(
+                   prefill[1]), prefill_gathered=prefill[2],
+               prefill_reduced=prefill[3])
 
     def score(i, logits):
         got = logits[:, -1].float().cpu().numpy()
@@ -3347,7 +3422,7 @@ def _changed_shares(leaves, before):
             for l, b in zip(leaves, before)}
 
 
-def _train_steps(model, tcfg, steps, mesh=None, rank=None):
+def _train_steps(model, tcfg, steps, mesh=None, rank=None, grads_of=()):
     """``steps`` train steps of ``model`` (laid out on ``mesh``, or on
     one device) on launch/train's first batches (this rank's rows on a
     mesh), then the loss of the next batch (the global batch's). Returns
@@ -3355,8 +3430,11 @@ def _train_steps(model, tcfg, steps, mesh=None, rank=None):
     bytes gathered and all-reduced a step, the MoE's drops, each leaf's
     share of elements the steps changed, the resident parameters,
     optimizer state and accumulators (on a mesh also the optimizer
-    state's slices' bytes) and the peak memory. A rank keeps the leaves'
-    values before the steps on the host (four ranks share the card)."""
+    state's slices' bytes) and the peak memory; with ``grads_of`` (leaf
+    names), also the last step's clipped gradients of those leaves
+    under ``"kept"`` (host arrays, this rank's slices). A rank keeps the
+    leaves' values before the steps on the host (four ranks share the
+    card)."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.runtime import shard
@@ -3391,6 +3469,10 @@ def _train_steps(model, tcfg, steps, mesh=None, rank=None):
             _mem_line(f"rank {rank} after train step {i}")
     tr["changed"] = _changed_shares(step.leaves, before)
     del before
+    if grads_of:
+        tr["kept"] = {"/".join(l.path): g.cpu().numpy()
+                      for l, g in zip(step.leaves, step.grads)
+                      if l.path[-1] in grads_of}
     with torch.no_grad():
         loss = step.loss(batches[steps])
         if mesh is not None:
@@ -3402,6 +3484,7 @@ def _train_steps(model, tcfg, steps, mesh=None, rank=None):
         opt=shard.resident_bytes(state["opt"]),
         grads=shard.resident_bytes(step.grads))
     if mesh is not None:
+        tr["param_slices_bytes"] = _slices_bytes(model)
         abstract = shard.abstract_state(model.cfg, tcfg)
         specs = tl.state_specs(abstract, mesh)
         tr["opt_slices_bytes"] = sum(
@@ -3413,18 +3496,21 @@ def _train_steps(model, tcfg, steps, mesh=None, rank=None):
     return tr
 
 
-def _serve_one(model, G, feed=None):
-    """The one device's prefill of launch/serve's prompt and G − 1 greedy
-    decode steps (fed the tokens ``feed`` (B, G) in place of its own when
-    given): (record with prefill and decode ms and each pass's drops,
-    arrays with each step's last logits (G, B, V) and the tokens (B,
-    G))."""
+def _serve_one(model, G, feed=None, batch=SERVE_ARGS["batch"],
+               prompt_len=SERVE_ARGS["prompt_len"], max_len=None):
+    """The one device's prefill of launch/serve's prompt (``batch`` x
+    ``prompt_len``, into caches of ``max_len``, P + G by default) and
+    G − 1 greedy decode steps (fed the tokens ``feed`` (B, G) in place
+    of its own when given): (record with prefill and decode ms and each
+    pass's drops, arrays with each step's last logits (G, B, V) and the
+    tokens (B, G))."""
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.runtime import serve_loop as sl
-    B, P = SERVE_ARGS["batch"], SERVE_ARGS["prompt_len"]
+    B, P = batch, prompt_len
     prompt = prompt_batch(model, B, P, SEED + 1)
     (logits, caches), (ms, *_) = _counted(
-        lambda: sl.make_prefill_step(model, max_len=P + G)(prompt))
+        lambda: sl.make_prefill_step(model, max_len=max_len or P + G)(
+            prompt))
     rec = dict(prefill_ms=ms, decode_ms=[], drops=[_dropped(model)])
     decode = sl.make_decode_step(model)
     tok = sl.greedy_token(model, logits)
@@ -4124,6 +4210,424 @@ def ssm_mesh_phase():
     return line
 
 
+def _tiny_seq_parity(arch, mesh, batch, kv=None):
+    """Phase 10 (e) (1) on each rank for one tiny config at ``batch``
+    (``kv``: its KV heads, the config's if None): the prefill and
+    ``SEQ_MESH_TINY_GEN`` greedy tokens at float32 caches, then one
+    AdamW step of a batch of as many rows, the mesh's path on this
+    rank's slice against the one device's on the whole batch, both on
+    the card: logits, tokens, drops, every cache leaf as its slice
+    (``infer_cache_specs``), loss, grad norm and every gradient leaf.
+    Fails this rank on a miss."""
+    from repro_torch.checkpoint.manager import _mesh_slice
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import mesh_ctx
+    from repro_torch.runtime import serve_loop as sl
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import train_loop as tl
+    dev = "cuda"
+    cfg = tiny_config(get_config(arch))
+    if kv is not None:
+        cfg = cfg.replace(kv_heads=kv)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_MESH_TINY_FACTOR))
+    weights = tmodel.params_to_numpy(tmodel.build_model(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(SEED)))
+    shape = list(shd.mesh_shape(mesh).values())
+    where = (f"phase 10 (e): {arch} (tiny, {cfg.kv_heads} KV heads) at a "
+             f"batch of {batch} on {tuple(shape)}")
+
+    def mine(t, spec):
+        return _mesh_slice(t.detach().float().cpu().numpy(), mesh, spec)
+
+    def both():
+        one = tmodel.params_from_numpy(tmodel.build_model(cfg, device=dev),
+                                       weights)
+        sh = tmodel.params_from_numpy(shard.shard_model(tmodel.build_model(
+            cfg, device=dev), mesh), weights)
+        return one, sh
+    rec = dict(arch=arch, batch=batch, kv_heads=cfg.kv_heads, mesh=shape)
+    mesh_lib.collectives.reset()
+    mesh_ctx.traffic.reset()
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        one, sh = both()
+        P, G = SERVE_TINY_ARGS["prompt_len"], SEQ_MESH_TINY_GEN
+        prompt = prompt_batch(one, batch, P, SEED + 1)
+        local = shard.shard_batch(prompt, mesh)
+        lspec = (local.specs["tokens"][0], None, shd.logits_spec(mesh)[2])
+        start = P + (tmodel.VLM_PATCHES if cfg.family == "vlm" else 0)
+        l1, c1 = sl.make_prefill_step(one, max_len=start + G)(prompt)
+        l2, c2 = sl.make_prefill_step(sh, mesh, max_len=start + G)(local)
+        errs, same, drops = [], True, []
+
+        def score(l1, l2, t1, t2):
+            nonlocal same
+            errs.append(float(np.abs(mine(l1, lspec)
+                                     - l2.float().cpu().numpy()).max()))
+            same &= bool(np.array_equal(mine(t1, lspec[:1]),
+                                        t2.cpu().numpy()))
+            drops.append([_dropped(one), _dropped(sh)])
+        t1, t2 = sl.greedy_token(one, l1), sl.greedy_token(sh, l2)
+        score(l1, l2, t1, t2)
+        dec1 = sl.make_decode_step(one)
+        dec2 = sl.jit_decode_step(sh, mesh, c2, shd.infer_batch_specs(
+            {"tokens": t1[:, None]}, mesh))
+        for i in range(G - 1):
+            t1, l1, c1 = dec1({"tokens": t1[:, None]}, c1, start + i)
+            t2, l2, c2 = dec2({"tokens": t2[:, None]}, c2, start + i)
+            score(l1, l2, t1, t2)
+        cache_err = 0.0
+        for (path, a), (_, b), (_, spec) in zip(
+                _flat(c2), _flat(c1), _flat(shd.infer_cache_specs(c1,
+                                                                  mesh))):
+            want = mine(b, spec)
+            if tuple(a.shape) != want.shape:
+                fail(f"{where}: cache {'/'.join(path)} {tuple(a.shape)} on "
+                     f"this rank, its slice {want.shape}")
+            cache_err = max(cache_err, float(np.abs(
+                a.float().cpu().numpy() - want).max()))
+            if path[-1] in ("k", "ckv", "memory"):
+                rec[f"{path[-1]}_spec"] = [
+                    e if e is None or isinstance(e, str) else list(e)
+                    for e in spec]
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    if not (same and max(errs) <= SERVE_TOL["atol"]
+            and cache_err <= SERVE_TOL["atol"]
+            and all(a == b for a, b in drops)):
+        fail(f"{where}: tokens equal {same}, logits off by {max(errs)}, "
+             f"caches by {cache_err}, drops {drops}")
+    rec.update(serve_logits_max_abs_err=max(errs), cache_max_abs_err=cache_err,
+               drops=[a for a, _ in drops])
+    if _slices_bytes(sh) != shard.resident_bytes(sh):
+        fail(f"{where}: {shard.resident_bytes(sh)} B of parameters, its "
+             f"slices {_slices_bytes(sh)}")
+    del one, sh
+    tcfg = TrainConfig(optimizer="adamw", microbatches=1,
+                       learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    one, sh = both()
+    data = _train_batch(cfg, dev, SEED + 4, batch, TRAIN_TINY_BATCH["seq"],
+                        TRAIN_TINY_BATCH["patches"],
+                        TRAIN_TINY_BATCH["frames"])
+    data["labels"][:, ::5] = -1
+    step1, step2 = tl.make_train_step(one, tcfg), tl.make_train_step(
+        sh, tcfg, mesh)
+    _, m1 = step1(tl.make_train_state(one, tcfg), data)
+    _, m2 = step2(tl.make_train_state(sh, tcfg), shard.shard_batch(data,
+                                                                   mesh))
+    metric_err = max(abs(float(m2[k]) - float(m1[k])) / abs(float(m1[k]))
+                     for k in ("loss", "grad_norm"))
+    grad_err = max(float(np.abs(mine(g1, leaf.spec) - g2.cpu().numpy()).max())
+                   / (TRAIN_GRAD_RTOL * float(g1.abs().max()) + 1e-6)
+                   for leaf, g1, g2 in zip(step2.leaves, step1.grads,
+                                           step2.grads))
+    if not (metric_err <= TRAIN_METRIC_RTOL and grad_err <= 1.0):
+        fail(f"{where}: train loss / grad norm off by {metric_err} "
+             f"relative, gradients by {grad_err} of their tolerance")
+    rec.update(train_metric_rel_err=metric_err, grad_err_of_tol=grad_err,
+               collectives=mesh_lib.collectives.count,
+               gathered=mesh_ctx.traffic.gathered,
+               reduced=mesh_ctx.traffic.reduced)
+    return rec
+
+
+def _seq_one_device():
+    """Phase 10 (e)'s one-device runs on the card, each model built from
+    ``SEED`` and freed after: (2)'s bfloat16 serve, its float32 serve
+    and the same fed the bfloat16 tokens (the one device's own bfloat16
+    error), its float32 then bfloat16 train step at
+    ``SEQ_MESH_TRAIN_LAYERS`` (wk/wv's gradients kept), and (3)'s
+    float32 serves at a batch of 1. Returns the record and the arrays
+    the ranks are held against."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    rec, arrays = {}, {}
+    saved = tmodel.CACHE_DTYPE
+    tcfg = _lm_mesh_train_cfg(SEQ_MESH_ARCH)
+
+    def build(arch, layers, dtype, want):
+        _free()
+        model, digest = _build_seeded(_ssm_cfg(arch, layers, dtype))
+        if model.num_params() != want:
+            fail(f"phase 10 (e): {arch} at {layers} layers has "
+                 f"{model.num_params()} parameters, the reference's {want}")
+        return model, digest
+    model, digest = build(SEQ_MESH_ARCH, SEQ_MESH_LAYERS, None,
+                          SEQ_MESH_PARAMS)
+    r, a = _serve_one(model, SEQ_MESH_GEN)
+    rec["serve"] = dict(digest=digest, **r)
+    arrays.update(logits=a["logits"], tokens=a["tokens"])
+    del model
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        model, digest = build(SEQ_MESH_ARCH, SEQ_MESH_LAYERS, "float32",
+                              SEQ_MESH_PARAMS)
+        r, a32 = _serve_one(model, SEQ_MESH_GEN)
+        rec["f32_serve"] = dict(digest=digest, params=model.num_params(),
+                                resident_param_bytes=shard.resident_bytes(
+                                    model), **r)
+        arrays.update(f32_serve_logits=a32["logits"],
+                      f32_serve_tokens=a32["tokens"])
+        _, fed = _serve_one(model, SEQ_MESH_GEN, feed=a["tokens"])
+        rec["serve"]["bf16_error"] = [float(np.abs(x - y).max()) for x, y
+                                      in zip(a["logits"], fed["logits"])]
+        del model
+        for key, arch, layers, want in (
+                ("zamba2_b1", SSM_MESH_ARCH, SSM_MESH_LAYERS,
+                 SSM_MESH_PARAMS),
+                ("xlstm_b1", SSM_MESH_XLSTM, SSM_MESH_XLSTM_LAYERS,
+                 SSM_MESH_XLSTM_PARAMS)):
+            model, digest = build(arch, layers, "float32", want)
+            r, a1 = _serve_one(model, SEQ_MESH_GEN, **SEQ_MESH_B1)
+            rec[key] = dict(digest=digest, params=model.num_params(),
+                            resident_param_bytes=shard.resident_bytes(model),
+                            **r)
+            arrays.update({f"{key}_logits": a1["logits"],
+                           f"{key}_tokens": a1["tokens"]})
+            del model
+        model, digest = build(SEQ_MESH_ARCH, SEQ_MESH_TRAIN_LAYERS,
+                              "float32", SEQ_MESH_TRAIN_PARAMS)
+        tr = _train_steps(model, tcfg, 1, grads_of=("wk", "wv"))
+        arrays.update({f"grad:{k}": v for k, v in tr.pop("kept").items()})
+        rec["f32_train"] = dict(digest=digest, **tr)
+        del model
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    model, digest = build(SEQ_MESH_ARCH, SEQ_MESH_TRAIN_LAYERS, None,
+                          SEQ_MESH_TRAIN_PARAMS)
+    tr = _train_steps(model, tcfg, 1, grads_of=("wk", "wv"))
+    arrays.update({f"bf16_grad:{k}": v for k, v in tr.pop("kept").items()})
+    rec["train"] = dict(digest=digest, **tr)
+    del model
+    _free()
+    return rec, arrays
+
+
+def seq_mesh_rank(rank, mesh_dir):
+    """One rank of phase 10 (e), every rank on the one card (gloo on CUDA
+    tensors), on two meshes of the same world, ``LM_MESH_SHAPE`` and
+    ``SEQ_MESH_KV_SHAPE``: (1) the tiny configs
+    (``_tiny_seq_parity``, which fails this rank on a miss); (2)
+    qwen2.5-3b's float32 serve, then its float32 train step at
+    ``SEQ_MESH_TRAIN_LAYERS`` (wk/wv's gradients against the one
+    device's); (3) zamba2-7b's and xlstm-1.3b's float32 serves at a
+    batch of 1; then (2)'s bfloat16 serve and train step; each model
+    built in turn by every rank from the seed and cut to its slice, fed
+    the one device's tokens. Writes ``rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    dev = "cuda"
+    torch.cuda.set_device(0)
+    d = Path(mesh_dir)
+    mesh_lib.init_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=LM_MESH_WORLD, device=dev,
+                        timeout_s=LM_MESH_GROUP_TIMEOUT_S)
+    mesh = mesh_lib.make_host_mesh(*LM_MESH_SHAPE, backend="gloo",
+                                   device=dev)
+    kv_mesh = mesh_lib.make_host_mesh(*SEQ_MESH_KV_SHAPE, backend="gloo",
+                                      device=dev)
+    ref = np.load(d / "seq.npz")
+    t0 = time.perf_counter()
+    rec = dict(rank=rank, tiny=[
+        *[_tiny_seq_parity(a, mesh, 1) for a in SEQ_MESH_TINY_B1],
+        _tiny_seq_parity(SEQ_MESH_ARCH, mesh, 1, kv=1),
+        *[_tiny_seq_parity(a, kv_mesh, SERVE_ARGS["batch"],
+                           kv=2 if a == SSM_MESH_ARCH else None)
+          for a in SEQ_MESH_TINY_KV]])
+    rec["tiny_ms"] = (time.perf_counter() - t0) * 1e3
+    _free()
+
+    def served(key, cfg, on, **kw):
+        model, digest = _build_in_turn(cfg, on, rank)
+        torch.cuda.reset_peak_memory_stats()
+        name = key if f"{key}_logits" in ref.files else None
+        rec[key] = dict(digest=digest, **_mesh_serve(
+            model, on, ref[f"{name}_logits" if name else "logits"],
+            ref[f"{name}_tokens" if name else "tokens"], SEQ_MESH_GEN,
+            **kw))
+        rec[key].update(peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                        resident_param_bytes=shard.resident_bytes(model),
+                        slices_bytes=_slices_bytes(model))
+        del model
+        _free()
+
+    def trained(key, cfg, prefix):
+        model, digest = _build_in_turn(cfg, kv_mesh, rank)
+        tr = _train_steps(model, _lm_mesh_train_cfg(SEQ_MESH_ARCH), 1,
+                          kv_mesh, rank, grads_of=("wk", "wv"))
+        tr["kv_grad_err"] = {
+            k: float(np.abs(g - ref[f"{prefix}:{k}"]).max()
+                     / np.abs(ref[f"{prefix}:{k}"]).max())
+            for k, g in tr.pop("kept").items()}
+        rec[key] = dict(digest=digest, **tr)
+        del model
+        _free()
+
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        served("f32_serve", _ssm_cfg(SEQ_MESH_ARCH, SEQ_MESH_LAYERS,
+                                     "float32"), kv_mesh)
+        trained("f32_train", _ssm_cfg(SEQ_MESH_ARCH, SEQ_MESH_TRAIN_LAYERS,
+                                      "float32"), "grad")
+        for key, arch, layers in (
+                ("zamba2_b1", SSM_MESH_ARCH, SSM_MESH_LAYERS),
+                ("xlstm_b1", SSM_MESH_XLSTM, SSM_MESH_XLSTM_LAYERS)):
+            served(key, _ssm_cfg(arch, layers, "float32"), mesh,
+                   **SEQ_MESH_B1)
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    served("serve", _ssm_cfg(SEQ_MESH_ARCH, SEQ_MESH_LAYERS), kv_mesh)
+    trained("train", _ssm_cfg(SEQ_MESH_ARCH, SEQ_MESH_TRAIN_LAYERS),
+            "bf16_grad")
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+    mesh_lib.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _seq_checks(one, arrays, recs):
+    """What phase 10 (e)'s ranks must meet against the one device: a list
+    of the misses."""
+    bad = []
+    tols, margin = _bf16_tolerances(arrays["logits"],
+                                    one["serve"]["bf16_error"])
+    own = _own_errors(one["train"], one["f32_train"])
+    for r, rec in enumerate(recs):
+        for what in ("f32_serve", "zamba2_b1", "xlstm_b1", "serve",
+                     "f32_train", "train"):
+            if abs(rec[what]["digest"] - one[what]["digest"]) > 1e-9 * abs(
+                    one[what]["digest"]):
+                bad.append(f"rank {r} built other {what} weights")
+        for key in ("f32_serve", "zamba2_b1", "xlstm_b1"):
+            bad += _f32_serve_misses(r, key, rec[key], rec[key]["rows"],
+                                     arrays[f"{key}_tokens"])
+        for key in ("f32_serve", "zamba2_b1", "xlstm_b1", "serve"):
+            if rec[key]["resident_param_bytes"] != rec[key]["slices_bytes"]:
+                bad.append(f"rank {r} holds {rec[key]['resident_param_bytes']}"
+                           f" B of {key}'s parameters, its slices "
+                           f"{rec[key]['slices_bytes']}")
+        bad += _bf16_serve_misses(r, rec["serve"], rec["serve"]["rows"],
+                                  arrays["tokens"], tols, margin)
+        bad += _train_misses(r, rec["f32_train"], one["f32_train"],
+                             SEQ_MESH_F32_RTOL)
+        bad += _train_misses(r, rec["train"], one["train"], own=own)
+        for key in ("f32_train", "train"):
+            got = rec[key]["resident_bytes"]["params"]
+            if got != rec[key]["param_slices_bytes"]:
+                bad.append(f"rank {r} holds {got} B of {key}'s parameters, "
+                           f"its slices {rec[key]['param_slices_bytes']}")
+        for k, err in rec["f32_train"]["kv_grad_err"].items():
+            if not err <= TRAIN_GRAD_RTOL:
+                bad.append(f"rank {r}: float32 gradient of {k} off by {err} "
+                           f"of its largest |g|")
+    return (bad + _changed_misses(one["train"], recs)
+            + _changed_misses(one["f32_train"], recs, "f32_train"))
+
+
+def seq_mesh_phase():
+    """Phase 10 (e), as the module's docstring says: the one-device runs
+    here, then ``LM_MESH_WORLD`` ranks spawned on the one card
+    (``seq_mesh_rank``), held against them. Fails on any check, a rank's
+    non-zero exit or timeout. One ``seq_mesh`` JSON line."""
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.time()
+    one, arrays = _seq_one_device()
+    line = dict(card=card_line(), arch=SEQ_MESH_ARCH,
+                kv_mesh=list(SEQ_MESH_KV_SHAPE), mesh=list(LM_MESH_SHAPE),
+                layers=SEQ_MESH_LAYERS, train_layers=SEQ_MESH_TRAIN_LAYERS,
+                one_device={k: {n: x for n, x in v.items()
+                                if n not in ("changed",)}
+                            for k, v in one.items()},
+                one_device_s=time.time() - t_phase,
+                note=f"the {LM_MESH_WORLD}-rank walls are {LM_MESH_WORLD} "
+                     f"processes time-sliced on one card over gloo, not a "
+                     f"scale-out figure")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        np.savez(d / "seq.npz", **arrays)
+        cmds = [[sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--seq-mesh-rank", str(r), "--mesh-dir", str(d)]
+                for r in range(LM_MESH_WORLD)]
+        t0 = time.perf_counter()
+        try:
+            outs = mesh_lib.run_ranks(
+                cmds, timeout_s=SEQ_MESH_TIMEOUT_S, cwd=str(ROOT),
+                env=dict(os.environ,
+                         PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+        except (TimeoutError, mesh_lib.RankFailed) as e:
+            fail(f"phase 10 (e): {e}")
+        line["ranks_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        recs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(LM_MESH_WORLD)]
+    bad = _seq_checks(one, arrays, recs)
+
+    def serve_line(key, sv):
+        whole = one["f32_serve" if key == "serve" else key]
+        return dict(decode_ms_per_token=statistics.median(sv["ms"][1:]
+                                                          or sv["ms"]),
+                    collectives_per_token=sv["collectives"][-1],
+                    bytes_gathered_per_token=sv["gathered"][-1],
+                    bytes_reduced_per_token=sv["reduced"][-1],
+                    prefill_ms=sv["prefill_ms"],
+                    prefill_collectives=sv["prefill_collectives"],
+                    prefill_bytes_gathered=sv["prefill_gathered"],
+                    prefill_bytes_reduced=sv["prefill_reduced"],
+                    logits_max_abs_err=max(sv["err"]),
+                    peak_memory_bytes=sv["peak_memory_bytes"],
+                    resident_param_share=sv["resident_param_bytes"]
+                    / whole["resident_param_bytes"],
+                    resident_param_bytes=sv["resident_param_bytes"],
+                    slices_bytes=sv["slices_bytes"])
+
+    def train_line(tr):
+        return {k: v for k, v in tr.items() if k not in ("changed", "digest")}
+    line["ranks"] = [dict(
+        rank=rec["rank"], tiny=rec["tiny"], tiny_ms=rec["tiny_ms"],
+        **{k: serve_line(k, rec[k]) for k in ("f32_serve", "serve",
+                                           "zamba2_b1", "xlstm_b1")},
+        **{k: train_line(rec[k]) for k in ("f32_train", "train")})
+        for rec in recs]
+    line["checks"] = dict(
+        f32_logits_max_abs_err={k: max(max(rec[k]["err"]) for rec in recs)
+                                for k in ("f32_serve", "zamba2_b1",
+                                          "xlstm_b1")},
+        bf16_logits_max_abs_err=max(max(rec["serve"]["err"])
+                                    for rec in recs),
+        bf16_own_error=one["serve"]["bf16_error"],
+        f32_train_rel_err={k: max(abs(a - b) / abs(b) for rec in recs
+                                  for a, b in zip(rec["f32_train"][k],
+                                                  one["f32_train"][k]))
+                           for k in ("losses", "grad_norms")},
+        f32_next_loss_rel_err=max(
+            abs(rec["f32_train"]["next_loss"]
+                - one["f32_train"]["next_loss"])
+            / abs(one["f32_train"]["next_loss"]) for rec in recs),
+        kv_grad_err={w: max(max(rec[w]["kv_grad_err"].values())
+                            for rec in recs) for w in ("f32_train", "train")},
+        failed=bad)
+    line["phase_s"] = time.time() - t_phase
+    log(json.dumps({"seq_mesh": line}))
+    if bad:
+        fail("phase 10 (e): " + "; ".join(bad[:5]))
+    return line
+
+
 def profiled(fn):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
@@ -4181,6 +4685,8 @@ def main():
                     help=argparse.SUPPRESS)   # phase 10 (c)'s ranks
     ap.add_argument("--ssm-mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # phase 10 (d)'s ranks
+    ap.add_argument("--seq-mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 10 (e)'s ranks
     args = ap.parse_args()
     out_dir = args.out
     if not torch.cuda.is_available():
@@ -4194,6 +4700,8 @@ def main():
         return moe_mesh_rank(args.moe_mesh_rank, args.mesh_dir)
     if args.ssm_mesh_rank is not None:
         return ssm_mesh_rank(args.ssm_mesh_rank, args.mesh_dir)
+    if args.seq_mesh_rank is not None:
+        return seq_mesh_rank(args.seq_mesh_rank, args.mesh_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import pso
     from repro_torch.core.matcher import (IMMSchedMatcher,
@@ -4474,10 +4982,13 @@ def main():
     # on a (2, 2) mesh with qwen1.5-0.5b as published, then the MoE
     # family there (tiny, and deepseek-v2-236b at full width), then the
     # ssm, hybrid and encdec families (tiny, zamba2-7b and xlstm-1.3b at
-    # full width)
+    # full width), then sequence-sharded caches and batches (tiny,
+    # qwen2.5-3b's 2 KV heads on a model axis of 4, zamba2-7b and
+    # xlstm-1.3b at a batch of 1)
     detail["lm_mesh"] = lm_mesh_phase()
     detail["moe_mesh"] = moe_mesh_phase()
     detail["ssm_mesh"] = ssm_mesh_phase()
+    detail["seq_mesh"] = seq_mesh_phase()
 
     kern = []
     split_calls = detail["split_epoch"]["calls"]

@@ -13,6 +13,15 @@ every step, as the reference does. Both are written in place at
 causal mask. Dtypes follow the reference: the products at the compute
 dtype, logits and softmax in float32, probabilities cast back to the
 compute dtype before the product with V.
+
+On a mesh the step's ``runtime.mesh_ctx.SeqCut`` says where the
+sequences lie: queries cut over the batch axes attend to K/V (or MLA's
+latents) gathered over them; a cache cut on S (over the batch axes, or
+over the model axis where it does not divide the KV heads) or on Dh is
+written in this rank's range of it (``_write``) and, once it holds
+earlier positions, attended with the softmax combined over the cut
+(``_split_attention``, ``softmax_combine``), as the reference's
+flash-decode layout has GSPMD do.
 """
 from __future__ import annotations
 
@@ -25,9 +34,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import (RMSNorm, apply_mrope, apply_rope,
                                        dense_init)
-from repro_torch.runtime.mesh_ctx import (NOT_YET, constrain, enter_tensor,
-                                          gather_cache, own_slice,
-                                          row_parallel, tensor_axes, weight)
+from repro_torch.runtime.mesh_ctx import (NOT_YET, WHOLE, all_reduce,
+                                          constrain, current_cut,
+                                          enter_tensor, gather_cache,
+                                          gather_partial, own, own_slice,
+                                          row_parallel, seq_offset,
+                                          softmax_combine, tensor_axes,
+                                          weight)
 
 #: prefill query chunk: a query longer than this, and a multiple of it, is
 #: attended in chunks so that the (B, H, Sq, Skv) logits never exist whole
@@ -96,6 +109,55 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def _heads(k: torch.Tensor, v: torch.Tensor, part, groups: int):
+    """K/V of every KV head, on a model rank that keeps only its share
+    ``part`` of the query heads: repeated to the query heads, then this
+    rank's slice (as the reference's prefill repeats them and pins the
+    heads to the model axis); unchanged where ``part`` is None."""
+    if part is None:
+        return k, v
+    return (own_slice(t.repeat_interleave(groups, dim=2), 2, part)
+            for t in (k, v))
+
+
+def _split_attention(q, k, v, cd, *, causal: bool, q_pos: int, kv_ax,
+                     dh_ax, part, sq):
+    """Attention of ``q`` (B, Sq, H_loc, Dh: this rank's queries and
+    heads, the first of the sequence at global position ``q_pos``) over
+    K/V (B, S_loc, Hkv_c, Dh_c) cut on their sequence over
+    ``kv_ax`` and/or on Dh over ``dh_ax`` (a cache buffer, or the
+    encoder's memory cache): every query of the sequence (gathered over
+    ``sq``) and, where the KV heads are whole on each model rank
+    (``part``), every head; the logits of each rank's keys, summed over
+    ``dh_ax`` where Dh is cut; the softmax combined over ``kv_ax``
+    (``softmax_combine``); the output's Dh gathered; then this rank's
+    queries and heads again."""
+    B = q.shape[0]
+    q = gather_partial(gather_partial(q, 1, sq), 2, part)
+    Sq, H, Dh = q.shape[1:]
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = _as(Dh ** -0.5, cd)
+    q = own(q, -1, dh_ax)
+    qg = q.reshape(B, Sq, Hkv, g, -1).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, g * Sq, q.shape[-1])
+    kt = k.permute(0, 2, 3, 1)                             # (B, Hkv, d, S)
+    if dh_ax is None:
+        logits = torch.matmul(qg.to(cd), kt.to(cd)) * scale
+    else:     # partial dot products over Dh, at float32, rounded once
+        logits = all_reduce(qg.to(cd).float() @ kt.to(cd).float(),
+                            dh_ax).to(cd) * scale
+    if causal:
+        mask = common.causal_mask(Sq, S, q_pos - seq_offset(kv_ax, S),
+                                  device=q.device).repeat(g, 1)
+        logits = torch.where(mask, logits.float(), _MASKED)
+    out = softmax_combine(logits.float(), v.transpose(1, 2), kv_ax, cd)
+    out = gather_partial(out, -1, dh_ax)                  # (B, Hkv, g·Sq, Dh)
+    out = out.reshape(B, Hkv, g, Sq, Dh).permute(0, 3, 1, 2, 4).reshape(
+        B, Sq, H, Dh)
+    return own(own(out, 2, part), 1, sq)
+
+
 class GQA(nn.Module):
     """Grouped-query self-attention of one block. Weights at
     ``param_dtype``: ``wq`` (d, H·Dh), ``wk``/``wv`` (d, Hkv·Dh), ``wo``
@@ -105,7 +167,18 @@ class GQA(nn.Module):
     coordinate, H/t query and Hkv/t KV heads (column-parallel ``wq``,
     ``wk``, ``wv`` and biases, row-parallel ``wo`` with an all-reduce),
     and its FSDP slice of d, gathered at use; the head counts are read
-    off the local weights."""
+    off the local weights. Where the model axis does not divide the KV
+    heads, ``wk``/``wv``/``bk``/``bv`` are whole on each model rank,
+    which computes every KV head and keeps its query heads' share of
+    them: those four enter through ``enter_tensor``, so that their
+    gradient, a partial sum on each rank, is summed over the model axis.
+
+    The step's ``SeqCut`` says how the sequences lie: the queries' over
+    the batch axes (``seq``; K/V then gathered over them, backward
+    summed and sliced: ``gather_partial``), and the cache's S (``kv``)
+    and Dh (``kv_dh``). A cut cache is written in this rank's range of
+    it (``_write``); a fresh one is attended through the new K/V at its
+    dtype (what the buffer holds), a used one by ``_split_attention``."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -139,37 +212,38 @@ class GQA(nn.Module):
                 "wo": (H, Dh, d), "bq": (H, Dh), "bk": (Hkv, Dh),
                 "bv": (Hkv, Dh)}
 
-    def local_kv_heads(self) -> int:
-        """The KV heads this rank holds (all of them off a mesh)."""
-        return self.wk.shape[1] // self.cfg.resolved_head_dim
-
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: int = 0,
                 kv_source: Optional[torch.Tensor] = None,
-                causal: bool = True):
+                causal: bool = True, kv_seq=None):
         """x: (B, S, d) at the compute dtype; positions (B, S), or
-        (3, B, S) for M-RoPE. With a cache, K/V are written at
+        (3, B, S) for M-RoPE, global. With a cache, K/V are written at
         ``cache_index`` and the queries attend over the whole buffer.
         ``kv_source`` (cross-attention) gives K/V's input in place of x,
-        and then neither q nor k is rotated; ``causal=False`` attends to
-        every key. Returns (out, cache)."""
+        whole in its sequence, or cut on it over ``kv_seq`` (the encoder
+        memory's cache), and then neither q nor k is rotated;
+        ``causal=False`` attends to every key. Returns (out, cache)."""
         cfg = self.cfg
         B, S, _ = x.shape
         Dh = cfg.resolved_head_dim
+        cd = common.dt(cfg.compute_dtype)
+        cut = current_cut() or WHOLE
         tp = tensor_axes(self.wq)
+        part = tp if tensor_axes(self.wk) is None else None
         x = enter_tensor(x, tp)
         src = x if kv_source is None else enter_tensor(kv_source, tp)
         q = x @ weight(self.wq, x.dtype)
-        k = src @ weight(self.wk, x.dtype)
-        v = src @ weight(self.wv, x.dtype)
+        k = src @ enter_tensor(weight(self.wk, x.dtype), part)
+        v = src @ enter_tensor(weight(self.wv, x.dtype), part)
         if cfg.qkv_bias:
             q = q + self.bq.to(q.dtype)
-            k = k + self.bk.to(k.dtype)
-            v = v + self.bv.to(v.dtype)
+            k = k + enter_tensor(self.bk, part).to(k.dtype)
+            v = v + enter_tensor(self.bv, part).to(v.dtype)
         Skv = src.shape[1]
         q, k, v = (q.view(B, S, -1, Dh), k.view(B, Skv, -1, Dh),
                    v.view(B, Skv, -1, Dh))
+        groups = cfg.num_heads // cfg.kv_heads
         if kv_source is None:
             if cfg.mrope:
                 q = apply_mrope(q, positions, cfg.mrope_sections,
@@ -179,32 +253,61 @@ class GQA(nn.Module):
             else:
                 q = apply_rope(q, positions, cfg.rope_theta)
                 k = apply_rope(k, positions, cfg.rope_theta)
+            # this rank's queries against the whole sequence's keys
+            k, v = (gather_partial(t, 1, cut.seq) for t in (k, v))
+        off = seq_offset(cut.seq, S)          # of this rank's queries
 
-        offset = 0
-        if cache is not None:
+        def attend(k, v, q_pos):
+            kv_len = k.shape[1]
+            mask = (common.causal_mask(S, kv_len, q_pos, device=x.device)
+                    if causal else
+                    torch.ones((S, kv_len), dtype=torch.bool,
+                               device=x.device))
+            return _sdpa(q, *_heads(k, v, part, groups), mask, cd)
+
+        if kv_seq is not None:
+            out = _split_attention(q, k, v, cd, causal=False, q_pos=0,
+                                   kv_ax=kv_seq, dh_ax=None, part=part,
+                                   sq=cut.seq)
+        elif cache is None:
+            out = attend(k, v, off)
+        elif cut.kv is None and cut.kv_dh is None:
+            # the whole buffer on every rank
             _write(cache, {"k": k, "v": v}, cache_index)
-            k, v = cache["k"], cache["v"]
-            offset = cache_index
-        kv_len = k.shape[1]
-        mask = (common.causal_mask(S, kv_len, offset, device=x.device)
-                if causal else
-                torch.ones((S, kv_len), dtype=torch.bool, device=x.device))
-        out = _sdpa(q, k, v, mask, common.dt(cfg.compute_dtype))
+            out = attend(cache["k"], cache["v"], cache_index + off)
+        else:
+            _write(cache, {"k": own(k, -1, cut.kv_dh),
+                           "v": own(v, -1, cut.kv_dh)}, cache_index, cut.kv)
+            if cache_index == 0:
+                # a fresh buffer holds the new K/V at its dtype, then
+                # zeros (masked)
+                dtype = cache["k"].dtype
+                out = attend(k.to(dtype), v.to(dtype), off)
+            else:
+                out = _split_attention(q, cache["k"], cache["v"], cd,
+                                       causal=True, q_pos=cache_index,
+                                       kv_ax=cut.kv, dh_ax=cut.kv_dh,
+                                       part=part, sq=cut.seq)
         out = out.reshape(B, S, -1)
         return row_parallel(out, self.wo, tp).to(x.dtype), cache
 
 
 def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
-           cache_index: int) -> None:
+           cache_index: int, ax=None) -> None:
     """Write each (B, S, ...) entry of ``new`` into its (B, S_max, ...)
     buffer at ``cache_index``, at the buffer's dtype. The start clamps
     into the buffer, as the reference's dynamic_update_slice does; the
-    caller's mask keeps the true position."""
+    caller's mask keeps the true position. A buffer cut on S over ``ax``
+    is this rank's range of the global one: the clamp is the global
+    one, and the rank writes the positions that fall in its range."""
     for name, t in new.items():
         buf = cache[name]
-        S = t.shape[1]
-        at = max(0, min(cache_index, buf.shape[1] - S))
-        buf[:, at:at + S] = t.to(buf.dtype)
+        S, n = t.shape[1], buf.shape[1]
+        lo = seq_offset(ax, n)
+        at = max(0, min(cache_index, n * (1 if ax is None else ax.size) - S))
+        a, b = max(at, lo), min(at + S, lo + n)
+        if a < b:
+            buf[:, a - lo:b - lo] = t[:, a - at:b - at].to(buf.dtype)
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -264,29 +367,34 @@ class MLA(nn.Module):
         cuts the heads (None off a mesh or when they are whole)."""
         return tensor_axes(self.wk_b)
 
-    def local_latent_rank(self) -> int:
-        """The width of this rank's slice of the ``ckv`` cache."""
-        R, tp = self.cfg.mla.kv_lora_rank, self.latent_axes()
-        if tp is None:
-            return R
-        if R % tp.size:
+    def check_latent_cut(self, t: int) -> None:
+        """Raise ``NotImplementedError`` where a model axis of ``t``
+        divides the heads or the latent rank and not both: the rules
+        would cut the ``ckv`` cache on R unlike the heads."""
+        H, R = self.cfg.num_heads, self.cfg.mla.kv_lora_rank
+        if t > 1 and (H % t or R % t):
             raise NotImplementedError(
-                f"{self.cfg.name}: the latent rank {R} over a model axis "
-                f"of {tp.size} ({NOT_YET})")
-        return R // tp.size
+                f"{self.cfg.name}: MLA's {H} heads and latent rank {R} "
+                f"over a model axis of {t} ({NOT_YET})")
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_index: int = 0):
-        """x: (B, S, d) at the compute dtype; positions (B, S). With a
-        cache, the latents are written at ``cache_index`` (rounded to the
-        cache's dtype) and K/V are expanded from the whole buffer.
+        """x: (B, S, d) at the compute dtype; positions (B, S), global.
+        With a cache, the latents are written at ``cache_index`` (rounded
+        to the cache's dtype) and K/V are expanded from the whole buffer.
+        On a cut sequence (``SeqCut.seq``) the latents are gathered over
+        it (backward summed and sliced), and a cache cut on S
+        (``SeqCut.latent``) is written in this rank's range; a fresh one
+        is attended through the new latents at its dtype, a used one
+        with the softmax combined over the cut after the R gather.
         Returns (out, cache)."""
         cfg, m = self.cfg, self.cfg.mla
         cd = common.dt(cfg.compute_dtype)
         B, S, _ = x.shape
         nope, rope = m.nope_head_dim, m.rope_head_dim
         tp = self.latent_axes()
+        cut = current_cut() or WHOLE
 
         q_lat = self.q_norm(x @ weight(self.wq_a, x.dtype))
         q = enter_tensor(q_lat, tp) @ weight(self.wq_b, x.dtype).flatten(1)
@@ -296,17 +404,45 @@ class MLA(nn.Module):
         ckv = self.kv_norm(x @ weight(self.wkv_a, x.dtype))
         k_rope = apply_rope((x @ weight(self.wk_rope, x.dtype))[:, :, None, :],
                             positions, cfg.rope_theta)[:, :, 0, :]
+        # this rank's queries against the whole sequence's latents
+        ckv, k_rope = (gather_partial(t, 1, cut.seq) for t in (ckv, k_rope))
+        off = seq_offset(cut.seq, S)
 
-        offset = 0
-        if cache is not None:
-            mine = ckv if tp is None else own_slice(ckv, -1, tp)
-            _write(cache, {"ckv": mine, "k_rope": k_rope}, cache_index)
-            ckv = gather_cache(cache["ckv"], -1, tp)
-            k_rope = cache["k_rope"]
-            offset = cache_index
+        if cache is None:
+            out = self._attend(q_nope, q_rope, ckv, k_rope, off, cd)
+        else:
+            _write(cache, {"ckv": own(ckv, -1, tp), "k_rope": k_rope},
+                   cache_index, cut.latent)
+            if cut.latent is None:
+                out = self._attend(q_nope, q_rope,
+                                   gather_cache(cache["ckv"], -1, tp),
+                                   cache["k_rope"], cache_index + off, cd)
+            elif cache_index == 0:
+                dtype = cache["ckv"].dtype
+                out = self._attend(q_nope, q_rope, ckv.to(dtype),
+                                   k_rope.to(dtype), off, cd)
+            else:        # every query against this rank's positions
+                ax, n = cut.latent, cache["k_rope"].shape[1]
+                out = own(self._attend(
+                    gather_partial(q_nope, 1, cut.seq),
+                    gather_partial(q_rope, 1, cut.seq),
+                    gather_cache(cache["ckv"], -1, tp), cache["k_rope"],
+                    cache_index - seq_offset(ax, n), cd, ax), 1, cut.seq)
+        out = out.reshape(B, S, -1)
+        return row_parallel(out, self.wo, tp).to(x.dtype), cache
+
+    def _attend(self, q_nope, q_rope, ckv, k_rope, q_pos: int, cd,
+                ax=None) -> torch.Tensor:
+        """(B, S, H, v) attention of this rank's heads' queries, the
+        first at position ``q_pos`` relative to the first latent, over
+        the latents ``ckv`` (B, T, R) and ``k_rope`` (B, T, rope); with
+        ``ax`` the latents are cut on T over it (``softmax_combine``)."""
+        m = self.cfg.mla
+        nope, rope = m.nope_head_dim, m.rope_head_dim
+        tp = self.latent_axes()
+        B, S = q_nope.shape[:2]
         T = ckv.shape[1]
-        mask = common.causal_mask(S, T, offset, device=x.device)
-
+        mask = common.causal_mask(S, T, q_pos, device=ckv.device)
         # the latents expanded to per-head K_nope and V (not absorbed
         # into the queries: that form rounds differently)
         c = enter_tensor(ckv.to(cd), tp)
@@ -318,11 +454,9 @@ class MLA(nn.Module):
         logits = (q_nope.to(cd).transpose(1, 2) @ k_nope.permute(0, 2, 3, 1)
                   + q_rope.to(cd).transpose(1, 2)
                   @ kr.transpose(1, 2)[:, None]) * scale
-        logits = torch.where(mask, logits.float(), _MASKED)
-        probs = torch.softmax(logits, dim=-1).to(cd)      # (B, H, S, T)
-        out = (probs @ v.transpose(1, 2)).transpose(1, 2)  # (B, S, H, v)
-        out = out.reshape(B, S, -1)
-        return row_parallel(out, self.wo, tp).to(x.dtype), cache
+        logits = torch.where(mask, logits.float(), _MASKED)  # (B, H, S, T)
+        return softmax_combine(logits, v.transpose(1, 2), ax,
+                               cd).transpose(1, 2)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -43,6 +43,7 @@ checkpoint.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -58,9 +59,13 @@ from repro_torch.models import attention, common, ssm
 from repro_torch.models.common import RMSNorm, dense_init, embed_init
 from repro_torch.models.ffn import MLP
 from repro_torch.models.moe import MoE
-from repro_torch.runtime.mesh_ctx import (all_reduce, axes_of, enter_tensor,
-                                          gather_tensor, reduce_tensor,
-                                          shard_of, tensor_axes, weight)
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.mesh_ctx import (WHOLE, SeqCut, all_reduce, axes_of,
+                                          current_cut, enter_tensor,
+                                          gather_partial, gather_tensor, own,
+                                          reduce_tensor, seq_context,
+                                          seq_offset, shard_of, tensor_axes,
+                                          weight)
 
 CACHE_DTYPE = torch.bfloat16
 #: patch positions a ``vlm`` prompt starts with (the stub vision frontend)
@@ -89,7 +94,8 @@ def _save_products(ctx, func, *args, **kwargs):
 
 def _remat(cfg: ModelConfig, layer: nn.Module, *args):
     """``layer(*args)``, checkpointed as ``cfg.remat`` says when autograd
-    records (see the module's docstring)."""
+    records (see the module's docstring). The recompute, which runs in
+    the backward, runs under the ``SeqCut`` of the forward."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return layer(*args)
     if cfg.remat not in ("block", "full"):
@@ -99,8 +105,28 @@ def _remat(cfg: ModelConfig, layer: nn.Module, *args):
         kw["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts,
             _save_products)
-    return torch_checkpoint.checkpoint(layer, *args, use_reentrant=False,
+    cut = current_cut()
+
+    def run(*a):
+        with seq_context(cut):
+            return layer(*a)
+    return torch_checkpoint.checkpoint(run, *args, use_reentrant=False,
                                        **kw)
+
+
+def _with_seq(ax):
+    """The running ``SeqCut`` with the activations' sequence cut over
+    ``ax`` (nothing to set off a step on a mesh)."""
+    cut = current_cut()
+    return contextlib.nullcontext() if cut is None else \
+        seq_context(dataclasses.replace(cut, seq=ax))
+
+
+def _map_caches(fn, tree):
+    """``tree`` (nested dicts of tensors) with each leaf replaced by
+    ``fn(leaf name, leaf)``."""
+    return {k: _map_caches(fn, v) if isinstance(v, dict) else fn(k, v)
+            for k, v in tree.items()}
 
 
 class Block(nn.Module):
@@ -127,7 +153,13 @@ class Block(nn.Module):
 
 
 class PreNorm(nn.Module):
-    """x + core(ln x): a layer of the xlstm and hybrid stacks."""
+    """x + core(ln x): a layer of the xlstm and hybrid stacks. Its
+    recurrent core runs on the whole sequence: on a sequence cut over
+    the batch axes (``SeqCut.seq``) its input is gathered over them
+    (``gather_partial``: the backward sums the ranks' gradients, then
+    keeps this rank's slice) and each rank keeps its slice of the
+    output; the final state, the same on every rank, is the whole
+    sequence's, as the caches' layout (whole over those axes) wants."""
 
     def __init__(self, cfg: ModelConfig, core: nn.Module, device=None):
         super().__init__()
@@ -136,8 +168,9 @@ class PreNorm(nn.Module):
         self.core = core
 
     def forward(self, x, cache=None):
-        out, cache = self.core(self.ln(x), cache)
-        return x + out, cache
+        sq = (current_cut() or WHOLE).seq
+        out, cache = self.core(gather_partial(self.ln(x), 1, sq), cache)
+        return x + own(out, 1, sq), cache
 
 
 class LM(nn.Module):
@@ -203,26 +236,129 @@ class LM(nn.Module):
         return x.to(cd) @ (w.t() if self.lm_head is None else w)
 
     def train_logits(self, batch) -> torch.Tensor:
-        """The forward alone over the whole sequence → (B, S, V)."""
-        return self._head(self._run(batch, None, 0))
+        """The forward alone over the whole sequence → (B, S, V) (on a
+        mesh this rank's positions of it, where the sequence is cut)."""
+        with self._cut(batch):
+            return self._head(self._run(batch, None, 0))
+
+    def aligned_labels(self, batch) -> torch.Tensor:
+        """The labels that the last positions of ``train_logits``
+        score: ``batch["labels"]`` (a vlm on a cut sequence realigns
+        them)."""
+        return batch["labels"]
 
     @torch.inference_mode()
     def prefill(self, batch, max_len: int):
         """Fill fresh caches of ``max_len`` with the prompt → (logits of
         the last position (B, 1, V), caches)."""
-        caches = self.init_caches(batch["tokens"].shape[0], max_len)
-        x = self._run(batch, caches, 0)
-        return self._head(x[:, -1:]), caches
+        caches = self.init_caches(self._global_rows(batch), max_len)
+        with self._cut(batch, serving=True):
+            x = self._run(batch, caches, 0)
+            return self._head(self._last(x)), caches
 
     @torch.inference_mode()
     def decode(self, batch, caches, index: int):
         """One step at absolute position ``index``: the caches are
         written in place → (logits (B, S, V), caches)."""
-        x = self._run(batch, caches, int(index))
-        return self._head(x), caches
+        with self._cut(batch, serving=True):
+            x = self._run(batch, caches, int(index))
+            return self._head(x), caches
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    # -- caches and the sequence's cut on a mesh --------------------------
+
+    def cache_shapes(self, batch_size: int, max_len: int):
+        """The caches of a global batch of ``batch_size`` rows and
+        ``max_len`` positions, as tensors on ``meta`` (the reference's
+        ``init_caches`` shapes)."""
+        raise NotImplementedError
+
+    def init_caches(self, batch_size: int, max_len: int):
+        """Zero caches for a global batch of ``batch_size`` rows and
+        ``max_len`` positions. On a mesh each leaf is this rank's slice,
+        as ``infer_cache_specs`` cuts it (the batch, KV heads, latent
+        rank, recurrent heads and conv channels, and the sequence or Dh
+        where the rules cut them), and the model keeps the geometry
+        (``cache_geometry``) that its steps read the cut from."""
+        shapes = self.cache_shapes(batch_size, max_len)
+        layout = getattr(self, "layout", None)
+        if layout is not None:
+            t = 1 if layout.tp is None else layout.tp.size
+            for m in self.modules():
+                if isinstance(m, attention.MLA):
+                    m.check_latent_cut(t)
+            self.cache_geometry = (batch_size, max_len)
+
+        def zeros(name, t):
+            shape = tuple(t.shape)
+            if layout is not None:
+                spec = shd.spec_for_cache_leaf(name, shape, layout.mesh,
+                                               layout.profile)
+                shape = shd.local_shape(shape, spec, layout.mesh)
+            return torch.zeros(shape, dtype=t.dtype, device=self.device)
+        return _map_caches(zeros, shapes)
+
+    def _global_rows(self, batch) -> int:
+        """The global batch of a step's batch: its rows, times the batch
+        axes' ranks where they cut the rows."""
+        cut = current_cut()
+        layout = getattr(self, "layout", None)
+        rows = cut.rows if cut is not None else (
+            None if layout is None else layout.dp)
+        B = batch["tokens"].shape[0]
+        return B if rows is None else B * rows.size
+
+    def _x_cut(self, batch, cut: SeqCut):
+        """The batch axes, where they cut the activations' sequence."""
+        return cut.tokens
+
+    def _cache_cut(self) -> Dict:
+        """The ``SeqCut`` fields of the caches, from the rules on the
+        global shapes of the last ``init_caches``."""
+        layout, cfg = self.layout, self.cfg
+        if getattr(self, "cache_geometry", None) is None:
+            raise ValueError("a serve step on a mesh takes caches made by "
+                             "this model (prefill or init_caches)")
+        B, L = self.cache_geometry
+        sizes = shd.mesh_shape(layout.mesh)
+
+        def axes(name, shape, dim):
+            e = shd.spec_for_cache_leaf(name, shape, layout.mesh,
+                                        layout.profile)[dim]
+            return None if e is None or shd.axes_size(sizes, e) == 1 \
+                else axes_of(layout.mesh, e)
+        kv = (B, L, cfg.kv_heads, cfg.resolved_head_dim)
+        out = {"kv": axes("k", kv, 1), "kv_dh": axes("k", kv, 3),
+               "memory": axes("memory", (B, L, cfg.d_model), 1)}
+        if cfg.mla is not None:
+            out["latent"] = axes("ckv", (B, L, cfg.mla.kv_lora_rank), 1)
+        return out
+
+    def _cut(self, batch, serving: bool = False):
+        """The context a step's forward runs in on a mesh: the step's
+        ``SeqCut`` (rows cut, by default), the activations' sequence cut
+        and, serving, the caches'."""
+        layout = getattr(self, "layout", None)
+        if layout is None:
+            return contextlib.nullcontext()
+        cut = current_cut() or SeqCut(rows=layout.dp)
+        cut = dataclasses.replace(cut, seq=self._x_cut(batch, cut))
+        if serving:
+            cut = dataclasses.replace(cut, **self._cache_cut())
+            if self._global_rows(batch) != self.cache_geometry[0]:
+                raise ValueError(
+                    f"a batch of {self._global_rows(batch)} rows on "
+                    f"caches of {self.cache_geometry[0]}: give the step "
+                    f"the batch's specs (runtime.shard.shard_batch)")
+        return seq_context(cut)
+
+    def _last(self, x: torch.Tensor) -> torch.Tensor:
+        """The last position of the sequence (B, 1, d): the last rank's
+        where the batch axes cut it."""
+        return gather_partial(x[:, -1:], 1,
+                              (current_cut() or WHOLE).seq)[:, -1:]
 
 
 # ---------------------------------------------------------------------------
@@ -248,25 +384,62 @@ class DecoderOnly(LM):
             (cfg.d_model, cfg.d_model), common.dt(cfg.param_dtype), **kw)) \
             if cfg.frontend == "vision" else None
 
+    def _vision(self, batch) -> bool:
+        return self.patch_proj is not None and "patches" in batch
+
+    def _x_cut(self, batch, cut: SeqCut):
+        """A vlm's activations are the patches, then the tokens: where
+        the batch axes cut either's sequence, they cut the whole one's
+        when they divide it, else it is whole on every rank."""
+        dp = cut.tokens or cut.patches
+        if not self._vision(batch) or dp is None:
+            return cut.tokens
+        total = sum(batch[k].shape[1] * (1 if c is None else c.size)
+                    for k, c in (("tokens", cut.tokens),
+                                 ("patches", cut.patches)))
+        return dp if total % dp.size == 0 else None
+
     def _assemble_x(self, batch) -> torch.Tensor:
         x = self._embed(batch["tokens"])
-        if self.patch_proj is not None and "patches" in batch:
+        if self._vision(batch):
             cd = common.dt(self.cfg.compute_dtype)
             pe = batch["patches"].to(cd) @ weight(self.patch_proj, cd)
             # on a mesh the projection's output width is cut over the
             # model axis; the sequence needs it whole
             pe = gather_tensor(pe, -1, tensor_axes(self.patch_proj))
-            x = torch.cat([pe, x], dim=1)
+            cut = current_cut() or WHOLE
+            # a cut sequence: the global order, then this rank's slice
+            x = torch.cat([gather_partial(pe, 1, cut.patches),
+                           gather_partial(x, 1, cut.tokens)], dim=1)
+            x = own(x, 1, cut.seq)
         return x
 
+    def aligned_labels(self, batch) -> torch.Tensor:
+        """A vlm's labels on a cut sequence: gathered, after a −1 a
+        patch, then cut as its activations are."""
+        labels = batch["labels"]
+        cut = current_cut()
+        if cut is None or not self._vision(batch) or (
+                cut.tokens is None and cut.patches is None):
+            return labels
+        P = batch["patches"].shape[1] * (1 if cut.patches is None
+                                         else cut.patches.size)
+        full = gather_partial(labels, 1, cut.tokens)
+        full = torch.cat([full.new_full((full.shape[0], P), -1), full], 1)
+        return own(full, 1, self._x_cut(batch, cut))
+
     def _positions(self, batch, B: int, S: int, cache_index: int):
+        sq = (current_cut() or WHOLE).seq
+        off = seq_offset(sq, S)
         if self.cfg.mrope:
             pos = batch.get("positions3")
             if pos is None:   # the reference's default: 0..S-1, no offset
-                pos = common.positions_for(B, S, device=self.device)[None]
-                pos = pos.expand(3, B, S)
-            return pos
-        return common.positions_for(B, S, cache_index, device=self.device)
+                pos = common.positions_for(B, S, off, device=self.device)
+                return pos[None].expand(3, B, S)
+            # whole over the batch axes where they do not cut the rows
+            return own(pos, 2, sq)
+        return common.positions_for(B, S, cache_index + off,
+                                    device=self.device)
 
     def _run(self, batch, caches, cache_index: int):
         x = self._assemble_x(batch)
@@ -283,19 +456,11 @@ class DecoderOnly(LM):
                              cache_index)
         return x
 
-    def init_caches(self, batch_size: int, max_len: int):
-        """Zero caches; on a mesh ``batch_size`` is this rank's rows, the
-        KV heads are its own and MLA's latent ``ckv`` is its R-slice."""
-        cfg, attn = self.cfg, self.blocks[0].attn
-        if cfg.mla is None:
-            init = attention.init_gqa_cache
-            cfg = cfg.replace(kv_heads=attn.local_kv_heads())
-        else:
-            init = attention.init_mla_cache
-            cfg = cfg.replace(mla=dataclasses.replace(
-                cfg.mla, kv_lora_rank=attn.local_latent_rank()))
-        proto = init(cfg, batch_size, max_len, CACHE_DTYPE,
-                     device=self.device)
+    def cache_shapes(self, batch_size: int, max_len: int):
+        init = attention.init_gqa_cache if self.cfg.mla is None else \
+            attention.init_mla_cache
+        proto = init(self.cfg, batch_size, max_len, CACHE_DTYPE,
+                     device="meta")
         caches = {"blocks": _stacked(proto, len(self.blocks))}
         if self.block0 is not None:
             caches["block0"] = _stacked(proto, 1)
@@ -336,15 +501,11 @@ class XLSTM(LM):
                                  _layer(caches["slstm"], g))
         return x
 
-    def init_caches(self, batch_size: int, max_len: int):
-        """Zero caches; on a mesh ``batch_size`` is this rank's rows and
-        the mLSTM caches its slices (the sLSTM's are whole over the
-        model axis)."""
+    def cache_shapes(self, batch_size: int, max_len: int):
         groups, per_group = len(self.mlstm), self.cfg.ssm.slstm_period - 1
-        mc = ssm.init_mlstm_cache(
-            self.cfg, batch_size, CACHE_DTYPE, device=self.device,
-            tp=tensor_axes(self.mlstm[0][0].core.down_proj))
-        sc = ssm.init_slstm_cache(self.cfg, batch_size, device=self.device)
+        mc = ssm.init_mlstm_cache(self.cfg, batch_size, CACHE_DTYPE,
+                                  device="meta")
+        sc = ssm.init_slstm_cache(self.cfg, batch_size, device="meta")
         return {"mlstm": _stacked(mc, groups, per_group),
                 "slstm": _stacked(sc, groups)}
 
@@ -379,8 +540,9 @@ class Hybrid(LM):
     def _run(self, batch, caches, cache_index: int):
         x = self._embed(batch["tokens"])
         B, S = batch["tokens"].shape
-        positions = common.positions_for(B, S, cache_index,
-                                         device=self.device)
+        positions = common.positions_for(
+            B, S, cache_index + seq_offset((current_cut() or WHOLE).seq, S),
+            device=self.device)
         for g, group in enumerate(self.mamba):
             for j, block in enumerate(group):
                 x, _ = (_remat(self.cfg, block, x) if caches is None else
@@ -393,19 +555,12 @@ class Hybrid(LM):
                     block(x, _layer(caches["tail"], j)))
         return x
 
-    def init_caches(self, batch_size: int, max_len: int):
-        """Zero caches; on a mesh ``batch_size`` is this rank's rows, the
-        Mamba2 caches its heads' and channels' slices and the shared
-        attention's its KV heads."""
+    def cache_shapes(self, batch_size: int, max_len: int):
         groups, period = len(self.mamba), self.cfg.ssm.shared_attn_period
-        first = (self.mamba[0] if groups else self.mamba_tail)[0].core
         mc = ssm.init_mamba2_cache(self.cfg, batch_size, CACHE_DTYPE,
-                                   device=self.device,
-                                   tp=tensor_axes(first.out_proj))
-        attn = self.shared_attn.attn
-        ac = attention.init_gqa_cache(
-            self.cfg.replace(kv_heads=attn.local_kv_heads()), batch_size,
-            max_len, CACHE_DTYPE, device=self.device)
+                                   device="meta")
+        ac = attention.init_gqa_cache(self.cfg, batch_size, max_len,
+                                      CACHE_DTYPE, device="meta")
         caches = {"groups": {"mamba": _stacked(mc, groups, period),
                              "attn": _stacked(ac, groups)}}
         if len(self.mamba_tail):
@@ -437,14 +592,14 @@ class EncDecBlock(nn.Module):
         self.cross = attention.GQA(cfg, **kw) if cross else None
 
     def forward(self, x, positions, memory=None, cache=None,
-                cache_index: int = 0):
+                cache_index: int = 0, memory_seq=None):
         decoder = self.cross is not None
         a, cache = self.attn(self.ln1(x), positions, cache, cache_index,
                              causal=decoder)
         x = x + a
         if decoder:
             c, _ = self.cross(self.ln_x(x), positions, kv_source=memory,
-                              causal=False)
+                              causal=False, kv_seq=memory_seq)
             x = x + c
         return x + self.ffn(self.ln2(x)), cache
 
@@ -456,7 +611,10 @@ class EncDec(LM):
     unpadded memory and decode to the whole zero-padded buffer. On a
     mesh ``frame_proj``'s output columns are cut over the model axis and
     gathered whole for the encoder (``gather_tensor``), and the memory
-    cache is this rank's batch rows, whole over the model axis."""
+    cache is this rank's batch rows, whole over the model axis. Where
+    the batch axes cut the frames' sequence, the encoder runs on its
+    cut and its output is gathered for the decoder; the memory cache
+    cut on S is attended with the softmax combined over the cut."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -470,59 +628,67 @@ class EncDec(LM):
                                  for _ in range(cfg.num_layers))
 
     def _encode(self, batch) -> torch.Tensor:
+        """The encoder's output, whole in its sequence."""
         cd = common.dt(self.cfg.compute_dtype)
         x = batch["frames"].to(cd) @ weight(self.frame_proj, cd)
         # on a mesh the projection's output width is cut over the model
         # axis; the encoder needs it whole
         x = gather_tensor(x, -1, tensor_axes(self.frame_proj))
-        positions = common.positions_for(*x.shape[:2], device=self.device)
-        for block in self.enc:
-            x, _ = _remat(self.cfg, block, x, positions)
-        return x
+        frames = (current_cut() or WHOLE).frames
+        B, F = x.shape[:2]
+        with _with_seq(frames):
+            positions = common.positions_for(B, F, seq_offset(frames, F),
+                                             device=self.device)
+            for block in self.enc:
+                x, _ = _remat(self.cfg, block, x, positions)
+        return gather_partial(x, 1, frames)
 
-    def _decode_stack(self, tokens, memory, caches, cache_index: int):
+    def _decode_stack(self, tokens, memory, caches, cache_index: int,
+                      memory_seq=None):
         x = self._embed(tokens)
-        positions = common.positions_for(*tokens.shape, cache_index,
-                                         device=self.device)
+        B, S = tokens.shape
+        positions = common.positions_for(
+            B, S, cache_index + seq_offset((current_cut() or WHOLE).seq, S),
+            device=self.device)
         for l, block in enumerate(self.dec):
             if caches is None:
                 x, _ = _remat(self.cfg, block, x, positions, memory)
             else:
                 x, _ = block(x, positions, memory, _layer(caches, l),
-                             cache_index)
+                             cache_index, memory_seq)
         return x
 
     def _run(self, batch, caches, cache_index: int):
         return self._decode_stack(batch["tokens"], self._encode(batch),
                                   None, 0)
 
-    def init_caches(self, batch_size: int, max_len: int):
-        """Zero caches; on a mesh ``batch_size`` is this rank's rows, the
-        self-attention's KV heads its own and the memory whole over the
-        model axis."""
-        cfg = self.cfg.replace(kv_heads=self.dec[0].attn.local_kv_heads())
-        proto = attention.init_gqa_cache(cfg, batch_size, max_len,
-                                         CACHE_DTYPE, device=self.device)
+    def cache_shapes(self, batch_size: int, max_len: int):
+        proto = attention.init_gqa_cache(self.cfg, batch_size, max_len,
+                                         CACHE_DTYPE, device="meta")
         return {"self": _stacked(proto, len(self.dec)),
                 "memory": torch.zeros((batch_size, max_len,
                                        self.cfg.d_model), dtype=CACHE_DTYPE,
-                                      device=self.device)}
+                                      device="meta")}
 
     @torch.inference_mode()
     def prefill(self, batch, max_len: int):
-        memory = self._encode(batch)
-        caches = self.init_caches(batch["tokens"].shape[0], max_len)
-        kept = memory[:, :max_len]
-        caches["memory"][:, :kept.shape[1]] = kept.to(CACHE_DTYPE)
-        x = self._decode_stack(batch["tokens"], memory, caches["self"], 0)
-        return self._head(x[:, -1:]), caches
+        caches = self.init_caches(self._global_rows(batch), max_len)
+        with self._cut(batch, serving=True):
+            memory = self._encode(batch)
+            attention._write(caches, {"memory": memory[:, :max_len]}, 0,
+                             (current_cut() or WHOLE).memory)
+            x = self._decode_stack(batch["tokens"], memory, caches["self"],
+                                   0)
+            return self._head(self._last(x)), caches
 
     @torch.inference_mode()
     def decode(self, batch, caches, index: int):
-        memory = caches["memory"].to(common.dt(self.cfg.compute_dtype))
-        x = self._decode_stack(batch["tokens"], memory, caches["self"],
-                               int(index))
-        return self._head(x), caches
+        with self._cut(batch, serving=True):
+            memory = caches["memory"].to(common.dt(self.cfg.compute_dtype))
+            x = self._decode_stack(batch["tokens"], memory, caches["self"],
+                                   int(index),
+                                   (current_cut() or WHOLE).memory)
+            return self._head(x), caches
 
 
 # ---------------------------------------------------------------------------

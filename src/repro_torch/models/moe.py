@@ -18,15 +18,19 @@ On a mesh (``runtime.shard.shard_model``: the experts' E over the model
 axis, their d over the FSDP axes, the router's d over the FSDP axes) the
 layer keeps the reference's global semantics, which its ``jit`` gets from
 seeing every token: the capacity is taken over the global token count,
-and the slots number the assignments in global token order, which is
-data-rank-major (the batch rows are cut in contiguous blocks). Each rank:
+and the slots number the assignments in global token order, b·S + s:
+data-rank-major where the batch rows are cut in contiguous blocks, and
+row-major, then rank-major within a row, where the batch axes cut the
+sequence (a batch they do not divide; ``SeqCut``); a batch whole on
+every rank is counted as it is. Each rank:
 
   * routes its own tokens, whole on every model rank (replicated
     compute, outside ``enter_tensor``: its input gradient is not summed
     over the model axis);
-  * all-gathers its per-expert assignment counts over the batch axes and
-    offsets its one-hot cumsum by the earlier data ranks' counts, so that
-    each slot, ``keep`` and the drop count are the one device's;
+  * all-gathers its per-expert assignment counts (a row's, on a cut
+    sequence) over the batch axes and offsets its one-hot cumsum by the
+    counts of the assignments before its own, so that each slot,
+    ``keep`` and the drop count are the one device's;
   * scatters its kept assignments to the experts it owns into an (E/t,
     C, d) buffer at their global slots (the other data ranks' rows stay
     zero; the SwiGLU is row-wise, so each row's product is the one
@@ -49,13 +53,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.launch.mesh import MeshAxes
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
 from repro_torch.models.ffn import MLP
-from repro_torch.runtime.mesh_ctx import (all_gather, constrain,
-                                          enter_tensor, reduce_tensor,
-                                          tensor_axes, weight)
+from repro_torch.runtime.mesh_ctx import (WHOLE, all_gather, constrain,
+                                          current_cut, enter_tensor,
+                                          reduce_tensor, tensor_axes, weight)
 
 
 def _capacity(tokens: int, m: MoEConfig) -> int:
@@ -82,9 +85,8 @@ class MoE(nn.Module):
     and the optional ``shared`` and ``dense_residual`` MLPs.
     ``last_dropped`` is the number of assignments the last call dropped
     for want of capacity (a 0-dim tensor on the device, so that reading
-    it is the caller's sync), the global batch's on a mesh.
-    ``batch_axes`` are the mesh's batch axes (``launch.mesh.MeshAxes``),
-    set by ``runtime.shard.shard_model``; None off a mesh."""
+    it is the caller's sync), the global batch's on a mesh (the step's
+    ``SeqCut`` says how the batch lies on the batch axes)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -105,7 +107,6 @@ class MoE(nn.Module):
         self.dense_residual = MLP(d, m.dense_residual_d_ff, dtype, cd, **kw) \
             if m.dense_residual_d_ff else None
         self.last_dropped: Optional[torch.Tensor] = None
-        self.batch_axes: Optional[MeshAxes] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, S, d) → (B, S, d) at x's dtype (on a mesh, this rank's
@@ -125,17 +126,31 @@ class MoE(nn.Module):
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
 
         # each assignment's slot in its expert's buffer: a one-hot cumsum
-        # in global token order (the earlier data ranks' counts first)
+        # in global token order, b·S + s
         e_flat = top_e.reshape(-1)                            # (T·k,)
         onehot = F.one_hot(e_flat, E)
         pos = onehot.cumsum(0) - 1                            # (T·k, E)
         counts = onehot.sum(0)                                # (E,)
-        dp = self.batch_axes
-        if dp is not None and dp.size > 1:
-            every = all_gather(counts[None], 0, dp)           # (ranks, E)
-            pos = pos + every[:dp.index].sum(0)
+        cut = current_cut() or WHOLE
+        rows, seq = cut.rows, cut.seq
+        if rows is not None and rows.size > 1:
+            # rows cut: the earlier data ranks' counts first
+            every = all_gather(counts[None], 0, rows)         # (ranks, E)
+            pos = pos + every[:rows.index].sum(0)
             counts = every.sum(0)
-            T *= dp.size
+            T *= rows.size
+        elif seq is not None:
+            # the sequence cut: within each row, the earlier ranks'
+            # counts; before them, the earlier rows' on every rank
+            rowwise = onehot.view(B, S * k, E)
+            pos = rowwise.cumsum(1) - 1                       # (B, S·k, E)
+            every = all_gather(rowwise.sum(1)[None], 0, seq)  # (ranks, B, E)
+            per_row = every.sum(0)                            # (B, E)
+            pos = pos + (per_row.cumsum(0) - per_row
+                         + every[:seq.index].sum(0))[:, None]
+            pos = pos.view(T * k, E)
+            counts = per_row.sum(0)
+            T *= seq.size
         C = _capacity(T, m)
         pos_flat = pos.gather(1, e_flat[:, None])[:, 0]
         keep = pos_flat < C                                   # overflow drops

@@ -241,19 +241,15 @@ class Mamba2(nn.Module):
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-                      device=None, tp=None) -> Cache:
-    """Zero caches; with ``tp`` (the model axis that cuts the heads) this
-    rank's slices: C/t conv channels, H/t heads of the state."""
+                      device=None) -> Cache:
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     H = cfg.num_heads
-    t = 1 if tp is None else tp.size
     return {
-        "conv": torch.zeros((batch, s.conv_dim - 1,
-                             (d_in + 2 * s.state_dim) // t),
+        "conv": torch.zeros((batch, s.conv_dim - 1, d_in + 2 * s.state_dim),
                             dtype=common.dt(cfg.compute_dtype),
                             device=device),
-        "state": torch.zeros((batch, H // t, s.state_dim, d_in // H),
+        "state": torch.zeros((batch, H, s.state_dim, d_in // H),
                              dtype=dtype, device=device),
     }
 
@@ -363,22 +359,15 @@ def mlstm_state_cut(cfg: ModelConfig, tp) -> Optional[str]:
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-                     device=None, tp=None) -> Cache:
-    """Zero caches; with ``tp`` (the model axis that cuts d_in) this
-    rank's slices: d_in/t conv channels, the state's heads or Dk cut as
-    ``mlstm_state_cut`` says."""
+                     device=None) -> Cache:
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
-    H = cfg.num_heads
-    Dh = d_in // H
-    t = 1 if tp is None else tp.size
-    cut = mlstm_state_cut(cfg, tp)
+    Dh = d_in // cfg.num_heads
     return {
-        "conv": torch.zeros((batch, s.conv_dim - 1, d_in // t),
+        "conv": torch.zeros((batch, s.conv_dim - 1, d_in),
                             dtype=common.dt(cfg.compute_dtype),
                             device=device),
-        "state": torch.zeros((batch, H // t if cut == "heads" else H,
-                              Dh // t if cut == "dk" else Dh, Dh + 1),
+        "state": torch.zeros((batch, cfg.num_heads, Dh, Dh + 1),
                              dtype=dtype, device=device),
     }
 

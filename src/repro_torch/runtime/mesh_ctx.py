@@ -42,6 +42,14 @@ reading its parameters' ``shard`` (``ParamShard``, set by
     width the model axis cuts, ``models.common.RMSNorm``): all-reduce
     forward and backward.
 
+A step whose batch the batch axes do not divide, or whose caches the
+rules cut on their sequence, says so in a ``SeqCut`` (``seq_context``;
+``current_cut``): each field names the axes that cut one sequence, and
+the layers read it. ``seq_offset`` is a cut sequence's first global
+position on this rank, and ``softmax_combine`` the attention over keys
+cut on their sequence (flash-decode: the row maxima and the sums of
+exponentials all-reduced, the partial outputs summed in float32).
+
 ``traffic`` counts the bytes these move (``gathered``: all-gathers,
 ``reduced``: all-reduces; ``cache_gathered``: the part of ``gathered``
 that MLA's latent caches, cut over the model axis, gather at each decode
@@ -71,16 +79,70 @@ def current_mesh():
     return getattr(_STATE, "mesh", None)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqCut:
+    """Where a step's rows and sequences lie on the mesh (None: whole on
+    every rank of the axes). The step sets the batch's part
+    (``runtime.shard.seq_cut``), the model the rest (``models.model``):
+
+      * ``rows``: the batch axes, when they cut the batch's rows (the
+        global token order is rank-major);
+      * ``tokens``, ``patches``, ``frames``: the batch axes, when they
+        cut that batch leaf's sequence (a batch they do not divide: its
+        sequence is cut, context parallelism); ``seq``: when they cut
+        the sequence of the activations a layer is given;
+      * ``kv`` / ``kv_dh``: the axes that cut a GQA cache's S (the batch
+        axes at a batch they do not divide, or the model axis where it
+        does not divide the KV heads: flash-decode) and its Dh (the
+        model axis, where neither can take S); ``latent``: MLA's
+        ``ckv`` / ``k_rope`` S; ``memory``: the encoder memory's S."""
+    rows: Optional[MeshAxes] = None
+    tokens: Optional[MeshAxes] = None
+    patches: Optional[MeshAxes] = None
+    frames: Optional[MeshAxes] = None
+    seq: Optional[MeshAxes] = None
+    kv: Optional[MeshAxes] = None
+    kv_dh: Optional[MeshAxes] = None
+    latent: Optional[MeshAxes] = None
+    memory: Optional[MeshAxes] = None
+
+
+#: the cut off a mesh: everything whole
+WHOLE = SeqCut()
+
+
+def current_cut() -> Optional[SeqCut]:
+    """The running step's ``SeqCut``; None outside a step on a mesh."""
+    return getattr(_STATE, "cut", None)
+
+
+@contextlib.contextmanager
+def seq_context(cut: Optional[SeqCut]):
+    prev = current_cut()
+    _STATE.cut = cut
+    try:
+        yield
+    finally:
+        _STATE.cut = prev
+
+
+def seq_offset(ax: Optional[MeshAxes], n: int) -> int:
+    """The first global position of this rank's ``n`` positions of a
+    sequence cut over ``ax`` (0 when whole)."""
+    return 0 if ax is None else ax.index * n
+
+
 def current_profile() -> str:
     return getattr(_STATE, "profile", "2d")
 
 
 @contextlib.contextmanager
-def mesh_context(mesh, profile: str = "2d"):
+def mesh_context(mesh, profile: str = "2d", cut: Optional[SeqCut] = None):
     prev, prev_p = current_mesh(), current_profile()
     _STATE.mesh, _STATE.profile = mesh, profile
     try:
-        yield
+        with seq_context(cut):
+            yield
     finally:
         _STATE.mesh, _STATE.profile = prev, prev_p
 
@@ -297,9 +359,10 @@ def _reduce(y: torch.Tensor, ax: MeshAxes) -> torch.Tensor:
 
 def weight(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``p`` at ``dtype``, whole along its FSDP dim (all-gathered when a
-    mesh shards it; the model axis's cut stays)."""
+    mesh shards it over more than one rank; the model axis's cut
+    stays)."""
     s = shard_of(p)
-    if s is None or s.fsdp is None:
+    if s is None or s.fsdp is None or s.fsdp.size == 1:
         return p.to(dtype)
     return _GatherWeight.apply(p, dtype, s.fsdp_dim, s.fsdp)
 
@@ -343,6 +406,26 @@ def reduce_shared(y: torch.Tensor, ax: Optional[MeshAxes]) -> torch.Tensor:
 def own(x: torch.Tensor, dim: int, ax: Optional[MeshAxes]) -> torch.Tensor:
     """``own_slice``, or ``x`` when ``ax`` is None."""
     return x if ax is None else own_slice(x, dim, ax)
+
+
+def softmax_combine(logits: torch.Tensor, v: torch.Tensor,
+                    ax: Optional[MeshAxes], dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """``softmax(logits) @ v`` at ``dtype``: ``logits`` (..., q, k)
+    float32 and masked, ``v`` (..., k, d). The probabilities are cast to
+    ``dtype`` before the product, as the reference casts them. With
+    ``ax`` the keys are cut over it (this rank's slice of them in both):
+    the row maxima all-reduced (MAX), the float32 sums of exp(l − m)
+    all-reduced (SUM), each rank's product with its V at float32 summed
+    over ``ax`` and rounded once; each probability is the one device's
+    up to the order of one sum."""
+    if ax is None:
+        return torch.softmax(logits, dim=-1).to(dtype) @ v.to(dtype)
+    m = all_reduce(logits.amax(-1, keepdim=True), ax, dist.ReduceOp.MAX)
+    e = torch.exp(logits - m)
+    s = all_reduce(e.sum(-1, keepdim=True), ax)
+    probs = (e / s).to(dtype)
+    return all_reduce(probs.float() @ v.to(dtype).float(), ax).to(dtype)
 
 
 def gather_cache(x: torch.Tensor, dim: int,

@@ -18,13 +18,17 @@ they need (``runtime.mesh_ctx``).
     (the routed experts on the model axis, MLA's heads on it and its
     latent cache cut on R), ``ssm`` (xLSTM), ``hybrid`` (Zamba2's Mamba2
     blocks and shared attention) and ``encdec``/``audio`` (the
-    recurrent blocks' layouts in ``models.ssm``). Layouts that need a
-    sequence-sharded batch or cache (batch 1, KV heads that the model
-    axis does not divide) raise ``NotImplementedError`` (ROADMAP Queue
-    1, 10d), never run replicated.
+    recurrent blocks' layouts in ``models.ssm``), with KV heads that the
+    model axis does not divide (``models.attention.GQA``) and batches
+    that the batch axes do not divide (their sequence cut, or whole on
+    every rank: ``seq_cut``). MLA whose heads or latent rank the model
+    axis does not divide and a Mamba2 state cut on N raise
+    ``NotImplementedError`` (ROADMAP Queue 1, 10d), never run
+    replicated.
   * ``shard_batch``, ``slice_state`` and ``gather_state`` carry inputs
     and state between the global (reference) tree and a rank's slices
     (``abstract_state`` gives the global shapes the specs resolve on);
+    a ``LocalBatch`` carries its global specs to the steps;
     ``load_train_state`` takes the slices, from ``slice_state`` or from
     ``CheckpointManager.restore(shardings=placements(state_specs(...)))``.
 """
@@ -37,14 +41,13 @@ import torch
 from torch import nn
 
 from repro_torch.models import ssm
-from repro_torch.models.attention import GQA, MLA
+from repro_torch.models.attention import MLA
 from repro_torch.models.model import (LM, RefLeaf, build_model, nest,
                                       ref_leaves)
-from repro_torch.models.moe import MoE
 from repro_torch.optim import get_optimizer
 from repro_torch.runtime import sharding as shd
-from repro_torch.runtime.mesh_ctx import (NOT_YET, ParamShard, all_gather,
-                                          axes_of)
+from repro_torch.runtime.mesh_ctx import (NOT_YET, ParamShard, SeqCut,
+                                          all_gather, axes_of)
 
 #: families whose layers run sharded
 SHARDED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec",
@@ -131,11 +134,10 @@ def _cuts(module: nn.Module, *names: str) -> set:
 def _check_consistent(model: LM) -> None:
     """Raise for a layout this slice does not run, walking every
     attention and recurrent module (the hybrid's shared attention, the
-    encoder's and decoder's self- and cross-attention included): KV
-    heads that the model axis does not divide while the query heads are
-    cut; MLA's up projections cut unlike its query heads (MLA has no KV
-    heads of its own: its K and V heads are the query heads, cut by
-    ``wk_b`` / ``wv_b`` as ``wq_b`` and ``wo`` are); a recurrent block
+    encoder's and decoder's self- and cross-attention included): MLA's
+    up projections cut unlike its query heads (MLA has no KV heads of
+    its own: its K and V heads are the query heads, cut by ``wk_b`` /
+    ``wv_b`` as ``wq_b`` and ``wo`` are); a recurrent block
     whose projections the rules cut unlike each other, or Mamba2 heads
     that the model axis does not divide (its state would be cut on N)."""
     name = model.cfg.name
@@ -145,13 +147,6 @@ def _check_consistent(model: LM) -> None:
                 raise NotImplementedError(
                     f"{name}: MLA's up projections cut unlike its query "
                     f"heads ({NOT_YET})")
-        elif isinstance(m, GQA):
-            if _cuts(m, "wq") != _cuts(m, "wk"):
-                raise NotImplementedError(
-                    f"{name}: {model.cfg.kv_heads} KV heads on a model "
-                    f"axis that cuts the {model.cfg.num_heads} query heads "
-                    f"(the reference's sequence-sharded fallback, "
-                    f"{NOT_YET})")
         elif isinstance(m, (ssm.Mamba2, ssm.MLSTM, ssm.SLSTM)):
             names = {ssm.Mamba2: ("in_proj", "conv_w", "conv_b",
                                   "out_proj"),
@@ -225,9 +220,6 @@ def shard_model(model: LM, mesh, profile: str = "2d") -> LM:
                 global_shape=leaf.shape, spec=spec, mesh=mesh))
     model.layout = Layout(mesh, profile, leaves)
     _check_consistent(model)
-    for module in model.modules():
-        if isinstance(module, MoE):
-            module.batch_axes = model.layout.dp
     return model
 
 
@@ -263,37 +255,103 @@ def resident_bytes(tree) -> int:
 # inputs
 # ---------------------------------------------------------------------------
 
+class LocalBatch(dict):
+    """This rank's slice of a global batch (``shard_batch``), with the
+    global batch's dim-specs (``specs``), which tell a step whether the
+    batch axes cut its rows, its sequence or nothing of it."""
+
+    def __init__(self, leaves, specs):
+        super().__init__(leaves)
+        self.specs = specs
+
+
 def check_batch_specs(specs: Dict[str, Tuple], mesh,
                       profile: str = "2d") -> None:
-    """Raise ``NotImplementedError`` unless each batch leaf's spec cuts
-    its batch axis (axis 1 of ``positions3``) over the batch axes and
-    nothing else: a sequence-sharded or replicated batch."""
+    """Raise ``ValueError`` unless each batch leaf's spec is one that
+    ``infer_batch_specs`` gives: its batch axis (axis 1 of
+    ``positions3``) over the batch axes, its sequence (dim 1) over them,
+    or nothing, with the rows cut in every leaf or in none."""
     fsdp, _ = shd.mesh_axes(mesh, profile)
     dp = shd.batch_entry(fsdp)
     if shd.axes_size(shd.mesh_shape(mesh), fsdp) == 1:
         return
+    rows = set()
     for k, spec in specs.items():
         axis = 1 if k == "positions3" else 0
-        if len(spec) <= axis or spec[axis] != dp or any(
-                e is not None for i, e in enumerate(spec) if i != axis):
-            raise NotImplementedError(
-                f"batch leaf {k}: spec {spec}, not its batch axis over "
-                f"{dp} (a sequence-sharded or replicated batch, {NOT_YET})")
+        cut = [i for i, e in enumerate(spec) if e is not None]
+        if cut and (cut not in ([axis], [1]) or spec[cut[0]] != dp):
+            raise ValueError(f"batch leaf {k}: spec {spec}, not its batch "
+                             f"axis or its sequence over {dp}")
+        rows.add(cut == [axis])
+    if len(rows) > 1:
+        raise ValueError(f"batch specs {specs}: rows cut in some leaves "
+                         f"only")
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh,
-                profile: str = "2d") -> Dict[str, torch.Tensor]:
-    """This rank's slice of a global batch (its data rows), as the
-    reference's ``in_shardings`` of ``infer_batch_specs`` give it."""
+                profile: str = "2d") -> LocalBatch:
+    """This rank's slice of a global batch, as the reference's
+    ``in_shardings`` of ``infer_batch_specs`` give it: its data rows, or
+    at a batch that the batch axes do not divide, its part of each
+    leaf's sequence (or the whole leaf, where they do not divide that
+    either)."""
     specs = shd.infer_batch_specs(batch, mesh, profile)
     check_batch_specs(specs, mesh, profile)
-    return {k: _cut(v, specs[k], mesh).contiguous()
-            for k, v in batch.items()}
+    return LocalBatch({k: _cut(v, specs[k], mesh).contiguous()
+                       for k, v in batch.items()}, specs)
 
 
-def gather_rows(x: torch.Tensor, axis: int, dp) -> torch.Tensor:
-    """The global rows of a batch leaf from every data rank's slice."""
-    return x if dp is None or dp.size == 1 else all_gather(x, axis, dp)
+def batch_specs_of(model: LM, batch, batch_specs=None) -> Dict[str, Tuple]:
+    """The global dim-specs of a step's local ``batch``: ``batch_specs``
+    if given, else a ``LocalBatch``'s, else those of a batch cut on its
+    rows (the global batch has this rank's rows times the batch axes'
+    ranks)."""
+    if batch_specs is None:
+        batch_specs = getattr(batch, "specs", None)
+    if batch_specs is not None:
+        return batch_specs
+    layout = model.layout
+    n = 1 if layout.dp is None else layout.dp.size
+    glob = {k: torch.empty(tuple(v.shape[:axis]) + (v.shape[axis] * n,)
+                           + tuple(v.shape[axis + 1:]), device="meta")
+            for k, v in batch.items()
+            for axis in [1 if k == "positions3" else 0]}
+    return shd.infer_batch_specs(glob, layout.mesh, layout.profile)
+
+
+def seq_cut(model: LM, batch, batch_specs=None) -> SeqCut:
+    """The batch's part of a step's ``SeqCut`` on the model's mesh, from
+    its global specs (``batch_specs_of``): the batch axes where they cut
+    the rows, or else the sequence of the tokens (and labels), patches
+    and frames."""
+    layout = model.layout
+    specs = batch_specs_of(model, batch, batch_specs)
+    check_batch_specs(specs, layout.mesh, layout.profile)
+    sizes = shd.mesh_shape(layout.mesh)
+
+    def axes(name, dim):
+        spec = specs.get(name, ())
+        e = spec[dim] if len(spec) > dim else None
+        return None if e is None or shd.axes_size(sizes, e) == 1 \
+            else axes_of(layout.mesh, e)
+    rows = axes("tokens", 0)
+    if rows is not None:
+        return SeqCut(rows=rows)
+    tokens = axes("tokens", 1)
+    return SeqCut(tokens=tokens, seq=tokens, patches=axes("patches", 1),
+                  frames=axes("frames", 1))
+
+
+def gather_batch(batch, specs, mesh) -> Dict[str, torch.Tensor]:
+    """The global batch from every rank's ``batch`` under ``specs``."""
+    sizes = shd.mesh_shape(mesh)
+    out = {}
+    for k, v in batch.items():
+        for dim, axes in enumerate(specs[k]):
+            if axes is not None and shd.axes_size(sizes, axes) > 1:
+                v = all_gather(v.contiguous(), dim, axes_of(mesh, axes))
+        out[k] = v
+    return out
 
 
 # ---------------------------------------------------------------------------

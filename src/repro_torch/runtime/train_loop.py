@@ -34,9 +34,17 @@ does what GSPMD derives for the reference:
     data-axis gradient reduction is a SUM; with vocab-parallel logits
     the log-sum-exp is a MAX all-reduce, then a SUM of the
     exponentials, and the target logit comes from its owning shard;
-  * microbatch i is this rank's data slice of the global rows [i·B/M,
+  * a batch that the batch axes do not divide has its sequence cut
+    over them (``runtime.shard.seq_cut``; the layers gather K/V and the
+    recurrent blocks' inputs over the cut, and their backward sums and
+    slices), or else is whole on every rank, whose share of the loss is
+    then 1/ranks of it (the label count all-reduced counts it on every
+    rank);
+  * microbatch i is this rank's slice of the global rows [i·B/M,
     (i+1)·B/M), as the reference splits the global batch, then shards
-    each piece (the rows are all-gathered over the batch axes first);
+    each piece by its own specs (its rows where they divide over the
+    batch axes, else its sequence; the batch is all-gathered over the
+    batch axes first);
   * the FSDP weights' gradients arrive reduced into this rank's slice
     (``runtime.mesh_ctx``); the leaves the batch axes do not cut are
     all-reduced over them once a step;
@@ -50,7 +58,7 @@ learning rate stay 0-dim tensors on the device.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,24 +189,6 @@ def _split(batch: Dict[str, torch.Tensor], M: int) -> List[Dict]:
     return out
 
 
-def _split_sharded(batch: Dict[str, torch.Tensor], M: int, dp) -> List[Dict]:
-    """M microbatches of this rank's rows ``batch``: microbatch i is this
-    rank's data slice of the global rows [i·B/M, (i+1)·B/M)."""
-    if M == 1:
-        return [batch]
-    out = []
-    full = {k: shard_lib.gather_rows(v, 1 if k == "positions3" else 0, dp)
-            for k, v in batch.items()}
-    for mb in _split(full, M):
-        cut = {}
-        for k, v in mb.items():
-            axis = 1 if k == "positions3" else 0
-            n = v.shape[axis] // dp.size
-            cut[k] = v.narrow(axis, dp.index * n, n)
-        out.append(cut)
-    return out
-
-
 class TrainStep:
     """``train_step(state, batch) -> (state, metrics)`` for ``model``.
 
@@ -213,11 +203,12 @@ class TrainStep:
     gradients."""
 
     def __init__(self, model: LM, train_cfg: TrainConfig, mesh=None,
-                 profile: str = "2d"):
+                 profile: str = "2d", batch_specs=None):
         shard_lib.check_layout(model, mesh, profile)
         self.model = model
         self.cfg = train_cfg
         self.mesh, self.profile = mesh, profile
+        self.batch_specs = batch_specs
         self.layout = getattr(model, "layout", None)
         self.opt = get_optimizer(train_cfg)
         self.lr_fn = warmup_cosine(train_cfg.learning_rate,
@@ -228,10 +219,13 @@ class TrainStep:
         self.grads: List[torch.Tensor] = []
         self._slots: List[torch.Tensor] = []
 
-    def loss(self, batch) -> torch.Tensor:
-        with mesh_context(self.mesh, self.profile):
+    def loss(self, batch, cut=None) -> torch.Tensor:
+        """The loss of ``batch`` (on a mesh, this rank's share of it, the
+        batch laid out as ``cut`` says: ``runtime.shard.seq_cut``)."""
+        with mesh_context(self.mesh, self.profile, cut):
             logits = self.model.train_logits(batch)
-        return cross_entropy_loss(logits, batch["labels"], self.cfg.z_loss,
+            labels = self.model.aligned_labels(batch)
+        return cross_entropy_loss(logits, labels, self.cfg.z_loss,
                                   self.mesh, self.profile,
                                   self.model.vocab_axes())
 
@@ -244,18 +238,20 @@ class TrainStep:
                            for s in leaf.slices(g)]
         return self.grads
 
-    def _microbatches(self, batch) -> List[Dict]:
+    def _microbatches(self, batch) -> List[Tuple[Dict, Any]]:
+        """(microbatch, its ``SeqCut`` on the mesh) pairs."""
         M = self.cfg.microbatches
         if self.mesh is None:
-            return _split(batch, M) if M > 1 else [batch]
-        dp = self.layout.dp
-        if dp is not None and dp.size > 1:
-            rows = batch["tokens"].shape[0] * dp.size
-            if rows % (M * dp.size):
-                raise NotImplementedError(
-                    f"{rows} rows in {M} microbatches do not divide over "
-                    f"{dp.size} data ranks ({shard_lib.NOT_YET})")
-        return _split_sharded(batch, M, dp)
+            return [(mb, None) for mb in (_split(batch, M) if M > 1
+                                          else [batch])]
+        if M == 1:
+            return [(batch, shard_lib.seq_cut(self.model, batch,
+                                              self.batch_specs))]
+        specs = shard_lib.batch_specs_of(self.model, batch, self.batch_specs)
+        full = shard_lib.gather_batch(batch, specs, self.mesh)
+        return [(mb, shard_lib.seq_cut(self.model, mb)) for mb in (
+            shard_lib.shard_batch(part, self.mesh, self.profile)
+            for part in _split(full, M))]
 
     def grads_of(self, batch):
         """(mean loss over the microbatches, the float32 accumulators
@@ -264,8 +260,8 @@ class TrainStep:
         M = self.cfg.microbatches
         grads = self._accumulators()
         total = None
-        for i, mb in enumerate(self._microbatches(batch)):
-            loss = self.loss(mb)
+        for i, (mb, cut) in enumerate(self._microbatches(batch)):
+            loss = self.loss(mb, cut)
             gs = torch.autograd.grad(loss, self.params, allow_unused=True)
             with torch.no_grad():
                 for slot, g in zip(self._slots, gs):
@@ -355,20 +351,22 @@ def constrain_like_params(grads: List[torch.Tensor], leaves) -> List:
 
 
 def make_train_step(model: LM, train_cfg: TrainConfig, mesh=None,
-                    profile: str = "2d") -> TrainStep:
+                    profile: str = "2d", batch_specs=None) -> TrainStep:
     """Returns ``train_step(state, batch) -> (state, metrics)``; on
-    ``mesh``, for a model laid out on it."""
-    return TrainStep(model, train_cfg, mesh, profile)
+    ``mesh``, for a model laid out on it, the batch this rank's slice of
+    the global one, whose dim-specs are ``batch_specs``, a
+    ``LocalBatch``'s own, or else those of a batch cut on its rows."""
+    return TrainStep(model, train_cfg, mesh, profile, batch_specs)
 
 
 def jit_train_step(model: LM, train_cfg: TrainConfig, mesh, state,
                    batch_specs, profile: str = "2d") -> TrainStep:
     """The reference's jit with explicit shardings, eager: checks that
     ``state`` (this rank's) is laid out by ``state_specs`` and that
-    ``batch_specs`` cut each leaf's batch axis over the batch axes, then
-    returns the step. Nothing is compiled."""
+    ``batch_specs`` are the rules' (``check_batch_specs``), then returns
+    the step on batches of those specs. Nothing is compiled."""
     shard_lib.check_batch_specs(batch_specs, mesh, profile)
-    step = make_train_step(model, train_cfg, mesh, profile)
+    step = make_train_step(model, train_cfg, mesh, profile, batch_specs)
     abstract = shard_lib.abstract_state(model.cfg, train_cfg)
     specs = state_specs(abstract, mesh, profile)
 

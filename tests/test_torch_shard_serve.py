@@ -16,12 +16,19 @@ the vlm (patches, M-RoPE):
 * bfloat16 caches, step by step: each sharded decode step starts from
   the slice of the one-device caches, and its logits are within 2e-4;
 * ``jit_decode_step`` takes the cache and batch layouts the rules give,
-  and a batch of 1 (a sequence-sharded cache; ``ssm-family``: xlstm's,
-  whose family runs sharded since the recurrent families' slice, at a
-  batch of 1) and a one-device step on a sharded model raise;
-* ``check_serve_layout`` passes xlstm-1.3b, zamba2-7b and
-  seamless-m4t-medium on the production (16, 16) mesh and on (1, 8)
-  (the mLSTM state cut on Dk there), on the shapes alone.
+  and a one-device step on a sharded model raises. The layouts that
+  earlier slices refused run since the sequence slice, each held
+  against the one device (prefill and 3 decode steps, float32 caches,
+  logits within 2e-4, equal tokens): a batch of 1, whose prompt and
+  caches are cut on the sequence over the data axis (``batch-1-prefill``
+  through ``shard_batch``, ``batch-1-decode`` through
+  ``jit_decode_step``), and xlstm's family at a batch of 1
+  (``ssm-family``);
+* ``check_serve_layout`` passes all ten configs as published on the
+  production (16, 16) mesh, on (1, 8) (the mLSTM state cut on Dk there)
+  and on (2, 4), at a batch of 16 with 4096 positions and at a batch of
+  1 with 32768 (524288 for xlstm-1.3b and zamba2-7b, the ``long_500k``
+  cell), on the shapes alone.
 """
 import json
 import os
@@ -39,6 +46,8 @@ TOL = 2e-4
 ARCHS = ("qwen2.5-3b", "qwen2-vl-7b")
 RAISES = ("batch-1-prefill", "batch-1-decode", "ssm-family",
           "one-device-step")
+#: the cases of ``RAISES`` that run since the sequence slice
+RUNS = ("batch-1-prefill", "batch-1-decode", "ssm-family")
 
 WORKER = r'''
 import json, sys
@@ -146,30 +155,51 @@ def serve_case(arch):
         rec["bf16_logits"] = max(rec["bf16_logits"], max_err(l2, l1, lspec))
     return rec
 
-def raises_case():
-    out = {}
-    def expect(name, fn, exc=NotImplementedError):
-        try:
-            fn()
-            out[name] = "ran"
-        except exc as e:
-            out[name] = "raised: " + str(e)[:200]
-    cfg = tiny_config(get_config("qwen2.5-3b"))
+def batch_of_one(arch):
+    """Prefill (a prompt cut on its sequence over the data axis) and 3
+    decode steps at a batch of 1, float32 caches, against the one
+    device: (prefill's logits error, the decode steps', tokens equal)."""
+    tmodel.CACHE_DTYPE = torch.float32
+    cfg = tiny_config(get_config(arch))
     one, tree = build(cfg)
     sh = shard.shard_model(tmodel.params_from_numpy(tmodel.build_model(
         cfg, device="cpu"), tree), mesh)
     prompt = prompt_batch(one, 1, 8, seed=34)
-    expect("batch-1-prefill", lambda: sl.make_prefill_step(
-        sh, mesh, max_len=16)(shard.shard_batch(prompt, mesh)))
-    tok = {"tokens": torch.zeros((1, 1), dtype=torch.int32)}
-    caches = sh.init_caches(1, 16)
-    expect("batch-1-decode", lambda: sl.jit_decode_step(
-        sh, mesh, caches, shd.infer_batch_specs(tok, mesh)))
-    xl = shard.shard_model(tmodel.build_model(
-        tiny_config(get_config("xlstm-1.3b")), device="cpu"), mesh)
-    expect("ssm-family", lambda: sl.make_prefill_step(xl, mesh, max_len=16)(
-        shard.shard_batch(prompt_batch(xl, 1, 8, seed=34), mesh)))
-    expect("one-device-step", lambda: sl.make_decode_step(sh), ValueError)
+    lspec = (None, None, "model")          # the batch of 1 on every rank
+    l1, c1 = sl.make_prefill_step(one, max_len=16)(prompt)
+    l2, c2 = sl.make_prefill_step(sh, mesh, max_len=16)(
+        shard.shard_batch(prompt, mesh))
+    t1, t2 = sl.greedy_token(one, l1), sl.greedy_token(sh, l2)
+    rec = {"prefill": max_err(l2, l1, lspec), "decode": 0.0,
+           "tokens_equal": bool(torch.equal(t1, t2))}
+    dec2 = sl.jit_decode_step(sh, mesh, c2, shd.infer_batch_specs(
+        {"tokens": t1[:, None]}, mesh))
+    for i in range(3):
+        t1, l1, c1 = sl.make_decode_step(one)({"tokens": t1[:, None]}, c1,
+                                              8 + i)
+        t2, l2, c2 = dec2({"tokens": t2[:, None]}, c2, 8 + i)
+        rec["decode"] = max(rec["decode"], max_err(l2, l1, lspec))
+        rec["tokens_equal"] &= bool(torch.equal(t1, t2))
+    return rec
+
+def raises_case():
+    cfg = tiny_config(get_config("qwen2.5-3b"))
+    one, tree = build(cfg)
+    sh = shard.shard_model(tmodel.params_from_numpy(tmodel.build_model(
+        cfg, device="cpu"), tree), mesh)
+    dense = batch_of_one("qwen2.5-3b")
+    out = {"batch-1-prefill": {"logits": dense["prefill"],
+                               "tokens_equal": dense["tokens_equal"]},
+           "batch-1-decode": {"logits": dense["decode"],
+                              "tokens_equal": dense["tokens_equal"]}}
+    xl = batch_of_one("xlstm-1.3b")
+    out["ssm-family"] = {"logits": max(xl["prefill"], xl["decode"]),
+                         "tokens_equal": xl["tokens_equal"]}
+    try:
+        sl.make_decode_step(sh)
+        out["one-device-step"] = "ran"
+    except ValueError as e:
+        out["one-device-step"] = "raised: " + str(e)[:200]
     return out
 
 results = {a: serve_case(a) for a in archs}
@@ -223,17 +253,32 @@ def test_sharded_decode_with_bfloat16_caches_step_by_step(ranks, arch):
 
 @pytest.mark.parametrize("what", RAISES)
 def test_unimplemented_serve_layouts_raise(ranks, what):
+    """A one-device step on a sharded model raises; the cases of
+    ``RUNS``, which earlier slices refused, run and are held against the
+    one device (logits within 2e-4, equal tokens)."""
     for r in ranks:
-        assert r["raises"][what].startswith("raised"), r["raises"][what]
+        rec = r["raises"][what]
+        if what in RUNS:
+            assert rec["tokens_equal"], rec
+            assert rec["logits"] <= TOL, rec
+        else:
+            assert rec.startswith("raised"), rec
 
 
 def test_recurrent_families_pass_the_serve_layout_check():
-    """xlstm-1.3b, zamba2-7b and seamless-m4t-medium as published, at a
-    batch of 16 and 4096 positions, on the production (16, 16) mesh and
+    """All ten configs as published, on the production (16, 16) mesh,
     on (1, 8), where the rules cut xlstm's mLSTM state on Dk (its 4
-    heads over 8) and replicate its sLSTM's ``w_in`` and ``r``."""
-    from repro_torch.configs import get_config
+    heads over 8) and replicate its sLSTM's ``w_in`` and ``r``, and on
+    (2, 4): at a batch of 16 with 4096 positions, and at a batch of 1
+    with 32768 (524288 for the sub-quadratic xlstm-1.3b and zamba2-7b,
+    the ``long_500k`` cell), whose caches the rules cut on the sequence
+    over the data axis (and KV heads fewer than the model axis on S or
+    Dh over it)."""
+    from repro_torch.configs import ARCHS, get_config
     from repro_torch.runtime import serve_loop as sl
-    for arch in ("xlstm-1.3b", "zamba2-7b", "seamless-m4t-medium"):
-        for mesh in ({"data": 16, "model": 16}, {"data": 1, "model": 8}):
+    for arch in ARCHS:
+        long = 524288 if arch in ("xlstm-1.3b", "zamba2-7b") else 32768
+        for mesh in ({"data": 16, "model": 16}, {"data": 1, "model": 8},
+                     {"data": 2, "model": 4}):
             sl.check_serve_layout(get_config(arch), 16, 4096, mesh)
+            sl.check_serve_layout(get_config(arch), 1, long, mesh)

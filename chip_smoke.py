@@ -174,7 +174,7 @@ Phases, in order; any failure exits non-zero:
      block0 + 1 MoE block (logits within 2e-4, equal tokens and
      drops), then bfloat16 train steps there (adafactor, one
      microbatch; loss, grad norm, each leaf's changed share, the next
-     batch's loss) and a bfloat16 serve at block0 + 2 MoE blocks, each
+     batch's loss) and a bfloat16 serve there too, each
      model built by the ranks in turn from the seed and held against a
      one-device run in this process (``MOE_MESH_*``). One ``moe_mesh``
      JSON line: per rank the resident bytes, collectives and bytes a
@@ -213,6 +213,30 @@ Phases, in order; any failure exits non-zero:
      rank the collectives and bytes a prefill, a token and a step,
      prefill, decode and step ms, peak memory, the resident shares and
      every check's number.
+  11. the last entry points (``repro_torch.examples`` and
+     ``repro_torch.launch.dryrun``): (a) ``online_service``,
+     ``interruptible_serving`` and ``schedule_multi_dnn`` with ``--device
+     cuda`` at their defaults: every mapping the service serves is
+     feasible (numpy, against its query and target) and every arrival it
+     reports infeasible is one it found none for; IMMSched meets the
+     urgent deadline, and the IsoSched and MoCA rows (analytic) equal
+     the same example's run on the CPU (wall clocks aside); the
+     multi-DNN co-schedule is found with no ILP violation; each
+     example's wall ms and launches; then ``online_service`` once more
+     through the ``ref`` suite (``REPRO_KERNEL_BACKEND=ref``) on the
+     same draws, which must launch nothing and serve each arrival as the
+     ``cuda`` suite did (bucket, cache, warm start, epochs, found, the
+     mapping itself). (b) and (c) in a process of their own
+     (``chip_smoke.py --dryrun-rank 0``), rank 0 of a fake process group
+     of 256 (``torch.testing._internal.distributed.fake_pg``) on the
+     16 x 16 mesh: the dry run's matcher cell on the card (128 x 128,
+     ``PSOConfig(32, 4, 12, quantized=True)``, the swarm over all 256
+     shards; its collectives, launches and bytes), held against the
+     same call through the ``ref`` suite on the same streams: every
+     output leaf equal bit for bit, the float consensus S̄ within
+     ``DRYRUN_SBAR_ATOL``; then qwen2.5-3b's ``decode_32k`` cell on
+     ``meta``, which must allocate nothing on the card; its record
+     beside the card's ``total_memory``. One ``entry`` JSON line.
 
 The second-to-last line is the ``kernels`` JSON record (one row per
 kernel entry and one for ``epoch_fused``'s float branch; ``launches``
@@ -220,7 +244,8 @@ counts device launches on the main or split path, ``launches_per_call``
 divides them by the wrapper calls that made them, ``service_launches``
 counts the launches of phase 4b, ``sched_launches`` those of phase 4c,
 ``restart_launches`` those of phase 4d, ``mesh_launches`` those of
-phase 4e summed over its processes;
+phase 4e summed over its processes, ``entry_launches`` those of phase 11
+(its examples and its matcher cell);
 the float branch's launches are counted by its wrapper on their own and
 left out of the ``epoch_fused`` row; ``device_ms`` is a call's device
 time, ``host_ms`` the wrapper's host time alone, ``bound_note`` what a
@@ -509,8 +534,9 @@ LM_MESH_SERVE = dict(SERVE_ARGS, gen=8)
 #: the steps changed within MOE_MESH_CHANGED_TOL of the one device's, and
 #: the loss of one more batch after the steps within LM_MESH_BF16_RTOL's
 #: (an unapplied update changes no element; a stale one moves that loss);
-#: then serve at phase 8's cut (block0 + 2 MoE blocks) at launch/serve's
-#: batch and prompt, MOE_MESH_BF16_GEN tokens: each step's logits within
+#: then serve at block0 + 1 MoE block (MOE_MESH_BF16_LAYERS; phase 8's cut
+#: of block0 + 2 until phase 11 took the whole run past 950 s) at
+#: launch/serve's batch and prompt, MOE_MESH_BF16_GEN tokens: each step's logits within
 #: the larger of SERVE_TF_ULPS units and the one device's own bfloat16
 #: error (its max |bfloat16 − float32| on the same weights and tokens:
 #: at bfloat16 the mesh's rounding flips some tokens' top-k experts,
@@ -532,6 +558,7 @@ MOE_MESH_TRAIN_STEPS = 2
 MOE_MESH_TRAIN_CFG = dict(learning_rate=1e-3, warmup_steps=0,
                           total_steps=200)
 MOE_MESH_CHANGED_TOL = 0.02
+MOE_MESH_BF16_LAYERS = 2
 MOE_MESH_BF16_GEN = 3
 MOE_MESH_TIMEOUT_S = 600
 #: ranks that build a whole full-width model at once and then cut it
@@ -2816,7 +2843,6 @@ def _counted(fn):
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.runtime import mesh_ctx
     mesh_lib.collectives.reset()
-    mesh_ctx.traffic.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
@@ -3560,7 +3586,7 @@ def _moe_one_device():
     del model
     _free()
 
-    cfg = _moe_cfg(SERVE_FAMILIES[MOE_MESH_ARCH][0])
+    cfg = _moe_cfg(MOE_MESH_BF16_LAYERS)
     model, digest = _build_seeded(cfg)
     r, a = _serve_one(model, MOE_MESH_BF16_GEN)
     rec["serve"] = dict(digest=digest, params=model.num_params(), **r)
@@ -3648,8 +3674,8 @@ def moe_mesh_rank(rank, mesh_dir):
     _free()
     _mem_line(f"rank {rank} after the train steps")
 
-    # (3) bfloat16 serve at phase 8's cut
-    model, digest = build_in_turn(_moe_cfg(SERVE_FAMILIES[MOE_MESH_ARCH][0]))
+    # (3) bfloat16 serve
+    model, digest = build_in_turn(_moe_cfg(MOE_MESH_BF16_LAYERS))
     torch.cuda.reset_peak_memory_stats()
     rec["serve"] = dict(digest=digest, **_mesh_serve(
         model, mesh, ref["logits"], ref["tokens"], MOE_MESH_BF16_GEN))
@@ -3851,8 +3877,7 @@ def moe_mesh_phase():
                 mesh=list(LM_MESH_SHAPE), one_device=one, reckoned=dict(
                     f32_serve=_moe_reckon(_moe_cfg(MOE_MESH_F32_LAYERS), 4),
                     train=_moe_reckon(_moe_cfg(MOE_MESH_TRAIN_LAYERS), 2),
-                    serve=_moe_reckon(_moe_cfg(
-                        SERVE_FAMILIES[MOE_MESH_ARCH][0]), 2)),
+                    serve=_moe_reckon(_moe_cfg(MOE_MESH_BF16_LAYERS), 2)),
                 note=f"the {LM_MESH_WORLD}-rank walls are {LM_MESH_WORLD} "
                      f"processes time-sliced on one card over gloo, not a "
                      f"scale-out figure")
@@ -4255,7 +4280,6 @@ def _tiny_seq_parity(arch, mesh, batch, kv=None):
         return one, sh
     rec = dict(arch=arch, batch=batch, kv_heads=cfg.kv_heads, mesh=shape)
     mesh_lib.collectives.reset()
-    mesh_ctx.traffic.reset()
     saved = tmodel.CACHE_DTYPE
     tmodel.CACHE_DTYPE = torch.float32
     try:
@@ -4628,6 +4652,262 @@ def seq_mesh_phase():
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the last entry points (the examples and the dry run)
+# ---------------------------------------------------------------------------
+
+#: the dry run's cells on the card: the matcher's share of rank 0 of 256
+#: on the single-pod mesh, and one LM cell on ``meta``
+DRYRUN_MESH = "pod-16x16"
+DRYRUN_LM = ("qwen2.5-3b", "decode_32k")
+#: what the dry-run subprocess may take, its start included
+DRYRUN_TIMEOUT_S = 240
+#: the quantized main-path kernels the matcher cell must launch
+DRYRUN_KERNELS = ("prune_fixpoint", "edge_fitness_quantized", "epoch_fused",
+                  "epoch_finish")
+#: S̄, the elite consensus, is a float sum whose order the kernel
+#: (``epoch_finish``) and its plain version choose apart; every other
+#: leaf of the matcher cell is held bit for bit
+DRYRUN_SBAR_ATOL = 1e-6
+#: the float main-path kernels the examples' float swarms must launch
+ENTRY_KERNELS = ("prune_fixpoint", "edge_fitness", FLOAT_EPOCH,
+                 "epoch_finish")
+
+
+def _sim_dict(r):
+    """A ``SimResult`` as a dict without its host wall clocks."""
+    d = dataclasses.asdict(r)
+    d["matcher_stats"] = {k: v for k, v in d["matcher_stats"].items()
+                          if not k.endswith("wall_s")
+                          and k not in ("fe_wait_s",)}
+    return d
+
+
+def _example(mod, counters, argv):
+    """``mod.main(argv)`` with its printout captured: (its return, the
+    printout, wall ms, the launches it made)."""
+    import io
+    for c in counters.values():
+        c.reset()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, buf.getvalue(), ms, split_float(
+        {k: c.count for k, c in counters.items()})
+
+
+def _matcher_parity(got, want):
+    """The matcher cell through the ``cuda`` suite (``got``) against the
+    ``ref`` suite (``want``): the leaves that differ (S̄ beyond
+    ``DRYRUN_SBAR_ATOL``), S̄'s largest difference, and the ``ref``
+    run's launches, which must be none."""
+    a, b = got.pop("outputs"), want.pop("outputs")
+    differ = sorted(k for k in set(a) | set(b) if k != "S_bar" and (
+        k not in a or k not in b or (
+            not torch.equal(a[k], b[k]) if torch.is_tensor(a[k])
+            else a[k] != b[k])))
+    err = (a["S_bar"].float() - b["S_bar"].float()).abs().max().item()
+    if err > DRYRUN_SBAR_ATOL:
+        differ.append("S_bar")
+    return dict(differ=differ, s_bar_max_abs_err=err,
+                epochs_run=[got["epochs_run"], want["epochs_run"]],
+                launches=sum(got["launches"].values()),
+                ref_launches=sum(want["launches"].values()))
+
+
+def dryrun_rank(mesh_dir):
+    """Phase 11 (b) and (c), in a process of their own so that the fake
+    group never meets phases 4e's and 10's groups: rank 0 of a fake group
+    of 256 runs the dry run's matcher cell on the card and one LM cell
+    on ``meta``. Writes ``dryrun.json`` into ``mesh_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import arch_shapes
+    from repro_torch.core.pso import PSOConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    arch, shape = DRYRUN_LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with mesh_lib.fake_group(256):
+        matcher_mesh = mesh_lib.make_production_mesh(device="cuda")
+        cell = dryrun.run_cell(dryrun.MATCHER, "matcher_128x128", None,
+                               DRYRUN_MESH, matcher_mesh, "cuda")
+        torch.cuda.synchronize()
+        # the same call through the plain versions, on the same streams
+        if cell["ok"]:
+            cfg = PSOConfig(num_particles=32, epochs=4, inner_steps=12,
+                            quantized=True)
+            got = dryrun.run_matcher(matcher_mesh, "cuda", cfg=cfg,
+                                     outputs=True)
+            want = dryrun.run_matcher(matcher_mesh, "cuda",
+                                      cfg=cfg.replace(backend="ref"),
+                                      outputs=True)
+            cell["ref_parity"] = _matcher_parity(got, want)
+        mesh = mesh_lib.make_production_mesh(device="cpu")
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lm = dryrun.run_cell(arch, next(s for s in arch_shapes(arch)
+                                        if s.name == shape), mesh,
+                             DRYRUN_MESH)
+        lm["device_bytes_allocated"] = \
+            torch.cuda.max_memory_allocated() - before
+    props = torch.cuda.get_device_properties(0)
+    (Path(mesh_dir) / "dryrun.json").write_text(json.dumps(dict(
+        matcher=cell, lm=lm, total_memory=props.total_memory,
+        fake_backend=True)))
+    return 0
+
+
+def entry_phase(counters):
+    """Phase 11, as the module's docstring says. One ``entry`` JSON
+    line; fails on any check."""
+    from repro_torch.core import ilp
+    from repro_torch.examples import (interruptible_serving,
+                                      online_service, schedule_multi_dnn)
+    from repro_torch.kernels import backend
+    t_phase = time.time()
+    bad, line, launches = [], dict(card=card_line()), {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) the three examples on the card at their defaults
+    recs, text, ms, n = _example(online_service, counters,
+                                 ["--device", "cuda"])
+    add(n)
+    for r in recs:
+        ok = r["mapping"] is not None and feasible_np(
+            r["mapping"], r["query"].adj, r["target"].adj)
+        if ok != r["found"]:
+            bad.append(f"online_service: {r['name']} found={r['found']} "
+                       f"but its mapping feasible={ok}")
+    if sum(("(infeasible)" in l) for l in text.splitlines()) != \
+            sum(not r["found"] for r in recs):
+        bad.append("online_service: the infeasible arrivals are not the "
+                   "ones reported as infeasible")
+    line["online_service"] = dict(
+        wall_ms=ms, launches=n, arrivals=len(recs),
+        found=sum(r["found"] for r in recs),
+        warm=sum(r["warm"] for r in recs),
+        compiled=sum(r["compiled"] for r in recs),
+        summary=text.strip().splitlines()[-1])
+    # the same arrivals through the plain versions, on the same draws
+    saved = os.environ.get(backend.ENV_VAR)
+    os.environ[backend.ENV_VAR] = "ref"
+    try:
+        plain, _, plain_ms, pn = _example(online_service, counters,
+                                          ["--device", "cuda"])
+    finally:
+        if saved is None:
+            os.environ.pop(backend.ENV_VAR)
+        else:
+            os.environ[backend.ENV_VAR] = saved
+    keys = ("bucket", "compiled", "warm", "epochs", "found")
+    differ = [r["name"] + f" #{i}" for i, (r, p) in enumerate(
+        zip(recs, plain)) if any(r[k] != p[k] for k in keys)
+        or (r["mapping"] is None) != (p["mapping"] is None)
+        or (r["mapping"] is not None
+            and not np.array_equal(r["mapping"], p["mapping"]))]
+    if len(plain) != len(recs) or differ or sum(pn.values()):
+        bad.append(f"online_service: the ref suite served {differ} "
+                   f"otherwise than the cuda suite, launching "
+                   f"{sum(pn.values())} kernels")
+    line["online_service"].update(ref_wall_ms=plain_ms,
+                                  ref_differ=differ)
+
+    res, text, ms, n = _example(interruptible_serving, counters,
+                                ["--device", "cuda"])
+    add(n)
+    cpu, _, _, _ = _example(interruptible_serving, counters,
+                            ["--device", "cpu"])
+    imm = res["immsched"]
+    if imm.urgent_total < 1 or imm.urgent_met != imm.urgent_total:
+        bad.append(f"interruptible_serving: IMMSched met "
+                   f"{imm.urgent_met}/{imm.urgent_total} urgent deadlines")
+    for name in ("isosched", "moca"):
+        if _sim_dict(res[name]) != _sim_dict(cpu[name]):
+            bad.append(f"interruptible_serving: {name} on the card differs "
+                       f"from its CPU run")
+    line["interruptible_serving"] = dict(
+        wall_ms=ms, launches=n,
+        rows={k: dict(urgent_met=r.urgent_met, urgent_total=r.urgent_total,
+                      avg_total_latency=r.avg_total_latency,
+                      avg_sched_time=r.avg_sched_time)
+              for k, r in res.items()})
+
+    (pdag, match, st), text, ms, n = _example(schedule_multi_dnn, counters,
+                                              ["--device", "cuda"])
+    add(n)
+    errs = ilp.validate_schedule(st, pdag)
+    if not match.found or errs:
+        bad.append(f"schedule_multi_dnn: found={match.found}, ILP "
+                   f"violations {errs}")
+    line["schedule_multi_dnn"] = dict(
+        wall_ms=ms, launches=n, tiles=pdag.n, found=bool(match.found),
+        feasible_count=int(match.feasible_count), violations=len(errs))
+    for k in ENTRY_KERNELS:
+        if launches.get(k, 0) <= 0:
+            bad.append(f"the examples launched no {k}")
+
+    # (b), (c): the dry run in a process of its own
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--dryrun-rank", "0", "--mesh-dir", d], cwd=str(ROOT),
+                capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 11: the dry run took over {DRYRUN_TIMEOUT_S} s")
+        if proc.returncode:
+            fail(f"phase 11: the dry run exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        dry = json.loads((Path(d) / "dryrun.json").read_text())
+        line["dryrun_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    cell, lm = dry["matcher"], dry["lm"]
+    for rec in (cell, lm):
+        if not rec["ok"]:
+            bad.append(f"dry run {rec['arch']} {rec['shape']}: "
+                       f"{rec.get('error')}")
+    if cell["ok"]:
+        for k in DRYRUN_KERNELS:
+            if cell["launches"].get(k, 0) <= 0:
+                bad.append(f"the dry run's matcher cell launched no {k}")
+        par = cell["ref_parity"]
+        if par["differ"] or par["ref_launches"] or not par["launches"] \
+                or par["epochs_run"][0] != cell["epochs_run"]:
+            bad.append(f"the matcher cell through the cuda suite against "
+                       f"the ref suite: {par}")
+        add(split_float({k: cell["launches"].get(k, 0) for k in counters}))
+    if lm["ok"]:
+        if lm["device_bytes_allocated"]:
+            bad.append(f"the LM cell allocated "
+                       f"{lm['device_bytes_allocated']} B on the card")
+        if lm["memory"]["peak_bytes"] > dry["total_memory"]:
+            bad.append("the LM cell's peak is over the card's memory")
+    line["dryrun"] = dict(
+        total_memory=dry["total_memory"],
+        matcher={k: cell.get(k) for k in (
+            "ok", "mesh", "wall_s", "epochs_run", "shards",
+            "mappings_shape", "launches", "collectives", "memory",
+            "ref_parity")},
+        lm={k: lm.get(k) for k in (
+            "ok", "arch", "shape", "mesh", "wall_s", "memory", "flops",
+            "model_flops", "collectives", "params_bytes",
+            "device_bytes_allocated")})
+    line["launches"] = launches
+    line["phase_s"] = time.time() - t_phase
+    line["failed"] = bad
+    log(json.dumps({"entry": line}))
+    if bad:
+        fail("phase 11: " + "; ".join(bad[:5]))
+    return line
+
+
 def profiled(fn):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
@@ -4687,6 +4967,8 @@ def main():
                     help=argparse.SUPPRESS)   # phase 10 (d)'s ranks
     ap.add_argument("--seq-mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # phase 10 (e)'s ranks
+    ap.add_argument("--dryrun-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 11 (b), (c)
     args = ap.parse_args()
     out_dir = args.out
     if not torch.cuda.is_available():
@@ -4702,6 +4984,8 @@ def main():
         return ssm_mesh_rank(args.ssm_mesh_rank, args.mesh_dir)
     if args.seq_mesh_rank is not None:
         return seq_mesh_rank(args.seq_mesh_rank, args.mesh_dir)
+    if args.dryrun_rank is not None:
+        return dryrun_rank(args.mesh_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import pso
     from repro_torch.core.matcher import (IMMSchedMatcher,
@@ -4990,6 +5274,11 @@ def main():
     detail["ssm_mesh"] = ssm_mesh_phase()
     detail["seq_mesh"] = seq_mesh_phase()
 
+    # 11. the last entry points: the three scheduling examples on the
+    # card, then the dry run's matcher cell and one LM cell on meta
+    detail["entry"] = entry_phase(counters)
+    entry_launches = detail["entry"]["launches"]
+
     kern = []
     split_calls = detail["split_epoch"]["calls"]
     rows = [(k, *v) for k, v in KERNELS.items()]
@@ -5005,6 +5294,7 @@ def main():
                          sched_launches=sched_launches.get(name),
                          restart_launches=restart_launches.get(name),
                          mesh_launches=mesh_launches.get(name),
+                         entry_launches=entry_launches.get(name),
                          launches_per_call=(n_launch / n_calls
                                             if n_calls else None),
                          max_abs_err=errs[name], ms=rec["ms"],

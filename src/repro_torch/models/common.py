@@ -38,6 +38,8 @@ def dense_init(shape: Sequence[int], dtype: torch.dtype, in_axis=0, *,
         math.prod(shape[a] for a in in_axis)
     std = 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if w.is_meta:                      # shapes only: nothing to draw
+        return w.to(dtype)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * std).to(dtype)
 

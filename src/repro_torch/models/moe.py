@@ -73,6 +73,8 @@ def _expert_init(shape, dtype: torch.dtype, in_axis: int, *,
     a float32 draw of arctic's whole (128, 7168, 4864) tensor would take
     17.9 GB, and its scaling as much again."""
     w = torch.empty(tuple(shape), dtype=dtype, device=device)
+    if w.is_meta:                      # shapes only: nothing to draw
+        return w
     for e in range(shape[0]):
         w[e] = dense_init(shape[1:], dtype, in_axis - 1,
                           generator=generator, device=device)

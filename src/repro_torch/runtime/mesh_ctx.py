@@ -53,7 +53,9 @@ exponentials all-reduced, the partial outputs summed in float32).
 ``traffic`` counts the bytes these move (``gathered``: all-gathers,
 ``reduced``: all-reduces; ``cache_gathered``: the part of ``gathered``
 that MLA's latent caches, cut over the model axis, gather at each decode
-step), beside ``launch.mesh.collectives``.
+step), read from ``launch.mesh.collectives``, where every collective
+here counts itself once, tagged ``"layer"`` (``"cache"`` for the caches'
+gathers).
 """
 from __future__ import annotations
 
@@ -192,16 +194,29 @@ class ParamShard:
     tensor: Optional[MeshAxes]
 
 
+#: the tags of the sharded layers' collectives in ``launch.mesh.
+#: collectives``
+_SOURCES = ("layer", "cache")
+
+
 class Traffic:
-    """Bytes moved by the sharded layers' collectives."""
+    """Bytes moved by the sharded layers' collectives, read from
+    ``launch.mesh.collectives`` (``collectives.reset()`` clears them):
+    ``gathered`` the bytes each all-gather brought from the other ranks,
+    ``reduced`` the bytes of each all-reduce's result, and
+    ``cache_gathered`` the caches' part of ``gathered``."""
 
-    def __init__(self):
-        self.reset()
+    @property
+    def gathered(self) -> int:
+        return mesh_lib.collectives.received_bytes("all-gather", _SOURCES)
 
-    def reset(self) -> None:
-        self.gathered = 0
-        self.reduced = 0
-        self.cache_gathered = 0
+    @property
+    def reduced(self) -> int:
+        return mesh_lib.collectives.result_bytes("all-reduce", _SOURCES)
+
+    @property
+    def cache_gathered(self) -> int:
+        return mesh_lib.collectives.received_bytes("all-gather", ("cache",))
 
 
 traffic = Traffic()
@@ -225,15 +240,14 @@ def tensor_axes(p) -> Optional[MeshAxes]:
     return None if s is None else s.tensor
 
 
-def all_gather(x: torch.Tensor, dim: int, ax: MeshAxes) -> torch.Tensor:
-    traffic.gathered += x.numel() * x.element_size() * (ax.size - 1)
-    return mesh_lib.all_gather(x, dim, ax)
+def all_gather(x: torch.Tensor, dim: int, ax: MeshAxes,
+               source: str = "layer") -> torch.Tensor:
+    return mesh_lib.all_gather(x, dim, ax, source)
 
 
 def all_reduce(x: torch.Tensor, ax: MeshAxes, op=None) -> torch.Tensor:
-    traffic.reduced += x.numel() * x.element_size()
     return mesh_lib.all_reduce(x, dist.ReduceOp.SUM if op is None else op,
-                               ax)
+                               ax, "layer")
 
 
 def own_slice(x: torch.Tensor, dim: int, ax: MeshAxes) -> torch.Tensor:
@@ -261,9 +275,10 @@ class _GatherWeight(torch.autograd.Function):
             part = g.narrow(dim, j * n, n).to(
                 torch.float32, memory_format=torch.contiguous_format,
                 copy=True)
-            traffic.reduced += part.numel() * part.element_size()
             dist.all_reduce(part, group=ax.group)
-            mesh_lib.collectives.add()
+            mesh_lib.collectives.note(
+                "all-reduce", part.numel() * part.element_size(), ax.size,
+                "layer")
             if j == ax.index:
                 mine = part
         return mine.to(ctx.pdtype), None, None, None
@@ -292,13 +307,13 @@ class _ReduceTensor(torch.autograd.Function):
 
 class _GatherTensor(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, ax):
+    def forward(ctx, x, dim, ax, source):
         ctx.dim, ctx.ax = dim, ax
-        return all_gather(x, dim, ax)
+        return all_gather(x, dim, ax, source)
 
     @staticmethod
     def backward(ctx, g):
-        return own_slice(g, ctx.dim, ctx.ax), None, None
+        return own_slice(g, ctx.dim, ctx.ax), None, None, None
 
 
 class _GatherPartial(torch.autograd.Function):
@@ -389,9 +404,10 @@ def row_parallel(x: torch.Tensor, p: torch.Tensor,
     return reduce_tensor(_RowParallel.apply(x, w), ax).to(x.dtype)
 
 
-def gather_tensor(x: torch.Tensor, dim: int,
-                  ax: Optional[MeshAxes]) -> torch.Tensor:
-    return x if ax is None else _GatherTensor.apply(x, dim % x.dim(), ax)
+def gather_tensor(x: torch.Tensor, dim: int, ax: Optional[MeshAxes],
+                  source: str = "layer") -> torch.Tensor:
+    return x if ax is None else _GatherTensor.apply(x, dim % x.dim(), ax,
+                                                    source)
 
 
 def gather_partial(x: torch.Tensor, dim: int,
@@ -433,7 +449,4 @@ def gather_cache(x: torch.Tensor, dim: int,
     """A cache buffer cut over the model axis ``ax`` along ``dim``, whole
     (``gather_tensor``; a cache is read under inference mode, so no
     gradient); its bytes also count in ``traffic.cache_gathered``."""
-    if ax is None:
-        return x
-    traffic.cache_gathered += x.numel() * x.element_size() * (ax.size - 1)
-    return gather_tensor(x, dim, ax)
+    return gather_tensor(x, dim, ax, "cache")

@@ -1,8 +1,8 @@
 """The port's runtime layer on the CPU, against the JAX package:
 ``repro_torch.runtime.ft`` (the straggler watchdog, the elastic mesh
 shape, engine re-matching after a failure), the elastic
-``CheckpointManager.restore`` on 1, 2 and 4 gloo ranks, and the two
-examples of ``repro_torch.examples``."""
+``CheckpointManager.restore`` on 1, 2 and 4 gloo ranks, and the
+examples of ``repro_torch.examples`` (``train_lm`` aside)."""
 import os
 import pathlib
 import sys
@@ -22,7 +22,9 @@ from repro_torch.accel.platform import EDGE
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import pso
 from repro_torch.core.matcher import IMMSchedMatcher
-from repro_torch.examples import fault_tolerant_rematch, quickstart
+from repro_torch.examples import (fault_tolerant_rematch,
+                                  interruptible_serving, online_service,
+                                  quickstart, schedule_multi_dnn)
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.runtime import ft
 from repro_torch.workloads.zoo import get_workload
@@ -115,16 +117,30 @@ def test_remap_on_failure_runs_on_the_card_by_default():
         ft.remap_on_failure(EDGE, get_workload("resnet50"), [])
 
 
-@pytest.mark.parametrize("example", [quickstart, fault_tolerant_rematch])
+#: each example and lines its printout must hold (``train_lm`` runs in
+#: ``tests/test_torch_train.py``)
+EXAMPLES = {
+    quickstart: ["all query edges preserved: True"],
+    fault_tolerant_rematch: ["none failed: OK",
+                             "496 live devices -> mesh (31, 16)"],
+    online_service: ["compile cache: ", " hits, warm starts: "],
+    interruptible_serving: ["immsched  urgent deadline met: 1/1"],
+    schedule_multi_dnn: ["violations: none", "feasible co-schedules found"],
+}
+
+
+@pytest.mark.parametrize("example", list(EXAMPLES))
 def test_examples_run_on_the_cpu(example, capsys):
-    example.main(["--device", "cpu"])
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)    # see test_torch_examples.one_thread
+    try:
+        example.main(["--device", "cpu"])
+    finally:
+        torch.set_num_threads(n)
     out = capsys.readouterr().out
     assert out.strip()
-    if example is fault_tolerant_rematch:
-        assert "none failed: OK" in out
-        assert "496 live devices -> mesh (31, 16)" in out
-    else:
-        assert "all query edges preserved: True" in out
+    for line in EXAMPLES[example]:
+        assert line in out
 
 
 # ----------------------------- elastic restore ----------------------------

@@ -146,7 +146,8 @@ Phases, in order; any failure exits non-zero:
      batch (phase 9's tolerances, logits within 2e-4, equal tokens);
      (b) four ranks spawned on the one card (gloo on CUDA tensors,
      ``chip_smoke.py --lm-mesh-rank r --mesh-dir DIR``) on a (2, 2) mesh
-     with qwen1.5-0.5b as published, in two passes, each held against a
+     with qwen1.5-0.5b at full width, 12 of its 24 layers, in two
+     passes, each held against a
      one-device run in this process on the same weights and batches.
      The bfloat16 pass, launch/train's defaults (batch 8 x 256, adamw,
      remat "block"), 3 steps, then launch/serve's batch and prompt (4 x
@@ -212,7 +213,21 @@ Phases, in order; any failure exits non-zero:
      caches of 4,096 (``SEQ_MESH_*``). One ``seq_mesh`` JSON line: per
      rank the collectives and bytes a prefill, a token and a step,
      prefill, decode and step ms, peak memory, the resident shares and
-     every check's number.
+     every check's number. (f) model axes that do not divide MLA's or
+     Mamba2's heads, eight ranks spawned the same way
+     (``chip_smoke.py --odd-mesh-rank r``): all eight as (1, 8), then
+     the first six as (2, 3), each in a world of its own; the tiny
+     deepseek (its latent rank cut with its heads whole on (1, 8),
+     neither cut on (2, 3), at 6 heads its heads cut with the latent
+     whole) and zamba2 (its conv and out_proj cut, in_proj whole and
+     the state cut on N on (1, 8); in_proj and conv cut, out_proj and
+     the state whole on (2, 3)), a serve and an AdamW step pair each
+     against the one device; zamba2-7b at (d)'s cut on (2, 3), a
+     float32 serve and two float32 train steps against (d)'s one-device
+     run, each rank's resident parameters, accumulators and optimizer
+     state exactly its slices' bytes. One ``odd_mesh`` JSON line: per
+     rank the tiny records, step, decode and prefill ms, collectives
+     and bytes, peak memory and the resident bytes beside the rules'.
   11. the last entry points (``repro_torch.examples`` and
      ``repro_torch.launch.dryrun``): (a) ``online_service``,
      ``interruptible_serving`` and ``schedule_multi_dnn`` with ``--device
@@ -481,8 +496,8 @@ TRAIN_GIANT_FACTORS = {
 #: phase 10: the sharded LM path. (a) a world of one over NCCL, the tiny
 #: dense and vlm configs (phase 9's tolerances; serve within SERVE_TOL);
 #: (b) LM_MESH_WORLD ranks on the one card on an LM_MESH_SHAPE mesh with
-#: LM_MESH_ARCH as published, LM_MESH_STEPS steps at launch/train's
-#: defaults, then launch/serve's defaults, in two passes against the one
+#: LM_MESH_ARCH at full width and LM_MESH_LAYERS deep, LM_MESH_STEPS
+#: steps at launch/train's defaults, then launch/serve's defaults, in two passes against the one
 #: device on the same weights. The float32 pass (float32 compute and
 #: caches) holds the state: phase 9's criteria (loss and grad norm within
 #: TRAIN_METRIC_RTOL, the first step's every gradient leaf within
@@ -505,6 +520,9 @@ LM_MESH_TINY = ("qwen2.5-3b", "qwen2-vl-7b", "deepseek-v2-236b",
                 "arctic-480b", "xlstm-1.3b", "zamba2-7b",
                 "seamless-m4t-medium")
 LM_MESH_ARCH = "qwen1.5-0.5b"
+#: (b)'s depth: 12 of the config's 24 layers at its published widths,
+#: since phase 10 (f) took the whole run to 974.2 s on an H100 (PERF.md §4)
+LM_MESH_LAYERS = 12
 LM_MESH_WORLD = 4
 LM_MESH_SHAPE = (2, 2)
 LM_MESH_STEPS = 3
@@ -659,6 +677,30 @@ SEQ_MESH_TRAIN_PARAMS = 619_474_944
 SEQ_MESH_F32_RTOL = dict(losses=1e-5, grad_norms=5e-6)
 SEQ_MESH_B1 = dict(batch=1, prompt_len=64, max_len=4096)
 SEQ_MESH_TIMEOUT_S = 600
+#: (f) model axes that do not divide MLA's or Mamba2's heads (ROADMAP
+#: 10d-iii), ODD_MESH_WORLD ranks spawned as (b)–(e)'s are: (1) the tiny
+#: configs of ODD_MESH_TINY on each of their meshes, first all
+#: ODD_MESH_WORLD ranks as (1, 8) (deepseek's latent rank of 16 cut with
+#: its 4 heads whole; zamba2's conv and out_proj cut, in_proj whole, its
+#: state cut on N), then the first six as (2, 3) (deepseek's heads and
+#: latent whole; at 6 heads its heads cut and the latent whole; zamba2's
+#: in_proj and conv cut, out_proj and the state whole): one AdamW step
+#: pair and a prefill and ODD_MESH_TINY_GEN − 1 tokens at float32
+#: caches each, at _tiny_mesh_parity's limits; (2) SSM_MESH_ARCH at
+#: full width and SSM_MESH_LAYERS on (2, 3), float32: (d)'s serve and
+#: train steps against (d)'s float32 one-device run (logits within
+#: SERVE_TOL and equal tokens; losses, grad norms and the next loss
+#: within TRAIN_METRIC_RTOL_BY), each rank's resident parameters,
+#: accumulators and optimizer state exactly its slices' bytes
+#: (ODD_MESH_PARAMS of SSM_MESH_PARAMS a rank)
+ODD_MESH_WORLD = 8
+ODD_MESH_TINY = {(1, 8): (("deepseek-v2-236b", None), ("zamba2-7b", None)),
+                 (2, 3): (("deepseek-v2-236b", None), ("deepseek-v2-236b", 6),
+                          ("zamba2-7b", None))}
+ODD_MESH_FULL = (2, 3)
+ODD_MESH_TINY_GEN = 5
+ODD_MESH_PARAMS = 368_148_256
+ODD_MESH_TIMEOUT_S = 600
 
 
 def log(*a):
@@ -2605,16 +2647,20 @@ def _same_grads(both, grads, mine, where):
     return worst
 
 
-def _tiny_mesh_parity(arch, mesh, capacity_factor=None):
-    """Phase 10 (a), and (c)'s tiny MoE on each rank of the (2, 2) mesh,
-    for one tiny config: two steps (the first at lr 0) of adamw and of
-    adafactor, then prefill and greedy decode with float32 caches, the
-    mesh's path on this rank's rows against the one-device path on the
-    whole batch, both on the card, same weights and batch; each rank
-    holds its slice of the one device's gradients, logits and tokens
-    (``_mesh_slice``), and the whole parameters (gathered). An MoE's
-    global drop counts equal the one device's after every pass
-    (``capacity_factor`` overrides the config's)."""
+def _tiny_mesh_parity(arch, mesh, capacity_factor=None, heads=None,
+                      optimizers=("adamw", "adafactor"),
+                      gen=SERVE_TINY_ARGS["gen"]):
+    """Phase 10 (a), and (c), (d) and (f)'s tiny configs on each rank of
+    their mesh, for one tiny config: two steps (the first at lr 0) of
+    each of ``optimizers``, then prefill and ``gen`` − 1 greedy decode
+    steps with float32 caches, the mesh's path on this rank's rows
+    against the one-device path on the whole batch, both on the card,
+    same weights and batch; each rank holds its slice of the one
+    device's gradients, logits (its vocabulary columns where the model
+    axis cuts the head) and tokens (``_mesh_slice``), and the whole
+    parameters (gathered). An MoE's global drop counts equal the one
+    device's after every pass (``capacity_factor`` overrides the
+    config's, ``heads`` its query and KV heads)."""
     from repro_torch.checkpoint.manager import _mesh_slice
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
@@ -2631,10 +2677,12 @@ def _tiny_mesh_parity(arch, mesh, capacity_factor=None):
     if capacity_factor is not None:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=capacity_factor))
+    if heads is not None:
+        cfg = cfg.replace(num_heads=heads, kv_heads=heads)
     weights = tmodel.params_to_numpy(tmodel.build_model(
         cfg, device="cpu", generator=torch.Generator().manual_seed(SEED)))
-    where = f"{arch} (tiny) on {tuple(shd.mesh_shape(mesh).values())}"
-    lspec = shd.logits_spec(mesh)
+    where = (f"{arch} (tiny{'' if heads is None else f', {heads} heads'}) "
+             f"on {tuple(shd.mesh_shape(mesh).values())}")
 
     def mine(t, spec):
         return _mesh_slice(t.detach().float().cpu().numpy(), mesh, spec)
@@ -2655,9 +2703,9 @@ def _tiny_mesh_parity(arch, mesh, capacity_factor=None):
         drops.append(pair[0])
     batch = _train_batch(cfg, dev, SEED + 4, **TRAIN_TINY_BATCH)
     batch["labels"][:, ::5] = -1
-    rec = dict(arch=arch)
+    rec = dict(arch=arch, heads=cfg.num_heads)
     mesh_lib.collectives.reset()
-    for optimizer in ("adamw", "adafactor"):
+    for optimizer in optimizers:
         tcfg = TrainConfig(optimizer=optimizer, **TRAIN_TINY_CFG)
         one, sh = both()
         s1, s2 = tl.make_train_state(one, tcfg), tl.make_train_state(sh,
@@ -2727,8 +2775,9 @@ def _tiny_mesh_parity(arch, mesh, capacity_factor=None):
     tmodel.CACHE_DTYPE = torch.float32
     try:
         one, sh = both()
-        B, P, G = (SERVE_TINY_ARGS[k] for k in ("batch", "prompt_len",
-                                                 "gen"))
+        B, P, G = SERVE_TINY_ARGS["batch"], SERVE_TINY_ARGS["prompt_len"], gen
+        lspec = shd.logits_spec(mesh)[:2] + (
+            None if sh.vocab_axes() is None else "model",)
         prompt = prompt_batch(one, B, P, SEED + 1)
         start = P + (tmodel.VLM_PATCHES if cfg.family == "vlm" else 0)
         l1, c1 = sl.make_prefill_step(one, max_len=start + G)(prompt)
@@ -2872,8 +2921,10 @@ def _mesh_serve(model, mesh, want_logits, tokens, G,
     from repro_torch.runtime import sharding as shd
     B, P = batch, prompt_len
     prompt = shard.shard_batch(prompt_batch(model, B, P, SEED + 1), mesh)
-    # the logits' rows are cut as the batch's are, or whole on every rank
-    lspec = (prompt.specs["tokens"][0], None, shd.logits_spec(mesh)[2])
+    # the logits' rows are cut as the batch's are, or whole on every
+    # rank; their vocabulary where the model axis cuts the head
+    lspec = (prompt.specs["tokens"][0], None,
+             None if model.vocab_axes() is None else "model")
     rows = _mesh_slice(np.arange(B), mesh, lspec[:1])
     (logits, caches), prefill = _counted(
         lambda: sl.make_prefill_step(model, mesh, max_len=max_len or P + G)(
@@ -2910,7 +2961,8 @@ def _mesh_serve(model, mesh, want_logits, tokens, G,
 
 
 def lm_mesh_rank(rank, mesh_dir):
-    """One rank of phase 10 (b): ``LM_MESH_ARCH`` as published on the
+    """One rank of phase 10 (b): ``LM_MESH_ARCH`` (``LM_MESH_LAYERS``
+    deep) on the
     ``LM_MESH_SHAPE`` mesh (gloo on CUDA tensors, every rank on the one
     card), built from the seed and cut to this rank's slice, in two
     passes. The bfloat16 pass (launch/train's and launch/serve's
@@ -2941,7 +2993,7 @@ def lm_mesh_rank(rank, mesh_dir):
                         timeout_s=LM_MESH_GROUP_TIMEOUT_S)
     mesh = mesh_lib.make_host_mesh(*LM_MESH_SHAPE, backend="gloo",
                                    device=dev)
-    cfg = get_config(LM_MESH_ARCH)
+    cfg = get_config(LM_MESH_ARCH).replace(num_layers=LM_MESH_LAYERS)
     tcfg = _lm_mesh_train_cfg(LM_MESH_ARCH)
     batches = [shard.shard_batch({k: v.to(dev) for k, v in b.items()}, mesh)
                for b in _lm_mesh_batches(cfg)]
@@ -3064,7 +3116,7 @@ def _lm_mesh_one_device(d):
     from repro_torch.models import model as tmodel
     from repro_torch.runtime import shard
     from repro_torch.runtime import train_loop as tl
-    cfg = get_config(LM_MESH_ARCH)
+    cfg = get_config(LM_MESH_ARCH).replace(num_layers=LM_MESH_LAYERS)
     tcfg = _lm_mesh_train_cfg(LM_MESH_ARCH)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3156,7 +3208,8 @@ def _lm_mesh_one_device_f32(d):
     from repro_torch.models import build_model
     from repro_torch.models import model as tmodel
     from repro_torch.runtime import train_loop as tl
-    cfg = get_config(LM_MESH_ARCH).replace(compute_dtype="float32")
+    cfg = get_config(LM_MESH_ARCH).replace(
+        num_layers=LM_MESH_LAYERS, compute_dtype="float32")
     tcfg = _lm_mesh_train_cfg(LM_MESH_ARCH)
     model = build_model(cfg, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(SEED))
@@ -3198,7 +3251,8 @@ def _lm_mesh_resume(d, one32, ranks_next_loss):
     from repro_torch.models import build_model
     from repro_torch.models import model as tmodel
     from repro_torch.runtime import train_loop as tl
-    cfg = get_config(LM_MESH_ARCH).replace(compute_dtype="float32")
+    cfg = get_config(LM_MESH_ARCH).replace(
+        num_layers=LM_MESH_LAYERS, compute_dtype="float32")
     tcfg = _lm_mesh_train_cfg(LM_MESH_ARCH)
     model = build_model(cfg, device="cuda")
     state = tl.make_train_state(model, tcfg)
@@ -3689,13 +3743,15 @@ def moe_mesh_rank(rank, mesh_dir):
 
 def _build_in_turn(cfg, mesh, rank):
     """``cfg``'s model from ``SEED``, cut to this rank's slice:
-    ``MOE_MESH_BUILDERS`` ranks at a time build the whole model and cut
-    it (four whole full-width models would not fit on the card at once).
+    ``MOE_MESH_BUILDERS`` ranks of the world at a time build the whole
+    model and cut it (four whole full-width models would not fit on the
+    card at once).
     Returns (model, digest of the whole weights)."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.runtime import shard
+    import torch.distributed as dist
     model = digest = None
-    for turn in range(0, LM_MESH_WORLD, MOE_MESH_BUILDERS):
+    for turn in range(0, dist.get_world_size(), MOE_MESH_BUILDERS):
         if turn <= rank < turn + MOE_MESH_BUILDERS:
             _mem_line(f"rank {rank} before building {cfg.num_layers} "
                       f"layers at {cfg.param_dtype}")
@@ -3749,13 +3805,15 @@ def _f32_serve_misses(r, what, f32, rows, tokens):
     return bad
 
 
-def _train_misses(r, tr, tr1, rtol=LM_MESH_BF16_RTOL, own=None):
+def _train_misses(r, tr, tr1, rtol=LM_MESH_BF16_RTOL, own=None,
+                  share=LM_MESH_SHARE):
     """A rank's train steps against the one device's (``_train_steps``):
     losses, grad norms and the next batch's loss within ``rtol`` (a
     dict by "losses" and "grad_norms"), or within the one device's own
     bfloat16 error where ``own`` gives it and it is larger (``own``: the
     one device's float32-compute run, ``_own_errors``), parameters and
-    accumulators at most ``LM_MESH_SHARE`` of the one device's, the
+    accumulators at most ``share`` of the one device's (None: exactly
+    the bytes of the parameters' slices, float32 parameters), the
     optimizer state its slices' bytes."""
     bad = []
     tol = {k: [rtol[k] * abs(b) for b in tr1[k]]
@@ -3776,7 +3834,10 @@ def _train_misses(r, tr, tr1, rtol=LM_MESH_BF16_RTOL, own=None):
                    f"{tol['next_loss']})")
     res, res1 = tr["resident_bytes"], tr1["resident_bytes"]
     for k in ("params", "grads"):
-        if not res[k] <= LM_MESH_SHARE * res1[k]:
+        if share is None and res[k] != tr["param_slices_bytes"]:
+            bad.append(f"rank {r} holds {res[k]} B of {k}, its slices "
+                       f"{tr['param_slices_bytes']}")
+        elif share is not None and not res[k] <= share * res1[k]:
             bad.append(f"rank {r} holds {res[k]} B of {k}, the one device "
                        f"{res1[k]}")
     if res["opt"] != tr["opt_slices_bytes"]:
@@ -3835,9 +3896,9 @@ def _moe_checks(one, arrays, recs):
     return bad + _changed_misses(tr1, recs)
 
 
-def _moe_reckon(cfg, weight_bytes):
-    """What the rules give a rank of the ``LM_MESH_SHAPE`` mesh for
-    ``cfg``, from the shapes alone (a model on ``meta``): its share of
+def _moe_reckon(cfg, weight_bytes, shape=LM_MESH_SHAPE):
+    """What the rules give a rank of a mesh of ``shape`` for ``cfg``,
+    from the shapes alone (a model on ``meta``): its share of
     the parameters, and the bytes its FSDP gathers receive in one
     forward with weights at ``weight_bytes`` (the float32 router at 4),
     those of the stacked blocks apart (gathered again under remat), and
@@ -3845,7 +3906,7 @@ def _moe_reckon(cfg, weight_bytes):
     from repro_torch.models import build_model
     from repro_torch.models.model import ref_leaves
     from repro_torch.runtime import sharding as shd
-    mesh = dict(zip(("data", "model"), LM_MESH_SHAPE))
+    mesh = dict(zip(("data", "model"), shape))
     dp = mesh["data"]
     whole = mine = gathered = blocks = reduced = 0
     for leaf in ref_leaves(build_model(cfg, device="meta",
@@ -4164,6 +4225,7 @@ def ssm_mesh_phase():
         recs = [json.loads((d / f"rank{r}.json").read_text())
                 for r in range(LM_MESH_WORLD)]
     bad = _ssm_checks(one, arrays, recs)
+    _SSM_ONE_DEVICE["ssm"] = (one, arrays)
     tr1 = one["train"]["resident_bytes"]
 
     def per_token(sv):
@@ -4652,6 +4714,225 @@ def seq_mesh_phase():
     return line
 
 
+def _odd_one_device():
+    """Phase 10 (f)'s one-device run on the card, where (d) has not run
+    in this process: ``SSM_MESH_ARCH``'s float32 serve and train steps
+    on one model from ``SEED``, as (d) makes them. Returns (d)'s record
+    and arrays for those keys."""
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    saved = tmodel.CACHE_DTYPE
+    tmodel.CACHE_DTYPE = torch.float32
+    try:
+        _free()
+        model, digest = _build_seeded(_ssm_cfg(SSM_MESH_ARCH,
+                                               SSM_MESH_LAYERS, "float32"))
+        r, a = _serve_one(model, SSM_MESH_GEN)
+        one = dict(f32_serve=dict(
+            digest=digest, params=model.num_params(),
+            resident_param_bytes=shard.resident_bytes(model), **r))
+        one["f32_train"] = dict(digest=digest, **_train_steps(
+            model, _lm_mesh_train_cfg(SSM_MESH_ARCH), SSM_MESH_TRAIN_STEPS))
+        del model
+        _free()
+    finally:
+        tmodel.CACHE_DTYPE = saved
+    return one, {"f32_serve_logits": a["logits"],
+                 "f32_serve_tokens": a["tokens"]}
+
+
+def odd_mesh_rank(rank, mesh_dir):
+    """One rank of phase 10 (f): (1) with all ``ODD_MESH_WORLD`` ranks
+    as (1, 8), then with the first six as (2, 3) (a group of its own),
+    the tiny configs of ``ODD_MESH_TINY`` (``_tiny_mesh_parity``, which
+    fails this rank on a miss); (2) on (2, 3), ``SSM_MESH_ARCH``'s
+    float32 serve and train steps, the model built in turn from the
+    seed, fed the one device's tokens. Writes ``rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import _mesh_slice
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as tmodel
+    from repro_torch.runtime import shard
+    from repro_torch.runtime import sharding as shd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    dev = "cuda"
+    torch.cuda.set_device(0)
+    d = Path(mesh_dir)
+    rec = dict(rank=rank, tiny={}, tiny_ms={})
+    for shape in ODD_MESH_TINY:
+        world = shape[0] * shape[1]
+        if rank >= world:
+            continue
+        mesh_lib.init_group("gloo", init_method=f"file://{d}/store{world}",
+                            rank=rank, world_size=world, device=dev,
+                            timeout_s=LM_MESH_GROUP_TIMEOUT_S)
+        mesh = mesh_lib.make_host_mesh(*shape, backend="gloo", device=dev)
+        key = f"{shape[0]}x{shape[1]}"
+        t0 = time.perf_counter()
+        rec["tiny"][key] = [
+            _tiny_mesh_parity(a, mesh, heads=h, optimizers=("adamw",),
+                              gen=ODD_MESH_TINY_GEN)
+            for a, h in ODD_MESH_TINY[shape]]
+        rec["tiny_ms"][key] = (time.perf_counter() - t0) * 1e3
+        _free()
+        if shape != ODD_MESH_FULL:
+            mesh_lib.barrier()
+            dist.destroy_process_group()
+            continue
+        ref = np.load(d / "odd.npz")
+        rec["rows"] = _mesh_slice(np.arange(SERVE_ARGS["batch"]), mesh,
+                                  shd.logits_spec(mesh)[:1]).tolist()
+        saved = tmodel.CACHE_DTYPE
+        tmodel.CACHE_DTYPE = torch.float32
+        try:
+            model, digest = _build_in_turn(
+                _ssm_cfg(SSM_MESH_ARCH, SSM_MESH_LAYERS, "float32"), mesh,
+                rank)
+            torch.cuda.reset_peak_memory_stats()
+            rec["f32_serve"] = dict(digest=digest, **_mesh_serve(
+                model, mesh, ref["f32_serve_logits"],
+                ref["f32_serve_tokens"], SSM_MESH_GEN))
+            rec["f32_serve"].update(
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                resident_param_bytes=shard.resident_bytes(model),
+                slices_bytes=_slices_bytes(model))
+            rec["f32_train"] = dict(digest=digest, **_train_steps(
+                model, _lm_mesh_train_cfg(SSM_MESH_ARCH),
+                SSM_MESH_TRAIN_STEPS, mesh, rank))
+            del model
+            _free()
+        finally:
+            tmodel.CACHE_DTYPE = saved
+        (d / f"rank{rank}.json").write_text(json.dumps(rec))
+        mesh_lib.barrier()
+        dist.destroy_process_group()
+    if rank >= ODD_MESH_FULL[0] * ODD_MESH_FULL[1]:
+        (d / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def _odd_checks(one, arrays, recs):
+    """What phase 10 (f)'s (2, 3) ranks must meet against (d)'s float32
+    one-device run: a list of the misses."""
+    bad = []
+    for r, rec in enumerate(recs):
+        for what in ("f32_serve", "f32_train"):
+            if abs(rec[what]["digest"] - one[what]["digest"]) > 1e-9 * abs(
+                    one[what]["digest"]):
+                bad.append(f"rank {r} built other {what} weights")
+        bad += _f32_serve_misses(r, "f32_serve", rec["f32_serve"],
+                                 rec["rows"], arrays["f32_serve_tokens"])
+        sv = rec["f32_serve"]
+        if not sv["resident_param_bytes"] == sv["slices_bytes"] == \
+                4 * ODD_MESH_PARAMS:
+            bad.append(f"rank {r} holds {sv['resident_param_bytes']} B of "
+                       f"parameters, its slices {sv['slices_bytes']}, the "
+                       f"rules {4 * ODD_MESH_PARAMS}")
+        bad += _train_misses(r, rec["f32_train"], one["f32_train"],
+                             TRAIN_METRIC_RTOL_BY, share=None)
+    return bad + _changed_misses(one["f32_train"], recs, "f32_train")
+
+
+#: phase 10 (d)'s one-device record and arrays, which (f) is held
+#: against too (the same model, weights and batches)
+_SSM_ONE_DEVICE = {}
+
+
+def odd_mesh_phase():
+    """Phase 10 (f), as the module's docstring says: ``ODD_MESH_WORLD``
+    ranks spawned on the one card (``odd_mesh_rank``), the full-width
+    model held against (d)'s one-device run (made here when (d) has not
+    run). Fails on any check, a rank's non-zero exit or timeout. One
+    ``odd_mesh`` JSON line."""
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.time()
+    one, arrays = _SSM_ONE_DEVICE.get("ssm") or _odd_one_device()
+    full = ODD_MESH_FULL[0] * ODD_MESH_FULL[1]
+    line = dict(card=card_line(), arch=SSM_MESH_ARCH,
+                layers=SSM_MESH_LAYERS, full_mesh=list(ODD_MESH_FULL),
+                tiny={f"{a}x{b}": [f"{c}{'' if h is None else f' ({h} heads)'}"
+                                   for c, h in v]
+                      for (a, b), v in ODD_MESH_TINY.items()},
+                one_device_s=time.time() - t_phase,
+                reckoned=_moe_reckon(_ssm_cfg(SSM_MESH_ARCH,
+                                              SSM_MESH_LAYERS), 4,
+                                     ODD_MESH_FULL),
+                note=f"the walls are {ODD_MESH_WORLD} and then {full} "
+                     f"processes time-sliced on one card over gloo, not a "
+                     f"scale-out figure")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        np.savez(d / "odd.npz", **{k: arrays[k] for k in (
+            "f32_serve_logits", "f32_serve_tokens")})
+        cmds = [[sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--odd-mesh-rank", str(r), "--mesh-dir", str(d)]
+                for r in range(ODD_MESH_WORLD)]
+        t0 = time.perf_counter()
+        try:
+            outs = mesh_lib.run_ranks(
+                cmds, timeout_s=ODD_MESH_TIMEOUT_S, cwd=str(ROOT),
+                env=dict(os.environ,
+                         PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+        except (TimeoutError, mesh_lib.RankFailed) as e:
+            fail(f"phase 10 (f): {e}")
+        line["ranks_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        line["rank_memory"] = [[m for m in err.splitlines()
+                                if m.startswith("memory")][-1:]
+                               for _, _, err in outs[:full]]
+        recs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(ODD_MESH_WORLD)]
+    bad = _odd_checks(one, arrays, recs[:full])
+    tr1 = one["f32_train"]
+
+    def train_line(tr):
+        return {k: v for k, v in tr.items() if k not in ("changed", "digest")}
+    line["ranks"] = [dict(
+        rank=rec["rank"], tiny=rec["tiny"], tiny_ms=rec["tiny_ms"],
+        **({} if "f32_serve" not in rec else dict(
+            f32_serve=dict(
+                decode_ms_per_token=statistics.median(
+                    rec["f32_serve"]["ms"][1:] or rec["f32_serve"]["ms"]),
+                collectives_per_token=rec["f32_serve"]["collectives"][-1],
+                bytes_gathered_per_token=rec["f32_serve"]["gathered"][-1],
+                bytes_reduced_per_token=rec["f32_serve"]["reduced"][-1],
+                prefill_ms=rec["f32_serve"]["prefill_ms"],
+                logits_max_abs_err=max(rec["f32_serve"]["err"]),
+                peak_memory_bytes=rec["f32_serve"]["peak_memory_bytes"],
+                resident_param_bytes=rec["f32_serve"][
+                    "resident_param_bytes"],
+                slices_bytes=rec["f32_serve"]["slices_bytes"],
+                rules_bytes=4 * ODD_MESH_PARAMS,
+                resident_param_share=rec["f32_serve"][
+                    "resident_param_bytes"]
+                / one["f32_serve"]["resident_param_bytes"]),
+            f32_train=train_line(rec["f32_train"]),
+            resident_share={k: v / tr1["resident_bytes"][k] for k, v in
+                            rec["f32_train"]["resident_bytes"].items()})))
+        for rec in recs]
+    line["checks"] = dict(
+        f32_logits_max_abs_err=max(max(rec["f32_serve"]["err"])
+                                   for rec in recs[:full]),
+        f32_train_rel_err={k: max(abs(a - b) / abs(b) for rec in recs[:full]
+                                  for a, b in zip(rec["f32_train"][k],
+                                                  tr1[k]))
+                           for k in ("losses", "grad_norms")},
+        f32_next_loss_rel_err=max(
+            abs(rec["f32_train"]["next_loss"] - tr1["next_loss"])
+            / abs(tr1["next_loss"]) for rec in recs[:full]),
+        tiny_serve_logits_max_abs_err={
+            k: max(t["serve_logits_max_abs_err"] for rec in recs
+                   for t in rec["tiny"].get(k, ())) for k in line["tiny"]},
+        failed=bad)
+    line["phase_s"] = time.time() - t_phase
+    log(json.dumps({"odd_mesh": line}))
+    if bad:
+        fail("phase 10 (f): " + "; ".join(bad[:5]))
+    return line
+
+
 # ---------------------------------------------------------------------------
 # phase 11: the last entry points (the examples and the dry run)
 # ---------------------------------------------------------------------------
@@ -4967,6 +5248,8 @@ def main():
                     help=argparse.SUPPRESS)   # phase 10 (d)'s ranks
     ap.add_argument("--seq-mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # phase 10 (e)'s ranks
+    ap.add_argument("--odd-mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 10 (f)'s ranks
     ap.add_argument("--dryrun-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # phase 11 (b), (c)
     args = ap.parse_args()
@@ -4984,6 +5267,8 @@ def main():
         return ssm_mesh_rank(args.ssm_mesh_rank, args.mesh_dir)
     if args.seq_mesh_rank is not None:
         return seq_mesh_rank(args.seq_mesh_rank, args.mesh_dir)
+    if args.odd_mesh_rank is not None:
+        return odd_mesh_rank(args.odd_mesh_rank, args.mesh_dir)
     if args.dryrun_rank is not None:
         return dryrun_rank(args.mesh_dir)
     sys.path.insert(0, str(ROOT / "src"))
@@ -5263,16 +5548,19 @@ def main():
     log(json.dumps({"train": detail["train"]}))
 
     # 10. the sharded LM path: a world of one over NCCL, then four ranks
-    # on a (2, 2) mesh with qwen1.5-0.5b as published, then the MoE
+    # on a (2, 2) mesh with qwen1.5-0.5b at full width, then the MoE
     # family there (tiny, and deepseek-v2-236b at full width), then the
     # ssm, hybrid and encdec families (tiny, zamba2-7b and xlstm-1.3b at
     # full width), then sequence-sharded caches and batches (tiny,
     # qwen2.5-3b's 2 KV heads on a model axis of 4, zamba2-7b and
-    # xlstm-1.3b at a batch of 1)
+    # xlstm-1.3b at a batch of 1), then model axes that do not divide
+    # MLA's or Mamba2's heads (tiny on (1, 8) and (2, 3), zamba2-7b at
+    # full width on (2, 3))
     detail["lm_mesh"] = lm_mesh_phase()
     detail["moe_mesh"] = moe_mesh_phase()
     detail["ssm_mesh"] = ssm_mesh_phase()
     detail["seq_mesh"] = seq_mesh_phase()
+    detail["odd_mesh"] = odd_mesh_phase()
 
     # 11. the last entry points: the three scheduling examples on the
     # card, then the dry run's matcher cell and one LM cell on meta

@@ -34,13 +34,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import (RMSNorm, apply_mrope, apply_rope,
                                        dense_init)
-from repro_torch.runtime.mesh_ctx import (NOT_YET, WHOLE, all_reduce,
+from repro_torch.runtime.mesh_ctx import (WHOLE, all_reduce,
                                           constrain, current_cut,
                                           enter_tensor, gather_cache,
                                           gather_partial, own, own_slice,
                                           row_parallel, seq_offset,
                                           softmax_combine, tensor_axes,
                                           weight)
+from repro_torch.runtime.sharding import spec_for_cache_leaf
 
 #: prefill query chunk: a query longer than this, and a multiple of it, is
 #: attended in chunks so that the (B, H, Sq, Skv) logits never exist whole
@@ -329,13 +330,22 @@ class MLA(nn.Module):
 
     On a mesh (``runtime.shard``) the down projections ``wq_a``,
     ``wkv_a`` and ``wk_rope`` are cut on d over the FSDP axes and
-    gathered at use, and the norms run whole on every model rank; the
-    up projections ``wq_b``, ``wk_b``, ``wv_b`` are column-parallel on
-    the heads (each rank expands K_nope and V for its H/t heads from the
-    whole latent, which enters through ``enter_tensor``), and ``wo`` is
-    row-parallel. The latent cache ``ckv`` is cut on R over the model
-    axis (``infer_cache_specs``): a rank writes its R-slice and gathers
-    the whole buffer at each step; ``k_rope`` is whole."""
+    gathered at use, and the norms run whole on every model rank. Where
+    the model axis divides the heads (``head_axes``), the up projections
+    ``wq_b``, ``wk_b``, ``wv_b`` are column-parallel on them (each rank
+    expands K_nope and V for its H/t heads from the whole latent, which
+    enters through ``enter_tensor``) and ``wo`` is row-parallel; where it
+    does not, the rules cut none of the four on it, and every model rank
+    runs every head. Apart from the heads, the latent cache ``ckv`` is
+    cut on R over the model axis where it divides R (``latent_axes``,
+    ``infer_cache_specs``): a rank writes its R-slice and gathers the
+    whole buffer at each step (R·(t − 1)/t elements a cached position
+    a layer, where summing partial expansions over the axis would move
+    H·(nope + v)); ``k_rope`` is whole."""
+
+    #: the model axis of the mesh the block is laid out on (set by
+    #: ``runtime.shard.shard_model``; None off a mesh)
+    model_axis = None
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
@@ -362,20 +372,22 @@ class MLA(nn.Module):
         self.wo = nn.Parameter(dense_init((H, m.v_head_dim, d), dtype,
                                           (0, 1), **kw))
 
-    def latent_axes(self):
-        """The model axis that cuts the latent cache's R: the one that
-        cuts the heads (None off a mesh or when they are whole)."""
+    def head_axes(self):
+        """The model axis that cuts the heads (``wq_b``, ``wk_b``,
+        ``wv_b`` and ``wo`` alike); None off a mesh or where it does not
+        divide them."""
         return tensor_axes(self.wk_b)
 
-    def check_latent_cut(self, t: int) -> None:
-        """Raise ``NotImplementedError`` where a model axis of ``t``
-        divides the heads or the latent rank and not both: the rules
-        would cut the ``ckv`` cache on R unlike the heads."""
-        H, R = self.cfg.num_heads, self.cfg.mla.kv_lora_rank
-        if t > 1 and (H % t or R % t):
-            raise NotImplementedError(
-                f"{self.cfg.name}: MLA's {H} heads and latent rank {R} "
-                f"over a model axis of {t} ({NOT_YET})")
+    def latent_axes(self):
+        """The model axis that cuts the latent cache's R, as the rules
+        cut ``ckv`` (where it divides R, whatever the heads); None off a
+        mesh or where it does not."""
+        ax = self.model_axis
+        if ax is None:
+            return None
+        spec = spec_for_cache_leaf("ckv", (1, 1, self.cfg.mla.kv_lora_rank),
+                                   {"model": ax.size})
+        return ax if spec[2] is not None else None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -393,7 +405,7 @@ class MLA(nn.Module):
         cd = common.dt(cfg.compute_dtype)
         B, S, _ = x.shape
         nope, rope = m.nope_head_dim, m.rope_head_dim
-        tp = self.latent_axes()
+        tp, lat = self.head_axes(), self.latent_axes()
         cut = current_cut() or WHOLE
 
         q_lat = self.q_norm(x @ weight(self.wq_a, x.dtype))
@@ -411,11 +423,11 @@ class MLA(nn.Module):
         if cache is None:
             out = self._attend(q_nope, q_rope, ckv, k_rope, off, cd)
         else:
-            _write(cache, {"ckv": own(ckv, -1, tp), "k_rope": k_rope},
+            _write(cache, {"ckv": own(ckv, -1, lat), "k_rope": k_rope},
                    cache_index, cut.latent)
             if cut.latent is None:
                 out = self._attend(q_nope, q_rope,
-                                   gather_cache(cache["ckv"], -1, tp),
+                                   gather_cache(cache["ckv"], -1, lat),
                                    cache["k_rope"], cache_index + off, cd)
             elif cache_index == 0:
                 dtype = cache["ckv"].dtype
@@ -426,7 +438,7 @@ class MLA(nn.Module):
                 out = own(self._attend(
                     gather_partial(q_nope, 1, cut.seq),
                     gather_partial(q_rope, 1, cut.seq),
-                    gather_cache(cache["ckv"], -1, tp), cache["k_rope"],
+                    gather_cache(cache["ckv"], -1, lat), cache["k_rope"],
                     cache_index - seq_offset(ax, n), cd, ax), 1, cut.seq)
         out = out.reshape(B, S, -1)
         return row_parallel(out, self.wo, tp).to(x.dtype), cache
@@ -439,7 +451,7 @@ class MLA(nn.Module):
         ``ax`` the latents are cut on T over it (``softmax_combine``)."""
         m = self.cfg.mla
         nope, rope = m.nope_head_dim, m.rope_head_dim
-        tp = self.latent_axes()
+        tp = self.head_axes()
         B, S = q_nope.shape[:2]
         T = ckv.shape[1]
         mask = common.causal_mask(S, T, q_pos, device=ckv.device)

@@ -285,10 +285,6 @@ class LM(nn.Module):
         shapes = self.cache_shapes(batch_size, max_len)
         layout = getattr(self, "layout", None)
         if layout is not None:
-            t = 1 if layout.tp is None else layout.tp.size
-            for m in self.modules():
-                if isinstance(m, attention.MLA):
-                    m.check_latent_cut(t)
             self.cache_geometry = (batch_size, max_len)
 
         def zeros(name, t):

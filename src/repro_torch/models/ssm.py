@@ -25,14 +25,21 @@ dtype (``_causal_conv`` concatenates at the input's dtype).
 On a mesh (``runtime.shard``) a block holds the reference's rules'
 slices and runs on its share of the heads (``runtime.mesh_ctx``):
 
-  * Mamba2: ``in_proj`` is column-parallel on z | xBC | dt, whose cut
-    does not fall between the streams, so its output is gathered whole
-    (``gather_partial``); the depthwise conv runs on the channels of
-    this rank's ``conv_w`` slice (and ``conv`` cache slice), contiguous
-    over xBC, and its output is gathered whole again, of which the rank
-    keeps its heads' x and the whole B and C. The SSD core runs on
-    H/t heads with the H-cut ``state`` cache; the d_in norm sums its
-    squares over the model axis; ``out_proj`` is row-parallel;
+  * Mamba2: ``in_proj``, the conv and ``out_proj`` each follow their
+    own cut (the rules cut F = 2·d_in + 2N + H, C = d_in + 2N and d_in
+    where the model axis divides each), and every rank holds z | xBC |
+    dt and the conv's output whole (``gather_tensor`` of a column cut),
+    reading each in the share its layer's cut gives (``share``, whose
+    backward sums the ranks' gradients). The depthwise conv runs on the
+    channels of this rank's ``conv_w`` slice (and ``conv`` cache slice).
+    The SSD core runs as the ``state`` cache is cut: on H/t heads (x,
+    dt, ``A_log``, ``D``, ``dt_bias`` sliced, B and C whole); or, where
+    the model axis does not divide the heads but divides N, on every
+    head and this rank's N-slice of B and C, the output a partial sum
+    over N summed over the model axis before the ``D`` skip term, which
+    is added once; or whole. The d_in norm sums its squares over the
+    model axis and ``out_proj`` is row-parallel where ``out_proj`` is
+    cut, and both run whole where it is not;
   * mLSTM: ``up_proj``'s output is gathered whole the same way; the
     conv runs on this rank's d_in channels, then ``wqkv`` and ``wif``
     (cut on their input dim d_in) are row-parallel, which gives whole
@@ -70,8 +77,10 @@ from repro_torch.models import common
 from repro_torch.models.attention import _as
 from repro_torch.models.common import RMSNorm, dense_init
 from repro_torch.runtime.mesh_ctx import (enter_tensor, gather_cache,
-                                          gather_partial, own, reduce_tensor,
-                                          row_parallel, tensor_axes, weight)
+                                          gather_partial, gather_tensor, own,
+                                          reduce_tensor, row_parallel, share,
+                                          tensor_axes, weight)
+from repro_torch.runtime.sharding import spec_for_cache_leaf
 
 Cache = Dict[str, torch.Tensor]
 
@@ -168,6 +177,10 @@ def _update(cache: Optional[Cache], new: Cache) -> Optional[Cache]:
 # ---------------------------------------------------------------------------
 
 class Mamba2(nn.Module):
+    #: the model axis of the mesh the block is laid out on (set by
+    #: ``runtime.shard.shard_model``; None off a mesh)
+    model_axis = None
+
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device=None):
         super().__init__()
@@ -195,8 +208,9 @@ class Mamba2(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None):
         """x: (B, S, d). cache: {"conv": (B, K − 1, C), "state": (B, H,
-        N, P)} (on a mesh this rank's slices: C/t channels, H/t heads).
-        Returns (out, cache)."""
+        N, P)} (on a mesh this rank's slices: C/t channels where the
+        model axis divides C, and H/t heads or N/t of N as
+        ``mamba2_state_cut`` says). Returns (out, cache)."""
         s, cfg = self.cfg.ssm, self.cfg
         cd = common.dt(cfg.compute_dtype)
         B, S, d = x.shape
@@ -204,40 +218,63 @@ class Mamba2(nn.Module):
         H = cfg.num_heads
         P = d_in // H
         N = s.state_dim
-        tp = tensor_axes(self.out_proj)        # the heads' cut
-        Hl = H if tp is None else H // tp.size
+        t_in, t_conv, t_out = (tensor_axes(p) for p in (
+            self.in_proj, self.conv_w, self.out_proj))
+        heads, n_cut = mamba2_state_cut(cfg, self.model_axis)
+        Hl = H if heads is None else H // heads.size
 
-        xc = enter_tensor(x.to(cd), tp)
-        z_xbc_dt = gather_partial(xc @ weight(self.in_proj, cd), -1, tp)
+        xc = enter_tensor(x.to(cd), t_in)
+        z_xbc_dt = gather_tensor(xc @ weight(self.in_proj, cd), -1, t_in)
         z, xbc, dt = z_xbc_dt.split([d_in, d_in + 2 * N, H], dim=-1)
-        xbc, new_conv = _causal_conv(own(xbc, -1, tp), self.conv_w.to(cd),
-                                     self.conv_b.to(cd),
+        xbc, new_conv = _causal_conv(share(xbc, -1, t_conv),
+                                     self.conv_w.to(cd), self.conv_b.to(cd),
                                      None if cache is None else cache["conv"])
-        xs, Bmat, Cmat = gather_partial(xbc, -1, tp).split([d_in, N, N],
-                                                           dim=-1)
-        xs, z, dt = own(xs, -1, tp), own(z, -1, tp), own(dt, -1, tp)
-
-        def mine(p):                           # this rank's heads of p
-            return own(enter_tensor(p, tp), 0, tp)
-        dt = F.softplus(dt.float() + mine(self.dt_bias))   # (B, S, Hl)
-        log_f = dt * -mine(self.A_log).exp()               # ≤ 0
+        xs, Bmat, Cmat = gather_tensor(xbc, -1, t_conv).split([d_in, N, N],
+                                                              dim=-1)
+        # this rank's heads (each reads the whole B and C), or its N-slice
+        # of B and C (every head)
+        xs, dt = share(xs, -1, heads), share(dt, -1, heads)
+        Bmat, Cmat = (share(enter_tensor(m, heads), -1, n_cut)
+                      for m in (Bmat, Cmat))
+        dt_bias, A_log, D = (share(p, 0, heads)
+                             for p in (self.dt_bias, self.A_log, self.D))
+        dt = F.softplus(dt.float() + dt_bias)              # (B, S, Hl)
+        log_f = dt * -A_log.exp()                          # ≤ 0
 
         v = xs.reshape(B, S, Hl, P) * dt[..., None].to(cd)
-        k = Bmat[:, :, None, :].expand(B, S, Hl, N).to(cd)
-        q = Cmat[:, :, None, :].expand(B, S, Hl, N).to(cd)
+        k = Bmat[:, :, None, :].expand(B, S, Hl, -1).to(cd)
+        q = Cmat[:, :, None, :].expand(B, S, Hl, -1).to(cd)
+        # on an N-slice each rank's output is a partial sum over N
+        v_n, log_f = enter_tensor(v, n_cut), enter_tensor(log_f, n_cut)
 
         if S == 1 and cache is not None:
             out, new_state = gla_step(cache["state"], q[:, 0], k[:, 0],
-                                      v[:, 0], log_f[:, 0])
+                                      v_n[:, 0], log_f[:, 0])
             out = out[:, None]
         else:
             out, new_state = chunked_gla(
-                q, k, v, log_f, s.chunk,
+                q, k, v_n, log_f, s.chunk,
                 None if cache is None else cache["state"])
-        out = out + v * mine(self.D).to(cd)[:, None]
-        out = self.norm(out.reshape(B, S, Hl * P), tp) * F.silu(z)
-        out = row_parallel(out, self.out_proj, tp).to(x.dtype)
+        out = reduce_tensor(out, n_cut) + v * D.to(cd)[:, None]
+        out = out.reshape(B, S, Hl * P)
+        if heads is None:       # whole: this rank's share of out_proj's rows
+            out = share(out, -1, t_out)
+        out = self.norm(out, t_out) * F.silu(share(z, -1, t_out))
+        out = row_parallel(out, self.out_proj, t_out).to(x.dtype)
         return out, _update(cache, {"conv": new_conv, "state": new_state})
+
+
+def mamba2_state_cut(cfg: ModelConfig, ax):
+    """(heads, n): the model axis ``ax`` where the rules cut Mamba2's
+    ``state`` cache (B, H, N, P) on its heads, and where they cut it on N
+    (``runtime.sharding.spec_for_cache_leaf``: H where ``ax`` divides it,
+    else N where it divides that); None for each they leave whole, and
+    both off a mesh."""
+    if ax is None:
+        return None, None
+    H, N = cfg.num_heads, cfg.ssm.state_dim
+    spec = spec_for_cache_leaf("state", (1, H, N, 1), {"model": ax.size})
+    return (ax if spec[1] else None), (ax if spec[2] else None)
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

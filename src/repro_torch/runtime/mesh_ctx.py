@@ -34,9 +34,11 @@ reading its parameters' ``shard`` (``ParamShard``, set by
     forward, this rank's slice of the gradient backward. That is right
     where every rank computes the same from the whole tensor;
     ``gather_partial`` is the gather for a whole tensor that each rank
-    then uses only in part (Mamba2's z | xBC | dt, of which a rank
-    keeps its heads and B and C): its backward sums the ranks'
-    gradients over ``ax`` before it takes this rank's slice;
+    then uses only in part (the mLSTM's up projection, of which a rank
+    keeps its channels): its backward sums the ranks' gradients over
+    ``ax`` before it takes this rank's slice. ``share(x, dim, ax)`` is
+    the same reading of a tensor every rank holds whole (Mamba2's z,
+    xBC and dt, each read in the share its own layer's cut gives);
   * ``reduce_shared(y, ax)`` — a sum every rank needs whole and reaches
     the loss through on its own slice (a norm's sum of squares over a
     width the model axis cuts, ``models.common.RMSNorm``): all-reduce
@@ -422,6 +424,14 @@ def reduce_shared(y: torch.Tensor, ax: Optional[MeshAxes]) -> torch.Tensor:
 def own(x: torch.Tensor, dim: int, ax: Optional[MeshAxes]) -> torch.Tensor:
     """``own_slice``, or ``x`` when ``ax`` is None."""
     return x if ax is None else own_slice(x, dim, ax)
+
+
+def share(x: torch.Tensor, dim: int, ax: Optional[MeshAxes]) -> torch.Tensor:
+    """This rank's slice over ``ax`` of an ``x`` that every rank holds
+    whole, for a layer that reads only that slice: its gradient, this
+    rank's slice of it, is summed over ``ax`` (``enter_tensor``, then
+    ``own_slice``); ``x`` when ``ax`` is None."""
+    return x if ax is None else own_slice(enter_tensor(x, ax), dim, ax)
 
 
 def softmax_combine(logits: torch.Tensor, v: torch.Tensor,

@@ -17,10 +17,10 @@ channels over the model axis; the sLSTM's c/n/h/m and the encoder's
 memory whole over it. So each rank's cache is the slice of the
 one-device cache and is written in place. The logits are vocab-parallel
 (``logits_spec``) and the greedy token is the global argmax, the same
-on every rank of the model axis. MLA that the model axis does not
-divide and a Mamba2 state cut on N raise ``NotImplementedError``
-(``check_serve_layout`` tells on a production mesh's shape alone).
-Nothing is compiled:
+on every rank of the model axis. MLA's latent rank is cut apart from
+its heads, and a Mamba2 state on N where the axis does not divide its
+heads (``check_serve_layout`` tells what runs on a production mesh's
+shape alone). Nothing is compiled:
 ``jit_decode_step`` checks the layouts the reference's jit would be
 given and returns the step.
 """
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.model import LM, build_model
+from repro_torch.models.model import LM
 from repro_torch.runtime import shard as shard_lib
 from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.mesh_ctx import all_gather, mesh_context
@@ -58,40 +58,14 @@ def _flat(tree, prefix=()):
         yield prefix, tree
 
 
-def cache_specs(cfg, caches, mesh, profile: str = "2d"):
-    """The dim-specs ``infer_cache_specs`` gives ``caches`` (the
-    one-device caches, or tensors of their global shapes on ``meta``) on
-    ``mesh`` (a ``DeviceMesh`` or a dict of axis sizes). Raises
-    ``NotImplementedError`` for a layout this slice does not run: MLA
-    whose heads or latent rank the model axis does not divide, and a
-    Mamba2 state cut on N (heads the model axis does not divide)."""
-    sizes = shd.mesh_shape(mesh)
-    _, tensor = shd.mesh_axes(mesh, profile)
-    t = shd.axes_size(sizes, tensor) if tensor else 1
-    if cfg.mla is not None and t > 1 and (
-            cfg.num_heads % t or cfg.mla.kv_lora_rank % t):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA's {cfg.num_heads} heads and latent rank "
-            f"{cfg.mla.kv_lora_rank} over a model axis of {t} "
-            f"({shard_lib.NOT_YET})")
-    specs = shd.infer_cache_specs(caches, mesh, profile)
-    for (path, _), (_, spec) in zip(_flat(caches), _flat(specs)):
-        if cfg.family == "hybrid" and path[-1] == "state" and \
-                spec[-2] is not None and shd.axes_size(sizes, spec[-2]) > 1:
-            raise NotImplementedError(
-                f"cache {'/'.join(path)}: {cfg.num_heads} Mamba2 heads "
-                f"over a model axis of {t}, the state cut on N "
-                f"({shard_lib.NOT_YET})")
-    return specs
-
-
 def check_serve_layout(cfg, batch: int, max_len: int, mesh,
                        profile: str = "2d") -> None:
-    """Raise ``NotImplementedError`` unless this slice serves ``cfg`` at
-    a global ``batch`` and ``max_len`` on ``mesh``, which may be a
-    production shape given as a dict of axis sizes (no process group):
-    the family, the prompt's and a decode step's batch layouts and the
-    caches' (``cache_specs``)."""
+    """Raise unless this slice serves ``cfg`` at a global ``batch`` and
+    ``max_len`` on ``mesh``, which may be a production shape given as a
+    dict of axis sizes (no process group): ``NotImplementedError`` for a
+    family off ``SHARDED_FAMILIES``, ``ValueError`` for a prompt's or a
+    decode step's batch layout off the rules'. Every cache layout the
+    rules give runs."""
     if cfg.family not in shard_lib.SHARDED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family on a mesh "
@@ -100,30 +74,18 @@ def check_serve_layout(cfg, batch: int, max_len: int, mesh,
         tok = torch.empty((batch, seq), device="meta")
         shard_lib.check_batch_specs(shd.infer_batch_specs(
             {"tokens": tok, "labels": tok}, mesh, profile), mesh, profile)
-    # a stack's depth is a leading axis no rule cuts: 2 layers tell (a
-    # group of the recurrent families: xlstm's period, zamba2's period
-    # and a tail)
-    layers = 2
-    if cfg.family == "ssm":
-        layers = cfg.ssm.slstm_period
-    elif cfg.family == "hybrid":
-        layers = cfg.ssm.shared_attn_period + 1
-    model = build_model(cfg.replace(num_layers=layers), device="meta",
-                        generator=torch.Generator())
-    cache_specs(cfg, model.cache_shapes(batch, max_len), mesh, profile)
 
 
 def check_cache_layout(model: LM, caches, profile: str = "2d") -> None:
-    """Raise ``NotImplementedError`` for a layout this slice does not run
-    (``cache_specs``), and ``ValueError`` unless this rank's ``caches``
-    are the slices ``infer_cache_specs`` gives of the caches of the
-    model's last ``init_caches`` (its ``cache_geometry``)."""
-    layout, cfg = model.layout, model.cfg
+    """Raise ``ValueError`` unless this rank's ``caches`` are the slices
+    ``infer_cache_specs`` gives of the caches of the model's last
+    ``init_caches`` (its ``cache_geometry``)."""
+    layout = model.layout
     if getattr(model, "cache_geometry", None) is None:
         raise ValueError("caches on a mesh: make them with prefill or "
                          "init_caches on this model")
     glob = model.cache_shapes(*model.cache_geometry)
-    specs = cache_specs(cfg, glob, layout.mesh, profile)
+    specs = shd.infer_cache_specs(glob, layout.mesh, profile)
     for (path, local), (_, g), (_, spec) in zip(_flat(caches), _flat(glob),
                                                  _flat(specs)):
         want = shd.local_shape(tuple(g.shape), spec, layout.mesh)

@@ -16,15 +16,16 @@ they need (``runtime.mesh_ctx``).
     and this checks it).
   * The sharded compute covers every family: ``dense``, ``vlm``, ``moe``
     (the routed experts on the model axis, MLA's heads on it and its
-    latent cache cut on R), ``ssm`` (xLSTM), ``hybrid`` (Zamba2's Mamba2
-    blocks and shared attention) and ``encdec``/``audio`` (the
-    recurrent blocks' layouts in ``models.ssm``), with KV heads that the
-    model axis does not divide (``models.attention.GQA``) and batches
-    that the batch axes do not divide (their sequence cut, or whole on
-    every rank: ``seq_cut``). MLA whose heads or latent rank the model
-    axis does not divide and a Mamba2 state cut on N raise
-    ``NotImplementedError`` (ROADMAP Queue 1, 10d), never run
-    replicated.
+    latent cache cut on R, each where the axis divides it), ``ssm``
+    (xLSTM), ``hybrid`` (Zamba2's Mamba2 blocks, each projection on its
+    own cut and the state on its heads or N, and the shared attention)
+    and ``encdec``/``audio`` (the recurrent blocks' layouts in
+    ``models.ssm``), with KV heads that the model axis does not divide
+    (``models.attention.GQA``) and batches that the batch axes do not
+    divide (their sequence cut, or whole on every rank: ``seq_cut``).
+    An mLSTM or sLSTM block cut unlike itself raises
+    ``NotImplementedError`` (ROADMAP Queue 1, 10d; no config reaches
+    one), never runs replicated.
   * ``shard_batch``, ``slice_state`` and ``gather_state`` carry inputs
     and state between the global (reference) tree and a rank's slices
     (``abstract_state`` gives the global shapes the specs resolve on);
@@ -132,25 +133,16 @@ def _cuts(module: nn.Module, *names: str) -> set:
 
 
 def _check_consistent(model: LM) -> None:
-    """Raise for a layout this slice does not run, walking every
-    attention and recurrent module (the hybrid's shared attention, the
-    encoder's and decoder's self- and cross-attention included): MLA's
-    up projections cut unlike its query heads (MLA has no KV heads of
-    its own: its K and V heads are the query heads, cut by ``wk_b`` /
-    ``wv_b`` as ``wq_b`` and ``wo`` are); a recurrent block
-    whose projections the rules cut unlike each other, or Mamba2 heads
-    that the model axis does not divide (its state would be cut on N)."""
+    """Raise for a layout this slice does not run: an mLSTM or sLSTM
+    block whose projections the rules cut unlike each other on the model
+    axis (walking every recurrent module). No published config, nor a
+    tiny one with its heads changed on a model axis of up to 8, has
+    one: the mLSTM's d_in, 2·d_in and heads and the sLSTM's heads and d
+    are cut together there."""
     name = model.cfg.name
     for m in model.modules():
-        if isinstance(m, MLA):
-            if _cuts(m, "wk_b", "wv_b", "wo") != _cuts(m, "wq_b"):
-                raise NotImplementedError(
-                    f"{name}: MLA's up projections cut unlike its query "
-                    f"heads ({NOT_YET})")
-        elif isinstance(m, (ssm.Mamba2, ssm.MLSTM, ssm.SLSTM)):
-            names = {ssm.Mamba2: ("in_proj", "conv_w", "conv_b",
-                                  "out_proj"),
-                     ssm.MLSTM: ("up_proj", "conv_w", "conv_b", "wqkv",
+        if isinstance(m, (ssm.MLSTM, ssm.SLSTM)):
+            names = {ssm.MLSTM: ("up_proj", "conv_w", "conv_b", "wqkv",
                                  "wif", "down_proj"),
                      ssm.SLSTM: ("w_in", "r")}[type(m)]
             if len(_cuts(m, *names)) > 1:
@@ -162,12 +154,6 @@ def _check_consistent(model: LM) -> None:
                 raise NotImplementedError(
                     f"{name}: sLSTM heads cut, its out_proj whole "
                     f"({NOT_YET})")
-            tp = m.out_proj.shard.tensor if isinstance(m, ssm.Mamba2) \
-                else None
-            if tp is not None and model.cfg.num_heads % tp.size:
-                raise NotImplementedError(
-                    f"{name}: {model.cfg.num_heads} Mamba2 heads on a model "
-                    f"axis of {tp.size} (a state cut on N, {NOT_YET})")
 
 
 def shard_model(model: LM, mesh, profile: str = "2d") -> LM:
@@ -219,6 +205,12 @@ def shard_model(model: LM, mesh, profile: str = "2d") -> LM:
                 params=new, shape=shd.local_shape(leaf.shape, spec, mesh),
                 global_shape=leaf.shape, spec=spec, mesh=mesh))
     model.layout = Layout(mesh, profile, leaves)
+    # the blocks whose caches the rules cut apart from their parameters
+    # (MLA's latent rank, Mamba2's state on its heads or N) read the
+    # model axis
+    for m in model.modules():
+        if isinstance(m, (MLA, ssm.Mamba2)):
+            m.model_axis = model.layout.tp
     _check_consistent(model)
     return model
 

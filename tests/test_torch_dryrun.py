@@ -16,6 +16,13 @@ CPU, against the JAX package's ``launch/dryrun.py`` and sharding rules:
         shapes to its end on both production meshes;
   (v)   the matcher cell on a fake (2, 4) mesh makes the collectives of
         rank 0 of a real gloo (2, 4) world on the same call;
+  (vi)  the ten configs as published lay out and pass
+        ``check_serve_layout`` on model axes that do not divide their
+        heads ((1, 3), (2, 3), (1, 6), (1, 12), (4, 32), (4, 64)), and
+        deepseek-v2-236b's and zamba2-7b's parameter and cache bytes a
+        rank on (2, 3) and (4, 64) equal the reference's specs', leaf
+        for leaf, with a train step, a prefill and a decode step run to
+        their end there on ``meta``;
 
 and the dry run's ``StepRecorder`` memo changes no record, its flops are
 ``FlopCounterMode``'s, and a 3-axis mesh orders its ranks pod-major.
@@ -515,3 +522,106 @@ def test_matcher_cell_counts_a_real_worlds_collectives(tmp_path):
     assert all(r == real[0] for r in real)
     assert real[0] == rec["collectives"]["counts"] | {
         "epochs": rec["epochs_run"]}
+
+
+# ---------------------------------------------------------------------------
+# (vi) model axes that do not divide the heads
+# ---------------------------------------------------------------------------
+
+#: (data, model) shapes whose model axis divides neither MLA's 128 heads
+#: nor its latent rank of 512 (3, 6, 12), or divides deepseek's but not
+#: zamba2's 32 Mamba2 heads, cutting zamba2's state on N (64)
+ODD_MESHES = ((1, 3), (2, 3), (1, 6), (1, 12), (4, 32), (4, 64))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", ODD_MESHES,
+                         ids=[f"{d}x{m}" for d, m in ODD_MESHES])
+def test_published_configs_lay_out_on_odd_model_axes(shape, arch):
+    """Each config as published (its widths; one pattern unit deep, as
+    a stack's depth is an axis no rule cuts) lays out on rank 0 of a
+    fake group of the mesh's size, and ``check_serve_layout`` passes at
+    a batch of 16 with 4,096 positions and at a batch of 1."""
+    cfg = get_config(arch)
+    sl.check_serve_layout(cfg, 16, 4096, dict(zip(("data", "model"),
+                                                  shape)))
+    sl.check_serve_layout(cfg, 1, 32768, dict(zip(("data", "model"),
+                                                  shape)))
+    with mesh_lib.fake_group(shape[0] * shape[1]):
+        mesh = mesh_lib.make_host_mesh(*shape, backend="fake", device="cpu")
+        model = shard_lib.shard_model(dryrun._meta_model(
+            dryrun.probe_config(arch, 1)), mesh)
+        assert model.layout.tp.size == shape[1]
+    assert not dist.is_initialized()
+
+
+def _ref_cache_bytes(arch, shape, batch, max_len):
+    """{path: bytes a rank holds} of the reference's caches (one pattern
+    unit deep) under its ``infer_cache_specs`` on an ``AbstractMesh``."""
+    names = ("data", "model")
+    model = jbuild_model(jdryrun_probe(arch))
+    caches = jax.eval_shape(lambda: model.init_caches(batch, max_len))
+    specs = jshd.infer_cache_specs(caches, AbstractMesh(shape, names))
+    sizes = dict(zip(names, shape))
+    out = {}
+    for (path, leaf), spec in zip(
+            jax.tree_util.tree_flatten_with_path(caches)[0],
+            jax.tree.leaves(specs,
+                            is_leaf=lambda x: isinstance(x, PartitionSpec))):
+        cut = 1
+        for entry in spec:
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                cut *= sizes[a]
+        key = tuple(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+        out[key] = int(np.prod(leaf.shape)) * leaf.dtype.itemsize // cut
+    return out
+
+
+def jdryrun_probe(arch):
+    """The reference's config at one pattern unit (``probe_config``'s
+    depth)."""
+    cfg = dryrun.probe_config(arch, 1)
+    return jget_config(arch).replace(num_layers=cfg.num_layers,
+                                     encoder_layers=cfg.encoder_layers)
+
+
+def _flat_bytes(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_bytes(v, prefix + (k,))
+    else:
+        yield prefix, tree.numel() * tree.element_size()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-7b"])
+@pytest.mark.parametrize("shape", [(2, 3), (4, 64)], ids=["2x3", "4x64"])
+def test_odd_mesh_bytes_a_rank_equal_the_reference_specs(shape, arch):
+    """On (2, 3) and (4, 64): each rank's parameter bytes (the whole
+    depth) and cache bytes (one pattern unit, a batch of 8 and 256
+    positions) equal those of the reference's ``infer_param_specs`` /
+    ``infer_cache_specs`` on an ``AbstractMesh`` of the same shape, leaf
+    for leaf; then a train step (two microbatches), a prefill and a
+    decode step of the unit run to their end on ``meta``."""
+    names = ("data", "model")
+    B, L = 8, 256
+    with mesh_lib.fake_group(shape[0] * shape[1]):
+        mesh = mesh_lib.make_host_mesh(*shape, backend="fake", device="cpu")
+        model = shard_lib.shard_model(dryrun._meta_model(get_config(arch)),
+                                      mesh)
+        got = {leaf.path: sum(p.numel() * p.element_size()
+                              for p in leaf.params)
+               for leaf in model.layout.leaves}
+        assert got == _ref_leaf_bytes(arch, shape, names), arch
+        unit = shard_lib.shard_model(dryrun._meta_model(
+            dryrun.probe_config(arch, 1)), mesh)
+        caches = dict(_flat_bytes(unit.init_caches(B, L)))
+        assert caches == _ref_cache_bytes(arch, shape, B, L), arch
+        for sh in (ShapeConfig("train", 64, B, "train"),
+                   ShapeConfig("prefill", 64, B, "prefill"),
+                   ShapeConfig("decode", L, B, "decode")):
+            rec = dryrun.run_step_abstract(arch, sh, mesh,
+                                           cfg=dryrun.probe_config(arch, 1),
+                                           microbatch_override=2)
+            assert rec["memory"]["peak_bytes"] > 0, (arch, sh.name)
+    assert not dist.is_initialized()

@@ -22,6 +22,11 @@ Phases, in order; any failure exits non-zero:
      time under the profiler; ``pso_update`` also by its wrapper's host
      time alone; ``ullmann_refine_step`` also bit for bit for a uint8,
      int32 and bool M at the main path's shape, n < 32 and (203, 233);
+     then the five main-path kernels past n, m = 256 (their wide
+     instantiations) on random problems at ``WIDE_CASES`` (300 x 400,
+     512 x 512, 257 x 771 and 1,000 x 1,100, where the bit planes live in
+     device scratch; small P and N), quantized and float, τ = 0 and
+     τ > 0: every output bit for bit but S̄, within ``SBAR_ATOL``;
   4. the main path: 8 scheduling requests built as the IMMSched
      scheduler builds them (zoo workloads at window_stages=8 on the Cloud
      platform with a seeded set of 96 free engines, relabelled and padded
@@ -79,6 +84,23 @@ Phases, in order; any failure exits non-zero:
      line: backends, world sizes, walls of each op (the 4-rank walls are
      four processes time-sliced on one card, not a scale-out figure),
      collectives and host syncs a drain, launches per rank;
+  4f. past n, m = 256, on a 512-engine platform (Cloud on a 16 x 32
+     NoC, built here): (a) deepseek-7b, qwen-7b and llama3-8b mapped
+     whole (window 256; buckets (312, 528) and (320, 512)) against its
+     whole free engine graph, drained through a quantized service at the
+     burst's swarm width, then again (Tier 0 first), then through a float
+     service; the cold and float drains under the profiler (the card's
+     activity alone). Every found mapping must be feasible on the host,
+     (312, 528) must be among the buckets and each of the five main-path
+     kernels launched. One JSON line a drain (bucket, found, feasible,
+     tier a request; launches and device ms a kernel), then one
+     ``wide_bucket`` line: the five at (312, 528) on deepseek-7b's
+     problem (N = 64, K = 12), bit for bit against their plain versions,
+     ms a call, device ms, plain ms and bound. (b) phase 4c's scenario on
+     the platform (window 8: buckets up to (56, 528)), real mode, run to
+     its end with every found mapping feasible, then once more under the
+     profiler; one ``wide_sched`` line (tasks, urgent met, drains, run
+     wall, idle share);
   5. the split (pre-fusion) epoch: ``core.split_epoch.split_epoch``
      through the ``cuda`` suite on each problem of the burst, float and
      quantized, plus ``masked_argmax`` through the seam on each returned
@@ -146,7 +168,7 @@ Phases, in order; any failure exits non-zero:
      batch (phase 9's tolerances, logits within 2e-4, equal tokens);
      (b) four ranks spawned on the one card (gloo on CUDA tensors,
      ``chip_smoke.py --lm-mesh-rank r --mesh-dir DIR``) on a (2, 2) mesh
-     with qwen1.5-0.5b at full width, 12 of its 24 layers, in two
+     with qwen1.5-0.5b at full width, 6 of its 24 layers, in two
      passes, each held against a
      one-device run in this process on the same weights and batches.
      The bfloat16 pass, launch/train's defaults (batch 8 x 256, adamw,
@@ -207,7 +229,8 @@ Phases, in order; any failure exits non-zero:
      serve and a train step each against the one device; qwen2.5-3b at
      full width on (1, 4), a float32 serve (logits within 2e-4, equal
      tokens) and a bfloat16 one (within the one device's own bfloat16
-     error), then a float32 and a bfloat16 train step at 4 layers
+     error), both at 4 of its 36 layers since phase 4f took the run's
+     time, then a float32 and a bfloat16 train step at 4 layers
      (wk/wv's gradients against the one device's); zamba2-7b and
      xlstm-1.3b at a batch of 1 on (2, 2), float32, a prompt of 64 into
      caches of 4,096 (``SEQ_MESH_*``). One ``seq_mesh`` JSON line: per
@@ -259,8 +282,10 @@ counts device launches on the main or split path, ``launches_per_call``
 divides them by the wrapper calls that made them, ``service_launches``
 counts the launches of phase 4b, ``sched_launches`` those of phase 4c,
 ``restart_launches`` those of phase 4d, ``mesh_launches`` those of
-phase 4e summed over its processes, ``entry_launches`` those of phase 11
-(its examples and its matcher cell);
+phase 4e summed over its processes, ``wide_launches`` those of phase 4f
+(a)'s drains, ``entry_launches`` those of phase 11 (its examples and its
+matcher cell); the five main-path rows also carry ``wide_bucket``,
+phase 4f's ms, device ms, plain ms, bound and launches at (312, 528);
 the float branch's launches are counted by its wrapper on their own and
 left out of the ``epoch_fused`` row; ``device_ms`` is a call's device
 time, ``host_ms`` the wrapper's host time alone, ``bound_note`` what a
@@ -357,6 +382,29 @@ SCHED_WINDOW = 8
 SCHED_KERNELS = ("prune_fixpoint", "edge_fitness_quantized", "epoch_fused",
                  "epoch_finish")
 SCHEDULERS = ("immsched", "isosched", "prema", "planaria", "moca", "cdmsa")
+#: phase 3 past n, m = 256 (the kernels' wide instantiations): (n, m) →
+#: (P, N) of random problems, K = 2 steps; the last puts the bit planes
+#: in device scratch. Small P and N, so that the plain versions finish
+#: in seconds
+WIDE_CASES = {(300, 400): (2, 8), (512, 512): (1, 8), (257, 771): (2, 4),
+              (1000, 1100): (1, 2)}
+WIDE_K = 2
+#: epoch_finish's S̄ against its plain version (another summation order)
+SBAR_ATOL = 1.19e-7
+#: phase 4f, the main path past 256: a 512-engine accelerator (a 16 x 32
+#: NoC; the reference names no such platform, so it is built here from
+#: Cloud), the complex workloads mapped whole (window 256: deepseek-7b
+#: 308 tiles, bucket (312, 528); qwen-7b and llama3-8b 320, bucket
+#: (320, 512)) against its whole free engine graph, drained through the
+#: service at the burst's swarm width, quantized; then the same burst
+#: again (Tier 0), then through a float service. (b) phase 4c's scenario
+#: on it (window 8: n <= 56, m up to 528)
+WIDE_PLATFORM = dict(name="cloud-512", engines=512, noc_rows=16,
+                     noc_cols=32)
+WIDE_WORKLOADS = ("deepseek-7b", "qwen-7b", "llama3-8b-wl")
+WIDE_WINDOW = 256
+WIDE_SWARM = dict(num_particles=N, epochs=4, inner_steps=K)
+WIDE_BUCKET = (312, 528)
 #: phase 4e: ranks spawned on the one card, their limits, and the kernels
 #: the mesh path must launch on every rank (quantized: no float fitness)
 MESH_WORLD = 4
@@ -520,9 +568,10 @@ LM_MESH_TINY = ("qwen2.5-3b", "qwen2-vl-7b", "deepseek-v2-236b",
                 "arctic-480b", "xlstm-1.3b", "zamba2-7b",
                 "seamless-m4t-medium")
 LM_MESH_ARCH = "qwen1.5-0.5b"
-#: (b)'s depth: 12 of the config's 24 layers at its published widths,
-#: since phase 10 (f) took the whole run to 974.2 s on an H100 (PERF.md §4)
-LM_MESH_LAYERS = 12
+#: (b)'s depth: 6 of the config's 24 layers at its published widths
+#: (12 since phase 10 (f) took the whole run to 974.2 s on an H100, 6
+#: since phase 4f took it to 1,140.3 s in a slow call; PERF.md §4)
+LM_MESH_LAYERS = 6
 LM_MESH_WORLD = 4
 LM_MESH_SHAPE = (2, 2)
 LM_MESH_STEPS = 3
@@ -644,8 +693,9 @@ SSM_MESH_TIMEOUT_S = 600
 #: training sequence is cut, and on SEQ_MESH_KV_SHAPE wk/wv/bk/bv are
 #: whole on each model rank, their gradients summed over it). (2)
 #: SEQ_MESH_ARCH at full width (16 heads over 2 KV heads, vocabulary
-#: 151,936, tied) on SEQ_MESH_KV_SHAPE, all SEQ_MESH_LAYERS layers
-#: (SEQ_MESH_PARAMS parameters, the reference's count): launch/serve's
+#: 151,936, tied) on SEQ_MESH_KV_SHAPE, SEQ_MESH_LAYERS of its 36 layers
+#: (SEQ_MESH_PARAMS parameters, the reference's count; all 36, 3,085,938,688
+#: parameters, until phase 4f took the run's time): launch/serve's
 #: batch and prompt and SEQ_MESH_GEN tokens in a float32 pass (logits
 #: within SERVE_TOL, equal tokens) and a bfloat16 pass (within the one
 #: device's own bfloat16 error, as (c)); then one train step at
@@ -669,8 +719,8 @@ SEQ_MESH_TINY_KV = ("qwen2.5-3b", "qwen2-vl-7b", "arctic-480b", "zamba2-7b",
 SEQ_MESH_TINY_GEN = 4
 SEQ_MESH_KV_SHAPE = (1, 4)
 SEQ_MESH_ARCH = "qwen2.5-3b"
-SEQ_MESH_LAYERS = 36
-SEQ_MESH_PARAMS = 3_085_938_688
+SEQ_MESH_LAYERS = 4
+SEQ_MESH_PARAMS = 619_474_944
 SEQ_MESH_GEN = 8
 SEQ_MESH_TRAIN_LAYERS = 4
 SEQ_MESH_TRAIN_PARAMS = 619_474_944
@@ -842,6 +892,8 @@ def kernel_bounds(Q, G, mask, x, outs, quantized, refine_iters=6,
         nbytes(x["S"], x["f_local"], mask, Q, G, *fin_out),
         {"int8": P * N * refine_iters * sweep_ops + proj + feas,
          "fp32": 2.0 * P * elite_k * n * m})
+    if "pso_update" not in outs:     # the main path's five alone
+        return b
     # per call of the split epoch (one problem): the mean over the burst
     S_new, V_new = outs["pso_update"][:2]
     b["pso_update"] = bound(
@@ -1623,6 +1675,33 @@ def mesh_phase(pso, reqs, tgt, bucket, Qb, Gb, Mb, phase4, counters):
     return dict(line=line, launches=split_float(launches))
 
 
+def _watched_match_many(orig, runs):
+    """A ``MatcherService.match_many`` for the scheduler phases: it times
+    each drain, checks every mapping the service returns as found on the
+    host (an infeasible one fails the run), and appends a record of the
+    drain to ``runs[-1]``."""
+    def match_many(self, problems, **kwargs):
+        syncs = self.stats.host_syncs
+        t0 = time.perf_counter()
+        res = orig(self, problems, **kwargs)
+        wall = time.perf_counter() - t0
+        found = 0
+        for (q, g), r in zip(problems, res):
+            if r.found:
+                found += 1
+                if not feasible_np(r.mapping, q.adj, g.adj):
+                    fail(f"scheduler: the service returned an infeasible "
+                         f"mapping (n={q.n}, m={g.n})")
+        runs[-1].append(dict(sent=len(problems), found=found,
+                             wall_ms=wall * 1e3,
+                             tiers=[r.tier for r in res],
+                             buckets=sorted({tuple(r.bucket) for r in res}),
+                             host_syncs=self.stats.host_syncs - syncs,
+                             results=res))
+        return res
+    return match_many
+
+
 def sched_phase(pso, counters):
     """Phase 4c, the scheduler: the port's ``Simulator`` with the port's
     ``IMMSchedScheduler`` in real mode on the Cloud platform (window 8,
@@ -1652,26 +1731,7 @@ def sched_phase(pso, counters):
     sc = make_burst_scenario(kw.pop("complexity"), **kw)
     runs = []        # per simulation, one record per drain
     orig = MatcherService.match_many
-
-    def match_many(self, problems, **kwargs):
-        syncs = self.stats.host_syncs
-        t0 = time.perf_counter()
-        res = orig(self, problems, **kwargs)
-        wall = time.perf_counter() - t0
-        found = 0
-        for (q, g), r in zip(problems, res):
-            if r.found:
-                found += 1
-                if not feasible_np(r.mapping, q.adj, g.adj):
-                    fail(f"scheduler: the service returned an infeasible "
-                         f"mapping (n={q.n}, m={g.n})")
-        runs[-1].append(dict(sent=len(problems), found=found,
-                             wall_ms=wall * 1e3,
-                             tiers=[r.tier for r in res],
-                             buckets=sorted({tuple(r.bucket) for r in res}),
-                             host_syncs=self.stats.host_syncs - syncs,
-                             results=res))
-        return res
+    match_many = _watched_match_many(orig, runs)
 
     def sim_cfg(mode, backend="cuda"):
         return SimConfig(platform=platform.CLOUD, matcher_mode=mode,
@@ -1767,9 +1827,9 @@ def sched_phase(pso, counters):
         ref_run_wall_ms=ref_wall * 1e3,
         launches={k: launches[k] for k in (*MAIN_KERNELS, FLOAT_EPOCH)},
         per_drain=drains)
-    # measurement only: the same run once more under the profiler, for the
-    # card's idle share of a simulation
-    _, prof_wall, rows = profiled(simulate)
+    # measurement only: the same run once more under the profiler (the
+    # card's activity alone), for the card's idle share of a simulation
+    _, prof_wall, rows = profiled(simulate, cpu=False)
     busy = sum(r[1] for r in rows)
     line["profile"] = dict(wall_ms=prof_wall, device_busy_ms=busy,
                            idle_share=1.0 - busy / max(prof_wall, 1e-9),
@@ -1791,6 +1851,305 @@ def sched_phase(pso, counters):
                                 for k, r in results.items()})
     log(json.dumps(dict(sched_analytic=sc.name, **analytic)))
     return dict(real=line, analytic=analytic, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# past n, m = 256: phase 3's wide cases and phase 4f
+# ---------------------------------------------------------------------------
+
+def wide_platform():
+    from repro_torch.accel import platform
+    return dataclasses.replace(platform.CLOUD, **WIDE_PLATFORM)
+
+
+def wide_kernel_cases(elite_k):
+    """Phase 3 past 256: each of the five main-path kernels against its
+    plain version on random problems at every shape of ``WIDE_CASES``,
+    quantized and float, τ = 0 and τ > 0; every output bit for bit but
+    ``epoch_finish``'s S̄, within ``SBAR_ATOL``. Returns per shape the
+    kernel's and the plain version's seconds a call."""
+    from repro_torch.kernels import cases
+    rec = {}
+    for (wn, wm), (wP, wN) in WIDE_CASES.items():
+        t_case = time.time()
+        Q, G, mask = (t.cuda() for t in cases.random_problem(wP, wn, wm,
+                                                             SEED))
+        x = cases.swarm_inputs(Q, G, mask, wN, WIDE_K, seed=SEED)
+        times = {}
+        # the five, then the float epoch, then the tail with Gumbel noise
+        for quantized, tau, names in ((True, 0.0, MAIN_KERNELS),
+                                      (False, 0.0, ("epoch_fused",)),
+                                      (False, 0.3, ("epoch_finish",))):
+            pairs = cases.kernel_pairs(Q, G, mask, x, quantized=quantized,
+                                       gumbel_tau=tau,
+                                       elite_k=min(elite_k, wN))
+            for name in names:
+                kern, plain = pairs[name]
+                t0 = time.time()
+                got = kern()
+                torch.cuda.synchronize()
+                t1 = time.time()
+                want = plain()
+                torch.cuda.synchronize()
+                t2 = time.time()
+                what = (f"{name} at {(wP, wN, wn, wm)} quantized={quantized} "
+                        f"tau={tau}")
+                for k, (g, w) in enumerate(zip(_outs(got), _outs(want))):
+                    if name == "epoch_finish" and k == 2:
+                        err = float((g - w).abs().max())
+                        if not err <= SBAR_ATOL:
+                            fail(f"{what}: S_bar off by {err} (limit "
+                                 f"{SBAR_ATOL})")
+                    elif not torch.equal(g, w):
+                        fail(f"{what}: output {k} is not bit for bit its "
+                             f"plain version")
+                times[f"{name}/q{int(quantized)}/tau{tau}"] = [t1 - t0,
+                                                               t2 - t1]
+        rec[f"{wn}x{wm}"] = dict(P=wP, N=wN, K=WIDE_K, seconds=times,
+                                 case_s=time.time() - t_case)
+        log(f"  wide ({wn}, {wm}), P={wP} N={wN}: the five kernels bit "
+            f"for bit (S_bar within {SBAR_ATOL}) in "
+            f"{rec[f'{wn}x{wm}']['case_s']:.1f} s")
+        del Q, G, mask, x
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _device_by_entry(rows, quantized):
+    """Profiled device ms by kernel entry: the wrappers' kernel functions
+    matched by name (G's column packing counted with the fitness body
+    that the drain ran), everything else under ``other``."""
+    fit = "edge_fitness_quantized" if quantized else "edge_fitness"
+    names = (("prune_", "prune_fixpoint"), ("fitness_u8", fit),
+             ("pack_gin", fit), ("fitness_", fit),
+             ("prologue_kernel", "epoch_fused"), ("step_", "epoch_fused"),
+             ("prep_", "epoch_finish"), ("finish_", "epoch_finish"))
+    out = {}
+    for key, ms, _ in rows:
+        entry = next((e for k, e in names if k in key), "other")
+        out[entry] = out.get(entry, 0.0) + ms
+    return out
+
+
+def wide_phase(pso, counters):
+    """Phase 4f, the main path past n, m = 256 on ``wide_platform()``:
+    (a) a ``MatcherService.drain`` of the complex workloads mapped whole
+    (``WIDE_WINDOW``) at ``WIDE_SWARM``, quantized, then the same burst
+    again (Tier 0 over the first drain's carries), then through a float
+    service, the first and the last under the profiler (the card's
+    activity alone: device ms by kernel); every mapping served as found must be
+    feasible on the host, the burst must fall in ``WIDE_BUCKET`` among
+    its buckets, and each of the five main-path kernels (both epoch
+    branches) must have been launched by the drains. Then, measurement
+    only, the five at ``WIDE_BUCKET`` on the drain's own problem: each
+    against its plain version (bit for bit, S̄ within ``SBAR_ATOL``),
+    ms a call (CUDA events, median of 3 runs of 5), device ms of one
+    profiled call, the plain version's ms and the bound. (b) phase 4c's
+    scenario on the platform (``IMMSchedScheduler``, real mode,
+    ``validate=True``), every found mapping feasible, run to its end,
+    then once more under the profiler for the idle share."""
+    from repro_torch.accel import target_graph
+    from repro_torch.core import graphs, preemptible_dag as pdag
+    from repro_torch.core.service import MatcherService
+    from repro_torch.kernels import cases
+    from repro_torch.sched import SimConfig, Simulator, get_scheduler
+    from repro_torch.sched.tasks import make_burst_scenario
+    from repro_torch.workloads import zoo
+    plat = wide_platform()
+    free = np.ones(plat.engines, dtype=bool)
+    tgt = target_graph.free_engine_graph(plat, free)
+    sig = target_graph.free_engine_signature(free)
+    seconds, t_stage = {}, [time.perf_counter()]
+
+    def stage(name):      # the seconds of each part of the phase
+        now = time.perf_counter()
+        seconds[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    t0 = time.perf_counter()
+    reqs = []
+    for i, name in enumerate(WIDE_WORKLOADS):
+        pd = pdag.build_preemptible_dag(
+            [(i, zoo.get_workload(name), 0)],
+            plat.engine_tile_capacity_macs(), window_stages=WIDE_WINDOW)
+        q, _ = graphs.topological_relabel(pd.graph)
+        reqs.append((name, q))
+    build_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(platform=WIDE_PLATFORM, build_ms=build_ms, drains={},
+               seconds=seconds)
+    stage("build")
+
+    def drain(label, svc):
+        syncs = svc.stats.host_syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, (name, q) in enumerate(reqs):
+            svc.submit(q, tgt, key=SEED + i, workload_key=(name, sig))
+        res = svc.drain()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        served = []
+        for (name, q), r in zip(reqs, res):
+            feas = bool(r.found) and feasible_np(r.mapping, q.adj, tgt.adj)
+            if r.found and not feas:
+                fail(f"wide drain {label}: {name}'s mapping is infeasible")
+            served.append(dict(name=name, n=q.n, m=tgt.n,
+                               bucket=list(r.bucket), found=bool(r.found),
+                               feasible=feas, tier=r.tier,
+                               epochs_run=r.epochs_run))
+        line = dict(wide_drain=label, wall_ms=wall,
+                    host_syncs=svc.stats.host_syncs - syncs, served=served)
+        out["drains"][label] = line
+        return res
+
+    for c in counters.values():
+        c.reset()
+    svc = MatcherService(pso.PSOConfig(**WIDE_SWARM, quantized=True),
+                         device="cuda")
+    fsvc = MatcherService(pso.PSOConfig(**WIDE_SWARM), device="cuda")
+    for label, service, quantized in (("cold", svc, True),
+                                      ("again", svc, True),
+                                      ("float", fsvc, False)):
+        before = {k: c.count for k, c in counters.items()}
+        if label == "again":          # launches and wall alone
+            drain(label, service)
+        else:                         # and under the profiler
+            _, wall_ms, rows = profiled(lambda: drain(label, service),
+                                        cpu=False)
+            busy = sum(r[1] for r in rows)
+            out["drains"][label].update(
+                idle_share=1.0 - busy / max(wall_ms, 1e-9),
+                device_ms=_device_by_entry(rows, quantized))
+        line = out["drains"][label]
+        line["launches"] = {k: counters[k].count - before[k]
+                            for k in (*MAIN_KERNELS, FLOAT_EPOCH)}
+        log(json.dumps(line))
+        stage(f"drain_{label}")
+    launches = split_float({k: counters[k].count
+                            for k in (*MAIN_KERNELS, FLOAT_EPOCH)})
+    out["launches"] = launches
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched by the wide drains")
+    buckets = {tuple(s["bucket"]) for d in out["drains"].values()
+               for s in d["served"]}
+    if WIDE_BUCKET not in buckets:
+        fail(f"the wide burst's buckets {sorted(buckets)} miss "
+             f"{WIDE_BUCKET}")
+
+    # the five at WIDE_BUCKET on the drain's own problem (measurement and
+    # one more check against the plain versions)
+    name, q = next((nm, q) for nm, q in reqs
+                   if pdag.shape_bucket(q.n, tgt.n) == WIDE_BUCKET)
+    Qb, Gb, Mb = (torch.from_numpy(np.stack([a])).cuda() for a in
+                  pdag.pad_problem(q.adj, tgt.adj,
+                                   graphs.compatibility_mask(q, tgt),
+                                   *WIDE_BUCKET))
+    elite_k = pso.elite_k_for(pso.PSOConfig(**WIDE_SWARM))
+    x = cases.swarm_inputs(Qb, Gb, Mb, N, K, seed=SEED)
+    timed, outs = {}, {}
+    for quantized in (True, False):
+        pairs = cases.kernel_pairs(Qb, Gb, Mb, x, quantized=quantized,
+                                   gumbel_tau=0.0, elite_k=elite_k)
+        for entry in MAIN_KERNELS:
+            key = FLOAT_EPOCH if entry == "epoch_fused" and not quantized \
+                else entry
+            if key in timed or (not quantized and key != FLOAT_EPOCH):
+                continue
+            kern, plain = pairs[entry]
+            got = kern()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain()
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            for k, (g, w) in enumerate(zip(_outs(got), _outs(want))):
+                ok = (float((g - w).abs().max()) <= SBAR_ATOL
+                      if entry == "epoch_finish" and k == 2
+                      else torch.equal(g, w))
+                if not ok:
+                    fail(f"{key} at {WIDE_BUCKET} ({name}): output {k} "
+                         f"differs from its plain version")
+            ms = statistics.median(cuda_ms(kern, reps=5, warm=1)
+                                   for _ in range(3))
+            rows = profiled(kern)[2]
+            device_ms = sum(r[1] for r in rows)
+            timed[key] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms)
+            outs[key] = got
+            stage(f"bucket_{key}")
+    bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
+                           elite_k=elite_k)
+    bounds[FLOAT_EPOCH] = kernel_bounds(
+        Qb, Gb, Mb, x, {**outs, "epoch_fused": outs[FLOAT_EPOCH]},
+        quantized=False, elite_k=elite_k)["epoch_fused"]
+    for key, rec in timed.items():
+        rec["bound_ms"], rec["bound_by"] = bounds[key]
+        rec["launches"] = launches[key]
+    out["bucket"] = dict(bucket=list(WIDE_BUCKET), problem=name,
+                         kernels=timed)
+    log(json.dumps({"wide_bucket": out["bucket"]}))
+    del Qb, Gb, Mb, x, outs, pairs
+    torch.cuda.empty_cache()
+
+    # (b) the scheduler on the platform
+    kw = dict(SCHED_SCENARIO)
+    sc = make_burst_scenario(kw.pop("complexity"), **kw)
+    runs = []
+    orig = MatcherService.match_many
+
+    def simulate():
+        runs.append([])
+        MatcherService.match_many = _watched_match_many(orig, runs)
+        try:
+            return Simulator(SimConfig(platform=plat, matcher_mode="real",
+                                       pso_cfg=pso.PSOConfig(**SCHED_SWARM),
+                                       window_stages=SCHED_WINDOW,
+                                       validate=True),
+                             get_scheduler("immsched")).run(sc)
+        except AssertionError as e:  # check_invariants under validate=True
+            fail(f"wide scheduler: simulator invariants failed: {e}")
+        finally:
+            MatcherService.match_many = orig
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    stage("sched")
+    if res.truncated or res.finished != res.total:
+        fail(f"wide scheduler: truncated={res.truncated}, finished "
+             f"{res.finished} of {res.total}")
+    sim_launches = split_float({k: c.count for k, c in counters.items()})
+    for k in SCHED_KERNELS:
+        if sim_launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the wide scheduler")
+    drains = runs[0]
+    _, prof_wall, rows = profiled(simulate, cpu=False)
+    busy = sum(r[1] for r in rows)
+    stage("sched_profiled")
+    for run in runs:
+        for d in run:
+            del d["results"]
+    sim = dict(
+        sched=sc.name, tasks=res.total, finished=res.finished,
+        urgent_tasks=res.urgent_total, urgent_met=res.urgent_met,
+        drains=len(drains), run_wall_ms=wall,
+        match_many_wall_ms=sum(d["wall_ms"] for d in drains),
+        real_matches_sent=sum(d["sent"] for d in drains),
+        real_matches_found=sum(d["found"] for d in drains),
+        buckets=sorted({tuple(b) for d in drains for b in d["buckets"]}),
+        launches={k: sim_launches[k] for k in SCHED_KERNELS},
+        profile=dict(wall_ms=prof_wall, device_busy_ms=busy,
+                     idle_share=1.0 - busy / max(prof_wall, 1e-9)))
+    if max(b[1] for b in sim["buckets"]) <= 256:
+        fail(f"wide scheduler: no bucket past m = 256 ({sim['buckets']})")
+    log(json.dumps({"wide_sched": sim}))
+    out["sched"] = sim
+    out["sim_launches"] = sim_launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5189,22 +5548,36 @@ def entry_phase(counters):
     return line
 
 
-def profiled(fn):
+#: spin kernels that open each profiler session (``profiled``)
+PROFILE_WARMUP = 8
+
+
+def profiled(fn, cpu=True):
     """Run ``fn()`` once under the profiler, synchronized. Returns
     ``(profile, wall ms, [(device event, ms, count)] by time)``: the
     device-side events only (kernels, copies), since an aten op's device
-    time repeats that of the kernels it launched."""
+    time repeats that of the kernels it launched. ``cpu=False`` records
+    the card's activity alone: a run of many torch ops then costs seconds
+    to summarise, not tens of seconds. A session can lose its first few
+    device events (on the H100 machine a profiled single call of
+    ``prune_fixpoint`` once showed none), so each starts with
+    ``PROFILE_WARMUP`` spin kernels, synchronized and left out of the
+    rows."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        for _ in range(PROFILE_WARMUP):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows = []
     for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
+                or "spin_kernel" in ev.key):
             continue
         dev = getattr(ev, "self_device_time_total",
                       getattr(ev, "self_cuda_time_total", 0.0))
@@ -5367,6 +5740,8 @@ def main():
                      f"bit for bit its plain version")
         log(f"  ullmann_refine_step at {(B, rn, rm)}, M uint8 / int32 / "
             f"bool: bit for bit")
+    # the five main-path kernels past n, m = 256
+    detail["wide_kernels"] = wide_kernel_cases(elite_k)
     outs = {k: v[2] for k, v in timed.items()}
     bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
                            elite_k=elite_k)
@@ -5511,6 +5886,14 @@ def main():
     mesh_launches = detail["mesh"]["launches"]
     del phase4
 
+    # 4f. past n, m = 256: a drain of the complex workloads mapped whole
+    # on a 512-engine platform, and the scheduler on it
+    detail["wide"] = wide_phase(pso, counters)
+    wide_launches = split_float({**detail["wide"]["launches"],
+                                 **{k: 0 for k in KERNELS
+                                    if k not in MAIN_KERNELS}})
+    wide_bucket = detail["wide"]["bucket"]["kernels"]
+
     # 5. the split (pre-fusion) epoch against the fused one
     detail["split_epoch"] = split_phase(pso, Qb, Gb, Mb, x, counters)
     split_launches = detail["split_epoch"]["launches"]
@@ -5583,6 +5966,7 @@ def main():
                          restart_launches=restart_launches.get(name),
                          mesh_launches=mesh_launches.get(name),
                          entry_launches=entry_launches.get(name),
+                         wide_launches=wide_launches.get(name),
                          launches_per_call=(n_launch / n_calls
                                             if n_calls else None),
                          max_abs_err=errs[name], ms=rec["ms"],
@@ -5593,7 +5977,10 @@ def main():
                          **({"host_ms": rec["host_ms"]} if "host_ms" in rec
                             else {}),
                          **({"bound_note": BOUND_NOTES[name]}
-                            if name in BOUND_NOTES else {})))
+                            if name in BOUND_NOTES else {}),
+                         **({"wide_bucket": dict(bucket=list(WIDE_BUCKET),
+                                                 **wide_bucket[name])}
+                            if name in wide_bucket else {})))
     detail["kernels"] = kern
     detail["total_s"] = time.time() - t_all
     if out_dir is not None:

@@ -89,8 +89,11 @@ def sass(tool: Path, lib: Path):
         return None
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    # an anonymous namespace's mangled name carries a hash of its file
+    # an anonymous namespace's mangled name carries a hash of its file,
+    # and a second one after the file's stem (``<stem>_cu_<hash>``), which
+    # can differ between two builds of one source
     text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", text)
+    text = re.sub(r"(_cu)_[0-9a-f]{8}(?=\d)", r"\1", text)
     parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
     return {parts[i]: local_text(parts[i + 1])
             for i in range(1, len(parts), 2)}

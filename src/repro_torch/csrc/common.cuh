@@ -5,10 +5,17 @@
 // and returns cudaGetLastError(). Nothing here allocates or synchronises.
 //
 // Bit rows. The matcher's 0/1 matrices (masks, candidate sets, the
-// adjacency of Q and G) are held in shared memory as rows of 32-bit
-// words: bit b of word w of row r is entry (r, 32*w + b). With n, m <= 256
-// a row is at most 8 words, and every Ullmann support test becomes an AND
-// and a non-zero check, exact like the integer products it replaces.
+// adjacency of Q and G) are held as rows of 32-bit words: bit b of word w
+// of row r is entry (r, 32*w + b), and every Ullmann support test becomes
+// an AND and a non-zero check, exact like the integer products it
+// replaces. Each kernel has two instantiations. Where n, m <= kMaxDim
+// (256) a row is at most 8 words and a lane-transposed row one byte a
+// lane (below); past that the wide helpers at the end of this file hold
+// a lane's bits in 32-bit words, a plane of 32 words covering 1,024
+// columns and a row as many planes as it needs, and the bit planes live
+// in shared memory where they fit and in device scratch where they do
+// not. The wide path takes any n, m whose buffers the card's memory
+// holds.
 #pragma once
 
 #include <cfloat>
@@ -17,9 +24,10 @@
 
 namespace rt {
 
-constexpr int kMaxDim = 256;          // n, m <= kMaxDim (8 words a row)
+constexpr int kMaxDim = 256;          // the narrow path: n, m <= kMaxDim
 constexpr int kLaneBits = kMaxDim / 32;   // a lane's bits of a transposed row
 constexpr float kNeg = -FLT_MAX;      // finfo(float32).min, the sentinel
+constexpr size_t kSmemMax = 232448;   // 227 KB a block on the H100
 
 __host__ __device__ inline int words(int cols) { return (cols + 31) >> 5; }
 
@@ -364,6 +372,153 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+
+// ---- The wide path (n or m > kMaxDim) ----
+//
+// A wide lane-transposed row of `cols` columns is lane_words(cols) planes
+// of 32 words: bit k of word w * 32 + l is the entry at column
+// l + 32 (32 w + k), so lane l of a warp owns the columns l + 32 b (b < 
+// words(cols)) as it does on the narrow path, b being bit b & 31 of
+// plane b >> 5.
+
+// Whether (n, m) takes a kernel's wide instantiation.
+__host__ __device__ inline bool wide(int n, int m) {
+  return n > kMaxDim || m > kMaxDim;
+}
+
+__host__ __device__ inline int lane_words(int cols) {
+  return words(words(cols));
+}
+__host__ __device__ inline size_t align16z(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// Column of bit k of plane w for lane l.
+__device__ __forceinline__ int wcol(int lane, int w, int k) {
+  return lane + 32 * (32 * w + k);
+}
+
+// Entry c of a wide transposed row.
+__device__ __forceinline__ bool wtest(const uint32_t* row, int c) {
+  const int b = c >> 5;
+  return (row[(b >> 5) * 32 + (c & 31)] >> (b & 31)) & 1u;
+}
+
+// Lane l's bits of plane w that are columns below `cols`.
+__device__ __forceinline__ uint32_t wall_cols(int lane, int w, int cols) {
+  uint32_t bits = 0;
+  for (int k = 0; k < 32 && wcol(lane, w, k) < cols; ++k) bits |= 1u << k;
+  return bits;
+}
+
+// Wide transposed rows of a row-major (rows, cols) matrix x (any memory),
+// by threads t of nt: out[(r * LW + w) * 32 + l] bit k is x[r, wcol] != 0.
+template <typename T>
+__device__ inline void wpack_rows(const T* x, int rows, int cols,
+                                  uint32_t* out, int t, int nt) {
+  const int per = 32 * lane_words(cols);
+  for (int idx = t; idx < rows * per; idx += nt) {
+    const int r = idx / per, q = idx - r * per;
+    uint32_t word = 0;
+    for (int k = 0; k < 32; ++k) {
+      const int c = wcol(q & 31, q >> 5, k);
+      if (c >= cols) break;
+      if (x[(size_t)r * cols + c] != 0) word |= 1u << k;
+    }
+    out[idx] = word;
+  }
+}
+
+// Wide transposed columns of a square (dim, dim) byte matrix x (any
+// memory): row c of out holds the entries x[r, c] over r; neighbouring
+// threads read neighbouring columns.
+__device__ inline void wpack_cols(const uint8_t* x, int dim, uint32_t* out,
+                                  int t, int nt) {
+  const int per = 32 * lane_words(dim);
+  for (int idx = t; idx < dim * per; idx += nt) {
+    const int q = idx / dim, c = idx - q * dim;
+    uint32_t word = 0;
+    for (int k = 0; k < 32; ++k) {
+      const int r = wcol(q & 31, q >> 5, k);
+      if (r >= dim) break;
+      if (x[(size_t)r * dim + c] != 0) word |= 1u << k;
+    }
+    out[(size_t)c * per + q] = word;
+  }
+}
+
+// The supports of one row, run by one warp: for every candidate v of the
+// wide transposed row `cand` (all lanes walk all of them, so each lane
+// builds its own words and no reduction is needed), so |= ginT[v] where
+// `out` and si |= goutT[v] where `in`; written as row i of soT / siT.
+__device__ inline void wsupports(const uint32_t* cand, int i, int lane,
+                                 int LW, bool out, bool in,
+                                 const uint32_t* goutT, const uint32_t* ginT,
+                                 uint32_t* soT, uint32_t* siT) {
+  const int per = 32 * LW;
+  for (int w = 0; w < LW; ++w) {
+    const int mine = w * 32 + lane;
+    uint32_t o = 0, s = 0;
+    for (int q = 0; q < per; ++q) {
+      uint32_t bits = cand[q];
+      while (bits) {
+        const size_t v = wcol(q & 31, q >> 5, __ffs(bits) - 1);
+        bits &= bits - 1;
+        if (out) o |= ginT[v * per + mine];
+        if (in) s |= goutT[v * per + mine];
+      }
+    }
+    if (out) soT[(size_t)i * per + mine] = o;
+    if (in) siT[(size_t)i * per + mine] = s;
+  }
+}
+
+// One Jacobi Ullmann sweep on wide transposed candidates MT (n rows), in
+// place, by threads t of nt (whole warps): ullmann_sweep_t<true> with
+// wide rows. The supports of the rows marked in dirty are rebuilt, the
+// rows that change are marked in next_dirty, and it returns whether any
+// did (every thread). Ends with a barrier.
+__device__ inline bool wsweep(const uint32_t* goutT, const uint32_t* ginT,
+                              const uint32_t* qrow, const uint32_t* qcol,
+                              int n, int Wn, int LW, uint32_t* MT,
+                              uint32_t* soT, uint32_t* siT,
+                              const uint8_t* dirty, uint8_t* next_dirty,
+                              int t, int nt) {
+  const int lane = t & 31, per = 32 * LW;
+  for (int u = t >> 5; u < n; u += nt >> 5)
+    if (dirty[u])
+      wsupports(MT + (size_t)u * per, u, lane, LW, true, true, goutT, ginT,
+                soT, siT);
+  for (int i = t; i < n; i += nt) next_dirty[i] = 0;
+  __syncthreads();
+  bool changed = false;
+  for (int idx = t; idx < n * per; idx += nt) {
+    const int i = idx / per, q = idx - i * per;
+    const uint32_t old = MT[idx];
+    uint32_t x = old;
+    for (int wu = 0; wu < Wn; ++wu) {
+      uint32_t out_nb = qrow[i * Wn + wu];
+      while (out_nb) {
+        const int u = wu * 32 + __ffs(out_nb) - 1;
+        out_nb &= out_nb - 1;
+        x &= soT[(size_t)u * per + q];
+      }
+      uint32_t in_nb = qcol[i * Wn + wu];
+      while (in_nb) {
+        const int u = wu * 32 + __ffs(in_nb) - 1;
+        in_nb &= in_nb - 1;
+        x &= siT[(size_t)u * per + q];
+      }
+    }
+    MT[idx] = x;
+    if (x != old) {
+      next_dirty[i] = 1;
+      changed = true;
+    }
+  }
+  return __syncthreads_or(changed) != 0;
 }
 
 }  // namespace rt

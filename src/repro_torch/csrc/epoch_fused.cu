@@ -29,8 +29,11 @@
 //    registers and then reuse S G's space: ~73 KB, 3 CTAs an SM;
 //  * S G walks each column's bits once for 8 rows;
 //  * the velocity pass uses 16-byte global loads where m % 4 == 0.
-// Where the tiles do not fit in shared memory (n, m up to 256) they live in
-// a slice of the scratch per CTA (the GLOBAL instantiation).
+// Where the tiles do not fit in shared memory they live in a slice of the
+// scratch per CTA (SMEM = false). Any n, m run on these kernels (the
+// S G words stay below 2^16 and S G S^T below 2^32 since S's rows are
+// normalised); where the record passes a block's shared memory (~420 KB
+// at (1000, 1100)) step_wide_kernel reads it from the scratch in place.
 //
 // Numerics: -fmad=false and the plain version's order of operations
 // (left-to-right float sums, IEEE division, rintf for round-half-even,
@@ -45,7 +48,7 @@ struct Hyper {
 };
 
 constexpr int kThreads = 256;
-constexpr size_t kSmemMax = 232448;   // 227 KB a block on the H100
+using rt::kSmemMax;
 
 using rt::align16;
 using rt::odd_chunks;
@@ -105,8 +108,18 @@ __host__ __device__ inline Layout layout(int n, int m, bool quant) {
   return L;
 }
 
+// Whether the record fits in shared memory beside the small part: it
+// does for every n, m <= kMaxDim; past that the wide step reads it in
+// place.
+bool rec_in_smem(const Layout& L) { return (size_t)L.small <= kSmemMax; }
+
+// Shared bytes before the tiles.
+size_t small_bytes(const Layout& L) {
+  return rec_in_smem(L) ? L.small : L.small - L.rec;
+}
+
 bool tiles_in_smem(const Layout& L) {
-  return (size_t)L.small + L.tiles <= kSmemMax;
+  return small_bytes(L) + L.tiles <= kSmemMax;
 }
 
 // One problem's operands, once per call: G's column bits, the mask's row
@@ -175,34 +188,38 @@ __device__ __forceinline__ void keep_better(float& v, int& vi, float ov,
 }
 
 // One inner step of one particle (blockIdx.x) of one problem (blockIdx.y);
-// the problem's last CTA also selects its global best.
-template <bool QUANT, bool SMEM>
-__global__ void __launch_bounds__(kThreads, QUANT ? 4 : 3)
-step_kernel(float* __restrict__ S, float* __restrict__ V,
-            float* __restrict__ Sl, float* __restrict__ fl,
-            float* __restrict__ fcur, float* __restrict__ Sstar,
-            float* __restrict__ fstar, float* __restrict__ trace,
-            const float* __restrict__ Sbar, const uint8_t* __restrict__ rec,
-            int* __restrict__ tickets, uint8_t* __restrict__ gtiles,
-            const float* __restrict__ r_all, int N, int n, int m, int K,
-            int k, Hyper h) {
+// the problem's last CTA also selects its global best. With REC the
+// problem's record is copied into shared memory; without (the wide path,
+// where it does not fit) it is read from the scratch in place and the
+// shared part starts at the partial sums.
+template <bool QUANT, bool SMEM, bool REC>
+__device__ __forceinline__ void step_body(
+    float* __restrict__ S, float* __restrict__ V, float* __restrict__ Sl,
+    float* __restrict__ fl, float* __restrict__ fcur,
+    float* __restrict__ Sstar, float* __restrict__ fstar,
+    float* __restrict__ trace, const float* __restrict__ Sbar,
+    const uint8_t* __restrict__ rec, int* __restrict__ tickets,
+    uint8_t* __restrict__ gtiles, const float* __restrict__ r_all, int N,
+    int n, int m, int K, int k, Hyper h) {
   const int p = blockIdx.y, part = blockIdx.x, tid = threadIdx.x;
   const int nt = blockDim.x, nm = n * m;
   const Layout L = layout(n, m, QUANT);
   const int W = L.W, ldf = L.ldf, ldh = L.ldh, ldb = L.ldb;
+  const int off = REC ? 0 : L.rec;       // the record's bytes, if not here
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* tiles = SMEM ? smem + L.small
+  uint8_t* tiles = SMEM ? smem + L.small - off
                         : gtiles + ((size_t)p * N + part) * L.tiles;
-  const uint32_t* Gin = reinterpret_cast<const uint32_t*>(smem + L.gbits);
-  const uint32_t* mbits = reinterpret_cast<const uint32_t*>(smem + L.mbits);
-  const float* mrows = reinterpret_cast<const float*>(smem + L.mrows);
-  const uint32_t* qbits = reinterpret_cast<const uint32_t*>(smem + L.qbits);
-  long long* part_sums = reinterpret_cast<long long*>(smem + L.parts);
-  float* rowf = reinterpret_cast<float*>(smem + L.rowf);
-  int* rowi = reinterpret_cast<int*>(smem + L.rowi);
-  int* rowr = reinterpret_cast<int*>(smem + L.rowr);
-  int* misc = reinterpret_cast<int*>(smem + L.misc);
-  float* lut = reinterpret_cast<float*>(smem + L.lut);
+  const uint8_t* rp = REC ? smem : rec + (size_t)p * L.rec;
+  const uint32_t* Gin = reinterpret_cast<const uint32_t*>(rp + L.gbits);
+  const uint32_t* mbits = reinterpret_cast<const uint32_t*>(rp + L.mbits);
+  const float* mrows = reinterpret_cast<const float*>(rp + L.mrows);
+  const uint32_t* qbits = reinterpret_cast<const uint32_t*>(rp + L.qbits);
+  long long* part_sums = reinterpret_cast<long long*>(smem + L.parts - off);
+  float* rowf = reinterpret_cast<float*>(smem + L.rowf - off);
+  int* rowi = reinterpret_cast<int*>(smem + L.rowi - off);
+  int* rowr = reinterpret_cast<int*>(smem + L.rowr - off);
+  int* misc = reinterpret_cast<int*>(smem + L.misc - off);
+  float* lut = reinterpret_cast<float*>(smem + L.lut - off);
   uint8_t* Sq = tiles + L.sq;
   float* St = reinterpret_cast<float*>(tiles + L.st);
   // this particle's f_local, read before thread 0 can rewrite it
@@ -211,7 +228,7 @@ step_kernel(float* __restrict__ S, float* __restrict__ V,
 
   // the problem's record, then the zero columns past m that the 16-byte
   // (8-byte) product loops read
-  {
+  if (REC) {
     const uint4* src =
         reinterpret_cast<const uint4*>(rec + (size_t)p * L.rec);
     uint4* dst = reinterpret_cast<uint4*>(smem);
@@ -617,20 +634,51 @@ step_kernel(float* __restrict__ S, float* __restrict__ V,
   }
 }
 
+#define STEP_PARAMS                                                         \
+  float *__restrict__ S, float *__restrict__ V, float *__restrict__ Sl,     \
+      float *__restrict__ fl, float *__restrict__ fcur,                     \
+      float *__restrict__ Sstar, float *__restrict__ fstar,                 \
+      float *__restrict__ trace, const float *__restrict__ Sbar,            \
+      const uint8_t *__restrict__ rec, int *__restrict__ tickets,           \
+      uint8_t *__restrict__ gtiles, const float *__restrict__ r_all, int N, \
+      int n, int m, int K, int k, Hyper h
+#define STEP_ARGS                                                          \
+  S, V, Sl, fl, fcur, Sstar, fstar, trace, Sbar, rec, tickets, gtiles,     \
+      r_all, N, n, m, K, k, h
+
 template <bool QUANT, bool SMEM>
+__global__ void __launch_bounds__(kThreads, QUANT ? 4 : 3)
+step_kernel(STEP_PARAMS) {
+  step_body<QUANT, SMEM, true>(STEP_ARGS);
+}
+
+// The wide path's step, where the record passes a block's shared memory.
+template <bool QUANT, bool SMEM>
+__global__ void __launch_bounds__(kThreads, QUANT ? 4 : 3)
+step_wide_kernel(STEP_PARAMS) {
+  step_body<QUANT, SMEM, false>(STEP_ARGS);
+}
+
+template <bool QUANT, bool SMEM, bool REC>
 int launch_steps(size_t smem, float* S, float* V, float* Sl,
                  float* fl, float* fcur, float* Sstar, float* fstar,
                  float* trace, const float* Sbar, const uint8_t* rec,
                  int* tickets, uint8_t* gtiles, const float* r_all, int P,
                  int N, int n, int m, int K, const Hyper& h,
                  cudaStream_t st) {
-  cudaError_t err =
-      rt::allow_smem((const void*)step_kernel<QUANT, SMEM>, smem);
+  const void* kern = REC ? (const void*)step_kernel<QUANT, SMEM>
+                         : (const void*)step_wide_kernel<QUANT, SMEM>;
+  cudaError_t err = rt::allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   for (int k = 0; k < K; ++k) {
-    step_kernel<QUANT, SMEM><<<dim3(N, P), kThreads, smem, st>>>(
-        S, V, Sl, fl, fcur, Sstar, fstar, trace, Sbar, rec, tickets, gtiles,
-        r_all, N, n, m, K, k, h);
+    if (REC)
+      step_kernel<QUANT, SMEM><<<dim3(N, P), kThreads, smem, st>>>(
+          S, V, Sl, fl, fcur, Sstar, fstar, trace, Sbar, rec, tickets,
+          gtiles, r_all, N, n, m, K, k, h);
+    else
+      step_wide_kernel<QUANT, SMEM><<<dim3(N, P), kThreads, smem, st>>>(
+          S, V, Sl, fl, fcur, Sstar, fstar, trace, Sbar, rec, tickets,
+          gtiles, r_all, N, n, m, K, k, h);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -686,16 +734,25 @@ extern "C" int epoch_fused(void* S, void* V, void* Sl, void* fl, void* fcur,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Hyper h{omega, c1, c2, c3, v_max};
-  const bool in_smem = tiles_in_smem(L);
-  const size_t smem = (size_t)L.small + (in_smem ? L.tiles : 0);
-#define EPOCH_STEPS(QB, SB)                                                  \
-  launch_steps<QB, SB>(smem, (float*)S, (float*)V, (float*)Sl,            \
-                       (float*)fl, (float*)fcur, (float*)Sstar,              \
-                       (float*)fstar, (float*)trace, (const float*)Sbar,     \
-                       rec, tickets, gtiles, (const float*)r_all, P, N, n,   \
-                       m, K, h, st)
+  const bool in_rec = rec_in_smem(L), in_smem = tiles_in_smem(L);
+  const size_t smem = small_bytes(L) + (in_smem ? L.tiles : 0);
+#define EPOCH_STEPS(QB, SB, RB)                                              \
+  launch_steps<QB, SB, RB>(smem, (float*)S, (float*)V, (float*)Sl,        \
+                           (float*)fl, (float*)fcur, (float*)Sstar,          \
+                           (float*)fstar, (float*)trace, (const float*)Sbar, \
+                           rec, tickets, gtiles, (const float*)r_all, P, N,  \
+                           n, m, K, h, st)
+  if (!in_rec) {
+    if (quant)
+      return in_smem ? EPOCH_STEPS(true, true, false)
+                     : EPOCH_STEPS(true, false, false);
+    return in_smem ? EPOCH_STEPS(false, true, false)
+                   : EPOCH_STEPS(false, false, false);
+  }
   if (quant)
-    return in_smem ? EPOCH_STEPS(true, true) : EPOCH_STEPS(true, false);
-  return in_smem ? EPOCH_STEPS(false, true) : EPOCH_STEPS(false, false);
+    return in_smem ? EPOCH_STEPS(true, true, true)
+                   : EPOCH_STEPS(true, false, true);
+  return in_smem ? EPOCH_STEPS(false, true, true)
+                 : EPOCH_STEPS(false, false, true);
 #undef EPOCH_STEPS
 }

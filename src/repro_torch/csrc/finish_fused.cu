@@ -43,7 +43,9 @@
 //    stop once one changes nothing;
 //  * S lives in shared memory (~52 KB a CTA at (56, 144): 4 CTAs an SM,
 //    so the 512 particles of the main path's burst are one wave); where it
-//    does not fit (n, m up to 256) the chains read it from device memory.
+//    does not fit the chains read it from device memory.
+// Past n, m = 256 (kMaxDim) prep_wide_kernel and finish_wide_kernel run
+// the same steps on wide rows (common.cuh; see "The wide path" below).
 // Integer outputs (M_hat, feasible) equal the plain version's bit for bit;
 // S_bar is float32 with another summation order than its einsum.
 #include "common.cuh"
@@ -52,7 +54,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxW = rt::kMaxDim / 32;    // words of a bit row, at most 8
-constexpr size_t kSmemMax = 232448;        // 227 KB a block on the H100
+using rt::kSmemMax;
 constexpr int kSliceEntries = 512;         // S_bar entries a consensus CTA
 constexpr int kPackCtas = 3;   // launch 1's CTAs a problem for its record
 
@@ -105,6 +107,57 @@ bool s_in_smem(int n, int m) {
   return (size_t)layout(n, m).s + 4 * (size_t)n * m <= kSmemMax;
 }
 
+// Slice blockIdx.x - kPackCtas of problem blockIdx.y's elite consensus
+// (prep_kernel's consensus CTAs); sm holds N + 2 elite_k words.
+__device__ __forceinline__ void consensus_slice(
+    const float* __restrict__ S, const float* __restrict__ f_final,
+    float* __restrict__ S_bar, int N, int n, int m, int elite_k, float temp,
+    uint8_t* sm) {
+  const int p = blockIdx.y, tid = threadIdx.x, nm = n * m;
+  float* fw = reinterpret_cast<float*>(sm);     // N
+  float* w = fw + N;                            // elite_k
+  int* top = reinterpret_cast<int*>(w + elite_k);   // elite_k
+  for (int i = tid; i < N; i += blockDim.x)
+    fw[i] = f_final[(size_t)p * N + i];
+  __syncthreads();
+  // particle i's place in the descending order, ties to the lower index
+  // (the order of elite_k argmax rounds, as top_k)
+  for (int i = tid; i < N; i += blockDim.x) {
+    const float fi = fw[i];
+    int rank = 0;
+    for (int j = 0; j < N; ++j)
+      rank += fw[j] > fi || (fw[j] == fi && j < i);
+    if (rank < elite_k) {
+      top[rank] = i;
+      w[rank] = fi;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const float f0 = w[0];
+    float mx = rt::kNeg;
+    for (int k = 0; k < elite_k; ++k) {
+      w[k] = (w[k] - f0) / temp;
+      mx = fmaxf(mx, w[k]);
+    }
+    float tot = 0.0f;
+    for (int k = 0; k < elite_k; ++k) {
+      w[k] = expf(w[k] - mx);
+      tot = tot + w[k];
+    }
+    for (int k = 0; k < elite_k; ++k) w[k] = w[k] / tot;
+  }
+  __syncthreads();
+  const int lo = (blockIdx.x - kPackCtas) * kSliceEntries;
+  const int hi = min(nm, lo + kSliceEntries);
+  for (int idx = lo + tid; idx < hi; idx += blockDim.x) {
+    float acc = 0.0f;
+    for (int k = 0; k < elite_k; ++k)
+      acc = acc + w[k] * S[((size_t)p * N + top[k]) * nm + idx];
+    S_bar[(size_t)p * nm + idx] = acc;
+  }
+}
+
 // Launch 1. blockIdx.x < kPackCtas: a part of the problem's record, from
 // its bytes staged in shared memory (0: G's transposed rows and each
 // column's out-degree; 1: G's transposed columns; 2: Q's bit rows and
@@ -155,48 +208,7 @@ prep_kernel(const uint8_t* __restrict__ mask, const uint8_t* __restrict__ Q,
       qsucc[i] = rt::popcount_row(qrow + i * L.Wn, L.Wn);
     return;
   }
-  float* fw = reinterpret_cast<float*>(sm);     // N
-  float* w = fw + N;                            // elite_k
-  int* top = reinterpret_cast<int*>(w + elite_k);   // elite_k
-  for (int i = tid; i < N; i += blockDim.x)
-    fw[i] = f_final[(size_t)p * N + i];
-  __syncthreads();
-  // particle i's place in the descending order, ties to the lower index
-  // (the order of elite_k argmax rounds, as top_k)
-  for (int i = tid; i < N; i += blockDim.x) {
-    const float fi = fw[i];
-    int rank = 0;
-    for (int j = 0; j < N; ++j)
-      rank += fw[j] > fi || (fw[j] == fi && j < i);
-    if (rank < elite_k) {
-      top[rank] = i;
-      w[rank] = fi;
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const float f0 = w[0];
-    float mx = rt::kNeg;
-    for (int k = 0; k < elite_k; ++k) {
-      w[k] = (w[k] - f0) / temp;
-      mx = fmaxf(mx, w[k]);
-    }
-    float tot = 0.0f;
-    for (int k = 0; k < elite_k; ++k) {
-      w[k] = expf(w[k] - mx);
-      tot = tot + w[k];
-    }
-    for (int k = 0; k < elite_k; ++k) w[k] = w[k] / tot;
-  }
-  __syncthreads();
-  const int lo = (blockIdx.x - kPackCtas) * kSliceEntries;
-  const int hi = min(nm, lo + kSliceEntries);
-  for (int idx = lo + tid; idx < hi; idx += blockDim.x) {
-    float acc = 0.0f;
-    for (int k = 0; k < elite_k; ++k)
-      acc = acc + w[k] * S[((size_t)p * N + top[k]) * nm + idx];
-    S_bar[(size_t)p * nm + idx] = acc;
-  }
+  consensus_slice(S, f_final, S_bar, N, n, m, elite_k, temp, sm);
 }
 
 // Operands of one particle CTA, all in shared memory but S where it does
@@ -463,11 +475,449 @@ size_t prep_smem(int N, int n, int m, int elite_k) {
   return pack > cons ? pack : cons;
 }
 
+// ---- The wide path (n or m > kMaxDim) ----
+//
+// The same two launches on wide transposed rows (common.cuh): a lane's
+// bits of a row are 32-bit words, plane w holding its columns
+// l + 32 (32 w + k), and the free columns of a chain are a plane in
+// memory rather than a register. The record (G's transposed rows and
+// columns, the mask's rows, Q's bits and counts) is packed straight from
+// device memory. A particle CTA's working planes (the candidates, the
+// supports, the placed rows' images, the flags and the chains' state) are
+// in shared memory where they fit, else in its slice of device scratch;
+// the record is copied beside them where both fit, else read in place,
+// and S likewise after both.
+struct WLayout {
+  int Wn, LW, per, Wm;
+  size_t goutT, ginT, maskT, qrow, qcol, qsucc, fo0, rec;     // record
+  size_t cand, soT, siT, img, dirty, asg_a, asg_p, asg_b, thr, gv, gj, fo,
+      free0, free1, used, flag, work;                         // a CTA's
+};
+
+__host__ __device__ inline WLayout wlayout(int n, int m) {
+  using rt::align16z;
+  WLayout L;
+  L.Wn = rt::words(n);
+  L.LW = rt::lane_words(m);
+  L.per = 32 * L.LW;
+  L.Wm = rt::words(m);
+  const size_t rows_m = 4ull * m * L.per, rows_n = 4ull * n * L.per;
+  L.goutT = 0;
+  L.ginT = align16z(L.goutT + rows_m);
+  L.maskT = align16z(L.ginT + rows_m);
+  L.qrow = align16z(L.maskT + rows_n);
+  L.qcol = align16z(L.qrow + 4ull * n * L.Wn);
+  L.qsucc = align16z(L.qcol + 4ull * n * L.Wn);
+  L.fo0 = align16z(L.qsucc + 4ull * n);
+  L.rec = align16z(L.fo0 + 4ull * m);
+  L.cand = 0;
+  L.soT = align16z(L.cand + rows_n);
+  L.siT = align16z(L.soT + rows_n);
+  L.img = align16z(L.siT + rows_n);
+  L.dirty = align16z(L.img + rows_n);    // two flags a row
+  L.asg_a = align16z(L.dirty + 2ull * n);
+  L.asg_p = align16z(L.asg_a + 4ull * n);
+  L.asg_b = align16z(L.asg_p + 4ull * n);
+  L.thr = align16z(L.asg_b + 4ull * n);
+  L.gv = align16z(L.thr + 4ull * n);
+  L.gj = align16z(L.gv + 4ull * n);
+  L.fo = align16z(L.gj + 4ull * n);
+  L.free0 = align16z(L.fo + 4ull * m);
+  L.free1 = align16z(L.free0 + 4ull * L.per);
+  L.used = align16z(L.free1 + 4ull * L.per);
+  L.flag = align16z(L.used + 4ull * L.Wm);
+  L.work = align16z(L.flag + 4);
+  return L;
+}
+
+// What of a particle CTA is in shared memory (bit 0: the working planes,
+// 1: a copy of the record, 2: S), and its bytes.
+struct WPlace {
+  int bits;
+  size_t smem;
+};
+
+WPlace wplace(int n, int m) {
+  const WLayout L = wlayout(n, m);
+  const size_t s = 4ull * n * m;
+  WPlace w{0, 0};
+  if (L.work <= kSmemMax) {
+    w.bits = 1;
+    w.smem = L.work;
+    if (L.work + L.rec <= kSmemMax) {
+      w.bits |= 2;
+      w.smem += L.rec;
+      if (w.smem + s <= kSmemMax) {
+        w.bits |= 4;
+        w.smem += s;
+      }
+    }
+  }
+  return w;
+}
+
+// Launch 1 of the wide path: prep_kernel with the record packed from
+// device memory.
+__global__ void __launch_bounds__(kThreads)
+prep_wide_kernel(const uint8_t* __restrict__ mask,
+                 const uint8_t* __restrict__ Q, const uint8_t* __restrict__ G,
+                 uint8_t* __restrict__ rec, const float* __restrict__ S,
+                 const float* __restrict__ f_final, float* __restrict__ S_bar,
+                 int N, int n, int m, int elite_k, float temp) {
+  const int p = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
+  extern __shared__ __align__(16) uint8_t sm[];
+  if (blockIdx.x < kPackCtas) {
+    const WLayout L = wlayout(n, m);
+    uint8_t* r = rec + (size_t)p * L.rec;
+    const uint8_t* g = G + (size_t)p * m * m;
+    if (blockIdx.x == 0) {
+      uint32_t* rows = reinterpret_cast<uint32_t*>(r + L.goutT);
+      rt::wpack_rows(g, m, m, rows, tid, nt);
+      __syncthreads();
+      int* fo0 = reinterpret_cast<int*>(r + L.fo0);
+      for (int j = tid; j < m; j += nt)
+        fo0[j] = rt::popcount_row(rows + (size_t)j * L.per, L.per);
+    } else if (blockIdx.x == 1) {
+      rt::wpack_cols(g, m, reinterpret_cast<uint32_t*>(r + L.ginT), tid, nt);
+    } else {
+      const uint8_t* q = Q + (size_t)p * n * n;
+      uint32_t* qrow = reinterpret_cast<uint32_t*>(r + L.qrow);
+      rt::pack_rows(q, n, n, qrow);
+      rt::pack_cols(q, n, reinterpret_cast<uint32_t*>(r + L.qcol));
+      rt::wpack_rows(mask + (size_t)p * n * m, n, m,
+                     reinterpret_cast<uint32_t*>(r + L.maskT), tid, nt);
+      __syncthreads();
+      int* qsucc = reinterpret_cast<int*>(r + L.qsucc);
+      for (int i = tid; i < n; i += nt)
+        qsucc[i] = rt::popcount_row(qrow + (size_t)i * L.Wn, L.Wn);
+    }
+    return;
+  }
+  consensus_slice(S, f_final, S_bar, N, n, m, elite_k, temp, sm);
+}
+
+// Operands of a wide particle CTA.
+struct WCtx {
+  const uint32_t *goutT, *ginT, *qrow, *qcol;
+  const int *qsucc, *fo0;
+  const float* S;      // the particle's S tile, row stride m
+  int n, m, Wn, LW, per;
+};
+
+// structured_warp on wide rows: availT the initial candidates, fo (m
+// counts), img (n wide rows) and freeT (one plane a lane: the columns
+// still free) scratch. Writes asg[i] (-1: none).
+template <bool GUMBEL>
+__device__ __forceinline__ void wstructured(const WCtx& c,
+                                            const uint32_t* availT,
+                                            const float* gum, float tau,
+                                            int* fo, uint32_t* img,
+                                            uint32_t* freeT, int* asg) {
+  const int lane = threadIdx.x & 31, n = c.n, m = c.m, per = c.per;
+  for (int w = 0; w < c.LW; ++w) freeT[w * 32 + lane] = rt::wall_cols(lane, w, m);
+  for (int j = lane; j < m; j += 32) fo[j] = c.fo0[j];
+  for (int i = lane; i < n; i += 32) asg[i] = -1;
+  for (size_t x = lane; x < (size_t)n * per; x += 32) img[x] = 0u;
+  __syncwarp();
+  for (int i = 0; i < n; ++i) {
+    const int need = c.qsucc[i];
+    float v = rt::kNeg;
+    int vi = INT32_MAX;
+    for (int w = 0; w < c.LW; ++w) {
+      const int q = w * 32 + lane;
+      uint32_t cand = availT[(size_t)i * per + q] & freeT[q];
+      // every predecessor placed, and adjacent to the column
+      for (int wu = 0; wu < c.Wn; ++wu) {
+        uint32_t preds = c.qcol[i * c.Wn + wu];
+        while (preds) {
+          const int u = wu * 32 + __ffs(preds) - 1;
+          preds &= preds - 1;
+          cand &= img[(size_t)u * per + q];
+        }
+      }
+      while (cand) {                 // the lane's columns, ascending
+        const int j = rt::wcol(lane, w, __ffs(cand) - 1);
+        cand &= cand - 1;
+        const int free_out = fo[j];
+        float s = c.S[(size_t)i * m + j];
+        if (GUMBEL) s = logf(fmaxf(s, 1e-9f)) + tau * gum[(size_t)i * m + j];
+        if (free_out >= need && s > v) { v = s; vi = j; }
+      }
+    }
+    rt::warp_argmax(v, vi);
+    if (v > rt::kNeg) {
+      if (lane == 0) asg[i] = vi;
+      for (int w = 0; w < c.LW; ++w)
+        img[(size_t)i * per + w * 32 + lane] =
+            c.goutT[(size_t)vi * per + w * 32 + lane];
+      if (lane == (vi & 31)) {
+        const int b = vi >> 5;
+        freeT[(b >> 5) * 32 + lane] &= ~(1u << (b & 31));
+      }
+      // vi's in-neighbours lose a free out-neighbour
+      for (int w = 0; w < c.LW; ++w) {
+        uint32_t in = c.ginT[(size_t)vi * per + w * 32 + lane];
+        while (in) {
+          fo[rt::wcol(lane, w, __ffs(in) - 1)] -= 1;
+          in &= in - 1;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// rt::greedy_warp on wide rows; freeT is one plane a lane of scratch.
+__device__ __forceinline__ void wgreedy(const WCtx& c, const uint32_t* maskT,
+                                        float* gv, int* gj, uint32_t* freeT,
+                                        int* asg) {
+  const int lane = threadIdx.x & 31, n = c.n, m = c.m, per = c.per;
+  for (int w = 0; w < c.LW; ++w) freeT[w * 32 + lane] = rt::wall_cols(lane, w, m);
+  for (int i = lane; i < n; i += 32) asg[i] = -1;
+  __syncwarp();
+  for (int round = 0; round < n; ++round) {
+    float v = rt::kNeg;
+    int row = INT32_MAX;
+    for (int i = lane; i < n; i += 32)
+      if (gv[i] > v) { v = gv[i]; row = i; }
+    rt::warp_argmax(v, row);
+    if (!(v > rt::kNeg)) break;      // nothing left: every later round too
+    const int col = gj[row];
+    __syncwarp();
+    if (lane == 0) {
+      asg[row] = col;
+      gv[row] = rt::kNeg;
+      gj[row] = INT32_MAX;
+    }
+    if (lane == (col & 31)) {
+      const int b = col >> 5;
+      freeT[(b >> 5) * 32 + lane] &= ~(1u << (b & 31));
+    }
+    __syncwarp();
+    // rescan the rows whose cached column was just taken
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      uint32_t stale = __ballot_sync(
+          0xffffffffu, i0 + lane < n && gj[i0 + lane] == col);
+      while (stale) {
+        const int i = i0 + __ffs(stale) - 1;
+        stale &= stale - 1;
+        float bv = rt::kNeg;
+        int bj = INT32_MAX;
+        for (int w = 0; w < c.LW; ++w) {
+          uint32_t ok = maskT[(size_t)i * per + w * 32 + lane] &
+                        freeT[w * 32 + lane];
+          while (ok) {
+            const int j = rt::wcol(lane, w, __ffs(ok) - 1);
+            ok &= ok - 1;
+            const float s = c.S[(size_t)i * m + j];
+            if (s > bv) { bv = s; bj = j; }
+          }
+        }
+        rt::warp_argmax(bv, bj);
+        if (lane == 0) {
+          gv[i] = bv;
+          gj[i] = bj;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// feasible_warp on wide rows; `used` is words(m) words of scratch.
+__device__ __forceinline__ bool wfeasible(const WCtx& c, const int* asg,
+                                          uint32_t* used) {
+  const int lane = threadIdx.x & 31, n = c.n;
+  for (int k = lane; k < rt::words(c.m); k += 32) used[k] = 0u;
+  __syncwarp();
+  bool ok = true;
+  for (int i = lane; i < n; i += 32) {
+    const int a = asg[i];
+    if (a < 0) { ok = false; continue; }
+    const uint32_t bit = 1u << (a & 31);
+    if (atomicOr(&used[a >> 5], bit) & bit) ok = false;
+  }
+  if (!__all_sync(0xffffffffu, ok)) return false;
+  for (int i = lane; i < n; i += 32) {
+    const uint32_t* ga = c.goutT + (size_t)asg[i] * c.per;
+    for (int wu = 0; wu < c.Wn; ++wu) {
+      uint32_t succ = c.qrow[i * c.Wn + wu];
+      while (succ) {
+        const int b = asg[wu * 32 + __ffs(succ) - 1];
+        succ &= succ - 1;
+        if (!rt::wtest(ga, b)) ok = false;
+      }
+    }
+  }
+  return __all_sync(0xffffffffu, ok);
+}
+
+// Launch 2 of the wide path: one particle (blockIdx.x) of one problem
+// (blockIdx.y); `place` is WPlace::bits.
+__global__ void __launch_bounds__(kThreads)
+finish_wide_kernel(const float* __restrict__ S_, const float* __restrict__ gum,
+                   const uint8_t* __restrict__ rec, uint8_t* __restrict__ work,
+                   uint8_t* __restrict__ M_hat,
+                   uint8_t* __restrict__ feas_out, int N, int n, int m,
+                   float gumbel_tau, float refine_threshold, int refine_iters,
+                   int place) {
+  const int p = blockIdx.y, part = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nt = blockDim.x;
+  const int nwarps = nt >> 5;
+  const WLayout L = wlayout(n, m);
+  const int per = L.per;
+  const size_t nm = (size_t)n * m, cta = (size_t)p * N + part;
+  const size_t base = cta * nm;
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint8_t* wk = (place & 1) ? sm : work + cta * L.work;
+  const uint8_t* rp = rec + (size_t)p * L.rec;
+  if (place & 2) {
+    rt::copy_bytes(sm + L.work, rp, (int)L.rec);
+    rp = sm + L.work;
+  }
+  const float* S = S_ + base;
+  if (place & 4) {
+    float* St = reinterpret_cast<float*>(sm + L.work + L.rec);
+    if ((m & 3) == 0) {
+      for (size_t g = tid; g < nm / 4; g += nt)
+        reinterpret_cast<float4*>(St)[g] =
+            reinterpret_cast<const float4*>(S)[g];
+    } else {
+      for (size_t idx = tid; idx < nm; idx += nt) St[idx] = S[idx];
+    }
+    S = St;
+  }
+  __syncthreads();
+  WCtx c;
+  c.goutT = reinterpret_cast<const uint32_t*>(rp + L.goutT);
+  c.ginT = reinterpret_cast<const uint32_t*>(rp + L.ginT);
+  c.qrow = reinterpret_cast<const uint32_t*>(rp + L.qrow);
+  c.qcol = reinterpret_cast<const uint32_t*>(rp + L.qcol);
+  c.qsucc = reinterpret_cast<const int*>(rp + L.qsucc);
+  c.fo0 = reinterpret_cast<const int*>(rp + L.fo0);
+  c.S = S;
+  c.n = n;
+  c.m = m;
+  c.Wn = L.Wn;
+  c.LW = L.LW;
+  c.per = per;
+  const uint32_t* maskT = reinterpret_cast<const uint32_t*>(rp + L.maskT);
+  uint32_t* candT = reinterpret_cast<uint32_t*>(wk + L.cand);
+  uint32_t* soT = reinterpret_cast<uint32_t*>(wk + L.soT);
+  uint32_t* siT = reinterpret_cast<uint32_t*>(wk + L.siT);
+  uint32_t* img = reinterpret_cast<uint32_t*>(wk + L.img);
+  uint8_t* dirty = wk + L.dirty;
+  int* asg_a = reinterpret_cast<int*>(wk + L.asg_a);
+  int* asg_p = reinterpret_cast<int*>(wk + L.asg_p);
+  int* asg_b = reinterpret_cast<int*>(wk + L.asg_b);
+  float* thr = reinterpret_cast<float*>(wk + L.thr);
+  float* gv = reinterpret_cast<float*>(wk + L.gv);
+  int* gj = reinterpret_cast<int*>(wk + L.gj);
+  int* fo = reinterpret_cast<int*>(wk + L.fo);
+  uint32_t* free0 = reinterpret_cast<uint32_t*>(wk + L.free0);
+  uint32_t* free1 = reinterpret_cast<uint32_t*>(wk + L.free1);
+  uint32_t* used = reinterpret_cast<uint32_t*>(wk + L.used);
+  int* take_a = reinterpret_cast<int*>(wk + L.flag);
+
+  // each row once, a warp a row: its maximum (the candidate threshold) and
+  // its best masked column (the greedy cache)
+  for (int i = warp; i < n; i += nwarps) {
+    float mx = rt::kNeg, v = rt::kNeg;
+    int vi = INT32_MAX;
+    for (int w = 0; w < L.LW; ++w) {
+      const uint32_t mk = maskT[(size_t)i * per + w * 32 + lane];
+      for (int k = 0; k < 32; ++k) {
+        const int j = rt::wcol(lane, w, k);
+        if (j >= m) break;
+        const float s = S[(size_t)i * m + j];
+        mx = fmaxf(mx, s);
+        if (((mk >> k) & 1u) && s > v) { v = s; vi = j; }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    rt::warp_argmax(v, vi);
+    if (lane == 0) {
+      thr[i] = refine_threshold * mx;
+      gv[i] = v;
+      gj[i] = vi;
+    }
+  }
+  __syncthreads();
+
+  // M_a (warp 0, then its feasibility) beside the greedy projection (warp 1)
+  bool feas_a = false;
+  if (warp == 0) {
+    const float* g = gum == nullptr ? nullptr : gum + base;
+    if (gumbel_tau > 0.0f)
+      wstructured<true>(c, maskT, g, gumbel_tau, fo, img, free0, asg_a);
+    else
+      wstructured<false>(c, maskT, nullptr, 0.0f, fo, img, free0, asg_a);
+    feas_a = wfeasible(c, asg_a, used);
+  } else if (warp == 1) {
+    wgreedy(c, maskT, gv, gj, free1, asg_p);
+  }
+  __syncthreads();
+
+  // candidate set S >= thr * rowmax or the greedy pick, masked, a warp a row
+  for (int i = warp; i < n; i += nwarps) {
+    const float t = thr[i];
+    const int pick = asg_p[i];
+    for (int w = 0; w < L.LW; ++w) {
+      uint32_t word = 0;
+      for (int k = 0; k < 32; ++k) {
+        const int j = rt::wcol(lane, w, k);
+        if (j >= m) break;
+        if (S[(size_t)i * m + j] >= t || pick == j) word |= 1u << k;
+      }
+      const size_t q = (size_t)i * per + w * 32 + lane;
+      candT[q] = maskT[q] & word;
+    }
+  }
+  for (int i = tid; i < n; i += nt) dirty[i] = 1;
+  __syncthreads();
+  for (int it = 0; it < refine_iters; ++it) {
+    uint8_t* d = dirty + (it & 1) * n;
+    if (!rt::wsweep(c.goutT, c.ginT, c.qrow, c.qcol, n, c.Wn, c.LW, candT,
+                    soT, siT, d, dirty + n - (it & 1) * n, tid, nt))
+      break;                               // a fixpoint: later sweeps too
+  }
+
+  // M_b, the fallback to M_proj on empty rows, its feasibility; the merge
+  if (warp == 0) {
+    wstructured<false>(c, candT, nullptr, 0.0f, fo, img, free0, asg_b);
+    for (int i = lane; i < n; i += 32) {
+      uint32_t any = 0;
+      for (int q = 0; q < per; ++q) any |= candT[(size_t)i * per + q];
+      if (any == 0) asg_b[i] = asg_p[i];
+    }
+    __syncwarp();
+    const bool feas_b = wfeasible(c, asg_b, used);
+    if (lane == 0) {
+      feas_out[cta] = feas_a || feas_b;
+      *take_a = feas_a;
+    }
+  }
+  __syncthreads();
+  const int* asg = *take_a ? asg_a : asg_b;
+  uint8_t* out = M_hat + base;
+  for (size_t idx = tid; idx < nm; idx += nt) {
+    const int i = (int)(idx / m);
+    out[idx] = asg[i] == (int)(idx - (size_t)i * m) ? 1 : 0;
+  }
+}
+
 }  // namespace
 
-// Bytes of device scratch that epoch_finish needs for these shapes.
-extern "C" long long epoch_finish_scratch_bytes(int P, int n, int m) {
-  return (long long)P * layout(n, m).rec;
+// Bytes of device scratch that epoch_finish needs for these shapes: the
+// records, and on the wide path, where a particle's working planes pass
+// a block's shared memory, one slice of them per CTA.
+extern "C" long long epoch_finish_scratch_bytes(int P, int N, int n, int m) {
+  if (!rt::wide(n, m)) return (long long)P * layout(n, m).rec;
+  const WLayout L = wlayout(n, m);
+  return (long long)(P * L.rec +
+                     ((wplace(n, m).bits & 1) ? 0 : (size_t)P * N * L.work));
 }
 
 // The epoch tail of P problems: one launch for the records and S_bar, one
@@ -482,10 +932,31 @@ extern "C" int epoch_finish(const void* S, const void* f_final,
                             int refine_iters, int elite_k,
                             float consensus_temp, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const int slices = (n * m + kSliceEntries - 1) / kSliceEntries;
+  if (rt::wide(n, m)) {
+    const size_t psmem = sizeof(float) * (size_t)(N + 2 * elite_k);
+    cudaError_t err = rt::allow_smem((const void*)prep_wide_kernel, psmem);
+    if (err != cudaSuccess) return (int)err;
+    prep_wide_kernel<<<dim3(kPackCtas + slices, P), kThreads, psmem, st>>>(
+        (const uint8_t*)mask, (const uint8_t*)Q, (const uint8_t*)G,
+        (uint8_t*)scratch, (const float*)S, (const float*)f_final,
+        (float*)S_bar, N, n, m, elite_k, consensus_temp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const WLayout L = wlayout(n, m);
+    const WPlace w = wplace(n, m);
+    err = rt::allow_smem((const void*)finish_wide_kernel, w.smem);
+    if (err != cudaSuccess) return (int)err;
+    finish_wide_kernel<<<dim3(N, P), kThreads, w.smem, st>>>(
+        (const float*)S, (const float*)gum, (const uint8_t*)scratch,
+        (uint8_t*)scratch + (size_t)P * L.rec, (uint8_t*)M_hat,
+        (uint8_t*)feasible_out, N, n, m, gumbel_tau, refine_threshold,
+        refine_iters, w.bits);
+    return (int)cudaGetLastError();
+  }
   const size_t psmem = prep_smem(N, n, m, elite_k);
   cudaError_t err = rt::allow_smem((const void*)prep_kernel, psmem);
   if (err != cudaSuccess) return (int)err;
-  const int slices = (n * m + kSliceEntries - 1) / kSliceEntries;
   prep_kernel<<<dim3(kPackCtas + slices, P), kThreads, psmem, st>>>(
       (const uint8_t*)mask, (const uint8_t*)Q, (const uint8_t*)G,
       (uint8_t*)scratch, (const float*)S, (const float*)f_final,

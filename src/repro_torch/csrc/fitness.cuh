@@ -42,10 +42,34 @@ pack_gin_kernel(const uint8_t* __restrict__ G, uint32_t* __restrict__ gin,
   }
 }
 
-// Launches pack_gin_kernel for P problems on `st`: scratch receives
-// P * m * words(m) words.
+// The same from G in device memory, for the wide path (m > kMaxDim),
+// where m * m bytes may not fit in shared memory.
+__global__ void __launch_bounds__(256)
+pack_gin_wide_kernel(const uint8_t* __restrict__ G,
+                     uint32_t* __restrict__ gin, int m) {
+  const int p = blockIdx.x, W = rt::words(m);
+  const uint8_t* g = G + (size_t)p * m * m;
+  uint32_t* out = gin + (size_t)p * m * W;
+  for (int idx = threadIdx.x; idx < m * W; idx += blockDim.x) {
+    const int w = idx / m, col = idx - w * m;
+    uint32_t word = 0;
+    for (int b = 0; b < 32; ++b) {
+      const int r = w * 32 + b;
+      if (r >= m) break;
+      if (g[(size_t)r * m + col] != 0) word |= 1u << b;
+    }
+    out[(size_t)col * W + w] = word;
+  }
+}
+
+// Launches pack_gin_kernel (pack_gin_wide_kernel past kMaxDim) for P
+// problems on `st`: scratch receives P * m * words(m) words.
 inline cudaError_t pack_gin(const uint8_t* G, uint32_t* scratch, int P,
                             int m, cudaStream_t st) {
+  if (m > rt::kMaxDim) {
+    pack_gin_wide_kernel<<<P, 256, 0, st>>>(G, scratch, m);
+    return cudaGetLastError();
+  }
   const size_t gsmem = (size_t)rt::align16(m * m);
   cudaError_t err = rt::allow_smem((const void*)pack_gin_kernel, gsmem);
   if (err != cudaSuccess) return err;

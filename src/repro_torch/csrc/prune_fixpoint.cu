@@ -39,7 +39,8 @@
 //    (__syncthreads_or). The claims alternate between two buffers;
 //  * the pruned mask is written row by row, coalesced.
 // Everything is exact, so the outputs are bitwise those of the integer
-// form (kernels/ref.py).
+// form (kernels/ref.py). Past n, m = 256 (kMaxDim) prune_wide_kernel runs
+// the same iteration on wide rows (see "The wide path" below).
 #include "common.cuh"
 
 namespace {
@@ -230,33 +231,241 @@ prune_kernel(const MT* __restrict__ mask, const uint8_t* __restrict__ Q,
   if (tid == 0) sweeps[p] = it;
 }
 
+// ---- The wide path (n or m > kMaxDim) ----
+//
+// The same iteration on wide transposed rows (common.cuh), with the
+// per-row flags as bytes (a warp may own more than 32 rows) and G packed
+// straight from device memory. The n-sized part (the mask, the supports,
+// Q's bits, the claims and the flags) is in shared memory where it fits,
+// G's transposed rows and columns too where both fit, and either in the
+// problem's slice of device scratch where not.
+struct WLayout {
+  int Wn, LW;
+  size_t mt, so, si, qrow, qcol, claim, flags, rows;   // the n-sized part
+  size_t gout, gin, g;                                 // G's part
+};
+
+__host__ __device__ inline WLayout wlayout(int n, int m) {
+  WLayout L;
+  L.Wn = rt::words(n);
+  L.LW = rt::lane_words(m);
+  const size_t plane = (size_t)n * 32 * L.LW * 4;
+  L.mt = 0;
+  L.so = rt::align16z(L.mt + plane);
+  L.si = rt::align16z(L.so + plane);
+  L.qrow = rt::align16z(L.si + plane);
+  L.qcol = rt::align16z(L.qrow + (size_t)4 * n * L.Wn);
+  L.claim = rt::align16z(L.qcol + (size_t)4 * n * L.Wn);
+  L.flags = rt::align16z(L.claim + (size_t)2 * 32 * L.LW * 4);
+  L.rows = rt::align16z(L.flags + (size_t)4 * n);
+  L.gout = 0;
+  L.gin = rt::align16z((size_t)m * 32 * L.LW * 4);
+  L.g = 2 * L.gin;
+  return L;
+}
+
+using rt::kSmemMax;
+
+template <typename MT>
+__global__ void __launch_bounds__(1024)
+prune_wide_kernel(const MT* __restrict__ mask, const uint8_t* __restrict__ Q,
+                  const uint8_t* __restrict__ G, MT* __restrict__ out,
+                  int* __restrict__ sweeps, uint8_t* __restrict__ scratch,
+                  int n, int m, int bound, int rows_smem, int g_smem) {
+  const int p = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const WLayout L = wlayout(n, m);
+  const int Wn = L.Wn, LW = L.LW, per = 32 * LW;
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint8_t* slice = scratch + (size_t)p * (L.rows + L.g);
+  uint8_t* R = rows_smem ? sm : slice;
+  uint8_t* Gp = g_smem ? sm + L.rows : slice + L.rows;
+  uint32_t* goutT = reinterpret_cast<uint32_t*>(Gp + L.gout);
+  uint32_t* ginT = reinterpret_cast<uint32_t*>(Gp + L.gin);
+  uint32_t* MT_ = reinterpret_cast<uint32_t*>(R + L.mt);
+  uint32_t* soT = reinterpret_cast<uint32_t*>(R + L.so);
+  uint32_t* siT = reinterpret_cast<uint32_t*>(R + L.si);
+  uint32_t* qrow = reinterpret_cast<uint32_t*>(R + L.qrow);
+  uint32_t* qcol = reinterpret_cast<uint32_t*>(R + L.qcol);
+  uint32_t* claim = reinterpret_cast<uint32_t*>(R + L.claim);
+  uint8_t* changed = R + L.flags;     // n bytes each
+  uint8_t* single = changed + n;
+  uint8_t* has_pred = single + n;
+  uint8_t* has_succ = has_pred + n;
+
+  for (int t = tid; t < 2 * per; t += nt) claim[t] = 0;
+  const MT* mk = mask + (size_t)p * n * m;
+  for (int i = warp; i < n; i += nwarps)
+    for (int w = 0; w < LW; ++w) {
+      uint32_t word = 0;
+      for (int k = 0; k < 32; ++k) {
+        const int c = rt::wcol(lane, w, k);
+        if (c >= m) break;
+        if (mk[(size_t)i * m + c] != 0) word |= 1u << k;
+      }
+      MT_[(size_t)i * per + w * 32 + lane] = word;
+    }
+  const uint8_t* g = G + (size_t)p * m * m;
+  rt::wpack_rows(g, m, m, goutT, tid, nt);
+  rt::wpack_cols(g, m, ginT, tid, nt);
+  rt::pack_q_bits(Q + (size_t)p * n * n, n, qrow, qcol);
+  __syncthreads();
+  for (int i = warp; i < n; i += nwarps) {
+    uint32_t pred = 0, succ = 0;
+    for (int wu = 0; wu < Wn; ++wu) {
+      pred |= qcol[i * Wn + wu];
+      succ |= qrow[i * Wn + wu];
+    }
+    if (lane == 0) {
+      has_pred[i] = pred != 0;
+      has_succ[i] = succ != 0;
+    }
+    rt::wsupports(MT_ + (size_t)i * per, i, lane, LW, pred != 0, succ != 0,
+                  goutT, ginT, soT, siT);
+  }
+  __syncthreads();
+
+  int it = 0;
+  for (;;) {
+    // pass 2: the sweep of the warp's rows, their counts and the claims
+    uint32_t* claimed = claim + per * (it & 1);
+    bool any = false;      // the warp changed a row (the same in every lane)
+    for (int i = warp; i < n; i += nwarps) {
+      uint32_t* row = MT_ + (size_t)i * per;
+      bool diff = false;
+      int cnt = 0;
+      for (int w = 0; w < LW; ++w) {
+        const int q = w * 32 + lane;
+        const uint32_t x = row[q];
+        uint32_t y = x;
+        for (int wu = 0; wu < Wn; ++wu) {
+          uint32_t out_nb = qrow[i * Wn + wu];
+          while (out_nb) {
+            const int u = wu * 32 + __ffs(out_nb) - 1;
+            out_nb &= out_nb - 1;
+            y &= soT[(size_t)u * per + q];
+          }
+          uint32_t in_nb = qcol[i * Wn + wu];
+          while (in_nb) {
+            const int u = wu * 32 + __ffs(in_nb) - 1;
+            in_nb &= in_nb - 1;
+            y &= siT[(size_t)u * per + q];
+          }
+        }
+        if (y != x) {
+          row[q] = y;
+          diff = true;
+        }
+        cnt += __popc(y);
+      }
+      const bool ch = __any_sync(0xffffffffu, diff);
+      const bool one = __reduce_add_sync(0xffffffffu, cnt) == 1;
+      any |= ch;
+      if (one)
+        for (int w = 0; w < LW; ++w) {
+          const uint32_t y = row[w * 32 + lane];
+          if (y) atomicOr(&claimed[w * 32 + lane], y);
+        }
+      if (lane == 0) {
+        changed[i] = ch;
+        single[i] = one;
+      }
+    }
+    __syncthreads();
+    ++it;
+    // pass 1: the claimed columns leave every row that is no singleton,
+    // then the supports of the rows that changed
+    for (int t = tid; t < per; t += nt) claim[per * (it & 1) + t] = 0;
+    for (int i = warp; i < n; i += nwarps) {
+      if (single[i]) continue;
+      uint32_t* row = MT_ + (size_t)i * per;
+      bool diff = false;
+      for (int w = 0; w < LW; ++w) {
+        const uint32_t x = row[w * 32 + lane], y = x & ~claimed[w * 32 + lane];
+        if (y != x) {
+          row[w * 32 + lane] = y;
+          diff = true;
+        }
+      }
+      if (__any_sync(0xffffffffu, diff)) {
+        any = true;
+        if (lane == 0) changed[i] = 1;
+      }
+    }
+    if (it >= bound) break;
+    __syncwarp();
+    for (int i = warp; i < n; i += nwarps)
+      if (changed[i])
+        rt::wsupports(MT_ + (size_t)i * per, i, lane, LW, has_pred[i],
+                      has_succ[i], goutT, ginT, soT, siT);
+    if (!__syncthreads_or(any)) break;
+  }
+
+  // the pruned mask (each warp wrote only its own rows)
+  MT* o = out + (size_t)p * n * m;
+  for (int i = warp; i < n; i += nwarps) {
+    const uint32_t* row = MT_ + (size_t)i * per;
+    for (int w = 0; w < LW; ++w) {
+      const uint32_t x = row[w * 32 + lane];
+      for (int k = 0; k < 32; ++k) {
+        const int c = rt::wcol(lane, w, k);
+        if (c >= m) break;
+        o[(size_t)i * m + c] = MT((x >> k) & 1u);
+      }
+    }
+  }
+  if (tid == 0) sweeps[p] = it;
+}
+
 template <typename MT>
 int launch(const void* mask, const void* Q, const void* G, void* out,
-           void* sweeps, int P, int n, int m, int max_iters, void* stream) {
+           void* sweeps, void* scratch, int P, int n, int m, int max_iters,
+           void* stream) {
   const int bound = max_iters > 0 ? max_iters : n * m + 1;
-  const size_t smem = layout(n, m).total;
-  cudaError_t err = rt::allow_smem((const void*)prune_kernel<MT>, smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!rt::wide(n, m)) {
+    const size_t smem = layout(n, m).total;
+    cudaError_t err = rt::allow_smem((const void*)prune_kernel<MT>, smem);
+    if (err != cudaSuccess) return (int)err;
+    prune_kernel<MT><<<P, 32 * warps_for(n), smem, st>>>(
+        (const MT*)mask, (const uint8_t*)Q, (const uint8_t*)G, (MT*)out,
+        (int*)sweeps, n, m, bound);
+    return (int)cudaGetLastError();
+  }
+  const WLayout L = wlayout(n, m);
+  const bool rows_smem = L.rows <= kSmemMax;
+  const bool g_smem = rows_smem && L.rows + L.g <= kSmemMax;
+  const size_t smem = (rows_smem ? L.rows : 0) + (g_smem ? L.g : 0);
+  cudaError_t err = rt::allow_smem((const void*)prune_wide_kernel<MT>, smem);
   if (err != cudaSuccess) return (int)err;
-  prune_kernel<MT><<<P, 32 * warps_for(n), smem, (cudaStream_t)stream>>>(
+  prune_wide_kernel<MT><<<P, 32 * warps_for(n), smem, st>>>(
       (const MT*)mask, (const uint8_t*)Q, (const uint8_t*)G, (MT*)out,
-      (int*)sweeps, n, m, bound);
+      (int*)sweeps, (uint8_t*)scratch, n, m, bound, rows_smem, g_smem);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Bytes of device scratch that prune_fixpoint needs for these shapes: none
+// on the narrow path, each problem's bit planes on the wide one.
+extern "C" long long prune_fixpoint_scratch_bytes(int P, int n, int m) {
+  if (!rt::wide(n, m)) return 0;
+  const WLayout L = wlayout(n, m);
+  return (long long)P * (long long)(L.rows + L.g);
+}
+
 extern "C" int prune_fixpoint_u8(const void* mask, const void* Q,
                                  const void* G, void* out, void* sweeps,
-                                 int P, int n, int m, int max_iters,
-                                 void* stream) {
-  return launch<uint8_t>(mask, Q, G, out, sweeps, P, n, m, max_iters,
-                         stream);
+                                 void* scratch, int P, int n, int m,
+                                 int max_iters, void* stream) {
+  return launch<uint8_t>(mask, Q, G, out, sweeps, scratch, P, n, m,
+                         max_iters, stream);
 }
 
 extern "C" int prune_fixpoint_i32(const void* mask, const void* Q,
                                   const void* G, void* out, void* sweeps,
-                                  int P, int n, int m, int max_iters,
-                                  void* stream) {
-  return launch<int32_t>(mask, Q, G, out, sweeps, P, n, m, max_iters,
-                         stream);
+                                  void* scratch, int P, int n, int m,
+                                  int max_iters, void* stream) {
+  return launch<int32_t>(mask, Q, G, out, sweeps, scratch, P, n, m,
+                         max_iters, stream);
 }

@@ -21,9 +21,12 @@
 //    shared loads; the squared residuals wait in registers and then reuse
 //    S G's space: ~69 KB at (56, 144), 3 CTAs an SM, the main path's 512
 //    CTAs in two waves;
-//  * where the tiles do not fit in shared memory (n, m up to 256) they live
-//    in a slice of device scratch per CTA (fitness_kernel<false>), chosen by
-//    the shape before launch.
+//  * where the tiles do not fit in shared memory they live in a slice of
+//    device scratch per CTA (fitness_kernel<false>), chosen by the shape
+//    before launch;
+//  * past n, m = 256 (kMaxDim) fitness_wide_kernel reads G's columns from
+//    the scratch in place (m words(m) words may pass a block's shared
+//    memory), and G is packed from device memory (fitness.cuh).
 // Every sum keeps the plain version's order (kernels/ref.py): SG[i, j] over
 // k ascending, SGS[i, u] over j ascending, the squared residual over u
 // within a row, then over rows. Skipping a +0.0 term (a zero of G, a zero
@@ -34,7 +37,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr size_t kSmemMax = 232448;   // 227 KB a block on the H100
+using rt::kSmemMax;
 
 using rt::align16;
 using rt::odd_chunks;
@@ -67,31 +70,42 @@ __host__ __device__ inline Layout layout(int n, int m) {
   return L;
 }
 
-bool tiles_in_smem(const Layout& L) {
-  return (size_t)L.small + L.tiles <= kSmemMax;
+// Shared bytes before the tiles: G's columns and the row sums, or on the
+// wide path the row sums alone.
+int small_bytes(const Layout& L, bool wide_path) {
+  return wide_path ? L.small - L.rows : L.small;
 }
 
-// Launch 2: one particle (blockIdx.x) of one problem (blockIdx.y).
-template <bool SMEM>
-__global__ void __launch_bounds__(kThreads, 3)
-fitness_kernel(const float* __restrict__ S, const uint32_t* __restrict__ gin,
-               const uint8_t* __restrict__ Q, float* __restrict__ out,
-               uint8_t* __restrict__ gtiles, int N, int n, int m) {
+bool tiles_in_smem(const Layout& L, bool wide_path) {
+  return (size_t)small_bytes(L, wide_path) + L.tiles <= kSmemMax;
+}
+
+// One particle (blockIdx.x) of one problem (blockIdx.y). With GSM the
+// problem's G columns are copied into shared memory; without (the wide
+// path, where they may not fit) they are read from the scratch in place
+// and the shared part starts at the row sums.
+template <bool SMEM, bool GSM>
+__device__ __forceinline__ void fitness_body(
+    const float* __restrict__ S, const uint32_t* __restrict__ gin,
+    const uint8_t* __restrict__ Q, float* __restrict__ out,
+    uint8_t* __restrict__ gtiles, int N, int n, int m) {
   const int p = blockIdx.y, part = blockIdx.x, tid = threadIdx.x;
   const int nt = blockDim.x;
   const Layout L = layout(n, m);
   const int W = L.W, ldf = L.ldf;
+  const int off = GSM ? 0 : L.rows;      // the G columns' bytes, if not here
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* tiles = SMEM ? smem + L.small
+  uint8_t* tiles = SMEM ? smem + L.small - off
                         : gtiles + ((size_t)p * N + part) * L.tiles;
-  uint32_t* Gin = reinterpret_cast<uint32_t*>(smem + L.gin);
-  float* rowf = reinterpret_cast<float*>(smem + L.rows);
+  const uint32_t* src = gin + (size_t)p * m * W;
+  uint32_t* Gin = GSM ? reinterpret_cast<uint32_t*>(smem + L.gin)
+                      : const_cast<uint32_t*>(src);
+  float* rowf = reinterpret_cast<float*>(smem + L.rows - off);
   float* St = reinterpret_cast<float*>(tiles);
 
   // the problem's G columns, then the particle's tile and zero columns up
   // to a multiple of 4 (the 16-byte product loads read them)
-  {
-    const uint32_t* src = gin + (size_t)p * m * W;
+  if (GSM) {
     const int words = m * W;
     if ((words & 3) == 0) {
       for (int w = tid; w < words / 4; w += nt)
@@ -226,6 +240,26 @@ fitness_kernel(const float* __restrict__ S, const uint32_t* __restrict__ gin,
   }
 }
 
+// Launch 2: one particle (blockIdx.x) of one problem (blockIdx.y).
+template <bool SMEM>
+__global__ void __launch_bounds__(kThreads, 3)
+fitness_kernel(const float* __restrict__ S, const uint32_t* __restrict__ gin,
+               const uint8_t* __restrict__ Q, float* __restrict__ out,
+               uint8_t* __restrict__ gtiles, int N, int n, int m) {
+  fitness_body<SMEM, true>(S, gin, Q, out, gtiles, N, n, m);
+}
+
+// Launch 2 on the wide path (n or m > kMaxDim): G's columns read from
+// the scratch.
+template <bool SMEM>
+__global__ void __launch_bounds__(kThreads, 3)
+fitness_wide_kernel(const float* __restrict__ S,
+                    const uint32_t* __restrict__ gin,
+                    const uint8_t* __restrict__ Q, float* __restrict__ out,
+                    uint8_t* __restrict__ gtiles, int N, int n, int m) {
+  fitness_body<SMEM, false>(S, gin, Q, out, gtiles, N, n, m);
+}
+
 // Scratch of one call, in bytes: G's column bits, then (when the tiles do
 // not fit in shared memory) one tile slice per CTA.
 struct Scratch {
@@ -236,18 +270,25 @@ Scratch scratch_parts(int P, int N, int n, int m) {
   const Layout L = layout(n, m);
   Scratch s;
   s.gin = (size_t)align16(4 * m * L.W) * P;
-  s.total = s.gin + (tiles_in_smem(L) ? 0 : (size_t)P * N * L.tiles);
+  s.total = s.gin + (tiles_in_smem(L, rt::wide(n, m)) ? 0
+                                                   : (size_t)P * N * L.tiles);
   return s;
 }
 
-template <bool SMEM>
+template <bool SMEM, bool WIDE>
 cudaError_t launch(size_t smem, const float* S, const uint32_t* gin,
                    const uint8_t* Q, float* out, uint8_t* gtiles, int P,
                    int N, int n, int m, cudaStream_t st) {
-  cudaError_t err = rt::allow_smem((const void*)fitness_kernel<SMEM>, smem);
+  const void* kern = WIDE ? (const void*)fitness_wide_kernel<SMEM>
+                          : (const void*)fitness_kernel<SMEM>;
+  cudaError_t err = rt::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  fitness_kernel<SMEM><<<dim3(N, P), kThreads, smem, st>>>(S, gin, Q, out,
-                                                           gtiles, N, n, m);
+  if (WIDE)
+    fitness_wide_kernel<SMEM><<<dim3(N, P), kThreads, smem, st>>>(
+        S, gin, Q, out, gtiles, N, n, m);
+  else
+    fitness_kernel<SMEM><<<dim3(N, P), kThreads, smem, st>>>(
+        S, gin, Q, out, gtiles, N, n, m);
   return cudaGetLastError();
 }
 
@@ -272,12 +313,16 @@ extern "C" int edge_fitness_f32(const void* S, const void* Q, const void* G,
   uint8_t* gtiles = (uint8_t*)scratch + sc.gin;
   cudaError_t err = pack_gin((const uint8_t*)G, gin, P, m, st);
   if (err != cudaSuccess) return (int)err;
-  const bool in_smem = tiles_in_smem(L);
-  const size_t smem = (size_t)L.small + (in_smem ? L.tiles : 0);
-  err = in_smem ? launch<true>(smem, (const float*)S, gin, (const uint8_t*)Q,
-                               (float*)out, gtiles, P, N, n, m, st)
-                : launch<false>(smem, (const float*)S, gin,
-                                (const uint8_t*)Q, (float*)out, gtiles, P, N,
-                                n, m, st);
+  const bool w = rt::wide(n, m);
+  const bool in_smem = tiles_in_smem(L, w);
+  const size_t smem = (size_t)small_bytes(L, w) + (in_smem ? L.tiles : 0);
+#define FITNESS(SB, WB)                                                    \
+  launch<SB, WB>(smem, (const float*)S, gin, (const uint8_t*)Q,           \
+                 (float*)out, gtiles, P, N, n, m, st)
+  if (w)
+    err = in_smem ? FITNESS(true, true) : FITNESS(false, true);
+  else
+    err = in_smem ? FITNESS(true, false) : FITNESS(false, false);
+#undef FITNESS
   return (int)err;
 }

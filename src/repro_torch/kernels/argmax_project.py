@@ -36,7 +36,8 @@ def greedy_project_cuda(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     n, m = S.shape[-2:]
     if not (n <= 256 and m <= 256 and mask.shape == (n, m)):
         raise ValueError(f"greedy_project_cuda: (n, m) = {(n, m)} must be "
-                         f"at most 256 and mask {tuple(mask.shape)} (n, m)")
+                         f"at most 256 (wider is ROADMAP item 11b) and mask "
+                         f"{tuple(mask.shape)} (n, m)")
     if S.dtype is not torch.float32 or not S.is_contiguous():
         S = S.to(torch.float32).contiguous()
     mk, mask_i32 = kb.mask_arg(mask)
@@ -65,7 +66,8 @@ def masked_argmax_cuda(X: torch.Tensor, mask: torch.Tensor):
                "X and mask must be one (n, m) shape")
     n, m = X.shape
     kb.require(0 < n <= 256 and 0 < m <= 256,
-               f"(n, m) = {(n, m)} not in [1, 256]")
+               f"(n, m) = {(n, m)} not in [1, 256] (wider is ROADMAP "
+               "item 11b)")
     if X.dtype != torch.float32 or not X.is_contiguous():
         X = X.to(torch.float32).contiguous()
     mask, mask_i32 = kb.mask_arg(mask)

@@ -10,7 +10,9 @@ grid (one CTA per particle) whose last CTA per problem picks that
 problem's global best: K + 1 launches an epoch (none when K = 0), all
 counted. Compiled with ``-fmad=false`` and written in the plain version's
 order of operations, it matches ``epoch_inner_reference`` bit for bit.
-Q and G are 0/1 adjacency matrices, as everywhere in the matcher.
+Q and G are 0/1 adjacency matrices, as everywhere in the matcher. Any
+n, m run; where the problem's record passes a block's shared memory the
+steps read it from the scratch in place.
 """
 from __future__ import annotations
 
@@ -95,7 +97,6 @@ def epoch_fused_cuda(S, V, S_local, f_local, S_star, f_star, S_bar, mask,
     P, N, n, m = S.shape
     K = r_all.shape[1]
     kb.require(S.is_cuda, "epoch_fused_cuda needs CUDA tensors")
-    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256")
     kb.require(r_all.shape == (P, K, N, 3), "r_all must be (P, K, N, 3)")
     # working state, updated in place by the kernels
     S_w = S.to(torch.float32, copy=True).contiguous()

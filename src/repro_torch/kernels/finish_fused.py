@@ -13,8 +13,10 @@ is bound by the latency of its chains of n argmax rounds, so each chain
 runs inside one warp (warp-reduction argmaxes, no block barrier), the
 structured projection and the greedy projection run at once on two
 warps, and the greedy projection keeps a per-row best column instead of
-rescanning S every round. Integer outputs match the plain version bit
-for bit; S̄ agrees to float32 rounding.
+rescanning S every round. Past n, m = 256 a wide pair of kernels holds a
+lane's bits in 32-bit words and keeps a particle's bit planes in device
+scratch where they pass a block's shared memory. Integer outputs match
+the plain version bit for bit; S̄ agrees to float32 rounding.
 """
 from __future__ import annotations
 
@@ -113,7 +115,6 @@ def epoch_finish_cuda(S, f_final, gum, mask, Q, G, *, gumbel_tau: float,
     ``epoch_finish_reference``)."""
     P, N, n, m = S.shape
     kb.require(S.is_cuda, "epoch_finish_cuda needs CUDA tensors")
-    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256")
     kb.require(1 <= elite_k <= N, f"elite_k {elite_k} not in [1, {N}]")
     Sc = S.to(torch.float32).contiguous()
     if Sc.data_ptr() % 16:          # the kernel reads it in 16-byte loads
@@ -131,7 +132,7 @@ def epoch_finish_cuda(S, f_final, gum, mask, Q, G, *, gumbel_tau: float,
     feas = torch.empty(P, N, dtype=torch.bool, device=S.device)
     S_bar = torch.empty(P, n, m, dtype=torch.float32, device=S.device)
     nbytes = kb.bind("finish_fused", "epoch_finish_scratch_bytes",
-                     [kb.I_] * 3, ctypes.c_longlong)(P, n, m)
+                     [kb.I_] * 4, ctypes.c_longlong)(P, N, n, m)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
     fn = kb.bind("finish_fused", "epoch_finish",
                  [kb.P_] * 10 + [kb.I_] * 4 + [kb.F_, kb.F_, kb.I_, kb.I_,

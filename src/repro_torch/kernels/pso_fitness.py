@@ -11,7 +11,9 @@ then one CTA per (problem, particle). The float body sums in the plain
 version's order, its tiles in shared memory or, past a block's limit
 (chosen by the shape), in device scratch; the quantized body holds S as
 bytes and runs S G Sᵀ on integer dot products, summing exactly in 64
-bits. Both match the plain versions bit for bit.
+bits. Past n, m = 256 the float body reads G's columns from the scratch
+in place and the quantized one holds S G in 32 bits and S G Sᵀ in 64.
+Both match the plain versions bit for bit.
 """
 from __future__ import annotations
 
@@ -44,7 +46,6 @@ def edge_fitness_cuda(S: torch.Tensor, Q: torch.Tensor, G: torch.Tensor,
     of shape (P, N, n, m), Q (P, n, n), G (P, m, m) → (P, N) float32."""
     P, N, n, m = S.shape
     kb.require(S.is_cuda, "edge_fitness_cuda needs CUDA tensors")
-    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256")
     kb.require(Q.shape == (P, n, n) and G.shape == (P, m, m),
                "Q/G must be (P, n, n) / (P, m, m)")
     want = torch.uint8 if quantized else torch.float32
@@ -55,7 +56,7 @@ def edge_fitness_cuda(S: torch.Tensor, Q: torch.Tensor, G: torch.Tensor,
     out = torch.empty(P, N, dtype=torch.float32, device=S.device)
     if quantized:
         nbytes = kb.bind("fitness_quantized", "edge_fitness_u8_scratch_bytes",
-                         [kb.I_] * 2, ctypes.c_longlong)(P, m)
+                         [kb.I_] * 4, ctypes.c_longlong)(P, N, n, m)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=S.device)
         fn = kb.bind("fitness_quantized", "edge_fitness_u8",
                      [kb.P_] * 5 + [kb.I_] * 5 + [kb.P_])

@@ -39,7 +39,8 @@ def pso_update_cuda(S, V, S_local, S_star, S_bar, mask, r, *, omega: float,
             and S_local.shape == shape and r.shape == shape[:-2] + (3,)
             and S_star.shape == S_bar.shape == mask.shape == (n, m)):
         raise ValueError(
-            f"pso_update_cuda: S, V, S_local {tuple(shape)} (n, m <= 256), "
+            f"pso_update_cuda: S, V, S_local {tuple(shape)} (n, m <= 256: "
+            f"wider is ROADMAP item 11b), "
             f"r {(*shape[:-2], 3)}, S_star, S_bar, mask {(n, m)}; got V "
             f"{tuple(V.shape)}, S_local {tuple(S_local.shape)}, r "
             f"{tuple(r.shape)}, S_star {tuple(S_star.shape)}, S_bar "

@@ -25,7 +25,8 @@ def ullmann_refine_step_cuda(M: torch.Tensor, Q: torch.Tensor,
     same shape and dtype."""
     kb.require(M.is_cuda, "ullmann_refine_step_cuda needs CUDA tensors")
     n, m = M.shape[-2:]
-    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256")
+    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256 "
+               "(wider is ROADMAP item 11b)")
     kb.require(M.dtype in (torch.uint8, torch.int32, torch.bool),
                f"M dtype {M.dtype} not supported")
     kb.require(Q.shape == (n, n) and G.shape == (m, m),

@@ -30,6 +30,16 @@ MODES = [(False, 0.0), (True, 0.0), (False, 0.3), (True, 0.3)]
 # n and m off every multiple of 4 and 8 (the kernels' scalar tails and
 # padded rows), in shared memory and past it
 ODD_SHAPES = [(2, 16, 13, 37, 3), (2, 16, 10, 70, 3), (1, 16, 203, 233, 2)]
+# past n, m = 256, the main path's five kernels' wide instantiations: bit
+# planes in shared memory, partly in device scratch ((312, 528) and
+# (300, 400)), m past 1,024 (two planes a lane) and all in device scratch
+# (1,000 x 1,100)
+WIDE_SHAPES = [(2, 8, 300, 400, 2), (1, 8, 512, 512, 2), (2, 4, 257, 771, 2),
+               (1, 2, 1000, 1100, 2)]
+MAIN = ("prune_fixpoint", "edge_fitness", "edge_fitness_quantized",
+        "epoch_fused", "epoch_finish")
+#: epoch_finish's S̄ against its plain version (another summation order)
+SBAR_ATOL = 1.19e-7
 
 
 @pytest.fixture(scope="module")
@@ -59,6 +69,51 @@ def test_kernels_match_plain_on_card(device, shape, quantized, tau):
             raise AssertionError(f"{name}: {e}") from e
 
 
+def _assert_main_bitwise(pairs, what):
+    """The five main-path entries of ``pairs`` bit for bit against their
+    plain versions, S̄ within ``SBAR_ATOL``."""
+    for name in MAIN:
+        kernel, plain = pairs[name]
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(got) == len(want), (what, name)
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and g.shape == w.shape, (what, name, k)
+            if name == "epoch_finish" and k == 2:
+                assert float((g - w).abs().max()) <= SBAR_ATOL, (what, name)
+            else:
+                assert torch.equal(g, w), (what, name, k,
+                                           int((g != w).sum()))
+
+
+@pytest.mark.parametrize("quantized,tau", MODES)
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_main_path_kernels_past_256_bitwise(device, shape, quantized, tau):
+    """The five main-path kernels past n, m = 256 against their plain
+    versions: every output bit for bit but S̄, within 1.19e-7."""
+    P, N, n, m, K = shape
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 7))
+    x = cases.swarm_inputs(Q, G, mask, N, K, seed=8)
+    pairs = cases.kernel_pairs(Q, G, mask, x, quantized=quantized,
+                               gumbel_tau=tau, elite_k=max(1, N // 4))
+    _assert_main_bitwise(pairs, shape)
+
+
+def test_main_path_kernels_take_257(device):
+    """n = m = 257, one past the narrow instantiations: the five run
+    (no ValueError) and agree bit for bit, where the split path's four
+    raise (``test_split_path_kernels_reject_what_they_do_not_take``)."""
+    Q, G, mask = (t.to(device) for t in cases.random_problem(1, 257, 257,
+                                                             9))
+    x = cases.swarm_inputs(Q, G, mask, 4, 1, seed=9)
+    pairs = cases.kernel_pairs(Q, G, mask, x, quantized=True,
+                               gumbel_tau=0.0, elite_k=1)
+    _assert_main_bitwise(pairs, (257, 257))
+
+
 def _assert_prune_bitwise(mask, Q, G, max_iters):
     from repro_torch.kernels import prune_fixpoint
     prune_fixpoint.launches.reset()
@@ -74,12 +129,12 @@ def _assert_prune_bitwise(mask, Q, G, max_iters):
 @pytest.mark.parametrize("max_iters", [0, 1, 2])
 @pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32])
 @pytest.mark.parametrize("shape", [(3, 1, 40, 72, 1)] + ODD_SHAPES + [
-    (1, 1, 256, 256, 1), (1, 1, 56, 144, 1)])
+    (1, 1, 256, 256, 1), (1, 1, 56, 144, 1)] + WIDE_SHAPES)
 def test_prune_kernel_mask_dtypes_on_card(device, shape, mask_dtype,
                                           max_iters):
     """Masks and sweeps bit for bit, for both mask dtypes, at n, m off
-    every multiple of 8, up to 256 x 256 (8 rows a warp), and for a single
-    problem (P = 1)."""
+    every multiple of 8, up to 256 x 256 (8 rows a warp) and past it (the
+    wide instantiation), and for a single problem (P = 1)."""
     P, _, n, m, _ = shape
     Q, G, mask = (t.to(device) for t in
                   cases.random_problem(P, n, m, 5, mask_dtype))
@@ -87,7 +142,8 @@ def test_prune_kernel_mask_dtypes_on_card(device, shape, mask_dtype,
 
 
 @pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32])
-@pytest.mark.parametrize("n,m", [(13, 37), (40, 72), (203, 233)])
+@pytest.mark.parametrize("n,m", [(13, 37), (40, 72), (203, 233),
+                                 (270, 300)])
 def test_prune_fixpoint_long_chain_on_card(device, n, m, mask_dtype):
     """A path-shaped Q on a path-shaped G: n sweeps from the all-ones
     mask, each changing a shrinking set of rows, so that only some rows'
@@ -149,10 +205,17 @@ def test_split_path_kernels_reject_what_they_do_not_take(device):
                         x["S_bar"][0], mask[0], x["r_all"][0, 0],
                         **cases.HYPER)
     big = torch.zeros(2, 257, 8, device=device)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="11b"):
         greedy_project_cuda(big, big[0] > 0)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="11b"):
         masked_argmax_cuda(big[0], big[0] > 0)
+    with pytest.raises(ValueError, match="11b"):
+        ullmann_refine_step_cuda(big.to(torch.uint8),
+                                 torch.zeros(257, 257, device=device),
+                                 torch.zeros(8, 8, device=device))
+    with pytest.raises(ValueError, match="11b"):
+        pso_update_cuda(big, big, big, big[0], big[0], big[0] > 0,
+                        torch.zeros(2, 3, device=device), **cases.HYPER)
 
 
 # -- pso_update and greedy_project bit for bit --------------------------------

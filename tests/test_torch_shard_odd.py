@@ -20,7 +20,8 @@ channels) fall into every case:
   state whole; on (1, 8) ``in_proj`` is whole, the conv and
   ``out_proj`` are cut, and the state (4 heads) is cut on N.
 
-Each world runs once (a module fixture, ``launch.mesh.run_ranks``);
+Each world runs once (a module fixture: ``_worlds.run_in_turn`` runs
+the reference's process, then each world, one after another);
 every rank builds the same tiny model from a seed (float32, the norm
 scales and Mamba2's vectors perturbed), runs the one-device step on the
 whole batch and the sharded step on its slice, and writes what it
@@ -58,10 +59,11 @@ import textwrap
 import numpy as np
 import pytest
 
-from repro_torch.launch import mesh as mesh_lib
+from _worlds import run_in_turn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-WORLD_TIMEOUT_S = 300
+#: each call's seconds alone on an 8-core CPU, rounded up (``_worlds``)
+ALONE_S = {"reference": 94, 3: 3, 6: 10, 8: 17}
 METRIC_RTOL = 1e-5
 STEP_TOL = 2e-6
 LR = 1e-3
@@ -495,19 +497,19 @@ def worlds(tmp_path_factory):
                     job["kind"] == "ref_train")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    cmds = []
+    calls = [("reference", [[sys.executable, "-c", REFERENCE, str(P), str(G),
+                             json.dumps(ref)]], ALONE_S["reference"])]
     for w, cases in by_world.items():
         (tmp / f"w{w}.json").write_text(json.dumps(cases))
         (tmp / f"out{w}").mkdir()
-        cmds += [[sys.executable, "-c", WORKER, str(r), str(w),
-                  str(tmp / f"store{w}"), str(tmp / f"w{w}.json"),
-                  str(tmp / f"out{w}")] for r in range(w)]
-    cmds.append([sys.executable, "-c", REFERENCE, str(P), str(G),
-                 json.dumps(ref)])
-    outs = mesh_lib.run_ranks(cmds, timeout_s=WORLD_TIMEOUT_S, env=env,
-                              cwd=str(ROOT))
-    assert all("WORKER-OK" in o for _, o, _ in outs[:-1])
-    assert "REF-OK" in outs[-1][1]
+        calls.append((f"world{w}", [
+            [sys.executable, "-c", WORKER, str(r), str(w),
+             str(tmp / f"store{w}"), str(tmp / f"w{w}.json"),
+             str(tmp / f"out{w}")] for r in range(w)], ALONE_S[w]))
+    outs = run_in_turn(calls, env=env, cwd=str(ROOT))
+    assert "REF-OK" in outs["reference"][0][1]
+    assert all("WORKER-OK" in o for w in by_world
+               for _, o, _ in outs[f"world{w}"])
     res = {}
     for w in by_world:
         for r in range(w):

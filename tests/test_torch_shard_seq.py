@@ -6,7 +6,8 @@ data ranks: the sequence cut over them, context parallelism), on gloo
 worlds of CPU processes against the port's one-device steps, and
 against the JAX package's sharded prefill and decode.
 
-Each world runs once (a module fixture, ``launch.mesh.run_ranks``); every
+Each world runs once (a module fixture: ``_worlds.run_in_turn`` runs
+the reference's process, then each world, one after another); every
 rank builds the same tiny model from a seed (``tiny_config``: 4 query
 heads over 2 KV heads, float32; ``kv`` overrides the KV heads), with
 the norm scales, biases and recurrent vectors perturbed, runs the
@@ -49,10 +50,11 @@ import textwrap
 import numpy as np
 import pytest
 
-from repro_torch.launch import mesh as mesh_lib
+from _worlds import run_in_turn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-WORLD_TIMEOUT_S = 300
+#: each call's seconds alone on an 8-core CPU, rounded up (``_worlds``)
+ALONE_S = {"reference": 11, 4: 16, 8: 7}
 SERVE_TOL = 2e-4
 METRIC_RTOL = 1e-5
 P, G = 8, 4
@@ -401,21 +403,20 @@ def worlds(tmp_path_factory):
         ref_args += [str(tmp / f"{n}_in.npz"), str(tmp / f"{n}_ref.npz")]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    ref = mesh_lib.run_ranks(
-        [[sys.executable, "-c", REFERENCE, str(P), str(G),
-          ",".join(a for _, a, _ in REF_CASES), *ref_args]],
-        timeout_s=WORLD_TIMEOUT_S, env=env, cwd=str(ROOT))
-    assert "REF-OK" in ref[0][1]
-    cmds = []
+    calls = [("reference", [[sys.executable, "-c", REFERENCE, str(P), str(G),
+                             ",".join(a for _, a, _ in REF_CASES),
+                             *ref_args]], ALONE_S["reference"])]
     for w, cases in _cases(tmp).items():
         (tmp / f"w{w}.json").write_text(json.dumps(cases))
         (tmp / f"out{w}").mkdir()
-        cmds += [[sys.executable, "-c", WORKER, str(r), str(w),
-                  str(tmp / f"store{w}"), str(tmp / f"w{w}.json"),
-                  str(tmp / f"out{w}")] for r in range(w)]
-    outs = mesh_lib.run_ranks(cmds, timeout_s=WORLD_TIMEOUT_S, env=env,
-                              cwd=str(ROOT))
-    assert all("WORKER-OK" in o for _, o, _ in outs)
+        calls.append((f"world{w}", [
+            [sys.executable, "-c", WORKER, str(r), str(w),
+             str(tmp / f"store{w}"), str(tmp / f"w{w}.json"),
+             str(tmp / f"out{w}")] for r in range(w)], ALONE_S[w]))
+    outs = run_in_turn(calls, env=env, cwd=str(ROOT))
+    assert "REF-OK" in outs["reference"][0][1]
+    assert all("WORKER-OK" in o for name, cmds in outs.items()
+               if name != "reference" for _, o, _ in cmds)
     return {w: [json.loads((tmp / f"out{w}" / f"rank{r}.json").read_text())
                 for r in range(w)] for w in (4, 8)}
 

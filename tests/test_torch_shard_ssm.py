@@ -4,7 +4,8 @@ encoder-decoder under ``runtime.shard``): the sharded train and serve
 steps on gloo worlds of CPU processes, against the port's one-device
 steps and against the JAX package's sharded step.
 
-Each world runs once (a module fixture, ``launch.mesh.run_ranks``);
+Each world runs once (a module fixture: ``_worlds.run_in_turn`` runs
+the reference's process, then each world, one after another);
 every rank builds the same tiny model from a seed (``tiny_config``:
 d_model 64, 4 heads; xlstm-1.3b's 4 layers in groups of an mLSTM and an
 sLSTM block, zamba2-7b's 5 in two groups of 2 Mamba2 blocks and the
@@ -53,10 +54,11 @@ import textwrap
 import numpy as np
 import pytest
 
-from repro_torch.launch import mesh as mesh_lib
+from _worlds import run_in_turn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-WORLD_TIMEOUT_S = 300
+#: each call's seconds alone on an 8-core CPU, rounded up (``_worlds``)
+ALONE_S = {"reference": 71, 4: 16, 8: 19}
 METRIC_RTOL = 1e-5
 STEP_TOL = 2e-6
 LR = 1e-3
@@ -418,19 +420,20 @@ def worlds(tmp_path_factory):
                      str(tmp / f"ref_out_{SHORT[a]}.npz")]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    cmds = []
+    calls = [("reference", [[sys.executable, "-c", REFERENCE, ",".join(ARCHS),
+                               *ref_args]],
+              ALONE_S["reference"])]
     for w, cases in _cases(tmp).items():
         (tmp / f"w{w}.json").write_text(json.dumps(cases))
-        cmds += [[sys.executable, "-c", WORKER, str(r), str(w),
-                  str(tmp / f"store{w}"), str(tmp / f"w{w}.json"),
-                  str(tmp / f"out{w}")] for r in range(w)]
         (tmp / f"out{w}").mkdir()
-    cmds.append([sys.executable, "-c", REFERENCE, ",".join(ARCHS),
-                 *ref_args])
-    outs = mesh_lib.run_ranks(cmds, timeout_s=WORLD_TIMEOUT_S, env=env,
-                              cwd=str(ROOT))
-    assert all("WORKER-OK" in o for _, o, _ in outs[:-1])
-    assert "REF-OK" in outs[-1][1]
+        calls.append((f"world{w}", [
+            [sys.executable, "-c", WORKER, str(r), str(w),
+             str(tmp / f"store{w}"), str(tmp / f"w{w}.json"),
+             str(tmp / f"out{w}")] for r in range(w)], ALONE_S[w]))
+    outs = run_in_turn(calls, env=env, cwd=str(ROOT))
+    assert "REF-OK" in outs["reference"][0][1]
+    assert all("WORKER-OK" in o for name, cmds in outs.items()
+               if name != "reference" for _, o, _ in cmds)
     res = {w: [json.loads((tmp / f"out{w}" / f"rank{r}.json").read_text())
                for r in range(w)] for w in (4, 8)}
     return tmp, res

@@ -2,7 +2,8 @@
 ``runtime.shard``) on gloo worlds of CPU processes, against the port's
 one-device step and against the JAX package's sharded step.
 
-Each world runs once (a module fixture, ``launch.mesh.run_ranks``); every
+Each world runs once (a module fixture: ``_worlds.run_in_turn`` runs
+the reference's process, then each world, one after another); every
 rank builds the same tiny model from a seed (``tiny_config``, float32,
 norm scales and biases perturbed), runs the one-device step on the whole
 batch and the sharded step on its rows, and writes what it measured:
@@ -54,10 +55,11 @@ import textwrap
 import numpy as np
 import pytest
 
-from repro_torch.launch import mesh as mesh_lib
+from _worlds import run_in_turn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-WORLD_TIMEOUT_S = 300
+#: each call's seconds alone on an 8-core CPU, rounded up (``_worlds``)
+ALONE_S = {"reference": 17, 4: 19, 8: 12}
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 METRIC_RTOL = 1e-5
 STEP_TOL, FLIP_SHARE = 2e-6, 1e-3
@@ -477,19 +479,20 @@ def worlds(tmp_path_factory):
     _ref_inputs(tmp / "ref_in.npz")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    cmds = []
+    calls = [("reference", [[sys.executable, "-c", REFERENCE, str(tmp / "ref_in.npz"),
+                               str(tmp / "ref_out.npz")]],
+              ALONE_S["reference"])]
     for w, cases in _cases(tmp).items():
         (tmp / f"w{w}.json").write_text(json.dumps(cases))
-        cmds += [[sys.executable, "-c", WORKER, str(r), str(w),
-                  str(tmp / f"store{w}"), str(tmp / f"w{w}.json"),
-                  str(tmp / f"out{w}")] for r in range(w)]
         (tmp / f"out{w}").mkdir()
-    cmds.append([sys.executable, "-c", REFERENCE, str(tmp / "ref_in.npz"),
-                 str(tmp / "ref_out.npz")])
-    outs = mesh_lib.run_ranks(cmds, timeout_s=WORLD_TIMEOUT_S, env=env,
-                              cwd=str(ROOT))
-    assert all("WORKER-OK" in o for _, o, _ in outs[:-1])
-    assert "REF-OK" in outs[-1][1]
+        calls.append((f"world{w}", [
+            [sys.executable, "-c", WORKER, str(r), str(w),
+             str(tmp / f"store{w}"), str(tmp / f"w{w}.json"),
+             str(tmp / f"out{w}")] for r in range(w)], ALONE_S[w]))
+    outs = run_in_turn(calls, env=env, cwd=str(ROOT))
+    assert "REF-OK" in outs["reference"][0][1]
+    assert all("WORKER-OK" in o for name, cmds in outs.items()
+               if name != "reference" for _, o, _ in cmds)
     res = {}
     for w in (4, 8):
         res[w] = [json.loads((tmp / f"out{w}" / f"rank{r}.json").read_text())

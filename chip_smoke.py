@@ -21,12 +21,12 @@ Phases, in order; any failure exits non-zero:
      quantized and, for ``epoch_fused``, float, and each entry's device
      time under the profiler; ``pso_update`` also by its wrapper's host
      time alone; ``ullmann_refine_step`` also bit for bit for a uint8,
-     int32 and bool M at the main path's shape, n < 32 and (203, 233);
-     then the five main-path kernels past n, m = 256 (their wide
-     instantiations) on random problems at ``WIDE_CASES`` (300 x 400,
-     512 x 512, 257 x 771 and 1,000 x 1,100, where the bit planes live in
-     device scratch; small P and N), quantized and float, τ = 0 and
-     τ > 0: every output bit for bit but S̄, within ``SBAR_ATOL``;
+     int32 and bool M at the main path's shape, n < 32, (203, 233) and,
+     past 256, (640, 700); then the nine kernels past n, m = 256 (their
+     wide instantiations) on random problems at ``WIDE_CASES`` (300 x
+     400, 512 x 512, 257 x 771 and 1,000 x 1,100, where the bit planes
+     live in device scratch; small P and N), quantized and float, τ = 0
+     and τ > 0: every output bit for bit but S̄, within ``SBAR_ATOL``;
   4. the main path: 8 scheduling requests built as the IMMSched
      scheduler builds them (zoo workloads at window_stages=8 on the Cloud
      platform with a seeded set of 96 free engines, relabelled and padded
@@ -106,7 +106,14 @@ Phases, in order; any failure exits non-zero:
      quantized, plus ``masked_argmax`` through the seam on each returned
      S*; every kernel of the path must have been launched, and the
      results must equal the fused epoch's (``epoch_fused`` →
-     ``epoch_finish``, τ = 0) on the same inputs; both timed per problem;
+     ``epoch_finish``, τ = 0) on the same inputs (the loose scan and the
+     recomputed fitness bit for bit, M̂ and the feasibility flags
+     exactly, S̄ within rtol 1e-5 / atol 1e-4); both timed per problem.
+     Then the same on deepseek-7b's problem at (312, 528) as phase 4f
+     builds it (N = 64, K = 12), where the four run their wide
+     instantiations, and one ``wide_bucket_split`` line: the four there,
+     bit for bit against their plain versions, ms a call, device ms,
+     plain ms, bound and the split epoch's launches;
   6. path parity: the same burst at a reduced swarm through the ``cuda``
      and the ``ref`` suite on the same draws must give the same first
      epoch;
@@ -195,9 +202,10 @@ Phases, in order; any failure exits non-zero:
      drops (each rank against the one device, the drop counts equal
      and above 0); deepseek-v2-236b at full width, a float32 serve at
      block0 + 1 MoE block (logits within 2e-4, equal tokens and
-     drops), then bfloat16 train steps there (adafactor, one
+     drops), then a bfloat16 train step there (adafactor, one
      microbatch; loss, grad norm, each leaf's changed share, the next
-     batch's loss) and a bfloat16 serve there too, each
+     batch's loss) and a bfloat16 serve there too (each serve a prefill
+     and one decode step), each
      model built by the ranks in turn from the seed and held against a
      one-device run in this process (``MOE_MESH_*``). One ``moe_mesh``
      JSON line: per rank the resident bytes, collectives and bytes a
@@ -233,7 +241,7 @@ Phases, in order; any failure exits non-zero:
      time, then a float32 and a bfloat16 train step at 4 layers
      (wk/wv's gradients against the one device's); zamba2-7b and
      xlstm-1.3b at a batch of 1 on (2, 2), float32, a prompt of 64 into
-     caches of 4,096 (``SEQ_MESH_*``). One ``seq_mesh`` JSON line: per
+     caches of 4,096 and 3 tokens (``SEQ_MESH_*``). One ``seq_mesh`` JSON line: per
      rank the collectives and bytes a prefill, a token and a step,
      prefill, decode and step ms, peak memory, the resident shares and
      every check's number. (f) model axes that do not divide MLA's or
@@ -284,8 +292,10 @@ counts the launches of phase 4b, ``sched_launches`` those of phase 4c,
 ``restart_launches`` those of phase 4d, ``mesh_launches`` those of
 phase 4e summed over its processes, ``wide_launches`` those of phase 4f
 (a)'s drains, ``entry_launches`` those of phase 11 (its examples and its
-matcher cell); the five main-path rows also carry ``wide_bucket``,
-phase 4f's ms, device ms, plain ms, bound and launches at (312, 528);
+matcher cell); every row also carries ``wide_bucket``, its ms, device
+ms, plain ms, bound and launches at (312, 528): phase 4f's for the five
+main-path rows (launches of (a)'s drains), phase 5's for the four
+others (launches of its split epoch there);
 the float branch's launches are counted by its wrapper on their own and
 left out of the ``epoch_fused`` row; ``device_ms`` is a call's device
 time, ``host_ms`` the wrapper's host time alone, ``bound_note`` what a
@@ -351,8 +361,9 @@ FLOAT_EPOCH = "epoch_fused_float"
 BITWISE = ("epoch_fused", "masked_argmax", "edge_fitness",
            "edge_fitness_quantized", "pso_update", "ullmann_refine_step")
 #: (B, n, m) of phase 3's extra ullmann_refine_step calls, each M dtype:
-#: n < 32 and past a block's shared memory for an int32 M
-REFINE_EXTRA = ((5, 13, 37), (3, 203, 233))
+#: n < 32, past a block's shared memory for an int32 M, and past 256 with
+#: a matrix's bit planes in device scratch (the wide instantiation)
+REFINE_EXTRA = ((5, 13, 37), (3, 203, 233), (3, 640, 700))
 #: what a bound by bytes or operations leaves out: chains of dependent
 #: rounds, whose length sets the kernel's time
 BOUND_NOTES = {
@@ -382,8 +393,8 @@ SCHED_WINDOW = 8
 SCHED_KERNELS = ("prune_fixpoint", "edge_fitness_quantized", "epoch_fused",
                  "epoch_finish")
 SCHEDULERS = ("immsched", "isosched", "prema", "planaria", "moca", "cdmsa")
-#: phase 3 past n, m = 256 (the kernels' wide instantiations): (n, m) →
-#: (P, N) of random problems, K = 2 steps; the last puts the bit planes
+#: phase 3 past n, m = 256 (the nine kernels' wide instantiations): (n, m)
+#: → (P, N) of random problems, K = 2 steps; the last puts the bit planes
 #: in device scratch. Small P and N, so that the plain versions finish
 #: in seconds
 WIDE_CASES = {(300, 400): (2, 8), (512, 512): (1, 8), (257, 771): (2, 4),
@@ -596,15 +607,16 @@ LM_MESH_SERVE = dict(SERVE_ARGS, gen=8)
 #: bfloat16 states and weights) at launch/train's batch, MOE_MESH_TRAIN_M
 #: microbatches in place of the policy's 16 (each gathers every weight
 #: over gloo again), MOE_MESH_TRAIN_STEPS steps at MOE_MESH_TRAIN_CFG
-#: (no warmup, so that both steps move the bfloat16 weights): loss and
+#: (no warmup, so that the step moves the bfloat16 weights): loss and
 #: grad norm within LM_MESH_BF16_RTOL, each leaf's share of elements that
 #: the steps changed within MOE_MESH_CHANGED_TOL of the one device's, and
 #: the loss of one more batch after the steps within LM_MESH_BF16_RTOL's
 #: (an unapplied update changes no element; a stale one moves that loss);
 #: then serve at block0 + 1 MoE block (MOE_MESH_BF16_LAYERS; phase 8's cut
 #: of block0 + 2 until phase 11 took the whole run past 950 s) at
-#: launch/serve's batch and prompt, MOE_MESH_BF16_GEN tokens: each step's logits within
-#: the larger of SERVE_TF_ULPS units and the one device's own bfloat16
+#: launch/serve's batch and prompt, MOE_MESH_BF16_GEN tokens: each
+#: step's logits within the larger of SERVE_TF_ULPS units and the one
+#: device's own bfloat16
 #: error (its max |bfloat16 − float32| on the same weights and tokens:
 #: at bfloat16 the mesh's rounding flips some tokens' top-k experts,
 #: and a flipped token moves by an expert's output, not by units), tokens
@@ -612,21 +624,24 @@ LM_MESH_SERVE = dict(SERVE_ARGS, gen=8)
 #: rank's resident parameters and accumulators at most LM_MESH_SHARE of
 #: the one device's, its optimizer state the bytes of its slices (a
 #: factored state's vector is cut by one axis where its leaf's other dim
-#: is the one the mesh cuts twice)
+#: is the one the mesh cuts twice). The two serves' tokens and the train
+#: steps were 3, 3 and 2 until the split epoch past 256 took the run's
+#: time (a slow call ran the whole script past 1,200 s): the tiny
+#: configs of (1) hold a longer decode and a second step
 MOE_MESH_ARCH = "deepseek-v2-236b"
 MOE_MESH_TINY = ("deepseek-v2-236b", "arctic-480b")
 MOE_MESH_TINY_FACTOR = 0.5
 MOE_MESH_F32_LAYERS = 2
 MOE_MESH_F32_PARAMS = 5_358_679_040
-MOE_MESH_F32_GEN = 3
+MOE_MESH_F32_GEN = 2
 MOE_MESH_TRAIN_LAYERS = 2
 MOE_MESH_TRAIN_M = 1
-MOE_MESH_TRAIN_STEPS = 2
+MOE_MESH_TRAIN_STEPS = 1
 MOE_MESH_TRAIN_CFG = dict(learning_rate=1e-3, warmup_steps=0,
                           total_steps=200)
 MOE_MESH_CHANGED_TOL = 0.02
 MOE_MESH_BF16_LAYERS = 2
-MOE_MESH_BF16_GEN = 3
+MOE_MESH_BF16_GEN = 2
 MOE_MESH_TIMEOUT_S = 600
 #: ranks that build a whole full-width model at once and then cut it
 #: (two float32 2-layer models, 42.9 GB, beside the others' slices fit
@@ -708,8 +723,9 @@ SSM_MESH_TIMEOUT_S = 600
 #: SSM_MESH_XLSTM at SSM_MESH_XLSTM_LAYERS, float32, at a batch of 1 on
 #: LM_MESH_SHAPE (SEQ_MESH_B1: the prompt cut 32 a data rank, caches of
 #: 4,096 positions, the shared attention's cut on S over the data axis,
-#: the recurrent states whole over it): logits within SERVE_TOL, equal
-#: tokens. Every model's resident parameters are exactly its slices'
+#: the recurrent states whole over it), SEQ_MESH_B1_GEN tokens (8 until
+#: the split epoch past 256 took the run's time): logits within
+#: SERVE_TOL, equal tokens. Every model's resident parameters are exactly its slices'
 #: bytes
 SEQ_MESH_TINY_B1 = ("qwen2.5-3b", "qwen2-vl-7b", "deepseek-v2-236b",
                     "arctic-480b", "xlstm-1.3b", "zamba2-7b",
@@ -726,6 +742,7 @@ SEQ_MESH_TRAIN_LAYERS = 4
 SEQ_MESH_TRAIN_PARAMS = 619_474_944
 SEQ_MESH_F32_RTOL = dict(losses=1e-5, grad_norms=5e-6)
 SEQ_MESH_B1 = dict(batch=1, prompt_len=64, max_len=4096)
+SEQ_MESH_B1_GEN = 3
 SEQ_MESH_TIMEOUT_S = 600
 #: (f) model axes that do not divide MLA's or Mamba2's heads (ROADMAP
 #: 10d-iii), ODD_MESH_WORLD ranks spawned as (b)–(e)'s are: (1) the tiny
@@ -867,31 +884,34 @@ def kernel_bounds(Q, G, mask, x, outs, quantized, refine_iters=6,
     sweep_ops = 2.0 * (2 * n * m * m + 2 * n * n * m)   # 4 0/1 products
     fit_f32 = N * (n * nnzG + P * (2.0 * n * n * m + 3 * n * n))
     fit_int = fit_f32
-    pr_out, pr_sweeps = outs["prune_fixpoint"]
     b = {}
-    b["prune_fixpoint"] = bound(
-        nbytes(mask, Q, G, pr_out, pr_sweeps),
-        {"int8": sweep_ops * float(pr_sweeps.sum())})
-    b["edge_fitness"] = bound(nbytes(x["S"], Q, G) + P * N * 4,
-                              {"fp32": fit_f32})
-    b["edge_fitness_quantized"] = bound(nbytes(x["S_q"], Q, G) + P * N * 4,
-                                        {"int8": fit_int})
-    upd = 15.0 * P * N * n * m                 # update, clip, normalize
-    ep_ops = {"fp32": K * (upd + (0 if quantized else fit_f32))}
-    if quantized:
-        ep_ops["int8"] = K * (fit_int + 6.0 * P * N * n * m)
-    ep_out = outs["epoch_fused"]
-    b["epoch_fused"] = bound(
-        nbytes(x["S"], x["V"], x["S"], x["f_local"], x["S_star"],
-               x["f_star"], x["S_bar"], mask, Q, G, x["r_all"], *ep_out),
-        ep_ops)
-    fin_out = outs["epoch_finish"]
-    proj = 3.0 * P * N * n * (m * 8)            # 3 projections, per row
-    feas = 2.0 * P * N * nnzQ / P
-    b["epoch_finish"] = bound(
-        nbytes(x["S"], x["f_local"], mask, Q, G, *fin_out),
-        {"int8": P * N * refine_iters * sweep_ops + proj + feas,
-         "fp32": 2.0 * P * elite_k * n * m})
+    if "prune_fixpoint" in outs:
+        pr_out, pr_sweeps = outs["prune_fixpoint"]
+        b["prune_fixpoint"] = bound(
+            nbytes(mask, Q, G, pr_out, pr_sweeps),
+            {"int8": sweep_ops * float(pr_sweeps.sum())})
+    if "edge_fitness" in outs:
+        b["edge_fitness"] = bound(nbytes(x["S"], Q, G) + P * N * 4,
+                                  {"fp32": fit_f32})
+    if "edge_fitness_quantized" in outs:
+        b["edge_fitness_quantized"] = bound(
+            nbytes(x["S_q"], Q, G) + P * N * 4, {"int8": fit_int})
+    if "epoch_fused" in outs:
+        upd = 15.0 * P * N * n * m             # update, clip, normalize
+        ep_ops = {"fp32": K * (upd + (0 if quantized else fit_f32))}
+        if quantized:
+            ep_ops["int8"] = K * (fit_int + 6.0 * P * N * n * m)
+        b["epoch_fused"] = bound(
+            nbytes(x["S"], x["V"], x["S"], x["f_local"], x["S_star"],
+                   x["f_star"], x["S_bar"], mask, Q, G, x["r_all"],
+                   *outs["epoch_fused"]), ep_ops)
+    if "epoch_finish" in outs:
+        proj = 3.0 * P * N * n * (m * 8)        # 3 projections, per row
+        feas = 2.0 * P * N * nnzQ / P
+        b["epoch_finish"] = bound(
+            nbytes(x["S"], x["f_local"], mask, Q, G, *outs["epoch_finish"]),
+            {"int8": P * N * refine_iters * sweep_ops + proj + feas,
+             "fp32": 2.0 * P * elite_k * n * m})
     if "pso_update" not in outs:     # the main path's five alone
         return b
     # per call of the split epoch (one problem): the mean over the burst
@@ -931,17 +951,20 @@ def pso_update_host_ms(x, Mb):
 
 
 def split_phase(pso, Qb, Gb, Mb, x, counters):
-    """The split epoch through the ``cuda`` suite on every problem of the
-    burst, float and quantized, then ``masked_argmax`` through the seam on
-    each returned S*: launches counted over exactly that run. Then each
-    result is held against the fused epoch (``epoch_fused`` →
-    ``epoch_finish``, τ = 0) on the same inputs, and both are timed per
-    problem."""
+    """The split epoch through the ``cuda`` suite on every problem of
+    ``Mb`` (the burst, or deepseek-7b's at ``WIDE_BUCKET``), float
+    and quantized, then ``masked_argmax`` through the seam on each
+    returned S*: launches counted over exactly that run. Then each result
+    is held against the fused epoch (``epoch_fused`` → ``epoch_finish``,
+    τ = 0) on the same inputs, and both are timed per problem. The
+    idle-share profile records the card's activity alone: a split epoch
+    at (312, 528) makes ~20,000 launches, costly to summarise with the
+    CPU's ops."""
     from repro_torch.core import split_epoch
     from repro_torch.kernels import backend, cases, ref
     from repro_torch.kernels.epoch_fused import epoch_fused_cuda
     from repro_torch.kernels.finish_fused import epoch_finish_cuda
-    P = Mb.shape[0]
+    P, n, m = Mb.shape
     keys = ("S", "V", "S", "f_local", "S_star", "f_star", "S_bar")
 
     def args(p):
@@ -975,11 +998,12 @@ def split_phase(pso, Qb, Gb, Mb, x, counters):
     wall = time.time() - t0
     launches = {k: counters[k].count for k in SPLIT_KERNELS}
     calls = {k: counters[k].calls for k in SPLIT_KERNELS}
-    log(f"split epoch: {2 * P} epochs in {wall * 1e3:.1f} ms, launches "
-        f"{launches}")
+    log(f"split epoch at {(n, m)}: {2 * P} epochs in {wall * 1e3:.1f} ms, "
+        f"launches {launches}")
     for k, v in launches.items():
         if v <= 0:
-            fail(f"kernel {k} was not launched on the split epoch path")
+            fail(f"kernel {k} was not launched on the split epoch path at "
+                 f"{(n, m)}")
 
     names = ("S_final", "S_star", "f_star", "f_trace", "f_last", "M_hat",
              "feasible")
@@ -990,38 +1014,43 @@ def split_phase(pso, Qb, Gb, Mb, x, counters):
             out, (val, idx) = got[q, p]
             for k, name in enumerate(names):
                 if not torch.equal(out[k], want[k][p]):
-                    fail(f"split epoch (quantized={q}, problem {p}): "
-                         f"{name} differs from the fused epoch")
+                    fail(f"split epoch at {(n, m)} (quantized={q}, problem "
+                         f"{p}): {name} differs from the fused epoch")
             if not torch.equal(pso._fitness(out[0], Qb[p], Gb[p], cfg),
                                want[4][p]):
-                fail(f"split epoch (quantized={q}, problem {p}): the "
-                     f"recomputed fitness differs from the fused f_last")
+                fail(f"split epoch at {(n, m)} (quantized={q}, problem "
+                     f"{p}): the recomputed fitness differs from the fused "
+                     f"f_last")
             try:
                 s_bar_err = max(s_bar_err, cases.compare(out[7], want[7][p]))
                 cases.compare((val, idx), ref.masked_argmax(out[1], Mb[p]))
             except AssertionError as e:
-                fail(f"split epoch (quantized={q}, problem {p}): {e}")
+                fail(f"split epoch at {(n, m)} (quantized={q}, problem "
+                     f"{p}): {e}")
             split_ms = cuda_ms(lambda: split_epoch.split_epoch(*args(p), cfg),
                                reps=2)
             fused_ms = cuda_ms(lambda: fused(slice(p, p + 1), cfg), reps=5)
             times.append(dict(problem=p, quantized=q, split_ms=split_ms,
                               fused_ms=fused_ms))
-            log(json.dumps(dict(split_vs_fused=p, quantized=q,
-                                split_ms=split_ms, fused_ms=fused_ms)))
-    log(f"split epoch == fused epoch on {P} problems, float and quantized "
-        f"(S_bar max abs err {s_bar_err:.3g}); masked_argmax == plain")
+            log(json.dumps(dict(split_vs_fused=p, bucket=[n, m],
+                                quantized=q, split_ms=split_ms,
+                                fused_ms=fused_ms)))
+    log(f"split epoch == fused epoch at {(n, m)} on {P} problems, float and "
+        f"quantized (S_bar max abs err {s_bar_err:.3g}); masked_argmax == "
+        f"plain")
     # the card's idle share of one split and one fused epoch (problem 0)
     idle = {}
     for path, fn in (("split", lambda: split_epoch.split_epoch(
             *args(0), cfgs[True])), ("fused", lambda: fused(slice(0, 1),
                                                             cfgs[True]))):
-        _, wall_ms, rows = profiled(fn)
+        _, wall_ms, rows = profiled(fn, cpu=False)
         busy = sum(r[1] for r in rows)
         idle[path] = dict(wall_ms=wall_ms, device_busy_ms=busy,
                           idle_share=1.0 - busy / max(wall_ms, 1e-9),
                           device_launches=sum(r[2] for r in rows))
-    log(f"split vs fused epoch under the profiler: {json.dumps(idle)}")
-    return dict(launches=launches, calls=calls, wall_s=wall,
+    log(f"split vs fused epoch at {(n, m)} under the profiler: "
+        f"{json.dumps(idle)}")
+    return dict(bucket=[n, m], launches=launches, calls=calls, wall_s=wall,
                 s_bar_max_abs_err=s_bar_err,
                 times=times, profile=idle)
 
@@ -1863,11 +1892,12 @@ def wide_platform():
 
 
 def wide_kernel_cases(elite_k):
-    """Phase 3 past 256: each of the five main-path kernels against its
-    plain version on random problems at every shape of ``WIDE_CASES``,
-    quantized and float, τ = 0 and τ > 0; every output bit for bit but
-    ``epoch_finish``'s S̄, within ``SBAR_ATOL``. Returns per shape the
-    kernel's and the plain version's seconds a call."""
+    """Phase 3 past 256: each of the nine kernels against its plain
+    version on random problems at every shape of ``WIDE_CASES`` (the
+    split epoch's four once a problem, as ``cases.kernel_pairs`` calls
+    them), quantized and float, τ = 0 and τ > 0; every output bit for
+    bit but ``epoch_finish``'s S̄, within ``SBAR_ATOL``. Returns per
+    shape the kernel's and the plain version's seconds a call."""
     from repro_torch.kernels import cases
     rec = {}
     for (wn, wm), (wP, wN) in WIDE_CASES.items():
@@ -1876,8 +1906,9 @@ def wide_kernel_cases(elite_k):
                                                              SEED))
         x = cases.swarm_inputs(Q, G, mask, wN, WIDE_K, seed=SEED)
         times = {}
-        # the five, then the float epoch, then the tail with Gumbel noise
-        for quantized, tau, names in ((True, 0.0, MAIN_KERNELS),
+        # the nine, then the float epoch, then the tail with Gumbel noise
+        for quantized, tau, names in ((True, 0.0, (*MAIN_KERNELS,
+                                                   *cases.PER_PROBLEM)),
                                       (False, 0.0, ("epoch_fused",)),
                                       (False, 0.3, ("epoch_finish",))):
             pairs = cases.kernel_pairs(Q, G, mask, x, quantized=quantized,
@@ -1907,7 +1938,7 @@ def wide_kernel_cases(elite_k):
                                                                t2 - t1]
         rec[f"{wn}x{wm}"] = dict(P=wP, N=wN, K=WIDE_K, seconds=times,
                                  case_s=time.time() - t_case)
-        log(f"  wide ({wn}, {wm}), P={wP} N={wN}: the five kernels bit "
+        log(f"  wide ({wn}, {wm}), P={wP} N={wN}: the nine kernels bit "
             f"for bit (S_bar within {SBAR_ATOL}) in "
             f"{rec[f'{wn}x{wm}']['case_s']:.1f} s")
         del Q, G, mask, x
@@ -1931,6 +1962,94 @@ def _device_by_entry(rows, quantized):
     return out
 
 
+def wide_requests():
+    """``WIDE_WORKLOADS`` mapped whole (``WIDE_WINDOW``) on
+    ``wide_platform()`` with every engine free: the target graph, its
+    signature and ``[(name, relabelled DAG)]``."""
+    from repro_torch.accel import target_graph
+    from repro_torch.core import graphs, preemptible_dag as pdag
+    from repro_torch.workloads import zoo
+    plat = wide_platform()
+    free = np.ones(plat.engines, dtype=bool)
+    reqs = []
+    for i, name in enumerate(WIDE_WORKLOADS):
+        pd = pdag.build_preemptible_dag(
+            [(i, zoo.get_workload(name), 0)],
+            plat.engine_tile_capacity_macs(), window_stages=WIDE_WINDOW)
+        q, _ = graphs.topological_relabel(pd.graph)
+        reqs.append((name, q))
+    return (target_graph.free_engine_graph(plat, free),
+            target_graph.free_engine_signature(free), reqs)
+
+
+def wide_bucket_problem(tgt, reqs):
+    """The first of ``reqs`` in ``WIDE_BUCKET`` (deepseek-7b) padded to
+    the bucket, as (1, n, m) tensors on the card, and a swarm of ``N``
+    particles and ``K`` steps from ``SEED``: (name, Q, G, mask, x)."""
+    from repro_torch.core import graphs, preemptible_dag as pdag
+    from repro_torch.kernels import cases
+    name, q = next((nm, q) for nm, q in reqs
+                   if pdag.shape_bucket(q.n, tgt.n) == WIDE_BUCKET)
+    Qb, Gb, Mb = (torch.from_numpy(np.stack([a])).cuda() for a in
+                  pdag.pad_problem(q.adj, tgt.adj,
+                                   graphs.compatibility_mask(q, tgt),
+                                   *WIDE_BUCKET))
+    return name, Qb, Gb, Mb, cases.swarm_inputs(Qb, Gb, Mb, N, K, seed=SEED)
+
+
+def bucket_kernels(Qb, Gb, Mb, x, entries, name, stage=lambda key: None):
+    """Measurement at ``WIDE_BUCKET`` on ``name``'s problem: each of
+    ``entries`` (with the float epoch where ``epoch_fused`` is one)
+    against its plain version (bit for bit, S̄ within ``SBAR_ATOL``), ms
+    a call (CUDA events, median of 3 runs of 5), device ms of one
+    profiled call, the plain version's ms and the bound. Returns
+    ``{key: record}``."""
+    from repro_torch.core import pso
+    from repro_torch.kernels import cases
+    elite_k = pso.elite_k_for(pso.PSOConfig(**WIDE_SWARM))
+    timed, outs = {}, {}
+    for quantized in (True, False):
+        if not quantized and "epoch_fused" not in entries:
+            break
+        pairs = cases.kernel_pairs(Qb, Gb, Mb, x, quantized=quantized,
+                                   gumbel_tau=0.0, elite_k=elite_k)
+        for entry in entries:
+            key = FLOAT_EPOCH if entry == "epoch_fused" and not quantized \
+                else entry
+            if key in timed or (not quantized and key != FLOAT_EPOCH):
+                continue
+            kern, plain = pairs[entry]
+            got = kern()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain()
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            for k, (g, w) in enumerate(zip(_outs(got), _outs(want))):
+                ok = (float((g - w).abs().max()) <= SBAR_ATOL
+                      if entry == "epoch_finish" and k == 2
+                      else torch.equal(g, w))
+                if not ok:
+                    fail(f"{key} at {WIDE_BUCKET} ({name}): output {k} "
+                         f"differs from its plain version")
+            ms = statistics.median(cuda_ms(kern, reps=5, warm=1)
+                                   for _ in range(3))
+            rows = profiled(kern)[2]
+            device_ms = sum(r[1] for r in rows)
+            timed[key] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms)
+            outs[key] = got
+            stage(f"bucket_{key}")
+    bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
+                           elite_k=elite_k)
+    if FLOAT_EPOCH in outs:
+        bounds[FLOAT_EPOCH] = kernel_bounds(
+            Qb, Gb, Mb, x, {"epoch_fused": outs[FLOAT_EPOCH]},
+            quantized=False, elite_k=elite_k)["epoch_fused"]
+    for key, rec in timed.items():
+        rec["bound_ms"], rec["bound_by"] = bounds[key]
+    return timed
+
+
 def wide_phase(pso, counters):
     """Phase 4f, the main path past n, m = 256 on ``wide_platform()``:
     (a) a ``MatcherService.drain`` of the complex workloads mapped whole
@@ -1941,24 +2060,15 @@ def wide_phase(pso, counters):
     feasible on the host, the burst must fall in ``WIDE_BUCKET`` among
     its buckets, and each of the five main-path kernels (both epoch
     branches) must have been launched by the drains. Then, measurement
-    only, the five at ``WIDE_BUCKET`` on the drain's own problem: each
-    against its plain version (bit for bit, S̄ within ``SBAR_ATOL``),
-    ms a call (CUDA events, median of 3 runs of 5), device ms of one
-    profiled call, the plain version's ms and the bound. (b) phase 4c's
+    only, the five at ``WIDE_BUCKET`` on the drain's own problem
+    (``bucket_kernels``). (b) phase 4c's
     scenario on the platform (``IMMSchedScheduler``, real mode,
     ``validate=True``), every found mapping feasible, run to its end,
     then once more under the profiler for the idle share."""
-    from repro_torch.accel import target_graph
-    from repro_torch.core import graphs, preemptible_dag as pdag
     from repro_torch.core.service import MatcherService
-    from repro_torch.kernels import cases
     from repro_torch.sched import SimConfig, Simulator, get_scheduler
     from repro_torch.sched.tasks import make_burst_scenario
-    from repro_torch.workloads import zoo
     plat = wide_platform()
-    free = np.ones(plat.engines, dtype=bool)
-    tgt = target_graph.free_engine_graph(plat, free)
-    sig = target_graph.free_engine_signature(free)
     seconds, t_stage = {}, [time.perf_counter()]
 
     def stage(name):      # the seconds of each part of the phase
@@ -1967,13 +2077,7 @@ def wide_phase(pso, counters):
         t_stage[0] = now
 
     t0 = time.perf_counter()
-    reqs = []
-    for i, name in enumerate(WIDE_WORKLOADS):
-        pd = pdag.build_preemptible_dag(
-            [(i, zoo.get_workload(name), 0)],
-            plat.engine_tile_capacity_macs(), window_stages=WIDE_WINDOW)
-        q, _ = graphs.topological_relabel(pd.graph)
-        reqs.append((name, q))
+    tgt, sig, reqs = wide_requests()
     build_ms = (time.perf_counter() - t0) * 1e3
     out = dict(platform=WIDE_PLATFORM, build_ms=build_ms, drains={},
                seconds=seconds)
@@ -2039,56 +2143,14 @@ def wide_phase(pso, counters):
 
     # the five at WIDE_BUCKET on the drain's own problem (measurement and
     # one more check against the plain versions)
-    name, q = next((nm, q) for nm, q in reqs
-                   if pdag.shape_bucket(q.n, tgt.n) == WIDE_BUCKET)
-    Qb, Gb, Mb = (torch.from_numpy(np.stack([a])).cuda() for a in
-                  pdag.pad_problem(q.adj, tgt.adj,
-                                   graphs.compatibility_mask(q, tgt),
-                                   *WIDE_BUCKET))
-    elite_k = pso.elite_k_for(pso.PSOConfig(**WIDE_SWARM))
-    x = cases.swarm_inputs(Qb, Gb, Mb, N, K, seed=SEED)
-    timed, outs = {}, {}
-    for quantized in (True, False):
-        pairs = cases.kernel_pairs(Qb, Gb, Mb, x, quantized=quantized,
-                                   gumbel_tau=0.0, elite_k=elite_k)
-        for entry in MAIN_KERNELS:
-            key = FLOAT_EPOCH if entry == "epoch_fused" and not quantized \
-                else entry
-            if key in timed or (not quantized and key != FLOAT_EPOCH):
-                continue
-            kern, plain = pairs[entry]
-            got = kern()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = plain()
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            for k, (g, w) in enumerate(zip(_outs(got), _outs(want))):
-                ok = (float((g - w).abs().max()) <= SBAR_ATOL
-                      if entry == "epoch_finish" and k == 2
-                      else torch.equal(g, w))
-                if not ok:
-                    fail(f"{key} at {WIDE_BUCKET} ({name}): output {k} "
-                         f"differs from its plain version")
-            ms = statistics.median(cuda_ms(kern, reps=5, warm=1)
-                                   for _ in range(3))
-            rows = profiled(kern)[2]
-            device_ms = sum(r[1] for r in rows)
-            timed[key] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms)
-            outs[key] = got
-            stage(f"bucket_{key}")
-    bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
-                           elite_k=elite_k)
-    bounds[FLOAT_EPOCH] = kernel_bounds(
-        Qb, Gb, Mb, x, {**outs, "epoch_fused": outs[FLOAT_EPOCH]},
-        quantized=False, elite_k=elite_k)["epoch_fused"]
+    name, Qb, Gb, Mb, x = wide_bucket_problem(tgt, reqs)
+    timed = bucket_kernels(Qb, Gb, Mb, x, MAIN_KERNELS, name, stage)
     for key, rec in timed.items():
-        rec["bound_ms"], rec["bound_by"] = bounds[key]
         rec["launches"] = launches[key]
     out["bucket"] = dict(bucket=list(WIDE_BUCKET), problem=name,
                          kernels=timed)
     log(json.dumps({"wide_bucket": out["bucket"]}))
-    del Qb, Gb, Mb, x, outs, pairs
+    del Qb, Gb, Mb, x
     torch.cuda.empty_cache()
 
     # (b) the scheduler on the platform
@@ -4832,7 +4894,7 @@ def _seq_one_device():
                 ("xlstm_b1", SSM_MESH_XLSTM, SSM_MESH_XLSTM_LAYERS,
                  SSM_MESH_XLSTM_PARAMS)):
             model, digest = build(arch, layers, "float32", want)
-            r, a1 = _serve_one(model, SEQ_MESH_GEN, **SEQ_MESH_B1)
+            r, a1 = _serve_one(model, SEQ_MESH_B1_GEN, **SEQ_MESH_B1)
             rec[key] = dict(digest=digest, params=model.num_params(),
                             resident_param_bytes=shard.resident_bytes(model),
                             **r)
@@ -4897,14 +4959,13 @@ def seq_mesh_rank(rank, mesh_dir):
     rec["tiny_ms"] = (time.perf_counter() - t0) * 1e3
     _free()
 
-    def served(key, cfg, on, **kw):
+    def served(key, cfg, on, gen=SEQ_MESH_GEN, **kw):
         model, digest = _build_in_turn(cfg, on, rank)
         torch.cuda.reset_peak_memory_stats()
         name = key if f"{key}_logits" in ref.files else None
         rec[key] = dict(digest=digest, **_mesh_serve(
             model, on, ref[f"{name}_logits" if name else "logits"],
-            ref[f"{name}_tokens" if name else "tokens"], SEQ_MESH_GEN,
-            **kw))
+            ref[f"{name}_tokens" if name else "tokens"], gen, **kw))
         rec[key].update(peak_memory_bytes=torch.cuda.max_memory_allocated(),
                         resident_param_bytes=shard.resident_bytes(model),
                         slices_bytes=_slices_bytes(model))
@@ -4934,7 +4995,7 @@ def seq_mesh_rank(rank, mesh_dir):
                 ("zamba2_b1", SSM_MESH_ARCH, SSM_MESH_LAYERS),
                 ("xlstm_b1", SSM_MESH_XLSTM, SSM_MESH_XLSTM_LAYERS)):
             served(key, _ssm_cfg(arch, layers, "float32"), mesh,
-                   **SEQ_MESH_B1)
+                   gen=SEQ_MESH_B1_GEN, **SEQ_MESH_B1)
     finally:
         tmodel.CACHE_DTYPE = saved
     served("serve", _ssm_cfg(SEQ_MESH_ARCH, SEQ_MESH_LAYERS), kv_mesh)
@@ -5894,9 +5955,24 @@ def main():
                                     if k not in MAIN_KERNELS}})
     wide_bucket = detail["wide"]["bucket"]["kernels"]
 
-    # 5. the split (pre-fusion) epoch against the fused one
+    # 5. the split (pre-fusion) epoch against the fused one, on the burst
+    # and on phase 4f's problem at WIDE_BUCKET
     detail["split_epoch"] = split_phase(pso, Qb, Gb, Mb, x, counters)
     split_launches = detail["split_epoch"]["launches"]
+    tgt_w, _, reqs_w = wide_requests()
+    name_w, *wide_problem = wide_bucket_problem(tgt_w, reqs_w)
+    split_wide = split_phase(pso, *wide_problem, counters)
+    four = bucket_kernels(*wide_problem, cases.PER_PROBLEM, name_w)
+    for k, rec in four.items():
+        rec["launches"] = split_wide["launches"][k]
+    split_wide["bucket_kernels"] = four
+    detail["split_epoch_wide"] = split_wide
+    wide_bucket.update(four)
+    log(json.dumps({"wide_bucket_split": dict(bucket=list(WIDE_BUCKET),
+                                              problem=name_w,
+                                              kernels=four)}))
+    del tgt_w, reqs_w, wide_problem
+    torch.cuda.empty_cache()
 
     # 6. path parity: cuda suite against ref suite, same draws
     small = pso.PSOConfig(num_particles=16, epochs=1, inner_steps=4,

@@ -431,11 +431,12 @@ __device__ inline void wpack_rows(const T* x, int rows, int cols,
   }
 }
 
-// Wide transposed columns of a square (dim, dim) byte matrix x (any
-// memory): row c of out holds the entries x[r, c] over r; neighbouring
+// Wide transposed columns of a square (dim, dim) matrix x (any memory):
+// row c of out holds the entries x[r, c] != 0 over r; neighbouring
 // threads read neighbouring columns.
-__device__ inline void wpack_cols(const uint8_t* x, int dim, uint32_t* out,
-                                  int t, int nt) {
+template <typename T>
+__device__ inline void wpack_cols(const T* x, int dim, uint32_t* out, int t,
+                                  int nt) {
   const int per = 32 * lane_words(dim);
   for (int idx = t; idx < dim * per; idx += nt) {
     const int q = idx / dim, c = idx - q * dim;
@@ -519,6 +520,67 @@ __device__ inline bool wsweep(const uint32_t* goutT, const uint32_t* ginT,
     }
   }
   return __syncthreads_or(changed) != 0;
+}
+
+// greedy_warp on wide rows, run by one warp: S (n, m) with row stride m
+// in shared or device memory, maskT the mask's wide transposed rows (LW
+// planes a row), gv / gj every row's cached best as greedy_warp has them,
+// freeT one plane a lane of scratch (the columns still free). Writes
+// asg[i] (-1: none).
+__device__ __forceinline__ void wgreedy(const float* S, int n, int m, int LW,
+                                        const uint32_t* maskT, float* gv,
+                                        int* gj, uint32_t* freeT, int* asg) {
+  const int lane = threadIdx.x & 31, per = 32 * LW;
+  for (int w = 0; w < LW; ++w) freeT[w * 32 + lane] = wall_cols(lane, w, m);
+  for (int i = lane; i < n; i += 32) asg[i] = -1;
+  __syncwarp();
+  for (int round = 0; round < n; ++round) {
+    float v = kNeg;
+    int row = INT32_MAX;
+    for (int i = lane; i < n; i += 32)
+      if (gv[i] > v) { v = gv[i]; row = i; }
+    warp_argmax(v, row);
+    if (!(v > kNeg)) break;          // nothing left: every later round too
+    const int col = gj[row];
+    __syncwarp();
+    if (lane == 0) {
+      asg[row] = col;
+      gv[row] = kNeg;
+      gj[row] = INT32_MAX;
+    }
+    if (lane == (col & 31)) {
+      const int b = col >> 5;
+      freeT[(b >> 5) * 32 + lane] &= ~(1u << (b & 31));
+    }
+    __syncwarp();
+    // rescan the rows whose cached column was just taken
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      uint32_t stale = __ballot_sync(
+          0xffffffffu, i0 + lane < n && gj[i0 + lane] == col);
+      while (stale) {
+        const int i = i0 + __ffs(stale) - 1;
+        stale &= stale - 1;
+        float bv = kNeg;
+        int bj = INT32_MAX;
+        for (int w = 0; w < LW; ++w) {
+          uint32_t ok = maskT[(size_t)i * per + w * 32 + lane] &
+                        freeT[w * 32 + lane];
+          while (ok) {
+            const int j = wcol(lane, w, __ffs(ok) - 1);
+            ok &= ok - 1;
+            const float s = S[(size_t)i * m + j];
+            if (s > bv) { bv = s; bj = j; }
+          }
+        }
+        warp_argmax(bv, bj);
+        if (lane == 0) {
+          gv[i] = bv;
+          gj[i] = bj;
+        }
+      }
+    }
+    __syncwarp();
+  }
 }
 
 }  // namespace rt

@@ -667,63 +667,6 @@ __device__ __forceinline__ void wstructured(const WCtx& c,
   }
 }
 
-// rt::greedy_warp on wide rows; freeT is one plane a lane of scratch.
-__device__ __forceinline__ void wgreedy(const WCtx& c, const uint32_t* maskT,
-                                        float* gv, int* gj, uint32_t* freeT,
-                                        int* asg) {
-  const int lane = threadIdx.x & 31, n = c.n, m = c.m, per = c.per;
-  for (int w = 0; w < c.LW; ++w) freeT[w * 32 + lane] = rt::wall_cols(lane, w, m);
-  for (int i = lane; i < n; i += 32) asg[i] = -1;
-  __syncwarp();
-  for (int round = 0; round < n; ++round) {
-    float v = rt::kNeg;
-    int row = INT32_MAX;
-    for (int i = lane; i < n; i += 32)
-      if (gv[i] > v) { v = gv[i]; row = i; }
-    rt::warp_argmax(v, row);
-    if (!(v > rt::kNeg)) break;      // nothing left: every later round too
-    const int col = gj[row];
-    __syncwarp();
-    if (lane == 0) {
-      asg[row] = col;
-      gv[row] = rt::kNeg;
-      gj[row] = INT32_MAX;
-    }
-    if (lane == (col & 31)) {
-      const int b = col >> 5;
-      freeT[(b >> 5) * 32 + lane] &= ~(1u << (b & 31));
-    }
-    __syncwarp();
-    // rescan the rows whose cached column was just taken
-    for (int i0 = 0; i0 < n; i0 += 32) {
-      uint32_t stale = __ballot_sync(
-          0xffffffffu, i0 + lane < n && gj[i0 + lane] == col);
-      while (stale) {
-        const int i = i0 + __ffs(stale) - 1;
-        stale &= stale - 1;
-        float bv = rt::kNeg;
-        int bj = INT32_MAX;
-        for (int w = 0; w < c.LW; ++w) {
-          uint32_t ok = maskT[(size_t)i * per + w * 32 + lane] &
-                        freeT[w * 32 + lane];
-          while (ok) {
-            const int j = rt::wcol(lane, w, __ffs(ok) - 1);
-            ok &= ok - 1;
-            const float s = c.S[(size_t)i * m + j];
-            if (s > bv) { bv = s; bj = j; }
-          }
-        }
-        rt::warp_argmax(bv, bj);
-        if (lane == 0) {
-          gv[i] = bv;
-          gj[i] = bj;
-        }
-      }
-    }
-    __syncwarp();
-  }
-}
-
 // feasible_warp on wide rows; `used` is words(m) words of scratch.
 __device__ __forceinline__ bool wfeasible(const WCtx& c, const int* asg,
                                           uint32_t* used) {
@@ -856,7 +799,7 @@ finish_wide_kernel(const float* __restrict__ S_, const float* __restrict__ gum,
       wstructured<false>(c, maskT, nullptr, 0.0f, fo, img, free0, asg_a);
     feas_a = wfeasible(c, asg_a, used);
   } else if (warp == 1) {
-    wgreedy(c, maskT, gv, gj, free1, asg_p);
+    rt::wgreedy(c.S, n, m, c.LW, maskT, gv, gj, free1, asg_p);
   }
   __syncthreads();
 

@@ -23,6 +23,15 @@
 // unnormalised row waits in its own slice of shared memory while lane 0
 // sums it strictly left to right (the plain version's seq_sum order, so
 // no tree), then every lane divides its entries and stores them.
+//
+// Past m = 256 columns (n does not bound the narrow kernel) a wide
+// instantiation takes the row: still a warp per (particle, row), lane l
+// taking the entries l + 32 k in a runtime loop with 4-byte loads. The
+// unnormalised row waits in the warp's slice of m floats of shared
+// memory where a CTA's slices fit (m <= 14,528), else in S_out itself;
+// lane 0 sums it left to right as above, and every lane divides its
+// entries, read back with the mask.
+// The same operations in the same order, so the same bits.
 #include "common.cuh"
 
 namespace {
@@ -160,6 +169,46 @@ __global__ void pso_update_kernel(
 #undef OUT
 }
 
+// The wide instantiation (see the head of the file): row `row` = b * n + i
+// of the batch, one warp; x is the warp's slice of shared memory when
+// in_smem, else the row of S_out.
+template <typename MT>
+__global__ void pso_update_wide_kernel(
+    const float* __restrict__ S, const float* __restrict__ V,
+    const float* __restrict__ Sl, const float* __restrict__ Sstar,
+    const float* __restrict__ Sbar, const MT* __restrict__ mask,
+    const float* __restrict__ r, float* S_out, float* __restrict__ V_out,
+    int rows, int n, int m, Hyper h, bool in_smem) {
+  extern __shared__ __align__(16) float stage[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;                  // the whole warp
+  const int b = row / n, i = row - b * n;
+  const size_t g = (size_t)row * m, s = (size_t)i * m;
+  float* x = in_smem ? stage + (size_t)warp * m : S_out + g;
+  const float a1 = h.c1 * r[b * 3], a2 = h.c2 * r[b * 3 + 1],
+              a3 = h.c3 * r[b * 3 + 2];
+  int cnt = 0;
+  for (int j = lane; j < m; j += 32) {
+    const bool mk = mask[s + j] != 0;
+    float vo;
+    x[j] = step(S[g + j], V[g + j], Sl[g + j], Sstar[s + j], Sbar[s + j],
+                mk, h, a1, a2, a3, vo);
+    V_out[g + j] = vo;
+    cnt += mk;
+  }
+  cnt = __reduce_add_sync(0xffffffffu, cnt);
+  __syncwarp();
+  float rs = 0.0f;
+  if (lane == 0)                            // strictly left to right
+    for (int j = 0; j < m; ++j) rs = rs + x[j];
+  rs = __shfl_sync(0xffffffffu, rs, 0);
+  const bool pos = rs > 1e-9f;
+  const float den = pos ? fmaxf(rs, 1e-9f) : fmaxf((float)cnt, 1.0f);
+  for (int j = lane; j < m; j += 32)
+    S_out[g + j] = (pos ? x[j] : (float)(mask[s + j] != 0)) / den;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -170,6 +219,21 @@ int launch(const void* S, const void* V, const void* Sl, const void* Sstar,
            void* V_out, int B, int n, int m, Hyper h, void* stream) {
   const int rows = B * n;
   const int ctas = (rows + kCtaWarps - 1) / kCtaWarps;
+  if (m > rt::kMaxDim) {
+    const size_t wsmem = sizeof(float) * (size_t)m * kCtaWarps;
+    const bool in_smem = wsmem <= rt::kSmemMax;
+    const size_t smem = in_smem ? wsmem : 0;
+    const cudaError_t err =
+        rt::allow_smem((const void*)pso_update_wide_kernel<MT>, smem);
+    if (err != cudaSuccess) return (int)err;
+    pso_update_wide_kernel<MT><<<ctas, 32 * kCtaWarps, smem,
+                                 (cudaStream_t)stream>>>(
+        (const float*)S, (const float*)V, (const float*)Sl,
+        (const float*)Sstar, (const float*)Sbar, (const MT*)mask,
+        (const float*)r, (float*)S_out, (float*)V_out, rows, n, m, h,
+        in_smem);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * kRowFloats * kCtaWarps;
   const bool vec =
       (m & 3) == 0 && aligned16(S) && aligned16(V) && aligned16(Sl) &&

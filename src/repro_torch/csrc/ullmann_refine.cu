@@ -36,6 +36,22 @@
 // Entries of M are taken as non-negative, as
 // the plain version's products need, so the output equals the plain
 // version bit for bit for any of M's dtypes.
+//
+// Past n, m = 256 (rt::wide) a wide instantiation of two launches takes
+// the sweep, with the wide bit planes of common.cuh (a lane's bits of a
+// row in 32-bit words): G's m x m bytes alone pass a block's shared
+// memory at m = 482, so nothing is staged as bytes. Launch 1 packs the
+// operands that the batch shares once into device scratch, G's wide
+// transposed rows and columns (rt::wpack_rows, rt::wpack_cols) and Q's
+// bit rows and columns, straight from device memory, a CTA each. Launch
+// 2 runs one CTA a candidate matrix: it packs its candidates (wide
+// transposed rows), runs one rt::wsweep with every row dirty (every
+// support built before any row changes: the Jacobi semantics of the TPU
+// kernel) and writes M's own entries where a bit is kept. Its planes
+// (candidates and supports) are in shared memory where they fit (up to
+// n ~ 600 at m <= 1,024) and in its slice of device scratch where not;
+// the packed operands are copied beside them where both fit, else read
+// in place.
 #include "common.cuh"
 
 namespace {
@@ -303,9 +319,136 @@ refine_kernel(const MT* __restrict__ M, const QT* __restrict__ Q,
   }
 }
 
+// ---- The wide instantiation ----
+
+constexpr int kPackCtas = 3;    // launch 1: G's rows, G's columns, Q
+
+// Byte offsets of the wide path: the packed operands (the record, in
+// device scratch) and a CTA's planes (the work).
+struct WLayout {
+  int Wn, LW, per;
+  size_t goutT, ginT, qrow, qcol, rec;      // record
+  size_t cand, soT, siT, dirty, work;       // a CTA's
+};
+
+__host__ __device__ inline WLayout wlayout(int n, int m) {
+  using rt::align16z;
+  WLayout L;
+  L.Wn = rt::words(n);
+  L.LW = rt::lane_words(m);
+  L.per = 32 * L.LW;
+  const size_t rows_m = 4ull * m * L.per, rows_n = 4ull * n * L.per;
+  L.goutT = 0;
+  L.ginT = align16z(L.goutT + rows_m);
+  L.qrow = align16z(L.ginT + rows_m);
+  L.qcol = align16z(L.qrow + 4ull * n * L.Wn);
+  L.rec = align16z(L.qcol + 4ull * n * L.Wn);
+  L.cand = 0;
+  L.soT = align16z(L.cand + rows_n);
+  L.siT = align16z(L.soT + rows_n);
+  L.dirty = align16z(L.siT + rows_n);   // two flags a row
+  L.work = align16z(L.dirty + 2ull * n);
+  return L;
+}
+
+// What of a sweep CTA is in shared memory (bit 0: its planes, 1: a copy of
+// the record), and its bytes.
+struct WPlace {
+  int bits;
+  size_t smem;
+};
+
+WPlace wplace(int n, int m) {
+  const WLayout L = wlayout(n, m);
+  WPlace w{0, 0};
+  if (L.work <= rt::kSmemMax) {
+    w.bits = 1;
+    w.smem = L.work;
+    if (L.work + L.rec <= rt::kSmemMax) {
+      w.bits |= 2;
+      w.smem += L.rec;
+    }
+  }
+  return w;
+}
+
+// Launch 1: the record, from Q and G in device memory.
+template <typename QT, typename GT>
+__global__ void __launch_bounds__(kThreads)
+pack_wide_kernel(const QT* __restrict__ Q, const GT* __restrict__ G,
+                 uint8_t* __restrict__ rec, int n, int m) {
+  const WLayout L = wlayout(n, m);
+  if (blockIdx.x == 0)
+    rt::wpack_rows(G, m, m, reinterpret_cast<uint32_t*>(rec + L.goutT),
+                   threadIdx.x, blockDim.x);
+  else if (blockIdx.x == 1)
+    rt::wpack_cols(G, m, reinterpret_cast<uint32_t*>(rec + L.ginT),
+                   threadIdx.x, blockDim.x);
+  else {
+    rt::pack_rows(Q, n, n, reinterpret_cast<uint32_t*>(rec + L.qrow));
+    rt::pack_cols(Q, n, reinterpret_cast<uint32_t*>(rec + L.qcol));
+  }
+}
+
+// Launch 2: one candidate matrix (blockIdx.x); `place` is WPlace::bits.
+template <typename MT>
+__global__ void __launch_bounds__(kThreads)
+refine_wide_kernel(const MT* __restrict__ M, const uint8_t* __restrict__ rec,
+                   uint8_t* __restrict__ work, MT* __restrict__ out, int n,
+                   int m, int place) {
+  const WLayout L = wlayout(n, m);
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t nm = (size_t)n * m;
+  uint8_t* wk = (place & 1) ? sm : work + blockIdx.x * L.work;
+  const uint8_t* rp = rec;
+  if (place & 2) {
+    rt::copy_bytes(sm + L.work, rec, (int)L.rec);
+    rp = sm + L.work;
+  }
+  uint32_t* candT = reinterpret_cast<uint32_t*>(wk + L.cand);
+  uint8_t* dirty = wk + L.dirty;
+  const MT* Mp = M + blockIdx.x * nm;
+  rt::wpack_rows(Mp, n, m, candT, tid, nt);
+  for (int i = tid; i < n; i += nt) dirty[i] = 1;
+  __syncthreads();
+  rt::wsweep(reinterpret_cast<const uint32_t*>(rp + L.goutT),
+             reinterpret_cast<const uint32_t*>(rp + L.ginT),
+             reinterpret_cast<const uint32_t*>(rp + L.qrow),
+             reinterpret_cast<const uint32_t*>(rp + L.qcol), n, L.Wn, L.LW,
+             candT, reinterpret_cast<uint32_t*>(wk + L.soT),
+             reinterpret_cast<uint32_t*>(wk + L.siT), dirty, dirty + n, tid,
+             nt);
+  MT* o = out + blockIdx.x * nm;
+  for (size_t idx = tid; idx < nm; idx += nt) {
+    const int i = (int)(idx / m), j = (int)(idx - (size_t)i * m);
+    o[idx] = rt::wtest(candT + (size_t)i * L.per, j) ? Mp[idx] : MT(0);
+  }
+}
+
 template <typename MT, typename QT, typename GT>
-int launch(const void* M, const void* Q, const void* G, void* out, int B,
-           int n, int m, void* stream) {
+int launch_wide(const void* M, const void* Q, const void* G, void* out,
+                void* scratch, int B, int n, int m, cudaStream_t st) {
+  const WLayout L = wlayout(n, m);
+  const WPlace w = wplace(n, m);
+  pack_wide_kernel<QT, GT><<<kPackCtas, kThreads, 0, st>>>(
+      (const QT*)Q, (const GT*)G, (uint8_t*)scratch, n, m);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = rt::allow_smem((const void*)refine_wide_kernel<MT>, w.smem);
+  if (err != cudaSuccess) return (int)err;
+  refine_wide_kernel<MT><<<B, kThreads, w.smem, st>>>(
+      (const MT*)M, (const uint8_t*)scratch, (uint8_t*)scratch + L.rec,
+      (MT*)out, n, m, w.bits);
+  return (int)cudaGetLastError();
+}
+
+template <typename MT, typename QT, typename GT>
+int launch(const void* M, const void* Q, const void* G, void* out,
+           void* scratch, int B, int n, int m, void* stream) {
+  if (rt::wide(n, m))
+    return launch_wide<MT, QT, GT>(M, Q, G, out, scratch, B, n, m,
+                                   (cudaStream_t)stream);
   const size_t smem = layout(n, m).total;
   const cudaError_t err =
       rt::allow_smem((const void*)refine_kernel<MT, QT, GT>, smem);
@@ -317,28 +460,41 @@ int launch(const void* M, const void* Q, const void* G, void* out, int B,
 
 template <typename MT, typename QT>
 int launch_g(int g_i32, const void* M, const void* Q, const void* G,
-             void* out, int B, int n, int m, void* stream) {
-  return g_i32 ? launch<MT, QT, int32_t>(M, Q, G, out, B, n, m, stream)
-               : launch<MT, QT, uint8_t>(M, Q, G, out, B, n, m, stream);
+             void* out, void* scratch, int B, int n, int m, void* stream) {
+  return g_i32 ? launch<MT, QT, int32_t>(M, Q, G, out, scratch, B, n, m,
+                                         stream)
+               : launch<MT, QT, uint8_t>(M, Q, G, out, scratch, B, n, m,
+                                         stream);
 }
 
 }  // namespace
 
+// Bytes of device scratch that ullmann_refine_step needs for these
+// shapes: none on the narrow path; on the wide one the packed operands,
+// and each matrix's planes where they pass a block's shared memory.
+extern "C" long long ullmann_refine_scratch_bytes(int B, int n, int m) {
+  if (!rt::wide(n, m)) return 0;
+  const WLayout L = wlayout(n, m);
+  return (long long)(L.rec +
+                     ((wplace(n, m).bits & 1) ? 0 : (size_t)B * L.work));
+}
+
 // M, out: (B, n, m) uint8 (m_i32 = 0) or int32; Q (n, n) and G (m, m),
-// shared by the batch, each uint8 or int32 (q_i32, g_i32).
+// shared by the batch, each uint8 or int32 (q_i32, g_i32); scratch holds
+// ullmann_refine_scratch_bytes bytes.
 extern "C" int ullmann_refine_step(const void* M, const void* Q,
-                                   const void* G, void* out, int B, int n,
-                                   int m, int m_i32, int q_i32, int g_i32,
-                                   void* stream) {
+                                   const void* G, void* out, void* scratch,
+                                   int B, int n, int m, int m_i32, int q_i32,
+                                   int g_i32, void* stream) {
   if (m_i32)
-    return q_i32 ? launch_g<int32_t, int32_t>(g_i32, M, Q, G, out, B, n, m,
-                                              stream)
-                 : launch_g<int32_t, uint8_t>(g_i32, M, Q, G, out, B, n, m,
-                                              stream);
-  return q_i32 ? launch_g<uint8_t, int32_t>(g_i32, M, Q, G, out, B, n, m,
-                                            stream)
-               : launch_g<uint8_t, uint8_t>(g_i32, M, Q, G, out, B, n, m,
-                                            stream);
+    return q_i32 ? launch_g<int32_t, int32_t>(g_i32, M, Q, G, out, scratch,
+                                              B, n, m, stream)
+                 : launch_g<int32_t, uint8_t>(g_i32, M, Q, G, out, scratch,
+                                              B, n, m, stream);
+  return q_i32 ? launch_g<uint8_t, int32_t>(g_i32, M, Q, G, out, scratch, B,
+                                            n, m, stream)
+               : launch_g<uint8_t, uint8_t>(g_i32, M, Q, G, out, scratch, B,
+                                            n, m, stream);
 }
 
 // An empty kernel on the grid and block of a B-particle sweep: the floor a

@@ -11,11 +11,17 @@ source is ``csrc/argmax_project.cu``:
     chain;
   * ``masked_argmax``: one CTA over the (n, m) entries.
 
-Both are exact: ties go to the smallest flat index i·m + j as in
-``torch.argmax``, so they equal ``ref.greedy_project`` and
-``ref.masked_argmax`` bit for bit (finite inputs).
+Past n, m = 256 ``greedy_project`` takes a wide instantiation (the
+chain on 32-bit words a lane) that packs the mask once into device
+scratch, which this wrapper allocates; ``masked_argmax``'s scan takes
+any n·m up to 2**31 - 1024 (its flat index is int32). Both are exact:
+ties go to the smallest flat index i·m + j as in ``torch.argmax``, so
+they equal ``ref.greedy_project`` and ``ref.masked_argmax`` bit for bit
+(finite inputs).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,7 +31,10 @@ launches_greedy = kb.LaunchCounter("greedy_project")
 launches_argmax = kb.LaunchCounter("masked_argmax")
 
 
-_GREEDY_ARGS = [kb.P_] * 3 + [kb.I_] * 4 + [kb.P_]
+_GREEDY_ARGS = [kb.P_] * 4 + [kb.I_] * 4 + [kb.P_]
+#: the largest n·m of ``masked_argmax``: its flat index is int32, and a
+#: thread's index must not wrap when it steps past the last entry
+MAX_FLAT = 2**31 - 1024
 
 
 def greedy_project_cuda(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -34,21 +43,25 @@ def greedy_project_cuda(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     not contiguous float32."""
     kb.require(S.is_cuda, "greedy_project_cuda needs CUDA tensors")
     n, m = S.shape[-2:]
-    if not (n <= 256 and m <= 256 and mask.shape == (n, m)):
-        raise ValueError(f"greedy_project_cuda: (n, m) = {(n, m)} must be "
-                         f"at most 256 (wider is ROADMAP item 11b) and mask "
-                         f"{tuple(mask.shape)} (n, m)")
+    if mask.shape != (n, m):
+        raise ValueError(f"greedy_project_cuda: mask {tuple(mask.shape)} "
+                         f"must be (n, m) = {(n, m)}")
     if S.dtype is not torch.float32 or not S.is_contiguous():
         S = S.to(torch.float32).contiguous()
     mk, mask_i32 = kb.mask_arg(mask)
     out = torch.empty(S.shape, dtype=torch.uint8, device=S.device)
     if out.numel() == 0:
         return out
+    nbytes = kb.bind("argmax_project", "greedy_project_scratch_bytes",
+                     [kb.I_] * 2, ctypes.c_longlong)(n, m)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=S.device)
+               if nbytes else None)
     err = kb.bind("argmax_project", "greedy_project", _GREEDY_ARGS)(
-        S.data_ptr(), mk.data_ptr(), out.data_ptr(), out.numel() // (n * m),
-        n, m, mask_i32, kb.stream())
+        S.data_ptr(), mk.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        out.numel() // (n * m), n, m, mask_i32, kb.stream())
     kb.check(err, "greedy_project")
-    launches_greedy.add()
+    launches_greedy.add(2 if nbytes else 1)   # the wide path packs first
     return out
 
 
@@ -65,9 +78,8 @@ def masked_argmax_cuda(X: torch.Tensor, mask: torch.Tensor):
     kb.require(X.dim() == 2 and mask.shape == X.shape,
                "X and mask must be one (n, m) shape")
     n, m = X.shape
-    kb.require(0 < n <= 256 and 0 < m <= 256,
-               f"(n, m) = {(n, m)} not in [1, 256] (wider is ROADMAP "
-               "item 11b)")
+    kb.require(n > 0 and m > 0 and n * m <= MAX_FLAT,
+               f"(n, m) = {(n, m)}: n, m >= 1 and n·m <= {MAX_FLAT}")
     if X.dtype != torch.float32 or not X.is_contiguous():
         X = X.to(torch.float32).contiguous()
     mask, mask_i32 = kb.mask_arg(mask)

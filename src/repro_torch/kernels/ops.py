@@ -1,15 +1,16 @@
 """Dispatch layer: a CPU tensor goes to the plain version, a CUDA tensor
 to the hand-written kernel.
 
-Port of the JAX package's ``kernels/ops.py``. The five kernels of the
-main path (the fitness bodies, the pre-prune, the fused epoch and its
-tail) take any n, m that the card's memory holds, through an
-instantiation for n, m <= 256 and a wide one past it, so the 128-row MXU
-padding of the TPU path is gone; the split epoch's four
-(``pso_update``, ``ullmann_refine_step``, ``greedy_project``,
-``masked_argmax``) take n, m <= 256 and raise past it (ROADMAP item
-11b). There is no fallback: on a CUDA tensor a function launches its
-kernel or raises. Q and G are 0/1 adjacency matrices, as
+Port of the JAX package's ``kernels/ops.py``. All nine kernels take any
+n, m that the card's memory holds (``masked_argmax`` any n·m up to
+2**31 - 1024, its flat index being int32): the five of the main path
+(the fitness bodies, the pre-prune, the fused epoch and its tail) and
+the split epoch's four (``pso_update``, ``ullmann_refine_step``,
+``greedy_project``, ``masked_argmax``), through an instantiation for
+n, m <= 256 and a wide one past it (``masked_argmax``'s one scan takes
+every size), so the 128-row MXU padding of the TPU path is gone. There
+is no fallback: on a CUDA tensor a function launches its kernel or
+raises. Q and G are 0/1 adjacency matrices, as
 ``core.graphs.as_device_graphs`` checks: several kernels (the fused
 epoch among them) read them as bits, so on other values a kernel need
 not agree with its plain version.

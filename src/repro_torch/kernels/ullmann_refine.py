@@ -6,10 +6,15 @@ is ``csrc/ullmann_refine.cu``: one CTA per candidate matrix stages G and Q
 with 16-byte loads and packs them lane-transposed in shared memory, and
 the sweep builds each row's supports as unions of G's packed rows over
 the row's candidates, so the four 0/1 products become byte ORs and ANDs.
-Its output is exact and equals ``ref.ullmann_refine_step`` bit for bit,
-in M's dtype (uint8, int32 or bool; Q and G uint8, int32 or bool).
+Past n, m = 256 a wide instantiation packs Q and G once into device
+scratch, which this wrapper allocates, and keeps a matrix's bit planes
+in shared memory or, where they pass it, in device scratch too. Its
+output is exact and equals ``ref.ullmann_refine_step`` bit for bit, in
+M's dtype (uint8, int32 or bool; Q and G uint8, int32 or bool).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,8 +30,6 @@ def ullmann_refine_step_cuda(M: torch.Tensor, Q: torch.Tensor,
     same shape and dtype."""
     kb.require(M.is_cuda, "ullmann_refine_step_cuda needs CUDA tensors")
     n, m = M.shape[-2:]
-    kb.require(n <= 256 and m <= 256, f"(n, m) = {(n, m)} exceeds 256 "
-               "(wider is ROADMAP item 11b)")
     kb.require(M.dtype in (torch.uint8, torch.int32, torch.bool),
                f"M dtype {M.dtype} not supported")
     kb.require(Q.shape == (n, n) and G.shape == (m, m),
@@ -37,10 +40,16 @@ def ullmann_refine_step_cuda(M: torch.Tensor, Q: torch.Tensor,
     out = torch.empty_like(Mc)
     if out.numel() == 0:
         return out.view(M.dtype)
+    B = out.numel() // (n * m)
+    nbytes = kb.bind("ullmann_refine", "ullmann_refine_scratch_bytes",
+                     [kb.I_] * 3, ctypes.c_longlong)(B, n, m)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=M.device)
+               if nbytes else None)
     fn = kb.bind("ullmann_refine", "ullmann_refine_step",
-                 [kb.P_] * 4 + [kb.I_] * 6 + [kb.P_])
+                 [kb.P_] * 5 + [kb.I_] * 6 + [kb.P_])
     err = fn(kb.ptr(Mc), kb.ptr(Qc), kb.ptr(Gc), kb.ptr(out),
-             out.numel() // (n * m), n, m, m_i32, q_i32, g_i32, kb.stream())
+             None if scratch is None else kb.ptr(scratch), B, n, m, m_i32,
+             q_i32, g_i32, kb.stream())
     kb.check(err, "ullmann_refine_step")
-    launches.add()
+    launches.add(2 if nbytes else 1)   # the wide path packs Q and G first
     return out.view(M.dtype)

@@ -38,6 +38,9 @@ WIDE_SHAPES = [(2, 8, 300, 400, 2), (1, 8, 512, 512, 2), (2, 4, 257, 771, 2),
                (1, 2, 1000, 1100, 2)]
 MAIN = ("prune_fixpoint", "edge_fitness", "edge_fitness_quantized",
         "epoch_fused", "epoch_finish")
+#: the split path's four past n, m = 256, (lead, n, m): WIDE_SHAPES's
+#: problems with their particles as the leading dim
+SPLIT_WIDE = [((N,), n, m) for _, N, n, m, _ in WIDE_SHAPES]
 #: epoch_finish's S̄ against its plain version (another summation order)
 SBAR_ATOL = 1.19e-7
 
@@ -102,10 +105,15 @@ def test_main_path_kernels_past_256_bitwise(device, shape, quantized, tau):
     _assert_main_bitwise(pairs, shape)
 
 
+def _wide(n, m):
+    """Whether (n, m) takes the kernels' wide instantiations."""
+    return n > 256 or m > 256
+
+
 def test_main_path_kernels_take_257(device):
     """n = m = 257, one past the narrow instantiations: the five run
-    (no ValueError) and agree bit for bit, where the split path's four
-    raise (``test_split_path_kernels_reject_what_they_do_not_take``)."""
+    (no ValueError) and agree bit for bit (the split path's four:
+    ``test_split_path_kernels_take_257``)."""
     Q, G, mask = (t.to(device) for t in cases.random_problem(1, 257, 257,
                                                              9))
     x = cases.swarm_inputs(Q, G, mask, 4, 1, seed=9)
@@ -171,7 +179,8 @@ def test_split_path_kernels_on_card(device, n, m, mask_dtype):
     """pso_update, ullmann_refine_step, greedy_project and masked_argmax
     against their plain versions for every mask dtype, up to 256 x 256
     (where greedy_project reads S from global memory and pso_update
-    normalises in row blocks)."""
+    normalises in row blocks; past it:
+    ``test_split_path_kernels_past_256_bitwise``)."""
     Q, G, mask, x = _dtype_cases(device, n, m, mask_dtype, 3)
     S, V, r = x["S"][0], x["V"][0], x["r_all"][0, 0]
     upd = (S, V, S, x["S_star"][0], x["S_bar"][0], mask, r)
@@ -191,8 +200,9 @@ def test_split_path_kernels_on_card(device, n, m, mask_dtype):
                   ref.masked_argmax(x["S_star"][0], empty))
 
 
-def test_split_path_kernels_reject_what_they_do_not_take(device):
-    """No fallback: per-problem shared operands and n, m > 256 raise."""
+def test_split_path_kernels_refuse_per_problem_operands(device):
+    """No fallback: operands that differ a problem, where the four take
+    one (n, m) operand shared by every matrix, raise."""
     Q, G, mask = (t.to(device) for t in cases.random_problem(3, 20, 40, 6))
     x = cases.swarm_inputs(Q, G, mask, 8, 1, seed=6)
     with pytest.raises(ValueError):
@@ -204,18 +214,50 @@ def test_split_path_kernels_reject_what_they_do_not_take(device):
         pso_update_cuda(x["S"][0], x["V"][0], x["S"][0], x["S_star"][:1],
                         x["S_bar"][0], mask[0], x["r_all"][0, 0],
                         **cases.HYPER)
+
+
+def test_split_path_kernels_take_257(device):
+    """n = 257 (the calls that raised before the wide instantiations): an
+    all-zero S, mask, M, Q and G, and the same shapes drawn at random,
+    bit for bit against the plain versions."""
     big = torch.zeros(2, 257, 8, device=device)
-    with pytest.raises(ValueError, match="11b"):
-        greedy_project_cuda(big, big[0] > 0)
-    with pytest.raises(ValueError, match="11b"):
-        masked_argmax_cuda(big[0], big[0] > 0)
-    with pytest.raises(ValueError, match="11b"):
-        ullmann_refine_step_cuda(big.to(torch.uint8),
-                                 torch.zeros(257, 257, device=device),
-                                 torch.zeros(8, 8, device=device))
-    with pytest.raises(ValueError, match="11b"):
-        pso_update_cuda(big, big, big, big[0], big[0], big[0] > 0,
-                        torch.zeros(2, 3, device=device), **cases.HYPER)
+    _assert_greedy_bitwise(big, big[0] > 0)
+    _assert_argmax_bitwise(big[0], big[0] > 0)
+    _assert_refine_bitwise(big.to(torch.uint8),
+                           torch.zeros(257, 257, dtype=torch.uint8,
+                                       device=device),
+                           torch.zeros(8, 8, dtype=torch.uint8,
+                                       device=device))
+    _assert_update_bitwise((big, big, big, big[0], big[0], big[0] > 0,
+                            torch.zeros(2, 3, device=device)))
+    _assert_update_bitwise(_update_case(device, (2,), 257, 8, 257))
+    _assert_greedy_bitwise(*_greedy_case(device, (2,), 257, 8, 257))
+    _assert_refine_bitwise(*_refine_case(device, 2, 257, 8, 257))
+    S, mask = _greedy_case(device, (1,), 257, 8, 258)
+    _assert_argmax_bitwise(S[0], mask)
+
+
+@pytest.mark.parametrize("lead,n,m", SPLIT_WIDE)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32, torch.bool])
+def test_split_path_kernels_past_256_bitwise(device, lead, n, m, dtype):
+    """The four past n, m = 256 (WIDE_SHAPES: the sweep's and the
+    projection's bit planes in shared memory, the operands packed in
+    device scratch, and all in device scratch at 1,000 x 1,100) bit for
+    bit against their plain versions: pso_update and greedy_project with
+    a mask of this dtype, ullmann_refine_step with an M of this dtype
+    (entries 0..3 kept) under every Q / G dtype, masked_argmax with ties
+    and with an empty mask."""
+    _assert_update_bitwise(_update_case(device, lead, n, m, n + m, dtype))
+    _assert_refine_bitwise(*_refine_case(device, lead[0], n, m, n + m,
+                                         dtype))
+    S, mask = _greedy_case(device, lead, n, m, n + m, mask_dtype=dtype)
+    _assert_greedy_bitwise(S, mask)
+    _assert_argmax_bitwise(S[0], mask)
+    _assert_argmax_bitwise(S[0], torch.zeros_like(mask))
+    S, mask = _greedy_case(device, lead, n, m, n + m + 1,
+                           values=[0.0, -0.0, 0.25, 0.5], mask_dtype=dtype)
+    _assert_greedy_bitwise(S, mask)
+    _assert_argmax_bitwise(S[0], mask)
 
 
 # -- pso_update and greedy_project bit for bit --------------------------------
@@ -249,7 +291,7 @@ def _assert_update_bitwise(args):
     pso_update.launches.reset()
     got = pso_update_cuda(*args, **cases.HYPER)
     torch.cuda.synchronize()
-    assert pso_update.launches.count == 1
+    assert pso_update.launches.count == 1      # narrow or wide: one launch
     want = ref.pso_update(*args, **cases.HYPER)
     for name, g, w in zip(("S_new", "V_new"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
@@ -258,11 +300,14 @@ def _assert_update_bitwise(args):
 
 @pytest.mark.parametrize("lead,n,m", [
     ((64,), 56, 144), ((16,), 13, 57), ((16,), 13, 143), ((8,), 1, 1),
-    ((8,), 6, 1), ((8,), 1, 40), ((3, 5), 24, 40), ((3, 5), 7, 31)])
+    ((8,), 6, 1), ((8,), 1, 40), ((3, 5), 24, 40), ((3, 5), 7, 31),
+    ((2,), 3, 257), ((3, 2), 5, 1100), ((2,), 3, 15000)])
 def test_pso_update_bitwise_on_card(device, lead, n, m):
     """S_new and V_new equal ref.pso_update bit for bit: at the main
     path's shape, odd m (the 4-byte path), m = 1 and n = 1, two leading
-    dims, empty mask rows and rows whose clamped sum is at most 1e-9."""
+    dims, empty mask rows and rows whose clamped sum is at most 1e-9;
+    past m = 256 (the wide instantiation), its rows in shared memory and,
+    at m = 15,000, in S_out."""
     _assert_update_bitwise(_update_case(device, lead, n, m, n * 1000 + m))
 
 
@@ -298,7 +343,9 @@ def _assert_greedy_bitwise(S, mask):
     argmax_project.launches_greedy.reset()
     got = greedy_project_cuda(S, mask)
     torch.cuda.synchronize()
-    assert argmax_project.launches_greedy.count == 1
+    # the wide instantiation packs the mask in a launch of its own
+    assert argmax_project.launches_greedy.count == (
+        2 if _wide(*S.shape[-2:]) else 1)
     want = ref.greedy_project(S, mask)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want), int((got != want).sum())
@@ -486,7 +533,8 @@ def _assert_argmax_bitwise(X, mask):
         assert torch.equal(g, w), (g, w)
 
 
-@pytest.mark.parametrize("n,m", [(1, 1), (56, 144), (256, 256)])
+@pytest.mark.parametrize("n,m", [(1, 1), (56, 144), (256, 256),
+                                 (300, 400), (257, 771), (1000, 1100)])
 @pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32,
                                         torch.bool])
 def test_masked_argmax_bitwise_on_card(device, n, m, mask_dtype):
@@ -545,7 +593,9 @@ def _assert_refine_bitwise(M, Q, G):
         ullmann_refine.launches.reset()
         got = ullmann_refine_step_cuda(M, Qx, Gx)
         torch.cuda.synchronize()
-        assert ullmann_refine.launches.count == 1
+        # the wide instantiation packs Q and G in a launch of their own
+        assert ullmann_refine.launches.count == (
+            2 if _wide(*M.shape[-2:]) else 1)
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.equal(got, want), int((got != want).sum())
 

@@ -5,9 +5,11 @@ The JAX counterparts are the loose scan and the split tail of
 ``benchmarks/bench_epoch.py`` (``_make_loose_fn``, ``_make_split_tail_fn``)
 at that bench's ``--smoke`` sizes (N = 8, n = 10, m = 20, K = 4), on the
 ``ref`` suite, float and quantized, with inputs made from a numpy seed:
-integer outputs equal, float outputs within rtol 1e-5 / atol 1e-4. On the
-same draws the port's split epoch equals its fused ``run_epoch`` bit for
-bit on every loose-scan output.
+integer outputs equal, float outputs within rtol 1e-5 / atol 1e-4, and
+once past n, m = 256 (where the four kernels of the split epoch take
+their wide instantiations on the card). On the same draws the port's
+split epoch equals its fused ``run_epoch`` bit for bit on every
+loose-scan output.
 """
 import pathlib
 import sys
@@ -32,6 +34,8 @@ jax.config.update("jax_platform_name", "cpu")
 
 RTOL, ATOL = 1e-5, 1e-4
 N, n, m, K = 8, 10, 20, 4
+#: (N, n, m, K) of the case past n, m = 256: a small swarm, quantized
+WIDE = (4, 260, 300, 2)
 
 
 def _close(got, want):
@@ -44,7 +48,7 @@ def _close(got, want):
         np.testing.assert_array_equal(got, want)
 
 
-def _inputs(seed):
+def _inputs(seed, N=N, n=n, m=m, K=K):
     """A planted problem and a mid-swarm state, as ``_epoch_inputs``
     makes them, from a numpy seed: (S, V, S_local, f_local, S*, f*, S̄,
     mask, Q, G, r_all) as numpy arrays."""
@@ -62,7 +66,7 @@ def _inputs(seed):
             G, r_all)
 
 
-def _cfg(quantized, backend="ref", **kw):
+def _cfg(quantized, backend="ref", N=N, K=K, **kw):
     return tpso.PSOConfig(num_particles=N, inner_steps=K,
                           quantized=quantized, backend=backend, **kw)
 
@@ -122,6 +126,28 @@ def test_split_epoch_equals_fused_run_epoch_on_the_same_draws(quantized):
         assert torch.equal(g, w), k
     # the tail's recompute equals the scan's last-step fitness
     assert torch.equal(tpso._fitness(got[0], Q, G, cfg), got[4])
+
+
+def test_split_epoch_matches_jax_past_256():
+    """``loose_epoch`` and ``split_tail`` against ``_make_loose_fn`` and
+    ``_make_split_tail_fn`` at (n, m) = (260, 300), quantized, the tail
+    on the loose scan's final swarm."""
+    wN, wn, wm, wK = WIDE
+    args = _inputs(7, wN, wn, wm, wK)
+    cfg = _cfg(True, N=wN, K=wK)
+    want = _make_loose_fn("ref", True, wN, wK)(*(jnp.asarray(a)
+                                                for a in args))
+    got = tsplit.loose_epoch(*_torch(args), cfg)
+    assert got[0].shape == (wN, wn, wm)
+    for g, w in zip(got, want):
+        _close(g, w)
+    S = got[0].numpy()
+    mask, Q, G = args[7:10]
+    want = _make_split_tail_fn("ref", True, wN)(
+        jnp.asarray(S), jnp.asarray(mask), jnp.asarray(Q), jnp.asarray(G))
+    got = tsplit.split_tail(*_torch((S, mask, Q, G)), cfg)
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 def test_maybe_requantize_and_refine_candidates_match_jax():

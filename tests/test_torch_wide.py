@@ -1,8 +1,9 @@
-"""The main path past n, m = 256: the plain versions of the five kernels
-that carry ``pso.match``, ``pso.match_batch`` and ``revalidate_batch``
-against the JAX package's ``ref`` backend at (300, 400) and (257, 771),
-and one ``match_batch`` of deepseek-7b mapped whole on a 512-engine
-platform (bucket (312, 528)) against the reference's on its draws.
+"""Past n, m = 256: the plain versions of the five kernels that carry
+``pso.match``, ``pso.match_batch`` and ``revalidate_batch``, and of the
+split epoch's four, against the JAX package's ``ref`` backend at
+(300, 400) and (257, 771), and one ``match_batch`` of deepseek-7b mapped
+whole on a 512-engine platform (bucket (312, 528)) against the
+reference's on its draws.
 
 The JAX package pads to multiples of 128 and takes any n, m; on the card
 the port's kernels take these shapes through their wide instantiations
@@ -37,6 +38,9 @@ jax.config.update("jax_platform_name", "cpu")
 #: the kernels of the main path, by their batched entries
 MAIN = ("prune_fixpoint_batch", "edge_fitness", "edge_fitness_quantized",
         "epoch_fused_batch", "epoch_finish_batch")
+#: the split epoch's four (``core/split_epoch.py``)
+SPLIT = ("pso_update", "ullmann_refine_step", "greedy_project",
+         "masked_argmax")
 WIDE_SHAPES = [(2, 300, 400), (2, 257, 771)]
 #: a 512-engine accelerator (16 x 32 NoC); the reference names none
 CLOUD_512 = dataclasses.replace(tplat.CLOUD, name="cloud-512", engines=512,
@@ -44,7 +48,7 @@ CLOUD_512 = dataclasses.replace(tplat.CLOUD, name="cloud-512", engines=512,
 
 
 @pytest.mark.parametrize("B,n,m", WIDE_SHAPES)
-@pytest.mark.parametrize("kernel", MAIN)
+@pytest.mark.parametrize("kernel", MAIN + SPLIT)
 def test_plain_versions_match_jax_ref_past_256(kernel, B, n, m):
     """Integers bit for bit, floats within rtol 1e-5 / atol 1e-4."""
     p = _Problem(zlib.crc32(repr((kernel, B, n, m)).encode()), B, n, m,

@@ -24,9 +24,13 @@ Phases, in order; any failure exits non-zero:
      int32 and bool M at the main path's shape, n < 32, (203, 233) and,
      past 256, (640, 700); then the nine kernels past n, m = 256 (their
      wide instantiations) on random problems at ``WIDE_CASES`` (300 x
-     400, 512 x 512, 257 x 771 and 1,000 x 1,100, where the bit planes
-     live in device scratch; small P and N), quantized and float, τ = 0
-     and τ > 0: every output bit for bit but S̄, within ``SBAR_ATOL``;
+     400, 512 x 512, 257 x 771, 1,000 x 1,100, where the bit planes
+     live in device scratch, and 56 x 528; small P and N; every wide step
+     and tail instantiation runs at one of them, which fails the phase
+     if not), quantized and float, τ = 0 and τ > 0: every output bit for
+     bit but S̄, within ``SBAR_ATOL``; then ``epoch_finish`` on random
+     problems with planted rows of 1.0 at the main path's (56, 144), M̂
+     and the flags bit for bit and S̄'s difference recorded (a reading);
   4. the main path: 8 scheduling requests built as the IMMSched
      scheduler builds them (zoo workloads at window_stages=8 on the Cloud
      platform with a seeded set of 96 free engines, relabelled and padded
@@ -96,11 +100,16 @@ Phases, in order; any failure exits non-zero:
      tier a request; launches and device ms a kernel), then one
      ``wide_bucket`` line: the five at (312, 528) on deepseek-7b's
      problem (N = 64, K = 12), bit for bit against their plain versions,
-     ms a call, device ms, plain ms and bound. (b) phase 4c's scenario on
+     ms a call, device ms, plain ms, bound, the instantiation each ran
+     and, for ``epoch_fused``, the bound of the state it moves (below,
+     ``epoch_state_bound``); then one ``window_bucket`` line: the epoch
+     and its tail the same way at the window-8 bucket (56, 528), on
+     pnasnet's window-8 problem on the platform. (b) phase 4c's scenario on
      the platform (window 8: buckets up to (56, 528)), real mode, run to
      its end with every found mapping feasible, then once more under the
      profiler; one ``wide_sched`` line (tasks, urgent met, drains, run
-     wall, idle share);
+     wall, idle share, and the first run's epoch calls by P, N, n, m and
+     branch with the step kernel each took);
   5. the split (pre-fusion) epoch: ``core.split_epoch.split_epoch``
      through the ``cuda`` suite on each problem of the burst, float and
      quantized, plus ``masked_argmax`` through the seam on each returned
@@ -304,6 +313,7 @@ the last line ``{"ok": true, "device": {...}}``. With ``--out DIR`` the
 details (a JSON record and the profiler's table) are also written to DIR.
 """
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -329,6 +339,7 @@ N_FREE, FREE_SEED, SEED = 96, 0, 0
 N, K = 64, 12
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
+L2_BYTES = 50e6
 #: dense bfloat16 tensor-core peak, the training phase's compute bound
 #: (same data sheet)
 PEAK_BF16 = 989e12
@@ -394,13 +405,24 @@ SCHED_KERNELS = ("prune_fixpoint", "edge_fitness_quantized", "epoch_fused",
                  "epoch_finish")
 SCHEDULERS = ("immsched", "isosched", "prema", "planaria", "moca", "cdmsa")
 #: phase 3 past n, m = 256 (the nine kernels' wide instantiations): (n, m)
-#: → (P, N) of random problems, K = 2 steps; the last puts the bit planes
-#: in device scratch. Small P and N, so that the plain versions finish
-#: in seconds
+#: → (P, N) of random problems, K = 2 steps. Every wide step and tail
+#: kernel runs at one of them: epoch_fused's cluster path at (300, 400)
+#: (C = 4 quantized, 8 float) and, float, at the window-8 bucket
+#: (56, 528) (C = 2), step_kernel at (512, 512), (257, 771) and,
+#: quantized, (56, 528) (80 particles, past the 64 up to which the
+#: clusters take a shape whose tiles fit in shared memory),
+#: step_wide_kernel at (1000, 1100); epoch_finish's staged kernel at
+#: (300, 400) and (56, 528), the wide one at the rest, its planes in
+#: device scratch at (1000, 1100). Small P and N, so that the plain
+#: versions finish in seconds
 WIDE_CASES = {(300, 400): (2, 8), (512, 512): (1, 8), (257, 771): (2, 4),
-              (1000, 1100): (1, 2)}
+              (1000, 1100): (1, 2), (56, 528): (2, 40)}
 WIDE_K = 2
-#: epoch_finish's S̄ against its plain version (another summation order)
+#: phase 3's reading of the narrow S̄ on planted rows of 1.0: (P, N, n, m)
+#: at the main path's bucket
+NARROW_PLANTED = (2, 64, 56, 144)
+#: epoch_finish's S̄ against its plain version (another summation order
+#: up to n, m = 256; the same past it)
 SBAR_ATOL = 1.19e-7
 #: phase 4f, the main path past 256: a 512-engine accelerator (a 16 x 32
 #: NoC; the reference names no such platform, so it is built here from
@@ -416,6 +438,10 @@ WIDE_WORKLOADS = ("deepseek-7b", "qwen-7b", "llama3-8b-wl")
 WIDE_WINDOW = 256
 WIDE_SWARM = dict(num_particles=N, epochs=4, inner_steps=K)
 WIDE_BUCKET = (312, 528)
+#: the window-8 bucket on that platform (phase 4f (b)'s scheduler):
+#: pnasnet's first window, measured like WIDE_BUCKET
+WINDOW_BUCKET = (56, 528)
+WINDOW_WORKLOAD = "pnasnet"
 #: phase 4e: ranks spawned on the one card, their limits, and the kernels
 #: the mesh path must launch on every rank (quantized: no float fitness)
 MESH_WORLD = 4
@@ -905,6 +931,8 @@ def kernel_bounds(Q, G, mask, x, outs, quantized, refine_iters=6,
             nbytes(x["S"], x["V"], x["S"], x["f_local"], x["S_star"],
                    x["f_star"], x["S_bar"], mask, Q, G, x["r_all"],
                    *outs["epoch_fused"]), ep_ops)
+        # the second bound, where the swarm's state cannot stay on chip
+        b["epoch_fused_state"] = epoch_state_bound(P, N, n, m, K)
     if "epoch_finish" in outs:
         proj = 3.0 * P * N * n * (m * 8)        # 3 projections, per row
         feas = 2.0 * P * N * nnzQ / P
@@ -1896,10 +1924,12 @@ def wide_kernel_cases(elite_k):
     version on random problems at every shape of ``WIDE_CASES`` (the
     split epoch's four once a problem, as ``cases.kernel_pairs`` calls
     them), quantized and float, τ = 0 and τ > 0; every output bit for
-    bit but ``epoch_finish``'s S̄, within ``SBAR_ATOL``. Returns per
-    shape the kernel's and the plain version's seconds a call."""
-    from repro_torch.kernels import cases
-    rec = {}
+    bit but ``epoch_finish``'s S̄, within ``SBAR_ATOL``. Fails unless
+    every wide step kernel of both branches and both tail kernels ran at
+    one of the shapes. Returns per shape the kernel's and the plain
+    version's seconds a call and the instantiations it ran."""
+    from repro_torch.kernels import cases, epoch_fused, finish_fused
+    rec, paths = {}, set()
     for (wn, wm), (wP, wN) in WIDE_CASES.items():
         t_case = time.time()
         Q, G, mask = (t.cuda() for t in cases.random_problem(wP, wn, wm,
@@ -1936,13 +1966,55 @@ def wide_kernel_cases(elite_k):
                              f"plain version")
                 times[f"{name}/q{int(quantized)}/tau{tau}"] = [t1 - t0,
                                                                t2 - t1]
+        ran = {key: instantiation(key, wP, wN, wn, wm)
+               for key in ("epoch_fused", FLOAT_EPOCH, "epoch_finish")}
+        paths.update((q, min(epoch_fused.path(wP, wN, wn, wm, q), 1))
+                     for q in (True, False))
+        paths.add(("tail", finish_fused.path(wn, wm)))
         rec[f"{wn}x{wm}"] = dict(P=wP, N=wN, K=WIDE_K, seconds=times,
+                                 instantiations=ran,
                                  case_s=time.time() - t_case)
         log(f"  wide ({wn}, {wm}), P={wP} N={wN}: the nine kernels bit "
             f"for bit (S_bar within {SBAR_ATOL}) in "
             f"{rec[f'{wn}x{wm}']['case_s']:.1f} s")
         del Q, G, mask, x
         torch.cuda.empty_cache()
+    want = {(q, k) for q in (True, False) for k in (-1, 0, 1)} | {
+        ("tail", 1), ("tail", 2)}
+    if want - paths:
+        fail(f"WIDE_CASES run no case of {sorted(want - paths, key=str)} "
+             f"(epoch_fused.path clipped to 1 for clusters; the tail's "
+             f"finish_fused.path)")
+    return rec
+
+
+def narrow_sbar_planted(elite_k):
+    """Phase 3, a reading: ``epoch_finish`` on random problems at
+    ``NARROW_PLANTED`` (P, N, n, m), whose planted singleton mask rows
+    hold 1.0 in every particle. Up to n, m = 256 S̄ keeps its own
+    summation order (``consensus_slice``), which can round such an entry
+    an ulp off the plain version's; M̂ and the feasibility flags must be
+    bit for bit, S̄'s largest difference is recorded beside
+    ``SBAR_ATOL`` and fails nothing."""
+    from repro_torch.kernels import cases
+    P_, N_, n_, m_ = NARROW_PLANTED
+    Q, G, mask = (t.cuda() for t in cases.random_problem(P_, n_, m_, SEED))
+    x = cases.swarm_inputs(Q, G, mask, N_, 1, seed=SEED)
+    kern, plain = cases.kernel_pairs(Q, G, mask, x, quantized=True,
+                                     gumbel_tau=0.0,
+                                     elite_k=elite_k)["epoch_finish"]
+    got, want = _outs(kern()), _outs(plain())
+    for k in (0, 1):
+        if not torch.equal(got[k], want[k]):
+            fail(f"epoch_finish at {NARROW_PLANTED} (planted rows): output "
+                 f"{k} is not bit for bit its plain version")
+    err = float((got[2] - want[2]).abs().max())
+    rec = dict(shape=list(NARROW_PLANTED), sbar_max_abs_err=err,
+               sbar_atol=SBAR_ATOL, within=err <= SBAR_ATOL,
+               entries_off=int((got[2] != want[2]).sum()))
+    log(f"  epoch_finish at {NARROW_PLANTED}, planted rows of 1.0: M_hat "
+        f"and feasible bit for bit; S_bar {rec['entries_off']} entries "
+        f"off, max abs err {err} (reading; limit elsewhere {SBAR_ATOL})")
     return rec
 
 
@@ -1962,48 +2034,84 @@ def _device_by_entry(rows, quantized):
     return out
 
 
-def wide_requests():
-    """``WIDE_WORKLOADS`` mapped whole (``WIDE_WINDOW``) on
-    ``wide_platform()`` with every engine free: the target graph, its
-    signature and ``[(name, relabelled DAG)]``."""
+def wide_requests(workloads=WIDE_WORKLOADS, window=WIDE_WINDOW):
+    """``workloads`` mapped at ``window`` stages (by default the complex
+    ones mapped whole) on ``wide_platform()`` with every engine free:
+    the target graph, its signature and ``[(name, relabelled DAG)]``."""
     from repro_torch.accel import target_graph
     from repro_torch.core import graphs, preemptible_dag as pdag
     from repro_torch.workloads import zoo
     plat = wide_platform()
     free = np.ones(plat.engines, dtype=bool)
     reqs = []
-    for i, name in enumerate(WIDE_WORKLOADS):
+    for i, name in enumerate(workloads):
         pd = pdag.build_preemptible_dag(
             [(i, zoo.get_workload(name), 0)],
-            plat.engine_tile_capacity_macs(), window_stages=WIDE_WINDOW)
+            plat.engine_tile_capacity_macs(), window_stages=window)
         q, _ = graphs.topological_relabel(pd.graph)
         reqs.append((name, q))
     return (target_graph.free_engine_graph(plat, free),
             target_graph.free_engine_signature(free), reqs)
 
 
-def wide_bucket_problem(tgt, reqs):
-    """The first of ``reqs`` in ``WIDE_BUCKET`` (deepseek-7b) padded to
-    the bucket, as (1, n, m) tensors on the card, and a swarm of ``N``
-    particles and ``K`` steps from ``SEED``: (name, Q, G, mask, x)."""
+def wide_bucket_problem(tgt, reqs, bucket=WIDE_BUCKET):
+    """The first of ``reqs`` in ``bucket`` (by default deepseek-7b in
+    ``WIDE_BUCKET``) padded to the bucket, as (1, n, m) tensors on the
+    card, and a swarm of ``N`` particles and ``K`` steps from ``SEED``:
+    (name, Q, G, mask, x)."""
     from repro_torch.core import graphs, preemptible_dag as pdag
     from repro_torch.kernels import cases
     name, q = next((nm, q) for nm, q in reqs
-                   if pdag.shape_bucket(q.n, tgt.n) == WIDE_BUCKET)
+                   if pdag.shape_bucket(q.n, tgt.n) == bucket)
     Qb, Gb, Mb = (torch.from_numpy(np.stack([a])).cuda() for a in
                   pdag.pad_problem(q.adj, tgt.adj,
                                    graphs.compatibility_mask(q, tgt),
-                                   *WIDE_BUCKET))
+                                   *bucket))
     return name, Qb, Gb, Mb, cases.swarm_inputs(Qb, Gb, Mb, N, K, seed=SEED)
 
 
+def window_bucket_problem():
+    """``WINDOW_WORKLOAD``'s window-8 problem on ``wide_platform()`` in
+    ``WINDOW_BUCKET``, as ``wide_bucket_problem`` gives it."""
+    tgt, _, reqs = wide_requests((WINDOW_WORKLOAD,), SCHED_WINDOW)
+    return wide_bucket_problem(tgt, reqs, WINDOW_BUCKET)
+
+
+def epoch_state_bound(P, N, n, m, K):
+    """A second bound of ``epoch_fused`` (ms, bytes at ``HBM_BYTES_S``):
+    where the swarm's S, V and S_local (3 P N n m floats) pass the card's
+    50 MB of L2, they cannot stay on chip between steps (a step is a
+    launch), so each step reads S, V and S_local and writes S and V of
+    every particle, and reads S* and S̄ once a problem; the first bound
+    counts every input read once for the whole epoch. None below the
+    L2."""
+    if 3 * P * N * n * m * 4 <= L2_BYTES:
+        return None
+    return K * (5 * P * N + 2 * P) * n * m * 4 / HBM_BYTES_S * 1e3
+
+
+def instantiation(key, P, N, n, m):
+    """The kernel a ``bucket_kernels`` entry runs for P problems of N
+    particles at (n, m)."""
+    from repro_torch.kernels import epoch_fused, finish_fused
+    if key in ("epoch_fused", FLOAT_EPOCH):
+        return epoch_fused.instantiation(P, N, n, m, key == "epoch_fused")
+    if key == "epoch_finish":
+        return finish_fused.instantiation(n, m)
+    return "wide" if max(n, m) > 256 else "narrow"
+
+
 def bucket_kernels(Qb, Gb, Mb, x, entries, name, stage=lambda key: None):
-    """Measurement at ``WIDE_BUCKET`` on ``name``'s problem: each of
+    """Measurement on ``name``'s problem in its bucket (``WIDE_BUCKET``,
+    or ``WINDOW_BUCKET``): each of
     ``entries`` (with the float epoch where ``epoch_fused`` is one)
     against its plain version (bit for bit, S̄ within ``SBAR_ATOL``), ms
     a call (CUDA events, median of 3 runs of 5), device ms of one
-    profiled call, the plain version's ms and the bound. Returns
-    ``{key: record}``."""
+    profiled call (profiled again, up to 3 times, while a profile shows
+    no device event), the plain version's ms, the bound, the
+    instantiation it ran, ``epoch_fused``'s state bound and
+    ``masked_argmax``'s library ms (``torch.argmax`` over the masked
+    flat S*). Returns ``{key: record}``."""
     from repro_torch.core import pso
     from repro_torch.kernels import cases
     elite_k = pso.elite_k_for(pso.PSOConfig(**WIDE_SWARM))
@@ -2030,13 +2138,25 @@ def bucket_kernels(Qb, Gb, Mb, x, entries, name, stage=lambda key: None):
                       if entry == "epoch_finish" and k == 2
                       else torch.equal(g, w))
                 if not ok:
-                    fail(f"{key} at {WIDE_BUCKET} ({name}): output {k} "
-                         f"differs from its plain version")
+                    fail(f"{key} at {tuple(Mb.shape[1:])} ({name}): output "
+                         f"{k} differs from its plain version")
             ms = statistics.median(cuda_ms(kern, reps=5, warm=1)
                                    for _ in range(3))
-            rows = profiled(kern)[2]
-            device_ms = sum(r[1] for r in rows)
-            timed[key] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms)
+            for _ in range(3):
+                device_ms = sum(r[1] for r in profiled(kern)[2])
+                if device_ms > 0:
+                    break
+            timed[key] = dict(ms=ms, device_ms=device_ms or None,
+                              plain_ms=plain_ms,
+                              instantiation=instantiation(
+                                  key, *x["S"].shape[:2], *Mb.shape[1:]))
+            if entry == "masked_argmax":
+                S_star, mk = x["S_star"], Mb != 0
+                timed[key]["library_ms"] = statistics.median(
+                    cuda_ms(lambda: [torch.argmax(torch.where(
+                        mk[p], S_star[p], float("-inf")).flatten())
+                        for p in range(Mb.shape[0])], reps=5, warm=1)
+                    / Mb.shape[0] for _ in range(3))
             outs[key] = got
             stage(f"bucket_{key}")
     bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
@@ -2047,6 +2167,8 @@ def bucket_kernels(Qb, Gb, Mb, x, entries, name, stage=lambda key: None):
             quantized=False, elite_k=elite_k)["epoch_fused"]
     for key, rec in timed.items():
         rec["bound_ms"], rec["bound_by"] = bounds[key]
+        if key in ("epoch_fused", FLOAT_EPOCH):
+            rec["state_bound_ms"] = bounds["epoch_fused_state"]
     return timed
 
 
@@ -2066,6 +2188,7 @@ def wide_phase(pso, counters):
     ``validate=True``), every found mapping feasible, run to its end,
     then once more under the profiler for the idle share."""
     from repro_torch.core.service import MatcherService
+    from repro_torch.kernels import epoch_fused, ops
     from repro_torch.sched import SimConfig, Simulator, get_scheduler
     from repro_torch.sched.tasks import make_burst_scenario
     plat = wide_platform()
@@ -2151,17 +2274,33 @@ def wide_phase(pso, counters):
                          kernels=timed)
     log(json.dumps({"wide_bucket": out["bucket"]}))
     del Qb, Gb, Mb, x
+    # the epoch and its tail at the window-8 bucket the same way
+    name, *window = window_bucket_problem()
+    out["window_bucket"] = dict(
+        bucket=list(WINDOW_BUCKET), problem=name,
+        kernels=bucket_kernels(*window, ("epoch_fused", "epoch_finish"),
+                               name, lambda k: stage(f"window_{k}")))
+    log(json.dumps({"window_bucket": out["window_bucket"]}))
+    del window
     torch.cuda.empty_cache()
 
-    # (b) the scheduler on the platform
+    # (b) the scheduler on the platform; each run also counts the epochs
+    # it launched by (P, N, n, m, quantized): the traffic that the cluster
+    # step's rule on P N is set for
     kw = dict(SCHED_SCENARIO)
     sc = make_burst_scenario(kw.pop("complexity"), **kw)
-    runs = []
-    orig = MatcherService.match_many
+    runs, epochs = [], []
+    orig, orig_epoch = MatcherService.match_many, ops.epoch_fused
+
+    def counted_epoch(*a, **kw):
+        epochs[-1][(*a[0].shape, bool(kw.get("quantized")))] += 1
+        return orig_epoch(*a, **kw)
 
     def simulate():
         runs.append([])
+        epochs.append(collections.Counter())
         MatcherService.match_many = _watched_match_many(orig, runs)
+        ops.epoch_fused = counted_epoch
         try:
             return Simulator(SimConfig(platform=plat, matcher_mode="real",
                                        pso_cfg=pso.PSOConfig(**SCHED_SWARM),
@@ -2172,6 +2311,7 @@ def wide_phase(pso, counters):
             fail(f"wide scheduler: simulator invariants failed: {e}")
         finally:
             MatcherService.match_many = orig
+            ops.epoch_fused = orig_epoch
 
     for c in counters.values():
         c.reset()
@@ -2204,6 +2344,9 @@ def wide_phase(pso, counters):
         real_matches_found=sum(d["found"] for d in drains),
         buckets=sorted({tuple(b) for d in drains for b in d["buckets"]}),
         launches={k: sim_launches[k] for k in SCHED_KERNELS},
+        epoch_calls=[dict(P=P, N=N_, n=n, m=m, quantized=q, calls=c,
+                          path=epoch_fused.path(P, N_, n, m, q))
+                     for (P, N_, n, m, q), c in sorted(epochs[0].items())],
         profile=dict(wall_ms=prof_wall, device_busy_ms=busy,
                      idle_share=1.0 - busy / max(prof_wall, 1e-9)))
     if max(b[1] for b in sim["buckets"]) <= 256:
@@ -5782,6 +5925,7 @@ def main():
              f"plain version")
     log(f"  edge_fitness at {FITNESS_LARGE} (tiles in device scratch): "
         f"bit for bit")
+    detail["narrow_sbar_planted"] = narrow_sbar_planted(elite_k)
     # ullmann_refine_step for every M dtype (entries 0..3 kept as they
     # are), at the main path's shape and at REFINE_EXTRA
     gen = torch.Generator().manual_seed(SEED)

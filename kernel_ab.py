@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """This checkout's CUDA kernels against another checkout's on one card.
 
-    python3 kernel_ab.py BASE_DIR [--rounds 4] [--reps 10]
+    python3 kernel_ab.py BASE_DIR [--rounds 4] [--reps 10] [--bucket]
 
 BASE_DIR is another checkout of the repo, for example a parent commit
 unpacked with ``git archive``. For every kernel entry of
@@ -41,6 +41,28 @@ profiler, ``*_device_ms``, which a host-bound entry's CUDA-event times
 do not show). Last, it times this checkout's ``ullmann_refine_step``
 beside an empty launch of its grid and block, the floor its design can
 reach (``"case": "empty launch"``). It exits non-zero without a card.
+
+With ``--bucket`` it compares the SASS as above (one ``"sass"`` line)
+and then times the five main-path entries past n, m = 256 instead:
+phase 4f's problems at ``chip_smoke.WIDE_BUCKET`` (deepseek-7b mapped
+whole, N = 64, K = 12) and ``WINDOW_BUCKET`` (pnasnet's window-8
+problem, (56, 528)) and phase 3's random problems at every shape of
+``chip_smoke.WIDE_CASES``, quantized (``epoch_fused`` float too), τ = 0,
+through each checkout's own wrapper in the order base, change, change,
+base, with the same bits on both sides; one JSON line an entry, mode and
+case, with the instantiation the change ran there.
+
+    python3 kernel_ab.py --crossover [--rounds 4] [--reps 10]
+
+takes no other checkout. It builds this checkout's ``epoch_fused`` twice
+more, with ``-DEPOCH_FUSED_CLUSTERS=0`` (the step never on clusters) and
+``=1`` (on clusters wherever one fits past 256), and times the two on
+random problems at every (n, m) of ``CROSSOVER_SHAPES`` and every P of
+the service's batch classes (N = 64, K = 12), quantized and float, in
+the order never, always, always, never, with the same bits on both; one
+JSON line a case, with the kernel each build ran and the one this
+checkout's rule picks (``"rule"``), then one line that counts the cases
+where the rule picks the slower build by more than ``CROSSOVER_MARGIN``.
 """
 import argparse
 import ctypes
@@ -67,6 +89,15 @@ CASES = {"tier0": "Tier 0: N = 1, the 0/255 tile of each problem's "
                        "unet with the default (float) PSOConfig"}
 #: the per-side key of that match: the path through both redesigned entries
 MATCH_KEY = "IMMSchedMatcher.match/float_unet"
+#: ``--crossover``: (n, m) past 256 (the scheduler's window-8 buckets on
+#: the 512-engine platform reach n = 56, m = 528; the rest is the way to
+#: deepseek-7b's n), the batch classes of ``MatcherService`` (problems a
+#: launch), and the share by which the rule's pick may be the slower
+CROSSOVER_SHAPES = ((8, 400), (8, 528), (40, 400), (40, 528), (56, 400),
+                    (56, 528), (64, 528), (96, 400), (96, 528), (128, 528),
+                    (200, 528))
+CROSSOVER_P = (1, 2, 4, 8)
+CROSSOVER_MARGIN = 0.03
 
 
 def base_libraries(kb, base: Path, names):
@@ -80,6 +111,76 @@ def base_libraries(kb, base: Path, names):
     finally:
         kb.CSRC = own
     return {n: out / f"lib{n}.so" for n in names}
+
+
+def variant_libraries(kb, name, defines):
+    """``{label: loaded library}``: ``name`` built from this checkout's
+    source once for each ``{label: -D flag}``, each into a build
+    directory of its own."""
+    own, libs = kb.NVCC_FLAGS, {}
+    try:
+        for label, flag in defines.items():
+            kb.NVCC_FLAGS = (*own, flag)
+            kb.build_all([name])
+            libs[label] = ctypes.CDLL(str(kb._build_dir() / f"lib{name}.so"))
+    finally:
+        kb.NVCC_FLAGS = own
+    return libs
+
+
+def crossover(args, cs, cases, kb):
+    """``--crossover``: ``epoch_fused``'s step off clusters against on
+    clusters (see the module docstring)."""
+    from repro_torch.kernels import epoch_fused
+    own = kb.library("epoch_fused")
+    libs = variant_libraries(kb, "epoch_fused",
+                             {"never": "-DEPOCH_FUSED_CLUSTERS=0",
+                              "always": "-DEPOCH_FUSED_CLUSTERS=1"})
+    misses = []
+    for n, m in CROSSOVER_SHAPES:
+        Q, G, M = (t.cuda() for t in cases.random_problem(
+            max(CROSSOVER_P), n, m, cs.SEED))
+        for P in CROSSOVER_P:
+            x = cases.swarm_inputs(Q[:P], G[:P], M[:P], cs.N, cs.K,
+                                   seed=cs.SEED)
+            for q in (True, False):
+                kern = cases.kernel_pairs(Q[:P], G[:P], M[:P], x,
+                                          quantized=q, gumbel_tau=0.0,
+                                          elite_k=16)["epoch_fused"][0]
+                kb._libs["epoch_fused"] = own
+                rule = epoch_fused.path(P, cs.N, n, m, q)
+                paths, outs = {}, {}
+                for side, lib in libs.items():
+                    kb._libs["epoch_fused"] = lib
+                    paths[side] = epoch_fused.path(P, cs.N, n, m, q)
+                    outs[side] = kern()
+                rec = dict(kernel="epoch_fused", case="crossover", n=n, m=m,
+                           P=P, N=cs.N, quantized=q, paths=paths, rule=rule,
+                           same_bits=all(torch.equal(a, b) for a, b in zip(
+                               outs["never"], outs["always"])))
+                if paths["never"] != paths["always"]:
+                    ms = {"never": [], "always": []}
+                    for _ in range(args.rounds):
+                        for side in ("never", "always", "always", "never"):
+                            kb._libs["epoch_fused"] = libs[side]
+                            ms[side].append(cs.cuda_ms(kern, reps=args.reps))
+                    med = {k: statistics.median(v) for k, v in ms.items()}
+                    picked = "always" if rule == paths["always"] else "never"
+                    other = "never" if picked == "always" else "always"
+                    rec.update(never_ms=ms["never"], always_ms=ms["always"],
+                               never_median_ms=med["never"],
+                               always_median_ms=med["always"],
+                               ratio=med["always"] / med["never"],
+                               rule_picks=picked)
+                    if med[picked] > (1 + CROSSOVER_MARGIN) * med[other]:
+                        misses.append([n, m, P, q])
+                print(json.dumps(rec), flush=True)
+            del x
+            torch.cuda.empty_cache()
+    kb._libs["epoch_fused"] = own
+    print(json.dumps(dict(kernel="epoch_fused", case="crossover summary",
+                          margin=CROSSOVER_MARGIN, rule_slower=misses)),
+          flush=True)
 
 
 def sass(tool: Path, lib: Path):
@@ -218,6 +319,107 @@ def worker(side: Path, inputs: Path, names, out: Path, rounds, reps):
     out.write_text(json.dumps({"ms": res, "device_ms": dev}))
 
 
+def worker_bucket(side: Path, inputs: Path, names, out: Path, rounds,
+                  reps):
+    """One side's ``--bucket`` run in its own process (see ``worker``):
+    every entry of ``names`` on every saved case."""
+    sys.path.insert(0, str(side / "src"))
+    from chip_smoke import cuda_ms, profiled
+    from repro_torch.kernels import _build as kb, cases
+    kb.build_all()
+    d = torch.load(inputs, map_location="cuda")
+    res, bits, dev = {}, {}, {}
+    for label, c in d.items():
+        for name in names:
+            for q in modes(name):
+                pairs = cases.kernel_pairs(c["Q"], c["G"], c["M"], c["x"],
+                                           quantized=q, gumbel_tau=0.0,
+                                           elite_k=c["elite_k"])
+                kern = pairs[name][0]
+                key = f"{name}/q={q}/{label}"
+                got = kern()
+                got = got if isinstance(got, tuple) else (got,)
+                bits[key] = tuple(t.clone() if isinstance(t, torch.Tensor)
+                                  else t for t in got)
+                res[key] = [cuda_ms(kern, reps) for _ in range(rounds)]
+                dev[key] = [device_ms(profiled, kern) for _ in range(rounds)]
+        torch.cuda.empty_cache()
+    torch.save(bits, str(out) + ".bits")
+    out.write_text(json.dumps({"ms": res, "device_ms": dev}))
+
+
+def bucket_inputs(cs, cases, pso):
+    """``{case: problem}``: phase 4f's problems at ``WIDE_BUCKET`` and
+    ``WINDOW_BUCKET`` and phase 3's random problems at ``WIDE_CASES``."""
+    elite_k = pso.elite_k_for(pso.PSOConfig(**cs.WIDE_SWARM))
+    tgt, _, reqs = cs.wide_requests()
+    name, Q, G, M, x = cs.wide_bucket_problem(tgt, reqs)
+    out = {f"{name} {cs.WIDE_BUCKET}": dict(Q=Q, G=G, M=M, x=x,
+                                           elite_k=elite_k)}
+    name, Q, G, M, x = cs.window_bucket_problem()
+    out[f"{name} {cs.WINDOW_BUCKET}"] = dict(Q=Q, G=G, M=M, x=x,
+                                            elite_k=elite_k)
+    for (n, m), (P, N) in cs.WIDE_CASES.items():
+        Q, G, M = (t.cuda() for t in cases.random_problem(P, n, m, cs.SEED))
+        out[f"random {(P, N, n, m)}"] = dict(
+            Q=Q, G=G, M=M, elite_k=min(elite_k, N),
+            x=cases.swarm_inputs(Q, G, M, N, cs.WIDE_K, seed=cs.SEED))
+    return out
+
+
+def bucket(base: Path, args, cs, cases, pso, identical):
+    """``--bucket``: the five past 256, parent against change (see the
+    module docstring)."""
+    print(json.dumps({"sass": identical}), flush=True)
+    names = cs.MAIN_KERNELS
+    problems = bucket_inputs(cs, cases, pso)
+    ms, dev, bits = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = Path(tmp) / "inputs.pt"
+        torch.save(problems, str(inputs))
+        for slot, (side, root) in enumerate((("base", base),
+                                             ("change", ROOT),
+                                             ("change", ROOT),
+                                             ("base", base))):
+            out = Path(tmp) / f"{slot}.json"
+            subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--worker",
+                 str(root), "--bucket", "--inputs", str(inputs), "--names",
+                 ",".join(names), "--out", str(out), "--rounds",
+                 str(args.rounds), "--reps", str(args.reps)],
+                check=True, env={**os.environ, "PYTHONPATH": ""})
+            got = json.loads(out.read_text())
+            for key, v in got["ms"].items():
+                ms.setdefault(key, {"base": [], "change": []})[side] += v
+            for key, v in got["device_ms"].items():
+                dev.setdefault(key, {"base": [], "change": []})[side] += v
+            got = torch.load(str(out) + ".bits", map_location="cpu")
+            for key, v in got.items():
+                bits.setdefault(key, {}).setdefault(side, []).append(v)
+    for key, sides in ms.items():
+        runs = bits[key]["base"] + bits[key]["change"]
+        # each output equal across the four runs (S̄ is an output too)
+        outs = [all(torch.equal(r[k], runs[0][k]) for r in runs)
+                for k in range(len(runs[0]))
+                if isinstance(runs[0][k], torch.Tensor)]
+        name, mode, label = key.split("/", 2)
+        q = mode == "q=True"
+        inst = cs.instantiation(
+            cs.FLOAT_EPOCH if name == "epoch_fused" and not q else name,
+            *problems[label]["x"]["S"].shape[:2],
+            *problems[label]["M"].shape[1:])
+        med = {k: statistics.median(v) for k, v in sides.items()}
+        print(json.dumps(dict(
+            kernel=name, per_side=True, bucket=True,
+            quantized=q if name == "epoch_fused" else None, case=label,
+            instantiation=inst, same_bits=all(outs), same_outputs=outs,
+            base_ms=sides["base"],
+            change_ms=sides["change"], base_median_ms=med["base"],
+            change_median_ms=med["change"],
+            ratio=med["change"] / med["base"],
+            **device_fields(dev.get(key)))), flush=True)
+
+
 def per_side(base: Path, names, inputs: Path, args, identical, sources):
     """Time ``names`` through each checkout's own wrapper (see the module
     docstring) and print one JSON line per entry and mode."""
@@ -318,6 +520,12 @@ def main():
     ap.add_argument("base", type=Path, nargs="?", help="the other checkout")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--bucket", action="store_true",
+                    help="time the five past 256 at phase 4f's bucket and "
+                         "phase 3's wide cases")
+    ap.add_argument("--crossover", action="store_true",
+                    help="time epoch_fused's step off and on clusters "
+                         "past 256 (no BASE_DIR)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--names", help=argparse.SUPPRESS)
@@ -327,16 +535,22 @@ def main():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     if args.worker is not None:
-        worker(args.worker.resolve(), args.inputs, args.names.split(","),
-               args.out, args.rounds, args.reps)
+        run = worker_bucket if args.bucket else worker
+        run(args.worker.resolve(), args.inputs, args.names.split(","),
+            args.out, args.rounds, args.reps)
         return 0
-    if args.base is None:
+    if args.base is None and not args.crossover:
         ap.error("BASE_DIR is required")
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from repro_torch.core import pso
     from repro_torch.kernels import _build as kb, cases, ref
+
+    if args.crossover:
+        print(cs.card_line(), flush=True)
+        crossover(args, cs, cases, kb)
+        return 0
 
     base = args.base.resolve()
     stems = sorted({Path(src).stem for src, _ in cs.KERNELS.values()
@@ -358,6 +572,9 @@ def main():
         identical[n] = (None if a is None else
                         {f: a.get(f) == b.get(f) for f in sorted({*a, *b})})
 
+    if args.bucket:
+        bucket(base, args, cs, cases, pso, identical)
+        return 0
     _, _, _, Qb, Gb, Mb = cs.build_requests()
     x = cases.swarm_inputs(Qb, Gb, Mb, cs.N, cs.K, seed=cs.SEED)
     elite_k = pso.elite_k_for(pso.PSOConfig())

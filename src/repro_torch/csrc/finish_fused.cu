@@ -45,9 +45,12 @@
 //    so the 512 particles of the main path's burst are one wave); where it
 //    does not fit the chains read it from device memory.
 // Past n, m = 256 (kMaxDim) prep_wide_kernel and finish_wide_kernel run
-// the same steps on wide rows (common.cuh; see "The wide path" below).
+// the same steps on wide rows (common.cuh; see "The wide path" below),
+// and finish_staged_kernel takes the particles where G's planes fit in
+// shared memory ("The staged path").
 // Integer outputs (M_hat, feasible) equal the plain version's bit for bit;
-// S_bar is float32 with another summation order than its einsum.
+// S_bar is float32, with another summation order than the plain
+// version's up to 256 and the same past it (consensus_slice_plain).
 #include "common.cuh"
 
 namespace {
@@ -556,8 +559,84 @@ WPlace wplace(int n, int m) {
   return w;
 }
 
+// consensus_slice in the plain version's order of operations on the card
+// as torch 2.11.0 (CUDA 12.8) sums on the H100, matched with a probe
+// (PERF.md; the narrow path keeps its own). The order is internal to
+// that torch build: another may sum otherwise, and the card test of S̄
+// bit for bit past 256 then fails with no change here. It takes the
+// softmax's sum over the elite as torch's warp softmax takes it (each of
+// min(W, 32) lanes, W the next power of two of elite_k, sums its
+// elements l, l + 32, ... in order, then halving offsets), and an
+// entry's weighted sum over the elite as torch's sum over that axis
+// takes it (four accumulators, k mod 4, combined 0 + 1, + 2, + 3). So S̄
+// equals the plain version's bit for bit past 256.
+__device__ __forceinline__ void consensus_slice_plain(
+    const float* __restrict__ S, const float* __restrict__ f_final,
+    float* __restrict__ S_bar, int N, int n, int m, int elite_k, float temp,
+    uint8_t* sm) {
+  const int p = blockIdx.y, tid = threadIdx.x, nm = n * m;
+  float* fw = reinterpret_cast<float*>(sm);     // N
+  float* w = fw + N;                            // elite_k
+  int* top = reinterpret_cast<int*>(w + elite_k);   // elite_k
+  float* part = reinterpret_cast<float*>(top + elite_k);   // 32 lanes
+  for (int i = tid; i < N; i += blockDim.x)
+    fw[i] = f_final[(size_t)p * N + i];
+  __syncthreads();
+  for (int i = tid; i < N; i += blockDim.x) {
+    const float fi = fw[i];
+    int rank = 0;
+    for (int j = 0; j < N; ++j)
+      rank += fw[j] > fi || (fw[j] == fi && j < i);
+    if (rank < elite_k) {
+      top[rank] = i;
+      w[rank] = fi;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const float f0 = w[0];
+    float mx = rt::kNeg;
+    for (int k = 0; k < elite_k; ++k) {
+      w[k] = (w[k] - f0) / temp;
+      mx = fmaxf(mx, w[k]);
+    }
+    for (int k = 0; k < elite_k; ++k) w[k] = expf(w[k] - mx);
+    int W = 1;
+    while (W < elite_k) W <<= 1;
+    const int lanes = W < 32 ? W : 32;
+    for (int l = 0; l < lanes; ++l) {
+      float acc = 0.0f;
+      for (int k = l; k < W; k += 32) acc = acc + (k < elite_k ? w[k] : 0.0f);
+      part[l] = acc;
+    }
+    for (int off = lanes / 2; off > 0; off >>= 1)
+      for (int l = 0; l < off; ++l) part[l] = part[l] + part[l + off];
+    const float tot = part[0];
+    for (int k = 0; k < elite_k; ++k) w[k] = w[k] / tot;
+  }
+  __syncthreads();
+  const int lo = (blockIdx.x - kPackCtas) * kSliceEntries;
+  const int hi = min(nm, lo + kSliceEntries);
+  for (int idx = lo + tid; idx < hi; idx += blockDim.x) {
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+    int k = 0;
+    for (; k + 4 <= elite_k; k += 4) {
+      a0 = a0 + w[k] * S[((size_t)p * N + top[k]) * nm + idx];
+      a1 = a1 + w[k + 1] * S[((size_t)p * N + top[k + 1]) * nm + idx];
+      a2 = a2 + w[k + 2] * S[((size_t)p * N + top[k + 2]) * nm + idx];
+      a3 = a3 + w[k + 3] * S[((size_t)p * N + top[k + 3]) * nm + idx];
+    }
+    if (k < elite_k) a0 = a0 + w[k] * S[((size_t)p * N + top[k]) * nm + idx];
+    if (k + 1 < elite_k)
+      a1 = a1 + w[k + 1] * S[((size_t)p * N + top[k + 1]) * nm + idx];
+    if (k + 2 < elite_k)
+      a2 = a2 + w[k + 2] * S[((size_t)p * N + top[k + 2]) * nm + idx];
+    S_bar[(size_t)p * nm + idx] = ((a0 + a1) + a2) + a3;
+  }
+}
+
 // Launch 1 of the wide path: prep_kernel with the record packed from
-// device memory.
+// device memory, and S̄ by consensus_slice_plain.
 __global__ void __launch_bounds__(kThreads)
 prep_wide_kernel(const uint8_t* __restrict__ mask,
                  const uint8_t* __restrict__ Q, const uint8_t* __restrict__ G,
@@ -593,7 +672,7 @@ prep_wide_kernel(const uint8_t* __restrict__ mask,
     }
     return;
   }
-  consensus_slice(S, f_final, S_bar, N, n, m, elite_k, temp, sm);
+  consensus_slice_plain(S, f_final, S_bar, N, n, m, elite_k, temp, sm);
 }
 
 // Operands of a wide particle CTA.
@@ -851,6 +930,540 @@ finish_wide_kernel(const float* __restrict__ S_, const float* __restrict__ gum,
   }
 }
 
+// ---- The staged path (wide, one plane a lane, where it fits) ----
+//
+// Measured on the H100 at (312, 528) (PERF.md): finish_wide_kernel spent
+// ~70% of its CTAs' cycles in the Ullmann sweeps and ~8% in the greedy
+// chain beside M_a, because the record (~200 KB) did not fit beside the
+// working planes and each sweep's supports walked every candidate of a
+// row in every lane, two loads from device memory a candidate; a chain's
+// round waited on its predecessors' Q^T words and on S, one load from
+// device memory after another. finish_staged_kernel keeps the operands
+// that come after a load's outcome in shared memory and lets only the
+// ones known ahead come from device memory:
+//  * G's transposed rows and columns (135 KB at (312, 528)) are copied
+//    into shared memory; the placed rows' images are gone (a round ANDs
+//    the predecessors' G rows by their assignment), and so are the
+//    support planes: a sweep copies the candidates to a second buffer,
+//    each warp builds a dirty row's supports with its lanes each OR-ing
+//    their own candidates' G rows and one OR across the warp a word, and
+//    ANDs them into the rows of its Q neighbours (atomicAnd in shared
+//    memory), which equals rt::wsweep: a row not dirty has supports that
+//    hold its neighbours' candidates already (they only shrink);
+//  * a chain stages round i + 1's S row (and Gumbel row), available word
+//    and predecessors' Q^T words with cp.async into a double buffer (in
+//    the sweep's second buffer, idle during the chains) while round i
+//    runs;
+//  * the passes over S's rows and the greedy chain's rescans issue a
+//    lane's loads of a row at once.
+// It takes the wide shapes whose two candidate buffers fit beside G's
+// planes (one plane a lane: m <= 1,024); finish_wide_kernel the rest.
+
+constexpr int kPer = 32;      // words of a wide row with one plane a lane
+constexpr int kStages = 4;    // a chain's staged rounds: i + 1 .. i + 3
+
+struct SLayout {
+  int ldS;
+  size_t goutT, ginT, candA, candB, stS, stG, stA, stQ, qsucc, dirty, asg_a,
+      asg_p, asg_b, thr, gv, gj, fo, free0, free1, used, flag, end;
+};
+
+__host__ __device__ inline SLayout slayout(int n, int m) {
+  using rt::align16z;
+  SLayout L;
+  L.ldS = rt::round_up(m, 4);
+  const size_t rows_m = 4ull * m * kPer, rows_n = 4ull * n * kPer;
+  L.goutT = 0;
+  L.ginT = align16z(L.goutT + rows_m);
+  L.candA = align16z(L.ginT + rows_m);
+  L.candB = align16z(L.candA + rows_n);
+  // the chains' double buffers, inside candB
+  L.stS = L.candB;
+  L.stG = align16z(L.stS + 4ull * kStages * L.ldS);
+  L.stA = align16z(L.stG + 4ull * kStages * L.ldS);
+  L.stQ = align16z(L.stA + 4ull * kStages * kPer);
+  const size_t staged =
+      align16z(L.stQ + 4ull * kStages * rt::words(n)) - L.candB;
+  L.qsucc = align16z(L.candB + (rows_n > staged ? rows_n : staged));
+  L.dirty = align16z(L.qsucc + 4ull * n);    // two flags a row
+  L.asg_a = align16z(L.dirty + 2ull * n);
+  L.asg_p = align16z(L.asg_a + 4ull * n);
+  L.asg_b = align16z(L.asg_p + 4ull * n);
+  L.thr = align16z(L.asg_b + 4ull * n);
+  L.gv = align16z(L.thr + 4ull * n);
+  L.gj = align16z(L.gv + 4ull * n);
+  L.fo = align16z(L.gj + 4ull * n);
+  L.free0 = align16z(L.fo + 4ull * m);
+  L.free1 = align16z(L.free0 + 4ull * kPer);
+  L.used = align16z(L.free1 + 4ull * kPer);
+  L.flag = align16z(L.used + 4ull * rt::words(m));
+  L.end = align16z(L.flag + 4);
+  return L;
+}
+
+bool staged_fits(int n, int m) {
+  return rt::wide(n, m) && rt::lane_words(m) == 1 &&
+         slayout(n, m).end <= kSmemMax;
+}
+
+// Word w of G's row v in shared memory: the row's 16-byte chunks are
+// XOR-swizzled by v & 7, so that the lanes of a sweep, each reading
+// chunk q of its own candidate's row v = l + 32 b, fall on distinct banks
+// (unswizzled, the 128-byte rows put them all on one).
+__device__ __forceinline__ int swz(int v, int w) {
+  return (((w >> 2) ^ (v & 7)) << 2) | (w & 3);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// Wait until at most kStages - 2 groups are pending: round i + 1's.
+__device__ __forceinline__ void cp_async_wait_next() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+// Lane l's entries l + 32 b (b < 32) of row i of S (row stride m, any
+// memory), loaded at once; 0 past m.
+__device__ __forceinline__ void lane_row(const float* S, int i, int m,
+                                         int lane, float* sv) {
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    const int j = lane + 32 * b;
+    sv[b] = j < m ? S[(size_t)i * m + j] : 0.0f;
+  }
+}
+
+// Stage round i's operands of a chain into buffer b (one warp).
+template <bool GUMBEL, bool AVAIL>
+__device__ __forceinline__ void stage_row(const SLayout& L, uint8_t* sm,
+                                          const float* S, const float* gum,
+                                          const uint32_t* availT,
+                                          const uint32_t* qcol, int i, int b,
+                                          int m, int Wn, int lane) {
+  float* ds = reinterpret_cast<float*>(sm + L.stS) + b * L.ldS;
+  for (int j = lane; j < m; j += 32) cp_async4(ds + j, S + (size_t)i * m + j);
+  if (GUMBEL) {
+    float* dg = reinterpret_cast<float*>(sm + L.stG) + b * L.ldS;
+    for (int j = lane; j < m; j += 32)
+      cp_async4(dg + j, gum + (size_t)i * m + j);
+  }
+  if (AVAIL)
+    cp_async4(reinterpret_cast<uint32_t*>(sm + L.stA) + b * kPer + lane,
+              availT + (size_t)i * kPer + lane);
+  uint32_t* dq = reinterpret_cast<uint32_t*>(sm + L.stQ) + b * Wn;
+  for (int w = lane; w < Wn; w += 32) cp_async4(dq + w, qcol + i * Wn + w);
+  cp_async_commit();
+}
+
+// wstructured with one plane a lane, run by one warp, G's planes in
+// shared memory and rounds i + 1 .. i + kStages - 1's operands staged
+// (a ring of kStages buffers, one cp.async group a round) while round i
+// runs.
+// availT: the initial candidates, in device memory (AVAIL: staged) or
+// shared memory; S (and gum) the particle's rows in device memory; fo
+// (m counts) and freeT (32 words) scratch. Writes asg[i] (-1: none).
+template <bool GUMBEL, bool AVAIL>
+__device__ void chain_structured(const SLayout& L, uint8_t* sm,
+                                 const WCtx& c, const uint32_t* availT,
+                                 const float* S, const float* gum, float tau,
+                                 int* fo, uint32_t* freeT, int* asg) {
+  const int lane = threadIdx.x & 31, n = c.n, m = c.m, Wn = c.Wn;
+  const int* qsucc = reinterpret_cast<const int*>(sm + L.qsucc);
+  freeT[lane] = rt::wall_cols(lane, 0, m);
+  for (int j = lane; j < m; j += 32) fo[j] = c.fo0[j];
+  for (int i = lane; i < n; i += 32) asg[i] = -1;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n)
+      stage_row<GUMBEL, AVAIL>(L, sm, S, gum, availT, c.qcol, s, s, m, Wn,
+                               lane);
+    else
+      cp_async_commit();
+  }
+  cp_async_wait_next();
+  __syncwarp();
+  for (int i = 0; i < n; ++i) {
+    const int b = i % kStages, ahead = i + kStages - 1;
+    if (ahead < n)
+      stage_row<GUMBEL, AVAIL>(L, sm, S, gum, availT, c.qcol, ahead,
+                               ahead % kStages, m, Wn, lane);
+    else
+      cp_async_commit();
+    const float* srow = reinterpret_cast<const float*>(sm + L.stS) + b * L.ldS;
+    const float* grow = reinterpret_cast<const float*>(sm + L.stG) + b * L.ldS;
+    const uint32_t* preds = reinterpret_cast<const uint32_t*>(sm + L.stQ) +
+                            b * Wn;
+    uint32_t cand = (AVAIL ? reinterpret_cast<const uint32_t*>(
+                                 sm + L.stA)[b * kPer + lane]
+                           : availT[i * kPer + lane]) &
+                    freeT[lane];
+    // every predecessor placed, and adjacent to the column
+    for (int wu = 0; wu < Wn; ++wu) {
+      uint32_t pr = preds[wu];
+      while (pr) {
+        const int u = wu * 32 + __ffs(pr) - 1;
+        pr &= pr - 1;
+        const int a = asg[u];
+        cand &= a >= 0 ? c.goutT[a * kPer + swz(a, lane)] : 0u;
+      }
+    }
+    const int need = qsucc[i];
+    float v = rt::kNeg;
+    int vi = INT32_MAX;
+    while (cand) {                   // the lane's columns, ascending
+      const int k = __ffs(cand) - 1;
+      cand &= cand - 1;
+      const int j = lane + 32 * k;
+      const int free_out = fo[j];
+      float s = srow[j];
+      if (GUMBEL) s = logf(fmaxf(s, 1e-9f)) + tau * grow[j];
+      if (free_out >= need && s > v) { v = s; vi = j; }
+    }
+    rt::warp_argmax(v, vi);
+    if (v > rt::kNeg) {
+      if (lane == 0) asg[i] = vi;
+      if (lane == (vi & 31)) freeT[lane] &= ~(1u << (vi >> 5));
+      // vi's in-neighbours lose a free out-neighbour
+      uint32_t in = c.ginT[vi * kPer + swz(vi, lane)];
+      while (in) {
+        fo[lane + 32 * (__ffs(in) - 1)] -= 1;
+        in &= in - 1;
+      }
+    }
+    cp_async_wait_next();
+    __syncwarp();
+  }
+  cp_async_wait_all();
+}
+
+// rt::wgreedy with one plane a lane, a rescanned row's loads issued at
+// once.
+__device__ void chain_greedy(const float* S, int n, int m,
+                             const uint32_t* maskT, float* gv, int* gj,
+                             uint32_t* freeT, int* asg) {
+  const int lane = threadIdx.x & 31;
+  freeT[lane] = rt::wall_cols(lane, 0, m);
+  for (int i = lane; i < n; i += 32) asg[i] = -1;
+  __syncwarp();
+  for (int round = 0; round < n; ++round) {
+    float v = rt::kNeg;
+    int row = INT32_MAX;
+    for (int i = lane; i < n; i += 32)
+      if (gv[i] > v) { v = gv[i]; row = i; }
+    rt::warp_argmax(v, row);
+    if (!(v > rt::kNeg)) break;      // nothing left: every later round too
+    const int col = gj[row];
+    __syncwarp();
+    if (lane == 0) {
+      asg[row] = col;
+      gv[row] = rt::kNeg;
+      gj[row] = INT32_MAX;
+    }
+    if (lane == (col & 31)) freeT[lane] &= ~(1u << (col >> 5));
+    __syncwarp();
+    // rescan the rows whose cached column was just taken
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      uint32_t stale = __ballot_sync(
+          0xffffffffu, i0 + lane < n && gj[i0 + lane] == col);
+      while (stale) {
+        const int i = i0 + __ffs(stale) - 1;
+        stale &= stale - 1;
+        float sv[32];
+        lane_row(S, i, m, lane, sv);
+        const uint32_t ok = maskT[(size_t)i * kPer + lane] & freeT[lane];
+        float bv = rt::kNeg;
+        int bj = INT32_MAX;
+#pragma unroll
+        for (int k = 0; k < 32; ++k)
+          if (((ok >> k) & 1u) && sv[k] > bv) { bv = sv[k]; bj = lane + 32 * k; }
+        rt::warp_argmax(bv, bj);
+        if (lane == 0) {
+          gv[i] = bv;
+          gj[i] = bj;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// rt::wsweep (one plane a lane) by scatter: NT = MT, then each dirty row
+// u's supports, built by its warp, ANDed into NT's rows of u's Q
+// neighbours; the rows that changed are marked in next_dirty. Returns
+// whether any did (every thread). Ends with a barrier; NT then holds the
+// candidates.
+__device__ bool sweep_scatter(const uint32_t* goutT, const uint32_t* ginT,
+                              const uint32_t* qrow, const uint32_t* qcol,
+                              int n, int Wn, const uint32_t* MT,
+                              uint32_t* NT, const uint8_t* dirty,
+                              uint8_t* next_dirty, int t, int nt) {
+  const int lane = t & 31;
+  for (int idx = t; idx < n * kPer; idx += nt) NT[idx] = MT[idx];
+  for (int i = t; i < n; i += nt) next_dirty[i] = 0;
+  __syncthreads();
+  for (int u = t >> 5; u < n; u += nt >> 5) {
+    if (!dirty[u]) continue;
+    // lane l ORs the G rows of its candidates l + 32 b, every word
+    uint32_t so[kPer], si[kPer];
+#pragma unroll
+    for (int w = 0; w < kPer; ++w) { so[w] = 0u; si[w] = 0u; }
+    uint32_t mine = MT[u * kPer + lane];
+    while (mine) {
+      const int v = lane + 32 * (__ffs(mine) - 1);
+      mine &= mine - 1;
+      const uint4* gi = reinterpret_cast<const uint4*>(ginT + v * kPer);
+      const uint4* go = reinterpret_cast<const uint4*>(goutT + v * kPer);
+#pragma unroll
+      for (int q = 0; q < kPer / 4; ++q) {
+        const uint4 a = gi[q ^ (v & 7)], b = go[q ^ (v & 7)];
+        so[4 * q] |= a.x;
+        so[4 * q + 1] |= a.y;
+        so[4 * q + 2] |= a.z;
+        so[4 * q + 3] |= a.w;
+        si[4 * q] |= b.x;
+        si[4 * q + 1] |= b.y;
+        si[4 * q + 2] |= b.z;
+        si[4 * q + 3] |= b.w;
+      }
+    }
+    uint32_t my_so = 0u, my_si = 0u;
+#pragma unroll
+    for (int w = 0; w < kPer; ++w) {
+      const uint32_t a = __reduce_or_sync(0xffffffffu, so[w]);
+      const uint32_t b = __reduce_or_sync(0xffffffffu, si[w]);
+      if (lane == w) { my_so = a; my_si = b; }
+    }
+    // M[i] &= SO[u] where Q[i, u]; M[i] &= SI[u] where Q[u, i]
+    for (int wu = 0; wu < Wn; ++wu) {
+      uint32_t ins = qcol[u * Wn + wu];
+      while (ins) {
+        const int i = wu * 32 + __ffs(ins) - 1;
+        ins &= ins - 1;
+        atomicAnd(NT + i * kPer + lane, my_so);
+      }
+      uint32_t outs = qrow[u * Wn + wu];
+      while (outs) {
+        const int i = wu * 32 + __ffs(outs) - 1;
+        outs &= outs - 1;
+        atomicAnd(NT + i * kPer + lane, my_si);
+      }
+    }
+  }
+  __syncthreads();
+  bool changed = false;
+  for (int idx = t; idx < n * kPer; idx += nt) {
+    if (NT[idx] != MT[idx]) {
+      next_dirty[idx / kPer] = 1;
+      changed = true;
+    }
+  }
+  return __syncthreads_or(changed) != 0;
+}
+
+// wfeasible on G's swizzled rows (one plane a lane).
+__device__ bool feasible_staged(const WCtx& c, const int* asg,
+                                uint32_t* used) {
+  const int lane = threadIdx.x & 31, n = c.n;
+  for (int k = lane; k < rt::words(c.m); k += 32) used[k] = 0u;
+  __syncwarp();
+  bool ok = true;
+  for (int i = lane; i < n; i += 32) {
+    const int a = asg[i];
+    if (a < 0) { ok = false; continue; }
+    const uint32_t bit = 1u << (a & 31);
+    if (atomicOr(&used[a >> 5], bit) & bit) ok = false;
+  }
+  if (!__all_sync(0xffffffffu, ok)) return false;
+  for (int i = lane; i < n; i += 32) {
+    const int a = asg[i];
+    const uint32_t* ga = c.goutT + (size_t)a * kPer;
+    for (int wu = 0; wu < c.Wn; ++wu) {
+      uint32_t succ = c.qrow[i * c.Wn + wu];
+      while (succ) {
+        const int b = asg[wu * 32 + __ffs(succ) - 1];
+        succ &= succ - 1;
+        if (!((ga[swz(a, b & 31)] >> (b >> 5)) & 1u)) ok = false;
+      }
+    }
+  }
+  return __all_sync(0xffffffffu, ok);
+}
+
+// Launch 2 of the staged path: one particle (blockIdx.x) of one problem
+// (blockIdx.y); the record as prep_wide_kernel packs it.
+__global__ void __launch_bounds__(kThreads, 1)
+finish_staged_kernel(const float* __restrict__ S_,
+                     const float* __restrict__ gum,
+                     const uint8_t* __restrict__ rec,
+                     uint8_t* __restrict__ M_hat,
+                     uint8_t* __restrict__ feas_out, int N, int n, int m,
+                     float gumbel_tau, float refine_threshold,
+                     int refine_iters) {
+  const int p = blockIdx.y, part = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nt = blockDim.x;
+  const int nwarps = nt >> 5;
+  const WLayout R = wlayout(n, m);
+  const SLayout L = slayout(n, m);
+  const size_t nm = (size_t)n * m, cta = (size_t)p * N + part;
+  const size_t base = cta * nm;
+  extern __shared__ __align__(16) uint8_t sm[];
+  const uint8_t* rp = rec + (size_t)p * R.rec;
+  {
+    const uint4* go = reinterpret_cast<const uint4*>(rp + R.goutT);
+    const uint4* gi = reinterpret_cast<const uint4*>(rp + R.ginT);
+    uint4* so = reinterpret_cast<uint4*>(sm + L.goutT);
+    uint4* si = reinterpret_cast<uint4*>(sm + L.ginT);
+    for (int x = tid; x < m * kPer / 4; x += nt) {
+      const int v = x / (kPer / 4), q = x % (kPer / 4);
+      const int y = v * (kPer / 4) + (q ^ (v & 7));
+      so[y] = go[x];
+      si[y] = gi[x];
+    }
+  }
+  int* qsucc = reinterpret_cast<int*>(sm + L.qsucc);
+  for (int i = tid; i < n; i += nt)
+    qsucc[i] = reinterpret_cast<const int*>(rp + R.qsucc)[i];
+  __syncthreads();
+  const float* S = S_ + base;
+  WCtx c;
+  c.goutT = reinterpret_cast<const uint32_t*>(sm + L.goutT);
+  c.ginT = reinterpret_cast<const uint32_t*>(sm + L.ginT);
+  c.qrow = reinterpret_cast<const uint32_t*>(rp + R.qrow);
+  c.qcol = reinterpret_cast<const uint32_t*>(rp + R.qcol);
+  c.qsucc = qsucc;
+  c.fo0 = reinterpret_cast<const int*>(rp + R.fo0);
+  c.S = S;
+  c.n = n;
+  c.m = m;
+  c.Wn = R.Wn;
+  c.LW = 1;
+  c.per = kPer;
+  const uint32_t* maskT = reinterpret_cast<const uint32_t*>(rp + R.maskT);
+  uint32_t* candA = reinterpret_cast<uint32_t*>(sm + L.candA);
+  uint32_t* candB = reinterpret_cast<uint32_t*>(sm + L.candB);
+  uint8_t* dirty = sm + L.dirty;
+  int* asg_a = reinterpret_cast<int*>(sm + L.asg_a);
+  int* asg_p = reinterpret_cast<int*>(sm + L.asg_p);
+  int* asg_b = reinterpret_cast<int*>(sm + L.asg_b);
+  float* thr = reinterpret_cast<float*>(sm + L.thr);
+  float* gv = reinterpret_cast<float*>(sm + L.gv);
+  int* gj = reinterpret_cast<int*>(sm + L.gj);
+  int* fo = reinterpret_cast<int*>(sm + L.fo);
+  uint32_t* free0 = reinterpret_cast<uint32_t*>(sm + L.free0);
+  uint32_t* free1 = reinterpret_cast<uint32_t*>(sm + L.free1);
+  uint32_t* used = reinterpret_cast<uint32_t*>(sm + L.used);
+  int* take_a = reinterpret_cast<int*>(sm + L.flag);
+
+  // each row once, a warp a row: its maximum (the candidate threshold) and
+  // its best masked column (the greedy cache)
+  for (int i = warp; i < n; i += nwarps) {
+    float sv[32];
+    lane_row(S, i, m, lane, sv);
+    const uint32_t mk = maskT[(size_t)i * kPer + lane];
+    float mx = rt::kNeg, v = rt::kNeg;
+    int vi = INT32_MAX;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int j = lane + 32 * k;
+      if (j < m) {
+        mx = fmaxf(mx, sv[k]);
+        if (((mk >> k) & 1u) && sv[k] > v) { v = sv[k]; vi = j; }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    rt::warp_argmax(v, vi);
+    if (lane == 0) {
+      thr[i] = refine_threshold * mx;
+      gv[i] = v;
+      gj[i] = vi;
+    }
+  }
+  __syncthreads();
+
+  // M_a (warp 0, then its feasibility) beside the greedy projection (warp 1)
+  bool feas_a = false;
+  if (warp == 0) {
+    const float* g = gum == nullptr ? nullptr : gum + base;
+    if (gumbel_tau > 0.0f)
+      chain_structured<true, true>(L, sm, c, maskT, S, g, gumbel_tau, fo,
+                                   free0, asg_a);
+    else
+      chain_structured<false, true>(L, sm, c, maskT, S, nullptr, 0.0f, fo,
+                                    free0, asg_a);
+    feas_a = feasible_staged(c, asg_a, used);
+  } else if (warp == 1) {
+    chain_greedy(S, n, m, maskT, gv, gj, free1, asg_p);
+  }
+  __syncthreads();
+
+  // candidate set S >= thr * rowmax or the greedy pick, masked, a warp a row
+  for (int i = warp; i < n; i += nwarps) {
+    float sv[32];
+    lane_row(S, i, m, lane, sv);
+    const float t = thr[i];
+    const int pick = asg_p[i];
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const int j = lane + 32 * k;
+      if (j < m && (sv[k] >= t || pick == j)) word |= 1u << k;
+    }
+    const size_t q = (size_t)i * kPer + lane;
+    candA[q] = maskT[q] & word;
+  }
+  for (int i = tid; i < n; i += nt) dirty[i] = 1;
+  __syncthreads();
+  uint32_t* cur = candA;
+  uint32_t* nxt = candB;
+  for (int it = 0; it < refine_iters; ++it) {
+    uint8_t* d = dirty + (it & 1) * n;
+    const bool changed =
+        sweep_scatter(c.goutT, c.ginT, c.qrow, c.qcol, n, c.Wn, cur, nxt, d,
+                      dirty + n - (it & 1) * n, tid, nt);
+    uint32_t* x = cur;
+    cur = nxt;
+    nxt = x;
+    if (!changed) break;                   // a fixpoint: later sweeps too
+  }
+  if (cur != candA) {          // the chains' buffers live in candB
+    for (int idx = tid; idx < n * kPer; idx += nt) candA[idx] = cur[idx];
+    __syncthreads();
+  }
+
+  // M_b, the fallback to M_proj on empty rows, its feasibility; the merge
+  if (warp == 0) {
+    chain_structured<false, false>(L, sm, c, candA, S, nullptr, 0.0f, fo,
+                                   free0, asg_b);
+    for (int i = lane; i < n; i += 32) {
+      uint32_t any = 0;
+      for (int q = 0; q < kPer; ++q) any |= candA[(size_t)i * kPer + q];
+      if (any == 0) asg_b[i] = asg_p[i];
+    }
+    __syncwarp();
+    const bool feas_b = feasible_staged(c, asg_b, used);
+    if (lane == 0) {
+      feas_out[cta] = feas_a || feas_b;
+      *take_a = feas_a;
+    }
+  }
+  __syncthreads();
+  const int* asg = *take_a ? asg_a : asg_b;
+  uint8_t* out = M_hat + base;
+  for (size_t idx = tid; idx < nm; idx += nt) {
+    const int i = (int)(idx / m);
+    out[idx] = asg[i] == (int)(idx - (size_t)i * m) ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 // Bytes of device scratch that epoch_finish needs for these shapes: the
@@ -859,8 +1472,15 @@ finish_wide_kernel(const float* __restrict__ S_, const float* __restrict__ gum,
 extern "C" long long epoch_finish_scratch_bytes(int P, int N, int n, int m) {
   if (!rt::wide(n, m)) return (long long)P * layout(n, m).rec;
   const WLayout L = wlayout(n, m);
-  return (long long)(P * L.rec +
-                     ((wplace(n, m).bits & 1) ? 0 : (size_t)P * N * L.work));
+  const bool work = !(wplace(n, m).bits & 1) && !staged_fits(n, m);
+  return (long long)(P * L.rec + (work ? (size_t)P * N * L.work : 0));
+}
+
+// The particle kernel's instantiation at (n, m): 0 finish_kernel, 1
+// finish_staged_kernel, 2 finish_wide_kernel.
+extern "C" int epoch_finish_path(int n, int m) {
+  if (!rt::wide(n, m)) return 0;
+  return staged_fits(n, m) ? 1 : 2;
 }
 
 // The epoch tail of P problems: one launch for the records and S_bar, one
@@ -877,7 +1497,7 @@ extern "C" int epoch_finish(const void* S, const void* f_final,
   const cudaStream_t st = (cudaStream_t)stream;
   const int slices = (n * m + kSliceEntries - 1) / kSliceEntries;
   if (rt::wide(n, m)) {
-    const size_t psmem = sizeof(float) * (size_t)(N + 2 * elite_k);
+    const size_t psmem = sizeof(float) * (size_t)(N + 2 * elite_k + 32);
     cudaError_t err = rt::allow_smem((const void*)prep_wide_kernel, psmem);
     if (err != cudaSuccess) return (int)err;
     prep_wide_kernel<<<dim3(kPackCtas + slices, P), kThreads, psmem, st>>>(
@@ -886,6 +1506,16 @@ extern "C" int epoch_finish(const void* S, const void* f_final,
         (float*)S_bar, N, n, m, elite_k, consensus_temp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    if (staged_fits(n, m)) {
+      const size_t smem = slayout(n, m).end;
+      err = rt::allow_smem((const void*)finish_staged_kernel, smem);
+      if (err != cudaSuccess) return (int)err;
+      finish_staged_kernel<<<dim3(N, P), kThreads, smem, st>>>(
+          (const float*)S, (const float*)gum, (const uint8_t*)scratch,
+          (uint8_t*)M_hat, (uint8_t*)feasible_out, N, n, m, gumbel_tau,
+          refine_threshold, refine_iters);
+      return (int)cudaGetLastError();
+    }
     const WLayout L = wlayout(n, m);
     const WPlace w = wplace(n, m);
     err = rt::allow_smem((const void*)finish_wide_kernel, w.smem);

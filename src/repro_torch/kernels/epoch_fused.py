@@ -12,7 +12,11 @@ counted. Compiled with ``-fmad=false`` and written in the plain version's
 order of operations, it matches ``epoch_inner_reference`` bit for bit.
 Q and G are 0/1 adjacency matrices, as everywhere in the matcher. Any
 n, m run; where the problem's record passes a block's shared memory the
-steps read it from the scratch in place.
+steps read it from the scratch in place. Past n, m = 256, where a
+thread-block cluster of C CTAs (2, 4 or 8) holds a particle's tiles in
+its shared memory, a step runs a cluster a particle instead, each CTA a
+slice of the rows, the quantized S G Sᵀ on the integer tensor cores
+(``path`` says which kernel a shape takes).
 """
 from __future__ import annotations
 
@@ -85,6 +89,24 @@ def epoch_inner_reference(S, V, S_local, f_local, S_star, f_star, S_bar,
     f_trace = (torch.stack(trace, 1) if trace
                else torch.zeros(P, 0, dtype=torch.float32, device=S.device))
     return S, S_star, f_star, f_trace, f_last
+
+
+def path(P: int, N: int, n: int, m: int, quantized: bool) -> int:
+    """The step kernel the card runs for P problems of N particles at
+    (n, m): C > 0 for ``cluster_step_kernel`` on clusters of C CTAs, 0
+    for ``step_kernel``, -1 for ``step_wide_kernel`` (the record read
+    from device scratch)."""
+    return kb.bind("epoch_fused", "epoch_fused_path", [kb.I_] * 5)(
+        P, N, n, m, int(bool(quantized)))
+
+
+def instantiation(P: int, N: int, n: int, m: int, quantized: bool) -> str:
+    """``path`` as the name of the kernel and its cluster size."""
+    c = path(P, N, n, m, quantized)
+    q = "true" if quantized else "false"
+    if c > 0:
+        return f"cluster_step_kernel<{q}>, clusters of {c}"
+    return f"step_kernel<{q}, *>" if c == 0 else f"step_wide_kernel<{q}, *>"
 
 
 def epoch_fused_cuda(S, V, S_local, f_local, S_star, f_star, S_bar, mask,

@@ -15,8 +15,13 @@ structured projection and the greedy projection run at once on two
 warps, and the greedy projection keeps a per-row best column instead of
 rescanning S every round. Past n, m = 256 a wide pair of kernels holds a
 lane's bits in 32-bit words and keeps a particle's bit planes in device
-scratch where they pass a block's shared memory. Integer outputs match
-the plain version bit for bit; S̄ agrees to float32 rounding.
+scratch where they pass a block's shared memory; where G's planes and
+two candidate buffers fit in a block's shared memory (m <= 1,024), the
+staged particle kernel keeps them there and stages each chain's next
+rounds with cp.async (``path`` says which a shape takes). Integer
+outputs match the plain version bit for bit; S̄ agrees to float32
+rounding, and past n, m = 256 bit for bit (the wide launch 1 sums in
+the plain version's order on the card).
 """
 from __future__ import annotations
 
@@ -106,6 +111,18 @@ def epoch_finish_reference(S, f_final, gum, mask, Q, G, *,
     S_bar, _, _ = elite_consensus_reference(
         S, f_final, elite_k=elite_k, consensus_temp=consensus_temp)
     return M_hat.to(torch.uint8), feas_a | feas_b, S_bar
+
+
+def path(n: int, m: int) -> int:
+    """The particle kernel the card runs at (n, m): 0 ``finish_kernel``,
+    1 ``finish_staged_kernel``, 2 ``finish_wide_kernel``."""
+    return kb.bind("finish_fused", "epoch_finish_path", [kb.I_] * 2)(n, m)
+
+
+def instantiation(n: int, m: int) -> str:
+    """``path`` as the name of the particle kernel."""
+    return ("finish_kernel<*>", "finish_staged_kernel",
+            "finish_wide_kernel")[path(n, m)]
 
 
 def epoch_finish_cuda(S, f_final, gum, mask, Q, G, *, gumbel_tau: float,

@@ -718,6 +718,190 @@ def _assert_fitness_u8_bitwise(S_q, Q, G):
     assert torch.equal(got, want), (got - want).abs().max()
 
 
+# -- past n, m = 256: epoch_fused's cluster step, epoch_finish's staged
+# particle kernel ----------------------------------------------------------
+
+#: (P, N, n, m, K): rows a rank that do not divide n and m % 4 != 0
+#: (301, 417); m % 4 == 2 and m % 32 != 0 (300, 530); phase 4f's bucket;
+#: the scheduler's window-8 bucket on the 512-engine platform (56, 528),
+#: on clusters at 32 particles
+REDESIGNED = [(1, 8, 301, 417, 2), (2, 8, 300, 530, 2), (1, 8, 312, 528, 2),
+              (2, 16, 56, 528, 3)]
+
+
+def _boundary(takes, n, m0):
+    """The largest m >= m0 at which ``takes(n, m)`` holds and the first
+    past it (m0 must take it)."""
+    assert takes(n, m0), (n, m0)
+    m = m0
+    while takes(n, m + 1):
+        m += 1
+    return m, m + 1
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("shape", REDESIGNED)
+def test_epoch_fused_redesigned_shapes_bitwise_on_card(device, shape,
+                                                       quantized):
+    """Every output bit for bit at the shapes of the cluster path's edge
+    cases, whichever step kernel each takes."""
+    from repro_torch.kernels import epoch_fused
+    P, N, n, m, K = shape
+    if n > 256:
+        assert epoch_fused.path(P, N, n, m, quantized) > 0, shape
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 31))
+    x = cases.swarm_inputs(Q, G, mask, N, K, seed=32)
+    _assert_epoch_bitwise(_epoch_args(x, mask, Q, G), quantized)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_epoch_fused_cluster_path_edge_on_card(device, quantized):
+    """The largest m at n = 312 that the cluster path takes and the first
+    it does not (no cluster there), bit for bit."""
+    from repro_torch.kernels import epoch_fused
+    last, first = _boundary(
+        lambda n, m: epoch_fused.path(1, 4, n, m, quantized) > 0, 312, 528)
+    assert epoch_fused.path(1, 4, 312, first, quantized) <= 0
+    for m in (last, first):
+        Q, G, mask = (t.to(device) for t in cases.random_problem(1, 312, m,
+                                                                 33))
+        x = cases.swarm_inputs(Q, G, mask, 4, 2, seed=33)
+        _assert_epoch_bitwise(_epoch_args(x, mask, Q, G), quantized)
+
+
+#: (n, m) at which the rule takes clusters of 2, 4 and 8, by branch
+CLUSTER_SIZES = {True: {2: (128, 400), 4: (300, 400), 8: (312, 528)},
+                 False: {2: (56, 528), 4: (128, 528), 8: (300, 400)}}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_epoch_fused_every_cluster_size_on_card(device, quantized):
+    """Clusters of 2, 4 and 8, each at a shape where the rule picks it:
+    bit for bit each."""
+    from repro_torch.kernels import epoch_fused
+    for C, (n, m) in CLUSTER_SIZES[quantized].items():
+        assert epoch_fused.path(2, 8, n, m, quantized) == C, (n, m)
+        Q, G, mask = (t.to(device) for t in cases.random_problem(2, n, m,
+                                                                 34))
+        x = cases.swarm_inputs(Q, G, mask, 8, 2, seed=34)
+        _assert_epoch_bitwise(_epoch_args(x, mask, Q, G), quantized)
+
+
+#: (P, N, n, m, quantized, path): each side of the rule between the
+#: cluster step and step_kernel (clusters where step_kernel's tiles fit in
+#: shared memory only up to 64 particles and from n = 40; quantized with
+#: the tiles in scratch below n = 128 only up to 128 particles)
+RULE_CASES = [(1, 64, 56, 528, True, 2), (2, 64, 56, 528, True, 0),
+              (1, 64, 8, 400, True, 0), (2, 64, 96, 528, True, 2),
+              (4, 64, 96, 528, True, 0), (1, 64, 40, 400, False, 2),
+              (2, 64, 40, 400, False, 0)]
+
+
+@pytest.mark.parametrize("case", RULE_CASES)
+def test_epoch_fused_rule_by_particles_on_card(device, case):
+    """The step kernel the rule picks by the launch's particles, bit for
+    bit either way."""
+    from repro_torch.kernels import epoch_fused
+    P, N, n, m, quantized, want = case
+    assert epoch_fused.path(P, N, n, m, quantized) == want, case
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 41))
+    x = cases.swarm_inputs(Q, G, mask, N, 2, seed=41)
+    _assert_epoch_bitwise(_epoch_args(x, mask, Q, G), quantized)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("K", [0, 1])
+def test_epoch_fused_cluster_short_epochs_on_card(device, K, quantized):
+    Q, G, mask = (t.to(device) for t in cases.random_problem(2, 300, 400,
+                                                             35))
+    x = cases.swarm_inputs(Q, G, mask, 8, K, seed=35)
+    _assert_epoch_bitwise(_epoch_args(x, mask, Q, G), quantized)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_epoch_fused_cluster_empty_row_and_ties_on_card(device, quantized):
+    """On the cluster path: a mask row with no candidate (the uniform and
+    integer fallbacks), then equal local bests (the first index wins)."""
+    Q, G, mask = (t.to(device) for t in cases.random_problem(2, 301, 417,
+                                                             36))
+    x = cases.swarm_inputs(Q, G, mask, 8, 3, seed=36)
+    empty = mask.clone()
+    empty[:, 150] = 0
+    _assert_epoch_bitwise(_epoch_args(x, empty, Q, G), quantized)
+    x["f_local"] = torch.zeros_like(x["f_local"])     # above any fitness
+    args = _epoch_args(x, mask, Q, G)
+    _assert_epoch_bitwise(args, quantized)
+    _, star, _, _, _ = epoch_fused_cuda(*args, quantized=quantized,
+                                        **cases.HYPER)
+    assert torch.equal(star, x["S"][:, 0])
+
+
+@pytest.mark.parametrize("tau", [0.0, 0.3])
+@pytest.mark.parametrize("shape", REDESIGNED)
+def test_epoch_finish_staged_bitwise_on_card(device, shape, tau):
+    """The staged particle kernel at the redesigned shapes, with and
+    without Gumbel noise."""
+    from repro_torch.kernels import finish_fused
+    P, N, n, m, _ = shape
+    assert finish_fused.path(n, m) == 1, shape
+    _assert_finish_bitwise(*_finish_case(device, P, N, n, m, 37), tau=tau)
+
+
+@pytest.mark.parametrize("tau", [0.0, 0.3])
+def test_epoch_finish_staged_edge_on_card(device, tau):
+    """The largest n at m = 528 that the staged kernel takes and the
+    first it does not (the wide kernel there)."""
+    from repro_torch.kernels import finish_fused
+    last, first = _boundary(lambda m, n: finish_fused.path(n, m) == 1, 528,
+                            312)
+    assert finish_fused.path(first, 528) == 2
+    for n in (last, first):
+        _assert_finish_bitwise(*_finish_case(device, 1, 4, n, 528, 38),
+                               tau=tau)
+
+
+@pytest.mark.parametrize("tau", [0.0, 0.3])
+def test_epoch_finish_staged_ties_empty_rows_and_rescans_on_card(device,
+                                                                 tau):
+    """On the staged kernel: S from a set of 4 values with an all-zero
+    mask row, then every row ranking the columns alike (each greedy
+    round rescans every row left)."""
+    S, f, gum, mask, Q, G = _finish_case(device, 2, 8, 300, 530, 39,
+                                         tie_values=[0.1, 0.2, 0.3, 0.4])
+    mask = mask.clone()
+    mask[:, 7] = 0
+    S = S * (mask[:, None] != 0)
+    _assert_finish_bitwise(S, f, gum, mask, Q, G, tau=tau)
+    i = torch.arange(300, device=device, dtype=torch.float32)[:, None]
+    j = torch.arange(530, device=device, dtype=torch.float32)[None]
+    S = ((530 - j) + i / 1200).expand(2, 8, 300, 530).contiguous()
+    _assert_finish_bitwise(S, f, gum, torch.ones_like(mask), Q, G, tau=tau)
+
+
+@pytest.mark.parametrize("elite_k", [1, 5, 8])
+@pytest.mark.parametrize("shape", [(2, 8, 56, 528), (2, 8, 300, 400),
+                                   (1, 8, 1000, 1100)])
+def test_epoch_finish_wide_consensus_bitwise_on_card(device, shape,
+                                                     elite_k):
+    """Past 256 S̄ takes the plain version's order of operations on the
+    card, so it equals it bit for bit (planted singleton rows hold 1.0
+    in every particle, where another order drifts by an ulp)."""
+    from repro_torch.kernels.finish_fused import epoch_finish_reference
+    P, N, n, m = shape
+    S, f, _, mask, Q, G = _finish_case(device, P, N, n, m, 0)
+    kw = dict(gumbel_tau=0.0, refine_threshold=0.5, refine_iters=1,
+              elite_k=elite_k, consensus_temp=25.0)
+    got = epoch_finish_cuda(S, f, None, mask, Q, G, **kw)[2]
+    want = epoch_finish_reference(S, f, None, mask, Q, G, **kw)[2]
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("refine_iters", [0, 1])
+def test_epoch_finish_staged_short_refinement_on_card(device, refine_iters):
+    _assert_finish_bitwise(*_finish_case(device, 2, 8, 301, 417, 40),
+                           tau=0.0, refine_iters=refine_iters)
+
+
 @pytest.mark.parametrize("shape", SHAPES + ODD_SHAPES)
 def test_edge_fitness_quantized_bitwise_on_card(device, shape):
     P, N, n, m, _ = shape

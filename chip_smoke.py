@@ -28,7 +28,12 @@ Phases, in order; any failure exits non-zero:
      live in device scratch, and 56 x 528; small P and N; every wide step
      and tail instantiation runs at one of them, which fails the phase
      if not), quantized and float, τ = 0 and τ > 0: every output bit for
-     bit but S̄, within ``SBAR_ATOL``; then ``epoch_finish`` on random
+     bit but S̄, within ``SBAR_ATOL``; then both fitness bodies past 256
+     bit for bit at N = 1 on each wide case's projection tile (the
+     Tier-0 call), on a swarm at (312, 528), on the all-255 tile with a
+     dense G at m = 528 and past the row split's shared memory
+     (``wide_fitness_cases``: every wide body ``pso_fitness.path`` can
+     pick runs, or the phase fails); then ``epoch_finish`` on random
      problems with planted rows of 1.0 at the main path's (56, 144), M̂
      and the flags bit for bit and S̄'s difference recorded (a reading);
   4. the main path: 8 scheduling requests built as the IMMSched
@@ -418,6 +423,16 @@ SCHEDULERS = ("immsched", "isosched", "prema", "planaria", "moca", "cdmsa")
 WIDE_CASES = {(300, 400): (2, 8), (512, 512): (1, 8), (257, 771): (2, 4),
               (1000, 1100): (1, 2), (56, 528): (2, 40)}
 WIDE_K = 2
+#: phase 3's wide fitness cases beside each WIDE_CASES problem's Tier-0
+#: call (P, N, n, m): a swarm at the wide bucket's shape (the row split's
+#: 32 rows a CTA), the all-255 tile with a dense G there (S G past 2^16,
+#: three byte planes), and a shape past the row split's shared memory
+#: (the one-CTA-a-particle bodies)
+FITNESS_WIDE_SWARM = (1, 64, 312, 528)
+FITNESS_DENSE = (1, 2, 312, 528)
+FITNESS_FALLBACK = (1, 2, 8, 7300)
+#: ``counted_fitness``: the ops entry of each fitness body, by quantized
+FITNESS_OPS = {False: "edge_fitness", True: "edge_fitness_quantized"}
 #: phase 3's reading of the narrow S̄ on planted rows of 1.0: (P, N, n, m)
 #: at the main path's bucket
 NARROW_PLANTED = (2, 64, 56, 144)
@@ -1732,6 +1747,37 @@ def mesh_phase(pso, reqs, tgt, bucket, Qb, Gb, Mb, phase4, counters):
     return dict(line=line, launches=split_float(launches))
 
 
+@contextlib.contextmanager
+def counted_fitness(calls):
+    """Within the block, every call of ``ops.edge_fitness`` and
+    ``ops.edge_fitness_quantized`` (the fitness outside the fused epoch:
+    the Tier-0 check) adds one to ``calls[(P, N, n, m, quantized)]``."""
+    from repro_torch.kernels import ops
+    orig = {q: getattr(ops, FITNESS_OPS[q]) for q in FITNESS_OPS}
+
+    def counted(q):
+        def fitness(S, *a, **kw):
+            calls[(*S.shape, q)] += 1
+            return orig[q](S, *a, **kw)
+        return fitness
+    for q, name in FITNESS_OPS.items():
+        setattr(ops, name, counted(q))
+    try:
+        yield calls
+    finally:
+        for q, name in FITNESS_OPS.items():
+            setattr(ops, name, orig[q])
+
+
+def fitness_call_list(calls):
+    """``counted_fitness``'s counts as a list, each with the body that
+    ``pso_fitness.path`` picks for it."""
+    from repro_torch.kernels import pso_fitness
+    return [dict(P=P, N=N, n=n, m=m, quantized=q, calls=c,
+                 path=pso_fitness.path(P, N, n, m, q))
+            for (P, N, n, m, q), c in sorted(calls.items())]
+
+
 def _watched_match_many(orig, runs):
     """A ``MatcherService.match_many`` for the scheduler phases: it times
     each drain, checks every mapping the service returns as found on the
@@ -1988,6 +2034,72 @@ def wide_kernel_cases(elite_k):
     return rec
 
 
+def wide_fitness_cases():
+    """Phase 3 past 256, the two fitness bodies bit for bit against their
+    plain versions: at N = 1 on the projection tile of each
+    ``WIDE_CASES`` problem (the Tier-0 call: 0/255, and 0/1 for the float
+    body), on a random swarm at ``FITNESS_WIDE_SWARM``, on the all-255
+    tile (all-one float) with a dense G at ``FITNESS_DENSE`` and on a
+    random swarm at ``FITNESS_FALLBACK``. Fails unless each wide body
+    that ``pso_fitness.path`` can pick (the quantized row split at 16 and
+    32 rows a CTA, the float one, and one CTA a particle in each mode)
+    ran at one of them. Returns the seconds and the body of each case."""
+    from repro_torch.kernels import cases, pso_fitness, ref
+    rec, ran = {}, set()
+
+    def check(what, S, Q, G, quantized):
+        t0 = time.time()
+        P_, N_, n_, m_ = S.shape
+        name = "edge_fitness_quantized" if quantized else "edge_fitness"
+        got = pso_fitness.edge_fitness_cuda(S, Q, G, quantized=quantized)
+        torch.cuda.synchronize()
+        want = (pso_fitness.edge_fitness_quantized_reference(S, Q, G)
+                if quantized else pso_fitness.edge_fitness_reference(S, Q, G))
+        if not torch.equal(got, want):
+            fail(f"{name} at {(P_, N_, n_, m_)} ({what}) is not bit for bit "
+                 f"its plain version")
+        path = pso_fitness.path(P_, N_, n_, m_, quantized)
+        ran.add((quantized, path if quantized else min(path, 1)))
+        rec[f"{name} {what} {(P_, N_, n_, m_)}"] = dict(
+            instantiation=pso_fitness.instantiation(P_, N_, n_, m_,
+                                                    quantized),
+            seconds=time.time() - t0)
+
+    for (wn, wm), (wP, _) in WIDE_CASES.items():
+        Q, G, mask = (t.cuda() for t in cases.random_problem(wP, wn, wm,
+                                                             SEED))
+        x = cases.swarm_inputs(Q, G, mask, 1, 1, seed=SEED)
+        tile = ref.greedy_project(x["S"][:, 0], mask).float()[:, None]
+        check("projection tile", ref.quantize_s(tile), Q, G, True)
+        check("projection tile", tile, Q, G, False)
+    for what, (P_, N_, n_, m_) in (("swarm", FITNESS_WIDE_SWARM),
+                                   ("past the split", FITNESS_FALLBACK)):
+        Q, G, mask = (t.cuda() for t in cases.random_problem(P_, n_, m_,
+                                                             SEED))
+        x = cases.swarm_inputs(Q, G, mask, N_, 1, seed=SEED)
+        check(what, x["S_q"], Q, G, True)
+        check(what, x["S"], Q, G, False)
+        del x
+    P_, N_, n_, m_ = FITNESS_DENSE
+    Q = cases.random_problem(P_, n_, m_, SEED)[0].cuda()
+    G = torch.ones(P_, m_, m_, dtype=torch.uint8, device="cuda")
+    check("all-255 tile, dense G",
+          torch.full((P_, N_, n_, m_), 255, dtype=torch.uint8,
+                     device="cuda"), Q, G, True)
+    check("all-one tile, dense G",
+          torch.ones(P_, N_, n_, m_, device="cuda"), Q, G, False)
+    want = {(True, 16), (True, 32), (True, -1), (False, 1), (False, -1)}
+    if want - ran:
+        fail(f"phase 3 ran no wide fitness case of {sorted(want - ran)} "
+             f"((quantized, pso_fitness.path), the float row split's rows "
+             f"clipped to 1)")
+    log(f"  wide fitness: both bodies bit for bit at the Tier-0 tiles, "
+        f"{FITNESS_WIDE_SWARM}, the dense {FITNESS_DENSE} and "
+        f"{FITNESS_FALLBACK}; bodies {sorted(ran)}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def narrow_sbar_planted(elite_k):
     """Phase 3, a reading: ``epoch_finish`` on random problems at
     ``NARROW_PLANTED`` (P, N, n, m), whose planted singleton mask rows
@@ -2093,11 +2205,14 @@ def epoch_state_bound(P, N, n, m, K):
 def instantiation(key, P, N, n, m):
     """The kernel a ``bucket_kernels`` entry runs for P problems of N
     particles at (n, m)."""
-    from repro_torch.kernels import epoch_fused, finish_fused
+    from repro_torch.kernels import epoch_fused, finish_fused, pso_fitness
     if key in ("epoch_fused", FLOAT_EPOCH):
         return epoch_fused.instantiation(P, N, n, m, key == "epoch_fused")
     if key == "epoch_finish":
         return finish_fused.instantiation(n, m)
+    if key in ("edge_fitness", "edge_fitness_quantized"):
+        return pso_fitness.instantiation(P, N, n, m,
+                                         key == "edge_fitness_quantized")
     return "wide" if max(n, m) > 256 else "narrow"
 
 
@@ -2234,15 +2349,20 @@ def wide_phase(pso, counters):
     svc = MatcherService(pso.PSOConfig(**WIDE_SWARM, quantized=True),
                          device="cuda")
     fsvc = MatcherService(pso.PSOConfig(**WIDE_SWARM), device="cuda")
+    # the drains' fitness calls by (P, N, n, m, quantized): the traffic
+    # that the fitness bodies' row split is set for
+    fit_calls = collections.Counter()
     for label, service, quantized in (("cold", svc, True),
                                       ("again", svc, True),
                                       ("float", fsvc, False)):
         before = {k: c.count for k, c in counters.items()}
         if label == "again":          # launches and wall alone
-            drain(label, service)
+            with counted_fitness(fit_calls):
+                drain(label, service)
         else:                         # and under the profiler
-            _, wall_ms, rows = profiled(lambda: drain(label, service),
-                                        cpu=False)
+            with counted_fitness(fit_calls):
+                _, wall_ms, rows = profiled(lambda: drain(label, service),
+                                            cpu=False)
             busy = sum(r[1] for r in rows)
             out["drains"][label].update(
                 idle_share=1.0 - busy / max(wall_ms, 1e-9),
@@ -2255,6 +2375,8 @@ def wide_phase(pso, counters):
     launches = split_float({k: counters[k].count
                             for k in (*MAIN_KERNELS, FLOAT_EPOCH)})
     out["launches"] = launches
+    out["fitness_calls"] = fitness_call_list(fit_calls)
+    log(json.dumps({"wide_fitness_calls": out["fitness_calls"]}))
     for k, v in launches.items():
         if v <= 0:
             fail(f"kernel {k} was not launched by the wide drains")
@@ -2285,11 +2407,11 @@ def wide_phase(pso, counters):
     torch.cuda.empty_cache()
 
     # (b) the scheduler on the platform; each run also counts the epochs
-    # it launched by (P, N, n, m, quantized): the traffic that the cluster
-    # step's rule on P N is set for
+    # it launched by (P, N, n, m, quantized), the traffic that the cluster
+    # step's rule on P N is set for, and its fitness calls the same way
     kw = dict(SCHED_SCENARIO)
     sc = make_burst_scenario(kw.pop("complexity"), **kw)
-    runs, epochs = [], []
+    runs, epochs, fits = [], [], []
     orig, orig_epoch = MatcherService.match_many, ops.epoch_fused
 
     def counted_epoch(*a, **kw):
@@ -2299,14 +2421,16 @@ def wide_phase(pso, counters):
     def simulate():
         runs.append([])
         epochs.append(collections.Counter())
+        fits.append(collections.Counter())
         MatcherService.match_many = _watched_match_many(orig, runs)
         ops.epoch_fused = counted_epoch
         try:
-            return Simulator(SimConfig(platform=plat, matcher_mode="real",
-                                       pso_cfg=pso.PSOConfig(**SCHED_SWARM),
-                                       window_stages=SCHED_WINDOW,
-                                       validate=True),
-                             get_scheduler("immsched")).run(sc)
+            with counted_fitness(fits[-1]):
+                return Simulator(
+                    SimConfig(platform=plat, matcher_mode="real",
+                              pso_cfg=pso.PSOConfig(**SCHED_SWARM),
+                              window_stages=SCHED_WINDOW, validate=True),
+                    get_scheduler("immsched")).run(sc)
         except AssertionError as e:  # check_invariants under validate=True
             fail(f"wide scheduler: simulator invariants failed: {e}")
         finally:
@@ -2347,6 +2471,7 @@ def wide_phase(pso, counters):
         epoch_calls=[dict(P=P, N=N_, n=n, m=m, quantized=q, calls=c,
                           path=epoch_fused.path(P, N_, n, m, q))
                      for (P, N_, n, m, q), c in sorted(epochs[0].items())],
+        fitness_calls=fitness_call_list(fits[0]),
         profile=dict(wall_ms=prof_wall, device_busy_ms=busy,
                      idle_share=1.0 - busy / max(prof_wall, 1e-9)))
     if max(b[1] for b in sim["buckets"]) <= 256:
@@ -5947,6 +6072,7 @@ def main():
             f"bool: bit for bit")
     # the five main-path kernels past n, m = 256
     detail["wide_kernels"] = wide_kernel_cases(elite_k)
+    detail["wide_fitness"] = wide_fitness_cases()
     outs = {k: v[2] for k, v in timed.items()}
     bounds = kernel_bounds(Qb, Gb, Mb, x, outs, quantized=True,
                            elite_k=elite_k)

@@ -50,7 +50,13 @@ problem, (56, 528)) and phase 3's random problems at every shape of
 ``chip_smoke.WIDE_CASES``, quantized (``epoch_fused`` float too), τ = 0,
 through each checkout's own wrapper in the order base, change, change,
 base, with the same bits on both sides; one JSON line an entry, mode and
-case, with the instantiation the change ran there.
+case, with the instantiation the change ran there. Both fitness bodies
+are also timed at the two buckets' Tier-0 call (``"tier0"``) and on
+random problems at every (n, m) of ``CROSSOVER_SHAPES``, P of
+``CROSSOVER_P`` and N of ``FITNESS_CROSSOVER_N`` (``"crossover"``,
+CUDA events only), then one line a body counts the crossover cases where
+the change's row-split body (``pso_fitness.path`` > 0) is slower than
+the base by more than ``CROSSOVER_MARGIN``.
 
     python3 kernel_ab.py --crossover [--rounds 4] [--reps 10]
 
@@ -98,6 +104,10 @@ CROSSOVER_SHAPES = ((8, 400), (8, 528), (40, 400), (40, 528), (56, 400),
                     (200, 528))
 CROSSOVER_P = (1, 2, 4, 8)
 CROSSOVER_MARGIN = 0.03
+#: ``--bucket``: the swarm widths of the fitness crossover cases (the
+#: Tier-0 call's N = 1 and the swarm's 64)
+FITNESS_CROSSOVER_N = (1, 64)
+FITNESS = ("edge_fitness", "edge_fitness_quantized")    # by quantized
 
 
 def base_libraries(kb, base: Path, names):
@@ -327,30 +337,59 @@ def worker_bucket(side: Path, inputs: Path, names, out: Path, rounds,
     from chip_smoke import cuda_ms, profiled
     from repro_torch.kernels import _build as kb, cases
     kb.build_all()
+    from repro_torch.kernels.pso_fitness import edge_fitness_cuda
     d = torch.load(inputs, map_location="cuda")
-    res, bits, dev = {}, {}, {}
+    crossover = d.pop("crossover")
+    res, bits, dev, shape = {}, {}, {}, {}
+
+    def run(key, kern, profile=True):
+        got = kern()
+        got = got if isinstance(got, tuple) else (got,)
+        bits[key] = tuple(t.clone() if isinstance(t, torch.Tensor) else t
+                          for t in got)
+        res[key] = [cuda_ms(kern, reps) for _ in range(rounds)]
+        if profile:
+            dev[key] = [device_ms(profiled, kern) for _ in range(rounds)]
+
     for label, c in d.items():
+        P, N = c["x"]["S"].shape[:2]
         for name in names:
             for q in modes(name):
                 pairs = cases.kernel_pairs(c["Q"], c["G"], c["M"], c["x"],
                                            quantized=q, gumbel_tau=0.0,
                                            elite_k=c["elite_k"])
-                kern = pairs[name][0]
                 key = f"{name}/q={q}/{label}"
-                got = kern()
-                got = got if isinstance(got, tuple) else (got,)
-                bits[key] = tuple(t.clone() if isinstance(t, torch.Tensor)
-                                  else t for t in got)
-                res[key] = [cuda_ms(kern, reps) for _ in range(rounds)]
-                dev[key] = [device_ms(profiled, kern) for _ in range(rounds)]
+                shape[key] = [P, N, *c["M"].shape[1:]]
+                run(key, pairs[name][0])
+            if "tier0" in c and name in FITNESS:
+                for case, kern in extra_cases(name, c).items():
+                    key = f"{name}/q=True/{label} {case}"
+                    shape[key] = [P, 1, *c["M"].shape[1:]]
+                    run(key, kern)
+        torch.cuda.empty_cache()
+    for (n, m), c in crossover.items():
+        for P in CROSSOVER_P:
+            for N in FITNESS_CROSSOVER_N:
+                Q, G = c["Q"][:P], c["G"][:P]
+                for name in FITNESS:
+                    if name not in names:
+                        continue
+                    q = name == "edge_fitness_quantized"
+                    S = c["S_q" if q else "S"][:P, :N].contiguous()
+                    key = f"{name}/q=True/crossover {(P, N, n, m)}"
+                    shape[key] = [P, N, n, m]
+                    run(key, lambda: edge_fitness_cuda(S, Q, G, quantized=q),
+                        profile=False)
         torch.cuda.empty_cache()
     torch.save(bits, str(out) + ".bits")
-    out.write_text(json.dumps({"ms": res, "device_ms": dev}))
+    out.write_text(json.dumps({"ms": res, "device_ms": dev, "shape": shape}))
 
 
-def bucket_inputs(cs, cases, pso):
+def bucket_inputs(cs, cases, pso, ref):
     """``{case: problem}``: phase 4f's problems at ``WIDE_BUCKET`` and
-    ``WINDOW_BUCKET`` and phase 3's random problems at ``WIDE_CASES``."""
+    ``WINDOW_BUCKET`` (with their Tier-0 tiles) and phase 3's random
+    problems at ``WIDE_CASES``; under ``"crossover"`` the fitness
+    crossover's random problems by (n, m)."""
     elite_k = pso.elite_k_for(pso.PSOConfig(**cs.WIDE_SWARM))
     tgt, _, reqs = cs.wide_requests()
     name, Q, G, M, x = cs.wide_bucket_problem(tgt, reqs)
@@ -364,16 +403,29 @@ def bucket_inputs(cs, cases, pso):
         out[f"random {(P, N, n, m)}"] = dict(
             Q=Q, G=G, M=M, elite_k=min(elite_k, N),
             x=cases.swarm_inputs(Q, G, M, N, cs.WIDE_K, seed=cs.SEED))
+    # the Tier-0 call at the two buckets: N = 1 on the 0/255 tile of the
+    # structured projection of S* (0/1 for the float body)
+    for c in list(out.values())[:2]:
+        c["tier0"] = ref.quantize_s(ref.structured_project(
+            c["x"]["S_star"], c["Q"], c["G"], c["M"]).float()[:, None])
+    # the fitness crossover's problems: the most problems and particles,
+    # sliced per case
+    P, N = max(CROSSOVER_P), max(FITNESS_CROSSOVER_N)
+    out["crossover"] = {}
+    for n, m in CROSSOVER_SHAPES:
+        Q, G, M = (t.cuda() for t in cases.random_problem(P, n, m, cs.SEED))
+        x = cases.swarm_inputs(Q, G, M, N, 1, seed=cs.SEED)
+        out["crossover"][n, m] = dict(Q=Q, G=G, S=x["S"], S_q=x["S_q"])
     return out
 
 
-def bucket(base: Path, args, cs, cases, pso, identical):
+def bucket(base: Path, args, cs, cases, pso, ref, identical):
     """``--bucket``: the five past 256, parent against change (see the
     module docstring)."""
     print(json.dumps({"sass": identical}), flush=True)
     names = cs.MAIN_KERNELS
-    problems = bucket_inputs(cs, cases, pso)
-    ms, dev, bits = {}, {}, {}
+    problems = bucket_inputs(cs, cases, pso, ref)
+    ms, dev, bits, shapes = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.pt"
         torch.save(problems, str(inputs))
@@ -389,6 +441,7 @@ def bucket(base: Path, args, cs, cases, pso, identical):
                  str(args.rounds), "--reps", str(args.reps)],
                 check=True, env={**os.environ, "PYTHONPATH": ""})
             got = json.loads(out.read_text())
+            shapes.update(got["shape"])
             for key, v in got["ms"].items():
                 ms.setdefault(key, {"base": [], "change": []})[side] += v
             for key, v in got["device_ms"].items():
@@ -396,6 +449,8 @@ def bucket(base: Path, args, cs, cases, pso, identical):
             got = torch.load(str(out) + ".bits", map_location="cpu")
             for key, v in got.items():
                 bits.setdefault(key, {}).setdefault(side, []).append(v)
+    from repro_torch.kernels import pso_fitness
+    slower = {name: [] for name in FITNESS}
     for key, sides in ms.items():
         runs = bits[key]["base"] + bits[key]["change"]
         # each output equal across the four runs (S̄ is an output too)
@@ -406,18 +461,25 @@ def bucket(base: Path, args, cs, cases, pso, identical):
         q = mode == "q=True"
         inst = cs.instantiation(
             cs.FLOAT_EPOCH if name == "epoch_fused" and not q else name,
-            *problems[label]["x"]["S"].shape[:2],
-            *problems[label]["M"].shape[1:])
+            *shapes[key])
         med = {k: statistics.median(v) for k, v in sides.items()}
+        ratio = med["change"] / med["base"]
+        if (label.startswith("crossover") and ratio > 1 + CROSSOVER_MARGIN
+                and pso_fitness.path(*shapes[key],
+                                     name == "edge_fitness_quantized") > 0):
+            slower[name].append(shapes[key])
         print(json.dumps(dict(
             kernel=name, per_side=True, bucket=True,
             quantized=q if name == "epoch_fused" else None, case=label,
             instantiation=inst, same_bits=all(outs), same_outputs=outs,
             base_ms=sides["base"],
             change_ms=sides["change"], base_median_ms=med["base"],
-            change_median_ms=med["change"],
-            ratio=med["change"] / med["base"],
+            change_median_ms=med["change"], ratio=ratio,
             **device_fields(dev.get(key)))), flush=True)
+    for name, cases_ in slower.items():
+        print(json.dumps(dict(kernel=name, case="crossover summary",
+                              margin=CROSSOVER_MARGIN,
+                              row_split_slower=cases_)), flush=True)
 
 
 def per_side(base: Path, names, inputs: Path, args, identical, sources):
@@ -573,7 +635,7 @@ def main():
                         {f: a.get(f) == b.get(f) for f in sorted({*a, *b})})
 
     if args.bucket:
-        bucket(base, args, cs, cases, pso, identical)
+        bucket(base, args, cs, cases, pso, ref, identical)
         return 0
     _, _, _, Qb, Gb, Mb = cs.build_requests()
     x = cases.swarm_inputs(Qb, Gb, Mb, cs.N, cs.K, seed=cs.SEED)

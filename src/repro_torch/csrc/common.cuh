@@ -108,6 +108,23 @@ __device__ __forceinline__ void warp_argmax(float& v, int& vi) {
   v = __uint_as_float((best & 0x80000000u) ? best & 0x7fffffffu : ~best);
 }
 
+// One m16n8k32 product on the integer tensor cores, u8 x u8 summed into
+// s32 (the PTX manual's fragments: with g = lane / 4 and t = lane % 4, a
+// holds A's rows g and g + 8 at k = 4t..4t+3 and 16 + 4t..; b0, b1 B's
+// column g at the same k; c C's rows g and g + 8 at columns 2t, 2t + 1).
+__device__ __forceinline__ void mma_u8(int* c, const uint32_t* a,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 // Bit k set iff mask entry 4g + k is non-zero, from one 4-byte (uint8)
 // or 16-byte (int32) load.
 __device__ __forceinline__ uint32_t mask_group(const uint8_t* mask, int g) {

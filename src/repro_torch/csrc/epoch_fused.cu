@@ -835,18 +835,8 @@ int cluster_size(int particles, int n, int m, bool quant) {
   return 0;
 }
 
-__device__ __forceinline__ void mma_u8(int* c, const uint32_t* a,
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using rt::ld32;
+using rt::mma_u8;
 
 // One inner step of one particle (blockIdx.x / C) of one problem
 // (blockIdx.y) as a cluster of C CTAs; rank 0 of the problem's last

@@ -7,13 +7,17 @@ Replaces the TPU kernels ``edge_fitness_pallas`` and
 ``csrc/pso_fitness.cu`` (float) and ``csrc/fitness_quantized.cu``, bound
 on the H100 by their operations on CUDA cores. Each body is two
 launches: G's columns packed once per problem (``csrc/fitness.cuh``),
-then one CTA per (problem, particle). The float body sums in the plain
-version's order, its tiles in shared memory or, past a block's limit
-(chosen by the shape), in device scratch; the quantized body holds S as
-bytes and runs S G Sᵀ on integer dot products, summing exactly in 64
-bits. Past n, m = 256 the float body reads G's columns from the scratch
-in place and the quantized one holds S G in 32 bits and S G Sᵀ in 64.
-Both match the plain versions bit for bit.
+then the body. Up to n, m = 256 the body runs one CTA per (problem,
+particle): the float body sums in the plain version's order, its tiles
+in shared memory or, past a block's limit (chosen by the shape), in
+device scratch; the quantized body holds S as bytes and runs S G Sᵀ on
+integer dot products, summing exactly in 64 bits. Past 256 each splits a
+particle's rows over several CTAs (``path``): the float body keeps the
+plain order with its row sums added by the particle's last CTA, the
+quantized one runs S G Sᵀ on the u8 tensor cores over byte planes of
+S G and adds the CTAs' 64-bit sums; where the split does not fit in
+shared memory, one CTA a particle as up to 256. Both match the plain
+versions bit for bit.
 """
 from __future__ import annotations
 
@@ -37,6 +41,30 @@ def edge_fitness_reference(S, Q, G):
 def edge_fitness_quantized_reference(S_q, Q, G, scale: int = 255):
     """Plain fixed-point version: uint8 S_q (P, N, n, m) → (P, N) f32."""
     return ref.edge_fitness_quantized(S_q, Q[:, None], G[:, None], scale)
+
+
+def path(P: int, N: int, n: int, m: int, quantized: bool) -> int:
+    """The body the card runs for P problems of N particles at (n, m): 0
+    up to n, m = 256, past it the rows a CTA of the row-split kernel
+    (``fitness_rows_kernel`` / ``fitness_u8_rows_kernel``), or -1 for one
+    CTA a particle (``fitness_wide_kernel<*>`` /
+    ``fitness_u8_wide_kernel``)."""
+    if quantized:
+        return kb.bind("fitness_quantized", "edge_fitness_u8_path",
+                       [kb.I_] * 4)(P, N, n, m)
+    return kb.bind("pso_fitness", "edge_fitness_f32_path",
+                   [kb.I_] * 4)(P, N, n, m)
+
+
+def instantiation(P: int, N: int, n: int, m: int, quantized: bool) -> str:
+    """``path`` as the name of the kernel and its rows a CTA."""
+    r = path(P, N, n, m, quantized)
+    if r > 0:
+        return (f"fitness_u8_rows_kernel<{r // 16}>, {r} rows a CTA"
+                if quantized else f"fitness_rows_kernel, {r} rows a CTA")
+    if r == 0:
+        return "fitness_u8_kernel" if quantized else "fitness_kernel<*>"
+    return "fitness_u8_wide_kernel" if quantized else "fitness_wide_kernel<*>"
 
 
 def edge_fitness_cuda(S: torch.Tensor, Q: torch.Tensor, G: torch.Tensor,

@@ -962,6 +962,91 @@ def test_edge_fitness_float_projection_tile_on_card(device):
     _assert_fitness_f32_bitwise(M.float()[:, None], Q, G)
 
 
+# -- past n, m = 256: the two fitness bodies split by rows ------------------
+
+#: (P, N, n, m): WIDE_SHAPES's problems, wide by n alone (257, 200), n not
+#: a multiple of 16 with m not of 32 (301, 417), m not of 4 (299, 530),
+#: and the wide bucket's swarm (312, 528)
+FITNESS_ROW_SPLIT = [(P, N, n, m) for P, N, n, m, _ in WIDE_SHAPES] + [
+    (1, 8, 257, 200), (2, 8, 301, 417), (1, 6, 299, 530), (1, 64, 312, 528)]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("shape", FITNESS_ROW_SPLIT)
+def test_fitness_row_split_bitwise_on_card(device, shape, quantized):
+    """Both wide bodies bit for bit on a random swarm; the quantized one
+    also on uniform uint8 tiles (S G past 2^8: two byte planes)."""
+    P, N, n, m = shape
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 51))
+    x = cases.swarm_inputs(Q, G, mask, N, 1, seed=51)
+    if not quantized:
+        _assert_fitness_f32_bitwise(x["S"], Q, G)
+        return
+    _assert_fitness_u8_bitwise(x["S_q"], Q, G)
+    gen = torch.Generator(device=device).manual_seed(52)
+    _assert_fitness_u8_bitwise(
+        torch.randint(0, 256, x["S_q"].shape, dtype=torch.uint8,
+                      device=device, generator=gen), Q, G)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("n,m", [(312, 528), (56, 528)])
+def test_fitness_row_split_projection_tile_on_card(device, n, m, quantized):
+    """The Tier-0 call past 256: N = 1 on a projection's 0/255 tile (0/1
+    for the float body)."""
+    Q, G, mask = (t.to(device) for t in cases.random_problem(2, n, m, 53))
+    x = cases.swarm_inputs(Q, G, mask, 1, 1, seed=53)
+    tile = ref.greedy_project(x["S"][:, 0], mask).float()[:, None]
+    if quantized:
+        _assert_fitness_u8_bitwise(ref.quantize_s(tile), Q, G)
+    else:
+        _assert_fitness_f32_bitwise(tile, Q, G)
+
+
+@pytest.mark.parametrize("n", [16, 33, 312])
+def test_fitness_row_split_largest_sums_on_card(device, n):
+    """m = 528, a dense G: the all-255 tile (S G = 134,640, three byte
+    planes; S G S^T ~1.8e10; the squares wrap in 64 bits as the plain
+    version's int64 arithmetic does), and the all-one float tile."""
+    m = 528
+    Q = cases.random_problem(1, n, m, 54)[0].to(device)
+    G = torch.ones(1, m, m, dtype=torch.uint8, device=device)
+    _assert_fitness_u8_bitwise(
+        torch.full((1, 2, n, m), 255, dtype=torch.uint8, device=device), Q, G)
+    _assert_fitness_f32_bitwise(torch.ones(1, 2, n, m, device=device), Q, G)
+
+
+#: (P, N, n, m, quantized, path, name): each wide body the rule picks,
+#: with the name ``pso_fitness.instantiation`` gives it: the quantized
+#: row split at 16 and 32 rows a CTA, the float one at small and large n,
+#: and in each mode one CTA a particle past the split's shared memory
+FITNESS_RULE_CASES = [
+    (1, 1, 312, 528, True, 16, "fitness_u8_rows_kernel<1>"),
+    (1, 64, 312, 528, True, 32, "fitness_u8_rows_kernel<2>"),
+    (1, 2, 8, 7300, True, -1, "fitness_u8_wide_kernel"),
+    (1, 1, 312, 528, False, 12, "fitness_rows_kernel"),
+    (1, 2, 512, 512, False, 8, "fitness_rows_kernel"),
+    (8, 64, 8, 528, False, 8, "fitness_rows_kernel"),
+    (2, 64, 40, 528, False, 32, "fitness_rows_kernel"),
+    (1, 2, 8, 7300, False, -1, "fitness_wide_kernel<*>")]
+
+
+@pytest.mark.parametrize("case", FITNESS_RULE_CASES)
+def test_fitness_row_split_every_instantiation_on_card(device, case):
+    """Each body the rule can pick past 256, named, bit for bit."""
+    from repro_torch.kernels import pso_fitness
+    P, N, n, m, quantized, want, name = case
+    assert pso_fitness.path(P, N, n, m, quantized) == want, case
+    assert pso_fitness.instantiation(P, N, n, m,
+                                     quantized).startswith(name), case
+    Q, G, mask = (t.to(device) for t in cases.random_problem(P, n, m, 55))
+    x = cases.swarm_inputs(Q, G, mask, N, 1, seed=55)
+    if quantized:
+        _assert_fitness_u8_bitwise(x["S_q"], Q, G)
+    else:
+        _assert_fitness_f32_bitwise(x["S"], Q, G)
+
+
 # -- the matcher service on the card ----------------------------------------
 
 def _service_specs():

@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax_nvcc_or_card():
 
 def test_no_jax_or_repro_import_in_the_port_sources():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "kernel_ab.py"]
+                                       ROOT / "kernel_ab.py",
+                                       ROOT / "phase_clock.py"]
     assert all(f.exists() for f in files)
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
@@ -50,7 +51,8 @@ def test_no_jax_or_repro_import_in_the_port_sources():
 
 
 @pytest.mark.parametrize("script", [["chip_smoke.py"],
-                                    ["kernel_ab.py", "."]])
+                                    ["kernel_ab.py", "."],
+                                    ["phase_clock.py"]])
 def test_card_scripts_fail_without_a_card(script):
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -93,3 +93,40 @@ def test_match_batch_on_cloud_512_matches_jax():
     for b in np.where(to["feasible"].numpy().any(axis=(0, 2)))[0]:
         assert bool(jref.is_feasible(jnp.asarray(to["mappings"][b].numpy()),
                                      jnp.asarray(Qb[b]), jnp.asarray(Gb[b])))
+
+
+def test_plain_quantized_fitness_largest_sums_past_256():
+    """The plain quantized fitness with a dense G at m = 528, the contract
+    that the card kernel's byte planes of S G are held to: an all-255
+    tile (S G = 134,640, three bytes; S G Sᵀ ≈ 1.8e10; the int64 squares
+    wrap) bit for bit an exact numpy int64 computation, and a tile whose
+    rows sum to at most 16,896 (S G past 2^8, two bytes) too, and within
+    float32 rounding of the JAX package's ``ref`` backend. That backend
+    sums S G Sᵀ in int32 and the squares in float32: it holds the second
+    tile (S G Sᵀ ≤ 2.9e8, the squares' sum below 2^63, where the int64 sum
+    does not wrap either) and wraps on the first, which is left out of
+    that comparison."""
+    from repro_torch.kernels.pso_fitness import (
+        edge_fitness_quantized_reference)
+    n, m, N = 8, 528, 2
+    rng = np.random.default_rng(528)
+    Q = np.triu(rng.random((n, n)) < 0.5, 1).astype(np.uint8)
+    G = np.ones((m, m), np.uint8)
+    tiles = {"all_255": (np.full((N, n, m), 255, np.uint8), 3),
+             "two_bytes": (rng.integers(20, 33, (N, n, m), dtype=np.uint8),
+                           2)}
+    for name, (S, nbytes) in tiles.items():
+        S64 = S.astype(np.int64)
+        SG = S64 @ G.astype(np.int64)
+        assert 1 << 8 * (nbytes - 1) <= SG.max() < 1 << 8 * nbytes, name
+        resid = Q.astype(np.int64) * 255 * 255 - SG @ S64.transpose(0, 2, 1)
+        with np.errstate(over="ignore"):
+            want = -(resid * resid).sum((1, 2)).astype(np.float32)
+        got = edge_fitness_quantized_reference(
+            torch.from_numpy(S)[None], torch.from_numpy(Q)[None],
+            torch.from_numpy(G)[None])[0].numpy()
+        assert np.array_equal(got, want), (name, got, want)
+        if name == "two_bytes":
+            jx = np.asarray(jax_backend("ref").edge_fitness_quantized(
+                jnp.asarray(S), jnp.asarray(Q), jnp.asarray(G)))
+            np.testing.assert_allclose(got, jx, rtol=1e-5)
